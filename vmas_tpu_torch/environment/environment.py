@@ -1,0 +1,403 @@
+"""The vectorized RL environment.
+
+Counterpart of vmas_tpu/environment/environment.py, run eagerly: one step
+is action decode, per-agent process_action, pre_step, the physics step (the
+fused kernel with ``fused_physics=True``), post_step, then the
+observations, rewards and dones. Randomness comes from one
+``torch.Generator`` on the env's device, seeded from ``seed``.
+
+The env runs on the GPU unless the caller passes ``device="cpu"``; with no
+GPU present it raises instead of falling back. gymnasium is imported only
+when ``action_space``/``observation_space`` is first read.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from vmas_tpu_torch.core import fused as _fused
+from vmas_tpu_torch.core.state import WorldState, blend
+from vmas_tpu_torch.core.utils import resolve_device
+from vmas_tpu_torch.core.world import Agent
+from vmas_tpu_torch.scenario import BaseScenario
+
+
+class Environment:
+    def __init__(
+        self,
+        scenario: BaseScenario,
+        num_envs: int = 32,
+        device=None,
+        max_steps: Optional[int] = None,
+        continuous_actions: bool = True,
+        seed: Optional[int] = None,
+        dict_spaces: bool = False,
+        multidiscrete_actions: bool = False,
+        clamp_actions: bool = False,
+        grad_enabled: bool = False,
+        terminated_truncated: bool = False,
+        fused_physics: bool = False,
+        **kwargs,
+    ):
+        if multidiscrete_actions:
+            assert not continuous_actions, (
+                "When asking for multidiscrete_actions, make sure continuous_actions=False"
+            )
+        if fused_physics and grad_enabled:
+            # the kernel defines no backward pass
+            raise ValueError(
+                "fused_physics is forward-only; use the default plain physics for "
+                "differentiable rollouts"
+            )
+        self.scenario = scenario
+        self.num_envs = num_envs
+        self.batch_dim = num_envs
+        self.device = resolve_device(device)
+        self.world = scenario.env_make_world(num_envs, self.device, **kwargs)
+        self._fused_outputs = None
+        if fused_physics:
+            _fused.check_fusable(self.world)
+            self.world.fused = True
+            mk = getattr(scenario, "make_fused_outputs", None)
+            if mk is not None and _fused.supports(self.world):
+                self._fused_outputs = mk(self.world)
+        self.agents = self.world.policy_agents
+        self.n_agents = len(self.agents)
+        self.max_steps = max_steps
+        self.continuous_actions = continuous_actions
+        self.dict_spaces = dict_spaces
+        self.clamp_action = clamp_actions
+        self.grad_enabled = grad_enabled
+        self.terminated_truncated = terminated_truncated
+        self.multidiscrete_actions = multidiscrete_actions
+
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed if seed is not None else 0)
+        self.state: Optional[WorldState] = None
+        self.steps = torch.zeros(num_envs, dtype=torch.int32, device=self.device)
+        self._spaces = {}
+        self._do_reset()
+
+    # ------------------------------------------------------------------
+    # the step pipeline
+    # ------------------------------------------------------------------
+    def _outputs(self, state: WorldState, steps, with_rewards: bool = True, fused_extra=None):
+        scenario = self.scenario
+        if fused_extra is not None:
+            # obs/rewards/termination came out of the fused step as rows;
+            # unpack replaces the pre_rewards/reward/observation/done hooks
+            obs, rews, terminated, scratch_updates = self._fused_outputs.unpack(fused_extra, state)
+            state = state.replace(scenario={**state.scenario, **scratch_updates})
+            state = scenario.post_rewards(state)
+        else:
+            rews = None
+            if with_rewards:
+                # observations see the post-reward state
+                state = scenario.pre_rewards(state)
+                rews = tuple(scenario.reward(a, state) for a in self.agents)
+                state = scenario.post_rewards(state)
+            obs = self._observations(state)
+            terminated = scenario.done(state)
+        infos = tuple(scenario.info(a, state) for a in self.agents)
+        if self.max_steps is not None:
+            truncated = steps >= self.max_steps
+        else:
+            truncated = torch.zeros_like(terminated)
+        return state, obs, rews, terminated, truncated, infos
+
+    def _observations(self, state: WorldState):
+        obs = self.scenario.observations(state)
+        if obs is None:
+            obs = tuple(self.scenario.observation(a, state) for a in self.agents)
+        return obs
+
+    def _reset_fn(self, state: WorldState, steps, generator, mask):
+        fresh = self.scenario.env_reset_world_at(state, generator)
+        if mask is None:
+            state = fresh
+            steps = torch.zeros_like(steps)
+        else:
+            state = blend(mask, fresh, state)
+            steps = torch.where(mask, torch.zeros_like(steps), steps)
+        state, obs, _, terminated, truncated, infos = self._outputs(state, steps, with_rewards=False)
+        return state, steps, obs, terminated, truncated, infos
+
+    def _step_fn_raw(self, state: WorldState, steps, actions, generator):
+        """One env step on explicit state: (state, steps, actions,
+        generator) -> (state, obs, rews, terminated, truncated, infos,
+        steps)."""
+        for i, agent in enumerate(self.agents):
+            state = self._decode_action(state, agent, actions[i], generator)
+        for agent in self.world.agents:
+            state = self.scenario.env_process_action(agent, state)
+        state = self.scenario.pre_step(state)
+        if self._fused_outputs is not None:
+            state, fused_extra = self.world.step_with_outputs(state, self._fused_outputs)
+        else:
+            state = self.world.step(state)
+            fused_extra = None
+        state = self.scenario.post_step(state)
+        steps = steps + 1
+        out = self._outputs(state, steps, fused_extra=fused_extra)
+        return out + (steps,)
+
+    # ------------------------------------------------------------------
+    # action decoding
+    # ------------------------------------------------------------------
+    def _decode_action(self, state: WorldState, agent: Agent, action, generator) -> WorldState:
+        dim_c = self.world.dim_c
+        has_comm = dim_c > 0 and not agent.silent
+        dev = self.device
+        u_range = torch.as_tensor(agent.u_range_array, device=dev)
+        u_mult = torch.as_tensor(agent.u_multiplier_array, device=dev)
+        action = torch.as_tensor(action, device=dev)
+        if action.ndim == 1:
+            action = action[:, None]
+        if not self.grad_enabled:
+            action = action.detach()
+        comm_action = None
+
+        if self.continuous_actions:
+            action = action.to(torch.float32)
+            u = action[:, : agent.action_size]
+            if has_comm:
+                comm_action = action[:, agent.action_size:]
+            if self.clamp_action:
+                u = torch.clamp(u, -u_range[None], u_range[None])
+                if comm_action is not None:
+                    comm_action = torch.clamp(comm_action, 0.0, 1.0)
+        else:
+            nvec = list(agent.discrete_action_nvec) + ([dim_c] if has_comm else [])
+            if not self.multidiscrete_actions:
+                # flat Discrete -> multidiscrete mixed-radix decode; an out of
+                # range index is clamped into the valid range
+                flat = torch.clamp(action[:, 0].to(torch.int64), 0, math.prod(nvec) - 1)
+                cols = []
+                for i in range(len(nvec)):
+                    n = math.prod(nvec[i + 1:])
+                    cols.append(flat // n)
+                    flat = flat % n
+                action = torch.stack(cols, dim=-1)
+            action = action.to(torch.int64)
+
+            us = []
+            for j, n in enumerate(agent.discrete_action_nvec):
+                a = action[:, j]
+                if n % 2 != 0:
+                    # odd n: action 0 maps to zero control
+                    stay = a == 0
+                    decrement = (a > 0) & (a <= n // 2)
+                    a = torch.where(stay, n // 2, torch.where(decrement, a - 1, a))
+                u_max = u_range[j]
+                us.append((a.to(torch.float32) / (n - 1)) * (2 * u_max) - u_max)
+            u = torch.stack(us, dim=-1)
+            if has_comm:
+                comm_idx = action[:, len(agent.discrete_action_nvec)]
+                comm_action = torch.nn.functional.one_hot(comm_idx, dim_c).to(torch.float32)
+
+        u = u * u_mult[None]
+        if np.any(agent.u_noise_array > 0):
+            noise = torch.randn(u.shape, generator=generator, device=dev)
+            u = u + noise * torch.as_tensor(agent.u_noise_array, device=dev)[None]
+        state = agent.set_u(state, u)
+
+        if has_comm:
+            if agent.c_noise > 0:
+                noise = torch.randn(comm_action.shape, generator=generator, device=dev)
+                comm_action = comm_action + noise * agent.c_noise
+            uc = state.uc.clone()
+            uc[:, agent.slot] = comm_action
+            state = state.replace(uc=uc)
+        return state
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def seed(self, seed=None):
+        seed = 0 if seed is None else seed
+        self.generator.manual_seed(seed)
+        return [seed]
+
+    def _do_reset(self, seed=None, return_observations=True, return_info=False, return_dones=False):
+        if seed is not None:
+            self.seed(seed)
+        if self.state is None:
+            self.state = self.world.spawn_state()
+        self.state, self.steps, obs, terminated, truncated, infos = self._reset_fn(
+            self.state, self.steps, self.generator, None
+        )
+        return self._pack_result(obs, None, terminated, truncated, infos,
+                                 return_observations, False, return_info, return_dones)
+
+    def reset(self, seed=None, return_observations=True, return_info=False, return_dones=False):
+        return self._do_reset(seed, return_observations, return_info, return_dones)
+
+    def reset_at(self, index: int, return_observations=True, return_info=False, return_dones=False):
+        assert 0 <= index < self.num_envs, f"Index must be between 0 and {self.num_envs}, got {index}"
+        mask = torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
+        mask[index] = True
+        return self.reset_mask(mask, return_observations, return_info, return_dones)
+
+    def reset_mask(self, mask, return_observations=True, return_info=False, return_dones=False):
+        """Reset an arbitrary subset of envs ([B] bool mask) in one call."""
+        mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
+        self.state, self.steps, obs, terminated, truncated, infos = self._reset_fn(
+            self.state, self.steps, self.generator, mask
+        )
+        return self._pack_result(obs, None, terminated, truncated, infos,
+                                 return_observations, False, return_info, return_dones)
+
+    def step(self, actions: Union[List, Dict, Sequence]):
+        """Vectorized step. Accepts a list (agent order) or dict (agent-name
+        keyed) of per-agent actions shaped [num_envs, action_size]."""
+        actions = self._normalize_actions(actions)
+        (self.state, obs, rews, terminated, truncated, infos, self.steps) = self._step_fn_raw(
+            self.state, self.steps, actions, self.generator
+        )
+        return self._pack_result(obs, rews, terminated, truncated, infos, True, True, True, True)
+
+    def done(self):
+        terminated = self.scenario.done(self.state)
+        truncated = self.steps >= self.max_steps if self.max_steps is not None else None
+        if self.terminated_truncated:
+            return terminated, torch.zeros_like(terminated) if truncated is None else truncated
+        return terminated if truncated is None else terminated | truncated
+
+    # ------------------------------------------------------------------
+    # spaces (gymnasium, imported on first access)
+    # ------------------------------------------------------------------
+    def get_agent_action_size(self, agent: Agent):
+        if self.continuous_actions:
+            return agent.action_size + (self.world.dim_c if not agent.silent else 0)
+        elif self.multidiscrete_actions:
+            return agent.action_size + (1 if not agent.silent and self.world.dim_c != 0 else 0)
+        return 1
+
+    def get_agent_action_space(self, agent: Agent):
+        from gymnasium import spaces
+
+        dim_c = self.world.dim_c
+        if self.continuous_actions:
+            return spaces.Box(
+                low=np.array(
+                    (-agent.u_range_array).tolist() + [0] * (dim_c if not agent.silent else 0),
+                    dtype=np.float32,
+                ),
+                high=np.array(
+                    agent.u_range_array.tolist() + [1] * (dim_c if not agent.silent else 0),
+                    dtype=np.float32,
+                ),
+                shape=(self.get_agent_action_size(agent),),
+                dtype=np.float32,
+            )
+        elif self.multidiscrete_actions:
+            nvec = agent.discrete_action_nvec + ([dim_c] if not agent.silent and dim_c != 0 else [])
+            return spaces.MultiDiscrete(nvec)
+        return spaces.Discrete(
+            math.prod(agent.discrete_action_nvec) * (dim_c if not agent.silent and dim_c != 0 else 1)
+        )
+
+    @property
+    def action_space(self):
+        if "action" not in self._spaces:
+            from gymnasium import spaces
+
+            per_agent = [self.get_agent_action_space(a) for a in self.agents]
+            self._spaces["action"] = (
+                spaces.Dict({a.name: s for a, s in zip(self.agents, per_agent)})
+                if self.dict_spaces else spaces.Tuple(per_agent)
+            )
+        return self._spaces["action"]
+
+    @property
+    def observation_space(self):
+        if "observation" not in self._spaces:
+            from gymnasium import spaces
+
+            obs = self._observations(self.state)
+            per_agent = [
+                spaces.Box(low=-np.float32("inf"), high=np.float32("inf"),
+                           shape=tuple(o.shape[1:]), dtype=np.float32)
+                for o in obs
+            ]
+            self._spaces["observation"] = (
+                spaces.Dict({a.name: s for a, s in zip(self.agents, per_agent)})
+                if self.dict_spaces else spaces.Tuple(per_agent)
+            )
+        return self._spaces["observation"]
+
+    # ------------------------------------------------------------------
+    # random actions
+    # ------------------------------------------------------------------
+    def get_random_action(self, agent: Agent):
+        dev, gen, B = self.device, self.generator, self.num_envs
+        if self.continuous_actions:
+            ranges = torch.as_tensor(agent.u_range_array, device=dev)
+            u = (torch.rand((B, agent.action_size), generator=gen, device=dev) * 2 - 1) * ranges[None]
+            if self.world.dim_c != 0 and not agent.silent:
+                comm = torch.rand((B, self.world.dim_c), generator=gen, device=dev)
+                u = torch.cat([u, comm], dim=-1)
+            return u
+        space = self.get_agent_action_space(agent)
+        if self.multidiscrete_actions:
+            cols = [torch.randint(0, int(n), (B,), generator=gen, device=dev) for n in space.nvec]
+            return torch.stack(cols, dim=-1)
+        return torch.randint(0, int(space.n), (B,), generator=gen, device=dev)
+
+    def get_random_actions(self):
+        return [self.get_random_action(agent) for agent in self.agents]
+
+    # ------------------------------------------------------------------
+    # helpers
+    # ------------------------------------------------------------------
+    def _normalize_actions(self, actions):
+        if isinstance(actions, dict):
+            missing = [a.name for a in self.agents if a.name not in actions]
+            if missing:
+                raise AssertionError(f"Agent '{missing[0]}' not contained in action dict")
+            actions = [actions[a.name] for a in self.agents]
+        assert len(actions) == self.n_agents, (
+            f"Expecting actions for {self.n_agents}, got {len(actions)} actions"
+        )
+        out = []
+        for i, a in enumerate(actions):
+            a = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a, device=self.device)
+            if a.ndim == 1:
+                a = a[:, None]
+            assert a.shape[0] == self.num_envs, (
+                f"Actions used in input of env must be of len {self.num_envs}, got {a.shape[0]}"
+            )
+            assert a.shape[1] == self.get_agent_action_size(self.agents[i]), (
+                f"Action for agent {self.agents[i].name} has shape {a.shape[1]}, "
+                f"but should have shape {self.get_agent_action_size(self.agents[i])}"
+            )
+            out.append(a)
+        return out
+
+    def _maybe_dict(self, vals):
+        if self.dict_spaces:
+            return {a.name: v for a, v in zip(self.agents, vals)}
+        return list(vals)
+
+    def _pack_result(self, obs, rews, terminated, truncated, infos,
+                     ret_obs, ret_rews, ret_info, ret_dones):
+        result = []
+        if ret_obs:
+            result.append(self._maybe_dict(obs))
+        if ret_rews and rews is not None:
+            result.append(self._maybe_dict(rews))
+        if ret_dones:
+            if self.terminated_truncated:
+                result.append(terminated)
+                result.append(truncated)
+            else:
+                result.append(terminated | truncated if self.max_steps is not None else terminated)
+        if ret_info:
+            result.append(self._maybe_dict(infos))
+        if len(result) == 1:
+            return result[0]
+        return result
