@@ -13,7 +13,13 @@
    GPU, reset, 5 env.step calls, then rows_rollout_fn(horizon=1000) once
    to warm up and 3 timed calls; checks the shapes, finiteness and launch
    counts, and prints env-steps/s.
-5. Prints one JSON line describing each kernel, then the result line.
+5. road_traffic at 4096 envs x 20 vehicles: the path-sweep kernel and the
+   all-ego observation kernel against their plain versions (after a reset,
+   after 20 random steps, and on lanes placed on path vertices and padded
+   tails), then its main path with the counts zeroed: make_env with every
+   default, reset, 5 env.step calls, rollout_fn(horizon=100) once to warm up
+   and 3 timed calls, with one launch of each kernel per step and reset.
+6. Prints one JSON line describing each kernel, then the result line.
 
 Any failure raises and exits non-zero. It imports nothing of JAX.
 """
@@ -37,6 +43,16 @@ STATE_TOL = dict(atol=1e-5, rtol=1e-5)
 OBS_ATOL = 2e-5
 REW_ATOL = 2e-3
 OG_MARGIN = 1e-5
+# road_traffic: the JAX package's measured width; steps compared and run;
+# distances and observation values, kernel against plain (both IEEE f32
+# without FMA contraction: an ulp or two of cos/sin/sqrt apart at most)
+RT_AGENTS = 20
+RT_CMP_STEPS = 20
+RT_STEPS = 5
+RT_HORIZON = 100
+RT_ATOL = 1e-6
+# operation counts: +, -, *, /, sqrt and a compare count 1; cos and sin 20
+TRIG_OPS = 20
 
 
 def card_line():
@@ -65,7 +81,7 @@ def time_ms(fn, n):
 def device_ms(fn, n, kernel):
     """Device time per call over ``n`` calls of ``fn``, from torch.profiler:
     ``(ms of kernels whose name holds `kernel`, ms of all device work,
-    {kernel name: ms})``."""
+    {kernel name: ms}, number of device operations)``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -76,12 +92,13 @@ def device_ms(fn, n, kernel):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, count = {}, 0
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
+            count += 1
     mine = sum(v for k, v in by_name.items() if kernel in k)
-    return mine, sum(by_name.values()), by_name
+    return mine, sum(by_name.values()), by_name, count / n
 
 
 def flops_per_env(ks, fo):
@@ -199,6 +216,260 @@ def contacts(ks, rows):
     return n_ss, n_bs
 
 
+def kernel_entry(name, source, replaces, launches, err, t, nbytes, flops):
+    """One kernel's entry of the kernels line: its times ``t`` (ms, wall_ms,
+    plain_ms) beside its bound, the larger of bytes over the card's memory
+    rate and operations over its f32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    bound = max(t_bytes, t_ops)
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+        "wall_ms": t["wall_ms"], "us": t["ms"] * 1e3, "plain_us": t["plain_ms"] * 1e3,
+        "bound_us": bound * 1e3, "bytes": nbytes, "flops_est": flops,
+    }
+
+
+def kernel_times(name, kern, plain, kernel_name):
+    """Device ms per launch (profiler), wall ms per back-to-back call (CUDA
+    events) and the plain version's ms per call."""
+    dev_ms = device_ms(kern, 200, kernel_name)[0]
+    if dev_ms <= 0:
+        raise AssertionError(f"the profiler saw no device time for {name}")
+    t = {"ms": dev_ms, "wall_ms": time_ms(kern, 500), "plain_ms": time_ms(plain, 20)}
+    print(f"{name}: kernel {dev_ms * 1e3:.3f} us on the device, {t['wall_ms'] * 1e3:.3f} us per "
+          f"back-to-back call, plain version {t['plain_ms'] * 1e3:.1f} us per call", flush=True)
+    return t
+
+
+# -- road_traffic -------------------------------------------------------------
+
+RT_EXACT = ("idx_ref", "idx_l", "idx_r", "coll_l", "coll_r", "short_term")
+
+
+def rt_sweep_work(tables, pid, S):
+    """(bytes, operations) of one path-sweep launch on these lanes, from the
+    loops of csrc/road_traffic.cu and this run's paths: per centre-line
+    segment 26 (segment set-up 6, point-to-segment distance 19, running
+    minimum 1); per boundary segment 185 (set-up 6, 5 points x 20, straddle
+    tests 3 + 4 edges x 19); per lane the rectangle (40, cos and sin) and
+    the edge set-up (2 boundaries x 32). Bytes: pid, pos and rot in, the
+    16 + 2S output rows out, the path tables once."""
+    import torch
+
+    Mc, Mb = tables.center.shape[1], tables.left.shape[1]
+    meta = tables.meta[pid.reshape(-1)].long()
+    nseg = lambda n, M: torch.clamp(torch.clamp(n - 1, max=M - 1), min=1).sum()  # the kernel's n_segments
+    seg_c = int(nseg(meta[:, 0], Mc))
+    seg_b = int(nseg(meta[:, 1], Mb)) + int(nseg(meta[:, 2], Mb))
+    N = pid.numel()
+    ops = 26 * seg_c + 185 * seg_b + N * (40 + 2 * TRIG_OPS + 64)
+    table_bytes = sum(t.numel() * t.element_size() for t in (tables.center, tables.left, tables.right, tables.meta))
+    return N * (8 + 8 + 4 + 4 * (16 + 2 * S)) + table_bytes, ops
+
+
+def rt_obs_work(B, A, S, K):
+    """(bytes, operations) of one observation launch, from the loops of
+    csrc/road_traffic.cu: per (env, ego) own speed 6, cos and sin, 10 per
+    short-term point, 3 distances, and per neighbour slot the search over
+    the A - 1 others (8 each) plus 52 and a cos and sin for its row. Bytes:
+    per agent pos, rot, vel, the short-term points, 4 corners and 3
+    distances in; the W-wide row out."""
+    W = 1 + 2 * S + 3 + 11 * K
+    ops = B * A * (6 + 2 * TRIG_OPS + 10 * S + 3 + K * (8 * (A - 1) + 52 + 2 * TRIG_OPS))
+    return B * A * (8 + 4 + 8 + 8 * S + 32 + 12 + 4 * W), ops
+
+
+def rt_selection(obs, pos, rot, verts, S, K, norm_pos):
+    """Which agent each neighbour slot of every observation row [A, B, W]
+    holds, -1 where the slot is far-masked: the agent whose 4 corners, in
+    the ego's frame, lie nearest the slot's 8 vertex values."""
+    import torch
+
+    c, s = torch.cos(rot)[:, :, None, None], torch.sin(rot)[:, :, None, None]
+    dx = verts[:, None, :, :4, 0] - pos[:, :, None, None, 0]  # [B, ego, other, 4]
+    dy = verts[:, None, :, :4, 1] - pos[:, :, None, None, 1]
+    loc = torch.stack([(dx * c + dy * s) / norm_pos, (dy * c - dx * s) / norm_pos], -1).flatten(-2)
+    loc = loc.permute(1, 0, 2, 3)  # [ego, B, other, 8]
+    picks = []
+    for k in range(K):
+        o = 1 + 2 * S + 3 + 11 * k
+        row = obs[..., o:o + 8]
+        far = (row == 1.0).all(-1) & (obs[..., o + 8:o + 10] == 0.0).all(-1) & (obs[..., o + 10] == 1.0)
+        idx = (loc - row[:, :, None]).abs().amax(-1).argmin(-1)
+        picks.append(torch.where(far, -1, idx))
+    return torch.stack(picks, -1)  # [A, B, K]
+
+
+def rt_compare_sweep(sc, pid, pos, rot, tag):
+    """The path-sweep kernel against its plain version on these lanes:
+    indices, straddle flags and short-term points equal, distances within
+    RT_ATOL. Returns the max abs distance error."""
+    from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
+
+    got = rtk.sweep_all(sc._sweep_tables, pid, pos, rot, **sc.sweep_kw)
+    want = rtk.sweep_all_plain(sc._sweep_tables, pid, pos, rot, **sc.sweep_kw)
+    mism = {k: int((got[k] != want[k]).sum()) for k in RT_EXACT}
+    err = max(float((got[k] - want[k]).abs().max()) for k in ("d_ref", "dl5", "dr5"))
+    print(f"rt_sweep vs plain, {tag}: {sum(mism.values())} index/flag/short-term mismatches {mism}, "
+          f"max abs distance err {err:.3e}; lanes at distance 0 from their centre line (vertex ties) "
+          f"{int((want['d_ref'] == 0).sum())}, lanes straddling a boundary "
+          f"{int((want['coll_l'] | want['coll_r']).sum())} of {pid.numel()}", flush=True)
+    if sum(mism.values()) or err > RT_ATOL:
+        raise AssertionError(f"rt_sweep disagrees with its plain version ({tag})")
+    return err
+
+
+def rt_compare_obs(sc, state, tag):
+    """The observation kernel against its plain version on one state: the
+    same neighbours and far masks, values within RT_ATOL. Returns the max
+    abs error."""
+    from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
+
+    xs = sc.obs_inputs(state)
+    got = rtk.obs_all(*xs, **sc.obs_kw)
+    want = rtk.obs_all_plain(*xs, **sc.obs_kw)
+    S, K = sc.sweep_kw["S"], sc.obs_kw["K"]
+    sel = [rt_selection(o, xs[0], xs[1], xs[4], S, K, sc.obs_kw["norm_pos"]) for o in (got, want)]
+    n_diff = int((sel[0] != sel[1]).sum())
+    err = float((got - want).abs().max())
+    print(f"rt_obs vs plain, {tag}: {n_diff} neighbour/far-mask mismatches of {sel[0].numel()} slots "
+          f"({int((sel[1] < 0).sum())} far-masked), max abs err {err:.3e}", flush=True)
+    if n_diff or err > RT_ATOL:
+        raise AssertionError(f"rt_obs disagrees with its plain version ({tag})")
+    return err
+
+
+def road_traffic_phase(card, dev):
+    """road_traffic's kernels against their plain versions, its main path,
+    and its two entries of the kernels line."""
+    import torch
+    from vmas_tpu_torch import make_env
+    from vmas_tpu_torch.parallel.rollout import rollout_fn
+    from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
+
+    B, A = NUM_ENVS, RT_AGENTS
+    # -- kernels against plain, at full width ---------------------------------
+    env = make_env("road_traffic", B, device=dev, seed=0)
+    sc, T = env.scenario, env.scenario._sweep_tables
+    S, K = sc.sweep_kw["S"], sc.obs_kw["K"]
+    lanes = lambda st: (st.scenario["path_id"].contiguous(),) + tuple(
+        t.contiguous() for t in sc._agent_arrays(st)[:2])
+    s_reset = env.state
+    for _ in range(RT_CMP_STEPS):
+        env.step(env.get_random_actions())
+    s_steps = env.state
+    sweep_err = max(rt_compare_sweep(sc, *lanes(s_reset), "after reset"),
+                    rt_compare_sweep(sc, *lanes(s_steps), f"after {RT_CMP_STEPS} random steps"))
+    g = torch.Generator(device=dev).manual_seed(5)
+    NP, Mc = T.center.shape[:2]
+    pid = torch.randint(0, NP, (B, A), generator=g, device=dev)
+    n = T.meta[pid, 0].long()
+    u = torch.rand((B, A), generator=g, device=dev)
+    tail = torch.clamp(n - 1 + (u * (Mc - n + 1)).long(), max=Mc - 1)  # padded tail, [n-1, Mc)
+    on = torch.where(torch.arange(A, device=dev) % 2 == 0, tail, (u * n).long())
+    rot = torch.rand((B, A), generator=g, device=dev) * 6.283185307179586
+    sweep_err = max(sweep_err, rt_compare_sweep(sc, pid, T.center[pid, on].contiguous(), rot,
+                                                "on centre-line vertices and padded tails"))
+    on_l = (u * T.meta[pid, 1].long()).long()
+    sweep_err = max(sweep_err, rt_compare_sweep(sc, pid, T.left[pid, on_l].contiguous(), rot,
+                                                "on left-boundary vertices"))
+    obs_err = max(rt_compare_obs(sc, s_reset, "after reset"),
+                  rt_compare_obs(sc, s_steps, f"after {RT_CMP_STEPS} random steps"))
+
+    # the env with both kernels against the env on the plain path, noise off
+    envs = [make_env("road_traffic", B, device=dev, seed=1, is_add_noise=False, pallas_sweeps=k, pallas_obs=k)
+            for k in (True, False)]
+    ag = torch.Generator(device=dev).manual_seed(6)
+    env_err = 0.0
+    for t in range(3):
+        acts = [torch.stack([torch.rand(B, generator=ag, device=dev) * 2 - 1,
+                             (torch.rand(B, generator=ag, device=dev) * 2 - 1) * 0.6], -1) for _ in range(A)]
+        (ok, rk, dk, _), (op, rp, dp, _) = (e.step(acts) for e in envs)
+        env_err = max(env_err, max(float((a - b).abs().max()) for a, b in zip([*ok, *rk], [*op, *rp])))
+        if not torch.equal(dk, dp) or env_err > 5e-5:
+            raise AssertionError(f"road_traffic with kernels differs from the plain path at step {t}: {env_err:.3e}")
+    print(f"road_traffic env.step with both kernels vs the plain path, 3 steps: max abs obs/reward err "
+          f"{env_err:.3e}, dones equal", flush=True)
+    del envs
+
+    pid, pos, rot = lanes(s_steps)
+    xs = sc.obs_inputs(s_steps)
+    times = {
+        "rt_sweep": kernel_times(
+            "rt_sweep", lambda: rtk.sweep_all(T, pid, pos, rot, **sc.sweep_kw),
+            lambda: rtk.sweep_all_plain(T, pid, pos, rot, **sc.sweep_kw), "rt_sweep_kernel"),
+        "rt_obs": kernel_times(
+            "rt_obs", lambda: rtk.obs_all(*xs, **sc.obs_kw), lambda: rtk.obs_all_plain(*xs, **sc.obs_kw),
+            "rt_obs_kernel"),
+    }
+    sweep_work, obs_work = rt_sweep_work(T, pid, S), rt_obs_work(B, A, S, K)
+    del env, s_reset, s_steps, xs
+
+    # -- the main path ----------------------------------------------------------
+    rtk.sweep_launches = 0
+    rtk.obs_launches = 0
+    env = make_env("road_traffic", num_envs=B)  # every default: 20 vehicles, map 1, noise, both kernels
+    sc = env.scenario
+    assert env.device.type == "cuda" and sc.n_agents == A and sc.is_add_noise and sc.pallas_sweeps and sc.pallas_obs
+    W = 1 + 2 * S + 3 + 11 * K
+    obs = env.reset()
+    for _ in range(RT_STEPS):
+        obs, rews, dones, infos = env.step(env.get_random_actions())
+    assert len(obs) == A and all(o.shape == (B, W) and bool(torch.isfinite(o).all()) for o in obs)
+    assert all(r.shape == (B,) and bool(torch.isfinite(r).all()) for r in rews)
+    assert dones.shape == (B,) and len(infos) == A
+
+    run = rollout_fn(env, horizon=RT_HORIZON)
+    rgen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    state, steps, traj = run(env.state, env.steps, rgen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    call_ms = []
+    for _ in range(TIMED_CALLS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, steps, traj = run(state, steps, rgen)
+        end.record()
+        end.synchronize()
+        call_ms.append(start.elapsed_time(end))
+    launches = {"rt_sweep": rtk.sweep_launches, "rt_obs": rtk.obs_launches}
+
+    assert traj["rewards"].shape == (RT_HORIZON, B, A) and traj["dones"].shape == (RT_HORIZON, B)
+    assert len(traj["obs"]) == A and all(o.shape == (RT_HORIZON, B, W) for o in traj["obs"])
+    assert bool(torch.isfinite(traj["rewards"]).all()) and all(bool(torch.isfinite(o).all()) for o in traj["obs"])
+    assert bool(torch.isfinite(state.pos).all())
+    n_steps = RT_STEPS + RT_HORIZON * (1 + TIMED_CALLS)
+    assert int(steps[0]) == n_steps
+    # one launch of each kernel per step and per reset (make_env's and env.reset's)
+    assert launches == {"rt_sweep": n_steps + 2, "rt_obs": n_steps + 2}, launches
+    print(f"main path: rollout_fn road_traffic {B} envs x {A} vehicles x {RT_HORIZON} steps: "
+          f"calls {[round(c, 3) for c in call_ms]} ms (warm-up {warm_s:.3f} s), "
+          f"best {B * RT_HORIZON / (min(call_ms) / 1e3):.1f} env-steps/s, "
+          f"mean {B * RT_HORIZON * TIMED_CALLS / (sum(call_ms) / 1e3):.1f} env-steps/s on {card}; "
+          f"launches {launches} ({n_steps} steps, 2 resets)", flush=True)
+
+    # where one main-path call's device time goes (after the counts)
+    _, busy_ms, by_name, n_ops = device_ms(lambda: run(state, steps, rgen), 1, "rt_sweep_kernel")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    rt_ms = sum(v for k, v in by_name.items() if "rt_sweep_kernel" in k or "rt_obs_kernel" in k)
+    print(f"device time of one road_traffic rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms wall "
+          f"(idle share {1 - busy_ms / min(call_ms):.3f}); rt_sweep + rt_obs {rt_ms:.3f} ms; "
+          f"{n_ops / RT_HORIZON:.1f} device operations per step; top: "
+          + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
+
+    src = "vmas_tpu_torch/csrc/road_traffic.cu"
+    return [
+        kernel_entry("rt_sweep", src, "vmas_tpu/scenarios/road_traffic_kernel.py:403", launches["rt_sweep"],
+                     sweep_err, times["rt_sweep"], *sweep_work),
+        kernel_entry("rt_obs", src, "vmas_tpu/scenarios/road_traffic_kernel.py:360", launches["rt_obs"],
+                     obs_err, times["rt_obs"], *obs_work),
+    ]
+
+
 def main():
     import torch
 
@@ -284,13 +555,7 @@ def main():
         "rows_step": (lambda: step(carry, act, extra), lambda: F.rows_step_plain(world, fo, slots, carry, act)),
         "fused_step": (lambda: F.fused_step(world, x, fo), lambda: F.fused_step_plain(world, x, fo)),
     }
-    for name, (kern, plain) in list(times.items()):
-        dev_ms = device_ms(kern, 200, "fused_step_kernel")[0]
-        if dev_ms <= 0:
-            raise AssertionError(f"the profiler saw no device time for {name}")
-        times[name] = {"ms": dev_ms, "wall_ms": time_ms(kern, 500), "plain_ms": time_ms(plain, 20)}
-        print(f"{name}: kernel {dev_ms * 1e3:.3f} us on the device, {times[name]['wall_ms'] * 1e3:.3f} us per "
-              f"back-to-back call, plain version {times[name]['plain_ms'] * 1e3:.1f} us per call", flush=True)
+    times = {name: kernel_times(name, kern, plain, "fused_step_kernel") for name, (kern, plain) in times.items()}
 
     # -- 4. the main path ----------------------------------------------------
     F.fused_step_launches = 0
@@ -336,34 +601,26 @@ def main():
 
     # where one main-path call's device time goes (read after the counts:
     # these launches are not the main path's)
-    _, busy_ms, by_name = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
+    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"device time of one rows_rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms wall "
           f"(idle share {1 - busy_ms / min(call_ms):.3f}); top: "
           + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
 
-    # -- 5. the kernels line -------------------------------------------------
+    # -- 5. road_traffic -------------------------------------------------------
+    rt_kernels = road_traffic_phase(card, dev)
+
+    # -- 6. the kernels line -------------------------------------------------
     flops = flops_per_env(ks, fo) * B
     rows_bytes = (R_in + 2 * A + R_in + fo.n_out) * B * 4
     fused_bytes = (R_in + 9 * E + fo.n_out) * B * 4
-
-    def entry(name, replaces, err, nbytes):
-        t = times[name]
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
-        bound = max(t_bytes, t_ops)
-        return {
-            "name": name, "route": "cuda", "source": "vmas_tpu_torch/csrc/fused_step.cu",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": err,
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
-            "wall_ms": t["wall_ms"], "us": t["ms"] * 1e3, "plain_us": t["plain_ms"] * 1e3,
-            "bound_us": bound * 1e3, "bytes": nbytes, "flops_est": flops,
-        }
-
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
     kernels = [
-        entry("rows_step", "vmas_tpu/core/fused.py:1603", k2.max(), rows_bytes),
-        entry("fused_step", "vmas_tpu/core/fused.py:1425", k1.max(), fused_bytes),
-    ]
+        kernel_entry("rows_step", src, "vmas_tpu/core/fused.py:1603", launches["rows_step"], k2.max(),
+                     times["rows_step"], rows_bytes, flops),
+        kernel_entry("fused_step", src, "vmas_tpu/core/fused.py:1425", launches["fused_step"], k1.max(),
+                     times["fused_step"], fused_bytes, flops),
+    ] + rt_kernels
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

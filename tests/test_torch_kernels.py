@@ -1,5 +1,5 @@
-"""The CUDA kernel of the fused step (vmas_tpu_torch/csrc/fused_step.cu)
-against its plain PyTorch version, on the card.
+"""The CUDA kernels (vmas_tpu_torch/csrc/fused_step.cu, road_traffic.cu)
+against their plain PyTorch versions, on the card.
 
 The kernel has no CPU mode, so every test here needs a CUDA GPU: they carry
 the ``gpu`` marker and skip without one. On a machine with a card and the
@@ -9,7 +9,10 @@ CUDA toolkit:
 
 (``--noconftest`` keeps the repository's JAX test configuration out; these
 tests import no JAX.) Tolerances as in chip_smoke.py: state rows atol 1e-5
-rtol 1e-5, observation rows atol 2e-5, reward and shaping rows atol 2e-3.
+rtol 1e-5, observation rows atol 2e-5, reward and shaping rows atol 2e-3;
+road_traffic's path sweeps and observations: indices, flags, short-term
+points and chosen neighbours equal, values atol 1e-6; its env with both
+kernels against the plain path atol 5e-5.
 """
 
 import pytest
@@ -17,6 +20,7 @@ import torch
 
 from vmas_tpu_torch import make_env
 from vmas_tpu_torch.core import fused as F
+from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
 
 pytestmark = pytest.mark.gpu
 
@@ -100,3 +104,80 @@ def test_rows_rollout_on_the_card_equals_step_rollout(env):
     _, _, tb = rows_rollout_fn(env, horizon=6)(s0, st0, torch.Generator(device="cuda").manual_seed(9))
     assert torch.equal(ta["rewards"], tb["rewards"]) and torch.equal(ta["dones"], tb["dones"])
     assert all(torch.equal(a, b) for a, b in zip(ta["obs"], tb["obs"]))
+
+
+# -- road_traffic: path sweeps and all-ego observations ------------------------
+
+# 37 x 20 = 740 lanes: the last 128-thread block is ragged
+RT_B = 37
+
+
+def _rt_env(**kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the road_traffic kernels have no CPU mode")
+    return make_env("road_traffic", RT_B, device="cuda", is_add_noise=False, **kw)
+
+
+@pytest.fixture
+def rt_env():
+    e = _rt_env(seed=0)
+    for _ in range(4):
+        e.step(e.get_random_actions())
+    return e
+
+
+def _rt_lanes(env):
+    pos, rot, _ = env.scenario._agent_arrays(env.state)
+    return env.state.scenario["path_id"].contiguous(), pos.contiguous(), rot.contiguous()
+
+
+def test_rt_sweep_kernel_matches_plain(rt_env):
+    sc = rt_env.scenario
+    lanes = _rt_lanes(rt_env)
+    n = rtk.sweep_launches
+    got = rtk.sweep_all(sc._sweep_tables, *lanes, **sc.sweep_kw)
+    torch.cuda.synchronize()
+    assert rtk.sweep_launches == n + 1
+    want = rtk.sweep_all_plain(sc._sweep_tables, *lanes, **sc.sweep_kw)
+    for k in ("idx_ref", "idx_l", "idx_r", "coll_l", "coll_r", "short_term"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("d_ref", "dl5", "dr5"):
+        _close(got[k], want[k], 1e-6, 0.0)
+
+
+def test_rt_obs_kernel_matches_plain(rt_env):
+    sc = rt_env.scenario
+    xs = sc.obs_inputs(rt_env.state)
+    n = rtk.obs_launches
+    got = rtk.obs_all(*xs, **sc.obs_kw)
+    torch.cuda.synchronize()
+    assert rtk.obs_launches == n + 1
+    want = rtk.obs_all_plain(*xs, **sc.obs_kw)
+    assert got.shape == want.shape == (20, RT_B, 32)
+    # far-masked neighbour slots hold exactly 1.0 in their distance column
+    far = [10 + 11 * k + 10 for k in range(sc.obs_kw["K"])]
+    assert torch.equal(got[..., far] == 1.0, want[..., far] == 1.0)
+    _close(got, want, 1e-6, 0.0)
+
+
+def test_rt_env_with_kernels_matches_plain_path():
+    envs = [_rt_env(seed=1, pallas_sweeps=k, pallas_obs=k) for k in (True, False)]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for _ in range(3):
+        acts = [torch.rand((RT_B, 2), generator=g, device="cuda") * 2 - 1 for _ in range(20)]
+        (ok, rk, dk, _), (op, rp, dp, _) = (e.step(acts) for e in envs)
+        for a, b in zip([*ok, *rk], [*op, *rp]):
+            _close(a, b, 5e-5, 0.0)
+        assert torch.equal(dk, dp)
+
+
+def test_rt_wrappers_reject_bad_input(rt_env):
+    sc = rt_env.scenario
+    pid, pos, rot = _rt_lanes(rt_env)
+    with pytest.raises(ValueError, match="float32"):
+        rtk.sweep_all(sc._sweep_tables, pid, pos.double(), rot, **sc.sweep_kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        rtk.sweep_all(sc._sweep_tables, pid, pos, rot.t().contiguous().t(), **sc.sweep_kw)
+    xs = list(sc.obs_inputs(rt_env.state))
+    with pytest.raises(ValueError, match="K must be"):
+        rtk.obs_all(*xs, **{**sc.obs_kw, "K": 20})

@@ -7,7 +7,8 @@ into ``_build/`` beside this file, named by a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
 The ``ctypes`` structures below mirror ``csrc/fused_step.cu``'s structs field for
-field; the kernel takes them by value.
+field; the kernel takes them by value. ``csrc/road_traffic.cu`` takes plain
+pointers and scalars.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ NVCC_FLAGS = [
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
 # kernel name -> its source; one nvcc process per source
-SOURCES = {"fused_step": "fused_step.cu"}
+SOURCES = {"fused_step": "fused_step.cu", "road_traffic": "road_traffic.cu"}
 
 # capacities of the kernel's by-value spec (csrc/fused_step.cu)
 MAX_E = 32
@@ -124,6 +125,19 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def check_tensor(name: str, t, dtype, shape) -> None:
+    """Raise ``ValueError`` unless ``t`` is what a kernel takes: a
+    contiguous CUDA tensor of ``dtype`` and ``shape``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must lie on a CUDA device, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 _LIBS = {}
 
 
@@ -144,5 +158,13 @@ def library(name: str) -> ctypes.CDLL:
             lib.vmas_fused_step.restype = ctypes.c_int
             lib.vmas_cuda_error_string.argtypes = [ctypes.c_int]
             lib.vmas_cuda_error_string.restype = ctypes.c_char_p
+        elif name == "road_traffic":
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.vmas_rt_sweep.argtypes = [p, p, p, p, i, i, i, p, p, p, i, f, f, i, i, i, p, p]
+            lib.vmas_rt_sweep.restype = ctypes.c_int
+            lib.vmas_rt_obs.argtypes = [p] * 8 + [i] * 6 + [f] * 4 + [p, p]
+            lib.vmas_rt_obs.restype = ctypes.c_int
+            lib.vmas_rt_error_string.argtypes = [ctypes.c_int]
+            lib.vmas_rt_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib

@@ -490,14 +490,7 @@ def rows_step_plain(world, outputs, act_slots, carry, act):
 # ---------------------------------------------------------------------------
 
 def _check_rows(name, t, shape):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must lie on a CUDA device, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    K.check_tensor(name, t, torch.float32, shape)
 
 
 def _emit_params(outputs):

@@ -1,4 +1,5 @@
 from vmas_tpu_torch.dynamics.common import Dynamics
 from vmas_tpu_torch.dynamics.holonomic import Holonomic
+from vmas_tpu_torch.dynamics.kinematic_bicycle import KinematicBicycle
 
-__all__ = ["Dynamics", "Holonomic"]
+__all__ = ["Dynamics", "Holonomic", "KinematicBicycle"]

@@ -4,7 +4,9 @@ Counterpart of vmas_tpu/environment/environment.py, run eagerly: one step
 is action decode, per-agent process_action, pre_step, the physics step (the
 fused kernel with ``fused_physics=True``), post_step, then the
 observations, rewards and dones. Randomness comes from one
-``torch.Generator`` on the env's device, seeded from ``seed``.
+``torch.Generator`` on the env's device, seeded from ``seed``; each step and
+each reset also draws from it a fresh seed for the observation noise
+(``BaseScenario.obs_generator``).
 
 The env runs on the GPU unless the caller passes ``device="cpu"``; with no
 GPU present it raises instead of falling back. gymnasium is imported only
@@ -13,6 +15,7 @@ when ``action_space``/``observation_space`` is first read.
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -24,6 +27,16 @@ from vmas_tpu_torch.core.state import WorldState, blend
 from vmas_tpu_torch.core.utils import resolve_device
 from vmas_tpu_torch.core.world import Agent
 from vmas_tpu_torch.scenario import BaseScenario
+
+
+def _obs_seed(generator: torch.Generator) -> int:
+    """A fresh 64-bit seed for one step's (or reset's) observation noise,
+    drawn from ``generator``: a hash of its state, which is then advanced by
+    one draw so that the next call gets another seed. The state of a CUDA
+    generator lives on the host, so this does not wait for the device."""
+    digest = hashlib.blake2b(generator.get_state().numpy().tobytes(), digest_size=8).digest()
+    torch.empty((1,), device=generator.device).random_(generator=generator)
+    return int.from_bytes(digest, "little")
 
 
 class Environment:
@@ -58,6 +71,13 @@ class Environment:
         self.batch_dim = num_envs
         self.device = resolve_device(device)
         self.world = scenario.env_make_world(num_envs, self.device, **kwargs)
+        if grad_enabled:
+            # scenario kernels (road_traffic's path sweeps and all-ego
+            # observations) are forward-only like the fused physics; the
+            # plain path stays differentiable
+            for flag in ("pallas_sweeps", "pallas_obs"):
+                if getattr(scenario, flag, False):
+                    setattr(scenario, flag, False)
         self._fused_outputs = None
         if fused_physics:
             _fused.check_fusable(self.world)
@@ -85,8 +105,10 @@ class Environment:
     # ------------------------------------------------------------------
     # the step pipeline
     # ------------------------------------------------------------------
-    def _outputs(self, state: WorldState, steps, with_rewards: bool = True, fused_extra=None):
+    def _outputs(self, state: WorldState, steps, obs_seed: int, with_rewards: bool = True, fused_extra=None):
         scenario = self.scenario
+        # the observation-noise seed of this call (BaseScenario.obs_generator)
+        scenario.obs_seed = obs_seed
         if fused_extra is not None:
             # obs/rewards/termination came out of the fused step as rows;
             # unpack replaces the pre_rewards/reward/observation/done hooks
@@ -116,6 +138,7 @@ class Environment:
         return obs
 
     def _reset_fn(self, state: WorldState, steps, generator, mask):
+        obs_seed = _obs_seed(generator)
         fresh = self.scenario.env_reset_world_at(state, generator)
         if mask is None:
             state = fresh
@@ -123,13 +146,14 @@ class Environment:
         else:
             state = blend(mask, fresh, state)
             steps = torch.where(mask, torch.zeros_like(steps), steps)
-        state, obs, _, terminated, truncated, infos = self._outputs(state, steps, with_rewards=False)
+        state, obs, _, terminated, truncated, infos = self._outputs(state, steps, obs_seed, with_rewards=False)
         return state, steps, obs, terminated, truncated, infos
 
     def _step_fn_raw(self, state: WorldState, steps, actions, generator):
         """One env step on explicit state: (state, steps, actions,
         generator) -> (state, obs, rews, terminated, truncated, infos,
         steps)."""
+        obs_seed = _obs_seed(generator)
         for i, agent in enumerate(self.agents):
             state = self._decode_action(state, agent, actions[i], generator)
         for agent in self.world.agents:
@@ -142,7 +166,7 @@ class Environment:
             fused_extra = None
         state = self.scenario.post_step(state)
         steps = steps + 1
-        out = self._outputs(state, steps, fused_extra=fused_extra)
+        out = self._outputs(state, steps, obs_seed, fused_extra=fused_extra)
         return out + (steps,)
 
     # ------------------------------------------------------------------

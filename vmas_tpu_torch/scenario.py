@@ -10,7 +10,8 @@ are functions over a :class:`WorldState`:
 * ``pre_rewards(state)`` / ``post_rewards(state)`` hold the cross-agent
   reward bookkeeping, kept in ``state.scenario`` scratch;
 * ``process_action(agent, state)``, ``pre_step``, ``post_step`` as in VMAS;
-* ``make_fused_outputs(world)`` (optional) returns a ``fused.FusedOutputs``.
+* ``make_fused_outputs(world)`` (optional) returns a ``fused.FusedOutputs``;
+* ``obs_generator(i)`` gives agent ``i``'s observation-noise stream.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ class BaseScenario(ABC):
     def __init__(self):
         """Do not override."""
         self._world: Optional[World] = None
+        # the observation-noise seed of the current step or reset, set by
+        # the environment before the observation hooks run
+        self.obs_seed: int = 0
 
     @property
     def world(self) -> World:
@@ -96,3 +100,17 @@ class BaseScenario(ABC):
 
     def post_step(self, state: WorldState) -> WorldState:
         return state
+
+    def obs_generator(self, i: int = 0) -> torch.Generator:
+        """Agent ``i``'s observation-noise stream for this step (or reset):
+        a ``torch.Generator`` on the world's device, seeded from the fresh
+        seed the environment draws for each step and each reset
+        (``self.obs_seed``) and from ``i``, so that each agent draws from a
+        stream of its own. The counterpart of the JAX package's
+        ``obs_key(state, i)``."""
+        seed = (self.obs_seed + (i + 1) * _GOLDEN64) % 2**64
+        return torch.Generator(device=self.world.device).manual_seed(seed)
+
+
+# odd 64-bit constant that spreads consecutive agent indices over the seed space
+_GOLDEN64 = 0x9E3779B97F4A7C15

@@ -1,11 +1,14 @@
-"""Scenario registry. Only ``transport`` is ported so far; every other
-scenario of the JAX package raises ``ValueError`` when loaded."""
+"""Scenario registry. ``transport`` and ``road_traffic`` are ported so far;
+every other scenario of the JAX package raises ``ValueError`` when loaded."""
 
 from __future__ import annotations
 
 import importlib
 
-_PORTED = {"transport": "vmas_tpu_torch.scenarios.transport"}
+_PORTED = {
+    "road_traffic": "vmas_tpu_torch.scenarios.road_traffic",
+    "transport": "vmas_tpu_torch.scenarios.transport",
+}
 
 
 def load(name: str):
