@@ -13,13 +13,22 @@
    GPU, reset, 5 env.step calls, then rows_rollout_fn(horizon=1000) once
    to warm up and 3 timed calls; checks the shapes, finiteness and launch
    counts, and prints env-steps/s.
-5. road_traffic at 4096 envs x 20 vehicles: the path-sweep kernel and the
+5. balance at 4096 envs (3 agents): the rows step and the fused step
+   against their plain versions for 20 re-synced steps from a state in
+   which its four contact types (ss, ls, bs, bl) touch, with the contacts
+   per type; the all-pairs world (6 spheres, 2 lines, 3 boxes: all six
+   contact types) stepped by the fused kernel against its plain version for
+   20 re-synced steps from a packed state; then balance's main path with
+   the counts zeroed: make_env, reset, 5 env.step calls, rows_rollout_fn
+   (horizon 1000) once to warm up and 3 timed calls, env-steps/s and the
+   device idle share.
+6. road_traffic at 4096 envs x 20 vehicles: the path-sweep kernel and the
    all-ego observation kernel against their plain versions (after a reset,
    after 20 random steps, and on lanes placed on path vertices and padded
    tails), then its main path with the counts zeroed: make_env with every
    default, reset, 5 env.step calls, rollout_fn(horizon=100) once to warm up
    and 3 timed calls, with one launch of each kernel per step and reset.
-6. Prints one JSON line describing each kernel, then the result line.
+7. Prints one JSON line describing each kernel, then the result line.
 
 Any failure raises and exits non-zero. It imports nothing of JAX.
 """
@@ -101,24 +110,14 @@ def device_ms(fn, n, kernel):
     return mine, sum(by_name.values()), by_name, count / n
 
 
-def flops_per_env(ks, fo):
-    """Estimated f32 operations of one env step (a transcendental counted
-    as 20): per entity and substep ~20, per sphere-sphere pair ~70, per
-    box-sphere pair ~200, transport's emit ~200 per package plus the
-    observation rows."""
-    per_substep = 20 * ks.E + 70 * len(ks.ss) + 200 * len(ks.bs)
-    return ks.substeps * per_substep + 200 * fo.n_pkgs + fo.n_out
-
-
 class ErrTracker:
     def __init__(self):
-        self.err = {}
+        self.err, self.tol = {}, {}
 
     def close(self, name, got, want, atol, rtol=0.0):
-        import torch
-
         diff = (got - want).abs()
         self.err[name] = max(self.err.get(name, 0.0), float(diff.max()))
+        self.tol[name] = (atol, rtol)
         ok = diff <= atol + rtol * want.abs()
         if not bool(ok.all()):
             raise AssertionError(f"{name}: {int((~ok).sum())} values beyond atol={atol} rtol={rtol}, "
@@ -127,6 +126,11 @@ class ErrTracker:
 
     def max(self):
         return max(self.err.values())
+
+    def report(self):
+        for name, v in self.err.items():
+            atol, rtol = self.tol[name]
+            print(f"max abs err {name}: {v:.3e} (tolerance atol {atol:g}, rtol {rtol:g})")
 
 
 def og_margin(fo, state_rows, E):
@@ -198,24 +202,6 @@ def contact_rich(env, gen):
     )
 
 
-def contacts(ks, rows):
-    """(sphere-sphere pair contacts, box-sphere pair contacts) over the envs
-    of one step's input rows, from the penalty forces' plain version."""
-    import torch
-    from vmas_tpu_torch.core import fused as F
-
-    E = ks.E
-    px, py, rot = rows[:E], rows[E:2 * E], rows[4 * E:5 * E]
-    n_ss = sum(int((F._constraint_force(ks.cm, px[a], py[a], px[b], py[b], d, ks.cf)[0] != 0).sum())
-               for a, b, d in ks.ss)
-    n_bs = 0
-    for b, s, hw, hl, d0, nh in ks.bs:
-        cx, cy = F._closest_point_box(px[b], py[b], torch.cos(rot[b]), torch.sin(rot[b]), hw, hl, px[s], py[s])
-        ix, iy, d = F._inner_point_box(px[s], py[s], cx, cy, px[b], py[b])
-        n_bs += int((F._constraint_force(ks.cm, px[s], py[s], ix, iy, d0 + d, ks.cf)[0] != 0).sum())
-    return n_ss, n_bs
-
-
 def kernel_entry(name, source, replaces, launches, err, t, nbytes, flops):
     """One kernel's entry of the kernels line: its times ``t`` (ms, wall_ms,
     plain_ms) beside its bound, the larger of bytes over the card's memory
@@ -242,6 +228,242 @@ def kernel_times(name, kern, plain, kernel_name):
     print(f"{name}: kernel {dev_ms * 1e3:.3f} us on the device, {t['wall_ms'] * 1e3:.3f} us per "
           f"back-to-back call, plain version {t['plain_ms'] * 1e3:.1f} us per call", flush=True)
     return t
+
+
+# -- balance and the all-pairs world --------------------------------------------
+
+def line_line_tests(ks, rows, fo=None):
+    """(line-line tests, of them between crossing segments) that one fused
+    step runs on these input rows [9E, B]: those of the ll, bl and bb pairs
+    and of balance's emit (the floor's edges against the line), counted by
+    running the plain version's pair forces and emit test with its segment
+    intersection probed. The device function stops early where the segments
+    cross."""
+    import torch
+    from vmas_tpu_torch.core import fused as F
+
+    E = ks.E
+    px, py, rot = list(rows[:E]), list(rows[E:2 * E]), list(rows[4 * E:5 * E])
+    hits = []
+    real = F._intersection
+
+    def probe(*args):
+        out = real(*args)
+        hits.append(int(out[2].sum()))
+        return out
+
+    F._intersection = probe
+    try:
+        for _ in F._pair_forces(ks, px, py, rot):
+            pass
+        if fo is not None and hasattr(fo, "floor_i"):
+            fi, li = fo.floor_i, fo.line_i
+            F._closest_line_box(px[fi], py[fi], torch.cos(rot[fi]), torch.sin(rot[fi]), fo.floor_hw, fo.floor_hl,
+                                px[li], py[li], torch.cos(rot[li]), torch.sin(rot[li]), fo.line_half)
+    finally:
+        F._intersection = real
+    return len(hits) * rows.shape[1], sum(hits)
+
+
+# operations read off csrc/fused_step.cu (+, -, *, /, sqrt and a compare
+# count 1; cos, sin, exp and log1p TRIG_OPS): the penalty force 60, a
+# closest point on a segment 15, a first-minimum update 8, a box edge 6, an
+# inner point 20. Per entity and substep 20, and a cos and a sin for each
+# entity whose rotation a pair reads (KernelSpec.trig); per pair, without
+# its line-line tests: ss 65; ls 15 + 60 + 12 = 87; ll 60 + 20 = 80; bs 4 x
+# 29 + 20 + 60 + 13 = 209; bl 4 x 14 + 20 + 60 + 20 = 156; bb 8 x (14 + 4 x
+# 14) + 2 x 20 + 60 + 20 = 680. A line-line test: 43 where the segments
+# cross, 43 + 4 x (15 + 8) where they do not.
+PAIR_OPS = {"ss": 65, "ls": 87, "ll": 80, "bs": 209, "bl": 156, "bb": 680}
+LL_CROSS_OPS, LL_MISS_OPS = 43, 135
+
+
+def kernel_ops(ks, rows, fo=None):
+    """Operations of one fused step on these input rows [R, B] (the line-line
+    tests counted on them, once per substep), with the emit's: transport's
+    about 200 per package plus its rows, balance's 4 trig + 4 x 14 + 116 +
+    40 + 20 plus its rows and the floor-line tests."""
+    B = rows.shape[1]
+    per_substep = (20 * ks.E + 2 * TRIG_OPS * len(ks.trig)
+                   + sum(PAIR_OPS[t] * len(getattr(ks, t)) for t in PAIR_OPS))
+    per_env = ks.substeps * per_substep
+    if fo is not None:
+        per_env += (200 * fo.n_pkgs if hasattr(fo, "n_pkgs") else 4 * TRIG_OPS + 56 + 116 + 40 + 20) + fo.n_out
+    n, crossing = line_line_tests(ks, rows[:9 * ks.E], fo)
+    return per_env * B + ks.substeps * (crossing * LL_CROSS_OPS + (n - crossing) * LL_MISS_OPS)
+
+
+def compare_balance(tr, fo, state_k, state_p, emit_k, emit_p, tag):
+    """Kernel against plain for one balance step's state and emit rows;
+    returns the number of envs excused because a flag lies within
+    OG_MARGIN of its threshold."""
+    from vmas_tpu_torch.testing import balance_flag_margin
+
+    base = fo.base
+    tr.close(f"{tag} state rows", state_k, state_p, **STATE_TOL)
+    tr.close(f"{tag} obs rows", emit_k[:base], emit_p[:base], OBS_ATOL, 1e-5)
+    differ = (emit_k[base + 2:base + 4] != emit_p[base + 2:base + 4]).any(0)
+    near = balance_flag_margin(fo, state_p) < OG_MARGIN
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"{tag}: on_ground/done differ in {int((differ & ~near).sum())} envs off the threshold")
+    ok = ~differ
+    tr.close(f"{tag} reward rows", emit_k[base:base + 2][:, ok], emit_p[base:base + 2][:, ok], REW_ATOL)
+    tr.close(f"{tag} shaping row", emit_k[base + 4], emit_p[base + 4], REW_ATOL, 1e-5)
+    return int((differ & near).sum())
+
+
+def balance_phase(card, dev):
+    """balance's two kernel forms against their plain versions from a state
+    with contacts, the all-pairs world's fused step against its plain
+    version, balance's main path, and the three entries of the kernels
+    line."""
+    import numpy as np
+    import torch
+    import vmas_tpu_torch.core as TC
+    from vmas_tpu_torch import make_env
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rows_rollout_fn
+    from vmas_tpu_torch.testing import all_pairs_state, all_pairs_world, balance_contact_state
+
+    B = NUM_ENVS
+    # -- (a) balance's kernels against plain, at 4096 envs ---------------------
+    env = make_env("balance", B, device=dev, seed=0, fused_physics=True)
+    world, fo = env.world, env._fused_outputs
+    slots = [a.index for a in env.agents]
+    ks = F._kernel_spec(world)
+    E, A = ks.E, len(slots)
+    step = F.make_rows_step(world, fo, slots)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    acts = lambda: ((torch.rand((2 * A, B), generator=gen, device=dev) * 2 - 1) * 0.7).contiguous()
+    k2, k1 = ErrTracker(), ErrTracker()
+    excused = {"rows_step": 0, "fused_step": 0}
+    counts = dict.fromkeys(F.PAIR_TYPES, 0)
+    carry = F.pack_carry(world, state_from_numpy(world, balance_contact_state(env, np.random.default_rng(3))), fo)
+    for t in range(CMP_STEPS):
+        act = acts()
+        x = carry.clone()
+        x[6 * E + torch.as_tensor(slots, device=dev)] = act[:A]
+        x[7 * E + torch.as_tensor(slots, device=dev)] = act[A:]
+        for k, v in F.contact_counts(world, x).items():
+            counts[k] += v
+        c_k, e_k = step(carry, act)
+        c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+        excused["rows_step"] += compare_balance(k2, fo, c_k[:9 * E], c_p[:9 * E], e_k, e_p, "balance rows_step")
+        k2.close("balance rows_step scratch carry", c_k[9 * E:], c_p[9 * E:], REW_ATOL, 1e-5)
+        y_k, y_p = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+        excused["fused_step"] += compare_balance(k1, fo, y_k[:9 * E], y_p[:9 * E], y_k[9 * E:], y_p[9 * E:],
+                                                 "balance fused_step")
+        carry = c_k  # re-sync to the kernel
+    torch.cuda.synchronize()
+    for tr in (k2, k1):
+        tr.report()
+    print(f"balance contacts over {CMP_STEPS} steps: {counts}; flag envs within {OG_MARGIN} of a threshold: "
+          f"{excused}", flush=True)
+    if any(counts[k] == 0 for k in ("ss", "ls", "bs", "bl")):
+        raise AssertionError("the balance comparison saw no contacts of one of its types")
+    act = acts()
+    x = carry.clone()
+    extra = torch.empty((fo.n_out, B), device=dev)
+    times = {
+        "rows_step[balance]": kernel_times("rows_step[balance]", lambda: step(carry, act, extra),
+                                           lambda: F.rows_step_plain(world, fo, slots, carry, act),
+                                           "fused_step_kernel"),
+        "fused_step[balance]": kernel_times("fused_step[balance]", lambda: F.fused_step(world, x, fo),
+                                            lambda: F.fused_step_plain(world, x, fo), "fused_step_kernel"),
+    }
+    R_in = F.rows_layout(world, fo)
+    work = {
+        "rows_step[balance]": ((R_in + 2 * A + R_in + fo.n_out) * B * 4, kernel_ops(ks, carry, fo)),
+        "fused_step[balance]": ((R_in + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo)),
+    }
+    errs = {"rows_step[balance]": k2.max(), "fused_step[balance]": k1.max()}
+
+    # -- (b) the all-pairs world's fused step against plain ----------------------
+    aw = all_pairs_world(TC, B, dev)
+    aks = F._kernel_spec(aw)
+    assert {t: len(getattr(aks, t)) for t in F.PAIR_TYPES} == {"ss": 15, "ls": 12, "ll": 1, "bs": 18, "bl": 6,
+                                                                "bb": 3}
+    s = state_from_numpy(aw, all_pairs_state(np.random.default_rng(4), B))
+    xa = F.state_rows(s).contiguous()
+    ka = ErrTracker()
+    a_counts = dict.fromkeys(F.PAIR_TYPES, 0)
+    x0 = xa
+    for t in range(CMP_STEPS):
+        for k, v in F.contact_counts(aw, xa).items():
+            a_counts[k] += v
+        y_k, y_p = F.fused_step(aw, xa), F.fused_step_plain(aw, xa)
+        ka.close("all_pairs fused_step state rows", y_k, y_p, **STATE_TOL)
+        xa = y_k  # re-sync to the kernel
+    torch.cuda.synchronize()
+    ka.report()
+    print(f"all-pairs contacts over {CMP_STEPS} steps from the packed state: {a_counts}", flush=True)
+    if any(v == 0 for v in a_counts.values()):
+        raise AssertionError("the all-pairs comparison saw no contacts of one type")
+    times["fused_step[all_pairs]"] = kernel_times("fused_step[all_pairs]", lambda: F.fused_step(aw, x0),
+                                                  lambda: F.fused_step_plain(aw, x0), "fused_step_kernel")
+    work["fused_step[all_pairs]"] = (2 * 9 * aks.E * B * 4, kernel_ops(aks, x0))
+    errs["fused_step[all_pairs]"] = ka.max()
+    del env, aw, s, xa, x0
+
+    # -- (c) the main path -------------------------------------------------------
+    F.fused_step_launches = 0
+    F.rows_step_launches = 0
+    env = make_env("balance", num_envs=B, fused_physics=True)  # 3 agents, every other default
+    assert env.device.type == "cuda" and env.n_agents == 3
+    obs = env.reset()
+    for _ in range(5):
+        obs, rews, dones, infos = env.step(env.get_random_actions())
+    assert all(o.shape == (B, 16) and bool(torch.isfinite(o).all()) for o in obs)
+    assert all(r.shape == (B,) and bool(torch.isfinite(r).all()) for r in rews)
+    assert dones.shape == (B,) and len(infos) == 3
+    run = rows_rollout_fn(env, horizon=HORIZON)
+    rgen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    state, steps, traj = run(env.state, env.steps, rgen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    call_ms = []
+    for _ in range(TIMED_CALLS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, steps, traj = run(state, steps, rgen)
+        end.record()
+        end.synchronize()
+        call_ms.append(start.elapsed_time(end))
+    launches = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+    assert traj["rewards"].shape == (HORIZON, B, 3) and traj["dones"].shape == (HORIZON, B)
+    assert len(traj["obs"]) == 3 and all(o.shape == (HORIZON, B, 16) for o in traj["obs"])
+    assert bool(torch.isfinite(traj["rewards"]).all()) and all(bool(torch.isfinite(o).all()) for o in traj["obs"])
+    assert bool(torch.isfinite(state.pos).all())
+    assert int(steps[0]) == 5 + HORIZON * (1 + TIMED_CALLS)
+    assert launches == {"fused_step": 5, "rows_step": HORIZON * (1 + TIMED_CALLS)}, launches
+    print(f"main path: rows_rollout_fn balance {B} envs x 3 agents x {HORIZON} steps: "
+          f"calls {[round(c, 3) for c in call_ms]} ms (warm-up {warm_s:.3f} s), "
+          f"best {B * HORIZON / (min(call_ms) / 1e3):.1f} env-steps/s, "
+          f"mean {B * HORIZON * TIMED_CALLS / (sum(call_ms) / 1e3):.1f} env-steps/s on {card}; "
+          f"launches {launches}; episodes ended in the last call "
+          f"{int(traj['dones'].sum())} of {HORIZON * B} env-steps", flush=True)
+    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"device time of one balance rows_rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms wall "
+          f"(idle share {1 - busy_ms / min(call_ms):.3f}); top: "
+          + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
+
+    # -- (d) the kernels line ----------------------------------------------------
+    # one kernel serves every world: "launches" counts its wrapper's launches
+    # on balance's main path, also for the all-pairs world's entry
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    entries = [
+        kernel_entry(name, src, site, launches[form], errs[name], times[name], *work[name])
+        for name, form, site in (
+            ("rows_step[balance]", "rows_step", "vmas_tpu/core/fused.py:1603"),
+            ("fused_step[balance]", "fused_step", "vmas_tpu/core/fused.py:1425"),
+            ("fused_step[all_pairs]", "fused_step", "vmas_tpu/core/fused.py:1425"),
+        )
+    ]
+    entries[-1]["launches_on"] = "balance's main path"
+    return entries
 
 
 # -- road_traffic -------------------------------------------------------------
@@ -502,7 +724,7 @@ def main():
 
     k2, k1 = ErrTracker(), ErrTracker()
     excused = {"rows_step": 0, "fused_step": 0}
-    n_ss = n_bs = 0
+    counts = dict.fromkeys(F.PAIR_TYPES, 0)
     carry = F.pack_carry(world, contact_rich(env, gen), fo)
     for t in range(CMP_STEPS):
         act = acts()
@@ -510,8 +732,8 @@ def main():
         c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
         excused["rows_step"] += compare_rows(k2, fo, E, c_k[:9 * E], c_p[:9 * E], e_k, e_p, "rows_step")
         k2.close("rows_step scratch carry", c_k[9 * E:], c_p[9 * E:], REW_ATOL, 1e-5)
-        s, b_ = contacts(ks, c_p)
-        n_ss, n_bs = n_ss + s, n_bs + b_
+        for k, v in F.contact_counts(world, c_p).items():
+            counts[k] += v
         carry = c_k  # re-sync to the kernel
 
         # the fused step on the same state, as env.step packs it
@@ -524,11 +746,10 @@ def main():
                                               "fused_step")
     torch.cuda.synchronize()
     for tr in (k2, k1):
-        for name, v in tr.err.items():
-            print(f"max abs err {name}: {v:.3e}")
-    print(f"contacts over {CMP_STEPS} steps: {n_ss} sphere-sphere, {n_bs} box-sphere; "
+        tr.report()
+    print(f"contacts over {CMP_STEPS} steps: {counts['ss']} sphere-sphere, {counts['bs']} box-sphere; "
           f"on_goal lanes within {OG_MARGIN} of the threshold: {excused}", flush=True)
-    if n_ss == 0 or n_bs == 0:
+    if counts["ss"] == 0 or counts["bs"] == 0:
         raise AssertionError("the comparison saw no contacts of one type")
 
     # env.step's path (the fused kernel) against the rows path (the rows
@@ -607,11 +828,14 @@ def main():
           f"(idle share {1 - busy_ms / min(call_ms):.3f}); top: "
           + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
 
-    # -- 5. road_traffic -------------------------------------------------------
+    # -- 5. balance and the all-pairs world ------------------------------------
+    balance_kernels = balance_phase(card, dev)
+
+    # -- 6. road_traffic -------------------------------------------------------
     rt_kernels = road_traffic_phase(card, dev)
 
-    # -- 6. the kernels line -------------------------------------------------
-    flops = flops_per_env(ks, fo) * B
+    # -- 7. the kernels line -------------------------------------------------
+    flops = kernel_ops(ks, carry, fo)
     rows_bytes = (R_in + 2 * A + R_in + fo.n_out) * B * 4
     fused_bytes = (R_in + 9 * E + fo.n_out) * B * 4
     src = "vmas_tpu_torch/csrc/fused_step.cu"
@@ -620,7 +844,7 @@ def main():
                      times["rows_step"], rows_bytes, flops),
         kernel_entry("fused_step", src, "vmas_tpu/core/fused.py:1425", launches["fused_step"], k1.max(),
                      times["fused_step"], fused_bytes, flops),
-    ] + rt_kernels
+    ] + balance_kernels + rt_kernels
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

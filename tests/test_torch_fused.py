@@ -220,7 +220,7 @@ def test_fused_refuses_grad():
         torch_make_env("transport", 4, device="cpu", fused_physics=True, grad_enabled=True)
 
 
-def _scenario(shape_fn, joint=False):
+def _scenario(shape_fn, joint=False, dynamic_gravity=False):
     from vmas_tpu_torch.core import Agent, Landmark, Sphere, World
     from vmas_tpu_torch.scenario import BaseScenario
 
@@ -231,6 +231,7 @@ def _scenario(shape_fn, joint=False):
             w.add_landmark(Landmark("wall", shape=shape_fn(), collide=True))
             if joint:
                 w.add_joint(object())
+            w.dynamic_gravity = dynamic_gravity
             return w
 
         def reset_world_at(self, state, generator):
@@ -245,13 +246,13 @@ def _scenario(shape_fn, joint=False):
     return S()
 
 
-@pytest.mark.parametrize("kind", ["line", "joint"])
+@pytest.mark.parametrize("kind", ["dynamic_gravity", "joint"])
 def test_unported_worlds_raise(kind):
-    from vmas_tpu_torch.core import Line, Sphere
+    from vmas_tpu_torch.core import Sphere
     from vmas_tpu_torch.environment import Environment
 
-    sc = _scenario(Line if kind == "line" else Sphere, joint=kind == "joint")
-    with pytest.raises(NotImplementedError, match="line-sphere" if kind == "line" else "joints"):
+    sc = _scenario(Sphere, joint=kind == "joint", dynamic_gravity=kind == "dynamic_gravity")
+    with pytest.raises(NotImplementedError, match="dynamic gravity" if kind == "dynamic_gravity" else "joints"):
         Environment(sc, num_envs=2, device="cpu", fused_physics=True)
 
 

@@ -12,7 +12,9 @@ tests import no JAX.) Tolerances as in chip_smoke.py: state rows atol 1e-5
 rtol 1e-5, observation rows atol 2e-5, reward and shaping rows atol 2e-3;
 road_traffic's path sweeps and observations: indices, flags, short-term
 points and chosen neighbours equal, values atol 1e-6; its env with both
-kernels against the plain path atol 5e-5.
+kernels against the plain path atol 5e-5; balance's on_ground and done flags
+equal except within 1e-5 of a threshold. The balance and all-pairs states
+come from vmas_tpu_torch/testing.py, as chip_smoke.py's do.
 """
 
 import pytest
@@ -104,6 +106,64 @@ def test_rows_rollout_on_the_card_equals_step_rollout(env):
     _, _, tb = rows_rollout_fn(env, horizon=6)(s0, st0, torch.Generator(device="cuda").manual_seed(9))
     assert torch.equal(ta["rewards"], tb["rewards"]) and torch.equal(ta["dones"], tb["dones"])
     assert all(torch.equal(a, b) for a, b in zip(ta["obs"], tb["obs"]))
+
+
+# -- balance and the all-pairs world: every contact pair type ------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the fused-step kernel has no CPU mode")
+
+
+def test_balance_kernels_match_plain():
+    import numpy as np
+
+    from vmas_tpu_torch.testing import balance_contact_state, balance_flag_margin
+    from vmas_tpu_torch.interop import state_from_numpy
+
+    _cuda()
+    e = make_env("balance", B, device="cuda", seed=0, fused_physics=True)
+    world, fo = e.world, e._fused_outputs
+    slots = [a.index for a in e.agents]
+    E, base = len(world.entities), fo.base
+    step = F.make_rows_step(world, fo, slots)
+    carry = F.pack_carry(world, state_from_numpy(world, balance_contact_state(e, np.random.default_rng(5))), fo)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    n1, n2 = F.fused_step_launches, F.rows_step_launches
+    for _ in range(5):
+        act = (torch.rand((2 * len(slots), B), generator=g, device="cuda") * 2 - 1) * 0.7
+        ck, ek = step(carry, act)
+        cp, ep = F.rows_step_plain(world, fo, slots, carry, act)
+        yk, yp = F.fused_step(world, carry, fo), F.fused_step_plain(world, carry, fo)
+        for (sk, xk), (sp, xp) in (((ck[:9 * E], ek), (cp[:9 * E], ep)), ((yk[:9 * E], yk[9 * E:]), (yp[:9 * E], yp[9 * E:]))):
+            _close(sk, sp, 1e-5)
+            _close(xk[:base], xp[:base], 2e-5)
+            ok = (xk[base + 2:base + 4] == xp[base + 2:base + 4]).all(0)
+            assert bool((ok | (balance_flag_margin(fo, sp) < 1e-5)).all())
+            _close(xk[base:base + 2][:, ok], xp[base:base + 2][:, ok], 2e-3)
+            _close(xk[base + 4], xp[base + 4], 2e-3)
+        carry = ck
+    torch.cuda.synchronize()
+    assert (F.fused_step_launches, F.rows_step_launches) == (n1 + 5, n2 + 5)
+
+
+def test_all_pairs_kernel_matches_plain():
+    import numpy as np
+
+    import vmas_tpu_torch.core as TC
+    from vmas_tpu_torch.testing import all_pairs_state, all_pairs_world
+    from vmas_tpu_torch.interop import state_from_numpy
+
+    _cuda()
+    w = all_pairs_world(TC, B, "cuda")
+    s = state_from_numpy(w, all_pairs_state(np.random.default_rng(7), B))
+    x = F.state_rows(s).contiguous()
+    assert all(v > 0 for v in F.contact_counts(w, x).values())
+    for _ in range(3):
+        yk = F.fused_step(w, x)
+        _close(yk, F.fused_step_plain(w, x), 1e-5)
+        x = yk
+    torch.cuda.synchronize()
 
 
 # -- road_traffic: path sweeps and all-ego observations ------------------------

@@ -7,8 +7,9 @@ into ``_build/`` beside this file, named by a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
 The ``ctypes`` structures below mirror ``csrc/fused_step.cu``'s structs field for
-field; the kernel takes them by value. ``csrc/road_traffic.cu`` takes plain
-pointers and scalars.
+field; the kernel takes them by value, and the world's pair tables by
+pointer (``core.fused.KernelSpec.pair_table``). ``csrc/road_traffic.cu``
+takes plain pointers and scalars.
 """
 
 from __future__ import annotations
@@ -30,10 +31,9 @@ NVCC_FLAGS = [
 # kernel name -> its source; one nvcc process per source
 SOURCES = {"fused_step": "fused_step.cu", "road_traffic": "road_traffic.cu"}
 
-# capacities of the kernel's by-value spec (csrc/fused_step.cu)
+# capacities of the kernel's by-value spec (csrc/fused_step.cu); the pair
+# tables are a device buffer of any length
 MAX_E = 32
-MAX_SS = 64
-MAX_BS = 16
 MAX_A = 16
 MAX_K = 8
 MAX_P = 4
@@ -51,10 +51,12 @@ F_GRAVITY = 256
 F_DRAG = 512
 F_MAX_SPEED = 1024
 F_V_RANGE = 2048
+F_TRIG = 4096  # a pair reads the entity's rotation (a line or a box)
 
 # FusedOutputs.emit realizations compiled into the kernel
 EMIT_NONE = 0
 EMIT_TRANSPORT = 1
+EMIT_BALANCE = 2
 
 _i, _f = ctypes.c_int, ctypes.c_float
 
@@ -62,7 +64,9 @@ _i, _f = ctypes.c_int, ctypes.c_float
 class FusedSpec(ctypes.Structure):
     _fields_ = [
         ("E", _i), ("J", _i), ("K_in", _i), ("substeps", _i),
-        ("n_ss", _i), ("n_bs", _i), ("n_act", _i), ("has_x", _i), ("has_y", _i),
+        ("n_ss", _i), ("n_ls", _i), ("n_ll", _i), ("n_bs", _i), ("n_bl", _i), ("n_bb", _i),
+        ("o_ss", _i), ("o_ls", _i), ("o_ll", _i), ("o_bs", _i), ("o_bl", _i), ("o_bb", _i),
+        ("n_act", _i), ("has_x", _i), ("has_y", _i),
         ("sub_dt", _f), ("cm", _f), ("cf", _f), ("x_semidim", _f), ("y_semidim", _f),
         ("flags", _i * MAX_E),
         ("inv_mass", _f * MAX_E), ("inv_moi", _f * MAX_E), ("drag_fac", _f * MAX_E),
@@ -71,20 +75,36 @@ class FusedSpec(ctypes.Structure):
         ("max_speed", _f * MAX_E), ("v_range", _f * MAX_E),
         ("lfm", _f * MAX_E), ("mass", _f * MAX_E), ("afm", _f * MAX_E), ("moi", _f * MAX_E),
         ("gsx", _f * MAX_E), ("gsy", _f * MAX_E),
-        ("ss_a", _i * MAX_SS), ("ss_b", _i * MAX_SS), ("ss_dmin", _f * MAX_SS),
-        ("bs_box", _i * MAX_BS), ("bs_sph", _i * MAX_BS), ("bs_nh", _i * MAX_BS),
-        ("bs_hw", _f * MAX_BS), ("bs_hl", _f * MAX_BS), ("bs_dmin0", _f * MAX_BS),
         ("act_slot", _i * MAX_A),
     ]
 
 
-class EmitParams(ctypes.Structure):
+class TransportParams(ctypes.Structure):
     _fields_ = [
-        ("carry_idx", _i * MAX_K),
         ("n_agents", _i), ("n_pkgs", _i), ("goal", _i),
         ("agent", _i * MAX_A), ("pkg", _i * MAX_P),
         ("hw", _f * MAX_P), ("hl", _f * MAX_P),
         ("og_dmin", _f), ("factor", _f),
+    ]
+
+
+class BalanceParams(ctypes.Structure):
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A),
+        ("goal", _i), ("pkg", _i), ("line", _i), ("floor", _i),
+        ("pkg_r", _f), ("goal_r", _f), ("pkg_dmin", _f),
+        ("line_half", _f), ("floor_hw", _f), ("floor_hl", _f),
+        ("factor", _f), ("fall_rew", _f),
+    ]
+
+
+class EmitParams(ctypes.Structure):
+    """The scratch-carry map, then each emit's own parameters."""
+
+    _fields_ = [
+        ("carry_idx", _i * MAX_K),
+        ("transport", TransportParams),
+        ("balance", BalanceParams),
     ]
 
 
@@ -151,7 +171,7 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         if name == "fused_step":
             lib.vmas_fused_step.argtypes = [
-                ctypes.POINTER(FusedSpec), ctypes.POINTER(EmitParams), ctypes.c_int,
+                ctypes.POINTER(FusedSpec), ctypes.POINTER(EmitParams), ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]

@@ -19,11 +19,14 @@ share one device function. A wrapper runs the plain version for a tensor on
 the CPU and the kernel for a tensor on a GPU, and counts each kernel
 launch in ``fused_step_launches`` / ``rows_step_launches``.
 
-Covered: sphere-sphere and box-sphere contacts, action clamps, friction,
-static gravity, drag, speed clamps, semidim clamps, any substeps, and
-transport's emit. Not ported yet: the other pair types, joints, dynamic
-gravity, ``process_act_rows`` and ``k_steps > 1``; worlds that need them
-raise ``NotImplementedError``. Forward only: ``Environment`` refuses
+Covered: all six shape-pair contact types (sphere-sphere, line-sphere,
+line-line, box-sphere, box-line, box-box, in that order), action clamps,
+friction, static gravity, drag, speed clamps, semidim clamps, any substeps,
+and the emits of transport and balance. The world's pair tables live in
+one device buffer (``KernelSpec.pair_table``), so a world may have any
+number of pairs. Not ported yet: joints, dynamic gravity,
+``process_act_rows`` and ``k_steps > 1``; worlds that need them raise
+``NotImplementedError``. Forward only: ``Environment`` refuses
 ``grad_enabled`` with ``fused_physics``.
 """
 
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from vmas_tpu_torch import _kernels as K
@@ -112,6 +116,70 @@ def _closest_point_box(px, py, cos, sin, half_w, half_l, tx, ty):
     return bx, by
 
 
+def _line_extrema(lx, ly, cos, sin, half):
+    return (lx + cos * half, ly + sin * half, lx - cos * half, ly - sin * half)
+
+
+def _intersection(a1x, a1y, a2x, a2y, b1x, b1y, b2x, b2y):
+    """geometry.intersection_point_line_line on rows -> (ix, iy, hit); a
+    parallel pair (cross_r_s == 0) divides by 1 and never hits."""
+    rx, ry = a2x - a1x, a2y - a1y
+    sx, sy = b2x - b1x, b2y - b1y
+    qpx, qpy = b1x - a1x, b1y - a1y
+    cross_qp_r = qpx * ry - qpy * rx
+    cross_qp_s = qpx * sy - qpy * sx
+    cross_r_s = rx * sy - ry * sx
+    den = torch.where(cross_r_s == 0.0, 1.0, cross_r_s)
+    u = cross_qp_r / den
+    t = cross_qp_s / den
+    cond = (cross_r_s != 0.0) & (t >= 0) & (t <= 1) & (u >= 0) & (u <= 1)
+    return a1x + t * rx, a1y + t * ry, cond
+
+
+def _closest_points_line_line(ax, ay, acos, asin, ahalf, bx, by, bcos, bsin, bhalf):
+    """(point on a, point on b): the intersection where the segments cross,
+    else the first closest of (a1, a1 on b), (a2, a2 on b), (b1 on a, b1),
+    (b2 on a, b2)."""
+    a1x, a1y, a2x, a2y = _line_extrema(ax, ay, acos, asin, ahalf)
+    b1x, b1y, b2x, b2y = _line_extrema(bx, by, bcos, bsin, bhalf)
+    ix, iy, hit = _intersection(a1x, a1y, a2x, a2y, b1x, b1y, b2x, b2y)
+
+    a1bx, a1by = _closest_point_line(bx, by, bcos, bsin, bhalf, a1x, a1y)
+    a2bx, a2by = _closest_point_line(bx, by, bcos, bsin, bhalf, a2x, a2y)
+    b1ax, b1ay = _closest_point_line(ax, ay, acos, asin, ahalf, b1x, b1y)
+    b2ax, b2ay = _closest_point_line(ax, ay, acos, asin, ahalf, b2x, b2y)
+
+    p1x, p1y, p2x, p2y = _pick_closest([
+        (a1x, a1y, a1bx, a1by),
+        (a2x, a2y, a2bx, a2by),
+        (b1ax, b1ay, b1x, b1y),
+        (b2ax, b2ay, b2x, b2y),
+    ])
+    return (torch.where(hit, ix, p1x), torch.where(hit, iy, p1y),
+            torch.where(hit, ix, p2x), torch.where(hit, iy, p2y))
+
+
+def _closest_line_box(px, py, cos, sin, half_w, half_l, lx, ly, lcos, lsin, lhalf):
+    """(point on the box, point on the line), over the box's edges in
+    _box_edges order."""
+    cands = []
+    for ex, ey, ecos, esin, ehalf in _box_edges(px, py, cos, sin, half_w, half_l):
+        cands.append(_closest_points_line_line(ex, ey, ecos, esin, ehalf, lx, ly, lcos, lsin, lhalf))
+    return _pick_closest(cands)
+
+
+def _bb_closest(ax, ay, ca, sa, hwa, hla, bx, by, cb, sb, hwb, hlb):
+    """(point on a, point on b) of two boxes: a's edges against b's
+    perimeter first, then b's edges against a's; first minimum wins."""
+    cands = []
+    for ex, ey, ecos, esin, ehalf in _box_edges(ax, ay, ca, sa, hwa, hla):
+        onb_x, onb_y, ona_x, ona_y = _closest_line_box(bx, by, cb, sb, hwb, hlb, ex, ey, ecos, esin, ehalf)
+        cands.append((ona_x, ona_y, onb_x, onb_y))
+    for ex, ey, ecos, esin, ehalf in _box_edges(bx, by, cb, sb, hwb, hlb):
+        cands.append(_closest_line_box(ax, ay, ca, sa, hwa, hla, ex, ey, ecos, esin, ehalf))
+    return _pick_closest(cands)
+
+
 def _inner_point_box(ox, oy, sx, sy, bx, by):
     """geometry.inner_point_box on rows -> (ix, iy, dist)."""
     vx, vy = sx - ox, sy - oy
@@ -133,19 +201,35 @@ def _inner_point_box(ox, oy, sx, sy, bx, by):
 # eligibility
 # ---------------------------------------------------------------------------
 
-# rough per-pair instruction weights (the JAX package's cost rule)
-_PAIR_WEIGHT = {"ss": 1, "bs": 5}
+# the JAX package's cost rule, exactly: rough per-pair instruction weights
+# (bb expands to 8 line-box candidates of 4 line-line tests each), and a
+# type with at least _LANE_MIN pairs costs one vectorized computation per 8
+# pairs plus its scatter (the JAX kernel's lane-tile form)
+_PAIR_WEIGHT = {"ss": 1, "ls": 2, "ll": 5, "bs": 5, "bl": 20, "bb": 40}
 _MAX_UNROLL = 4000
+_LANE_MIN = 8
+
+
+def _pair_cost(n, weight, substeps):
+    if n >= _LANE_MIN:
+        return (-(-n // 8) + n // 4) * weight * substeps
+    return n * weight * substeps
 
 
 def supports(world) -> bool:
-    """The JAX package's cost rule: very contact-saturated worlds take the
-    plain physics path instead of the fused step."""
+    """The JAX package's rule (vmas_tpu/core/fused.py supports): very
+    contact-saturated worlds take the plain physics path instead of the
+    fused step, so both packages fuse the same worlds."""
     spec = world.spec
     substeps = int(world.substeps)
     cost = (
-        len(spec.ss_a) * _PAIR_WEIGHT["ss"] * substeps
-        + len(spec.bs_box) * _PAIR_WEIGHT["bs"] * substeps
+        _pair_cost(len(spec.ss_a), _PAIR_WEIGHT["ss"], substeps)
+        + _pair_cost(len(spec.ls_line), _PAIR_WEIGHT["ls"], substeps)
+        + _pair_cost(len(spec.ll_a), _PAIR_WEIGHT["ll"], substeps)
+        + _pair_cost(len(spec.bs_box), _PAIR_WEIGHT["bs"], substeps)
+        + _pair_cost(len(spec.bl_box), _PAIR_WEIGHT["bl"], substeps)
+        + _pair_cost(len(spec.bb_a), _PAIR_WEIGHT["bb"], substeps)
+        + len(spec.joint_idx_a) * 2 * substeps
         + len(spec.movable) * substeps
     )
     return cost <= _MAX_UNROLL
@@ -153,17 +237,14 @@ def supports(world) -> bool:
 
 def check_fusable(world) -> None:
     """Raise ``NotImplementedError`` for a world the port's kernel cannot
-    step (pair types and joints already raise in ``build_spec``)."""
+    step: joints, dynamic gravity, or more than ``MAX_E`` entities."""
+    spec = world.spec
+    if len(spec.joint_idx_a):
+        raise NotImplementedError("joints are not ported to the fused kernel yet")
     if world.dynamic_gravity:
         raise NotImplementedError("dynamic gravity is not ported to the fused kernel yet")
-    spec = world.spec
-    for what, n, cap in (
-        ("entities", len(spec.mass), K.MAX_E),
-        ("sphere-sphere pairs", len(spec.ss_a), K.MAX_SS),
-        ("box-sphere pairs", len(spec.bs_box), K.MAX_BS),
-    ):
-        if n > cap:
-            raise NotImplementedError(f"the fused kernel takes at most {cap} {what}, this world has {n}")
+    if len(spec.mass) > K.MAX_E:
+        raise NotImplementedError(f"the fused kernel takes at most {K.MAX_E} entities, this world has {len(spec.mass)}")
 
 
 class FusedOutputs:
@@ -243,18 +324,90 @@ class KernelSpec:
             egx, egy = gx + float(spec.ent_gravity[e, 0]), gy + float(spec.ent_gravity[e, 1])
             on = self.movable[e] and (egx != 0.0 or egy != 0.0)
             self.gravity.append((m * egx, m * egy) if on else None)
+        # the pair tables, one tuple per pair in spec order. A constant is
+        # computed as vmas_tpu/core/fused.py computes it for that type: a
+        # type with at least _LANE_MIN pairs from its f32 tile expression,
+        # else from the unrolled one's Python float
+        ls_dmin = spec.ls_rad + LINE_MIN_DIST  # f32 in both forms
+        if len(spec.bs_box) >= _LANE_MIN:
+            bs_dmin0 = [float(v) for v in spec.bs_rad + LINE_MIN_DIST]
+        else:
+            bs_dmin0 = [float(v) + LINE_MIN_DIST for v in spec.bs_rad]
         self.ss = [
             (int(spec.ss_a[k]), int(spec.ss_b[k]), float(spec.ss_ra[k] + spec.ss_rb[k]))
             for k in range(len(spec.ss_a))
+        ]
+        self.ls = [
+            (int(spec.ls_line[k]), int(spec.ls_sphere[k]), float(spec.ls_len[k]) / 2, float(ls_dmin[k]))
+            for k in range(len(spec.ls_line))
+        ]
+        self.ll = [
+            (int(spec.ll_a[k]), int(spec.ll_b[k]), float(spec.ll_la[k]) / 2, float(spec.ll_lb[k]) / 2)
+            for k in range(len(spec.ll_a))
         ]
         self.bs = [
             (
                 int(spec.bs_box[k]), int(spec.bs_sphere[k]),
                 float(spec.bs_wid[k]) / 2, float(spec.bs_len[k]) / 2,
-                float(spec.bs_rad[k]) + LINE_MIN_DIST, bool(spec.bs_not_hollow[k]),
+                bs_dmin0[k], bool(spec.bs_not_hollow[k]),
             )
             for k in range(len(spec.bs_box))
         ]
+        self.bl = [
+            (
+                int(spec.bl_box[k]), int(spec.bl_line[k]),
+                float(spec.bl_bwid[k]) / 2, float(spec.bl_blen[k]) / 2,
+                float(spec.bl_llen[k]) / 2, bool(spec.bl_not_hollow[k]),
+            )
+            for k in range(len(spec.bl_box))
+        ]
+        self.bb = [
+            (
+                int(spec.bb_a[k]), int(spec.bb_b[k]),
+                float(spec.bb_wa[k]) / 2, float(spec.bb_la[k]) / 2,
+                float(spec.bb_wb[k]) / 2, float(spec.bb_lb[k]) / 2,
+                bool(spec.bb_nha[k]), bool(spec.bb_nhb[k]),
+            )
+            for k in range(len(spec.bb_a))
+        ]
+        # the entities whose rotation a pair reads (lines and boxes): their
+        # cos and sin are taken once per substep
+        self.trig = sorted(
+            {r[0] for r in self.ls} | {e for r in self.ll for e in r[:2]} | {r[0] for r in self.bs}
+            | {e for t in (self.bl, self.bb) for r in t for e in r[:2]}
+        )
+        self.table, self.table_offsets = self._pair_table()
+        self._dev_tables = {}
+
+    def _pair_table(self):
+        """All pair tables as one int32 array (floats stored by their bits,
+        rounded once to f32), types in kernel order ss, ls, ll, bs, bl, bb;
+        and each type's offset into it. One record per pair:
+        ss (a, b, dmin), ls (line, sphere, half, dmin), ll (a, b, half_a,
+        half_b), bs (box, sphere, half_w, half_l, dmin0, not_hollow), bl (box,
+        line, half_w, half_l, line_half, not_hollow), bb (a, b, half_wa,
+        half_la, half_wb, half_lb, not_hollow_a, not_hollow_b)."""
+        words, offsets = [], []
+        f = lambda v: int(np.float32(v).view(np.int32))
+        for pairs, kinds in (
+            (self.ss, "iif"), (self.ls, "iiff"), (self.ll, "iiff"),
+            (self.bs, "iifffi"), (self.bl, "iifffi"), (self.bb, "iiffffii"),
+        ):
+            offsets.append(len(words))
+            for rec in pairs:
+                words += [f(v) if k == "f" else int(v) for v, k in zip(rec, kinds)]
+        return np.asarray(words, np.int32), offsets
+
+    def pair_table(self, device) -> torch.Tensor:
+        """The pair table on ``device``: uploaded once per device, then the
+        kernel reads it by pointer."""
+        key = str(device)
+        t = self._dev_tables.get(key)
+        if t is None:
+            # a world without pairs still passes a valid pointer
+            words = self.table if self.table.size else np.zeros(1, np.int32)
+            t = self._dev_tables[key] = torch.as_tensor(words, device=device)
+        return t
 
     def to_ctypes(self, k_in: int, act_slots=()) -> K.FusedSpec:
         """The kernel's by-value spec for ``k_in`` scratch rows and the rows
@@ -270,7 +423,10 @@ class KernelSpec:
             raise NotImplementedError(f"the rows kernel takes at most {K.MAX_A} action slots")
         s = K.FusedSpec()
         s.E, s.J, s.K_in, s.substeps = self.E, self.J, k_in, self.substeps
-        s.n_ss, s.n_bs, s.n_act = len(self.ss), len(self.bs), len(act_slots)
+        s.n_act = len(act_slots)
+        for name, off in zip(("ss", "ls", "ll", "bs", "bl", "bb"), self.table_offsets):
+            setattr(s, f"n_{name}", len(getattr(self, name)))
+            setattr(s, f"o_{name}", off)
         s.has_x, s.has_y = self.x_semidim is not None, self.y_semidim is not None
         s.sub_dt, s.cm, s.cf = self.sub_dt, self.cm, self.cf
         s.x_semidim = self.x_semidim or 0.0
@@ -284,6 +440,7 @@ class KernelSpec:
                 (K.F_LIN_FRIC, self.lin_fric[e] is not None), (K.F_ANG_FRIC, self.ang_fric[e] is not None),
                 (K.F_GRAVITY, self.gravity[e] is not None), (K.F_DRAG, self.drag_fac[e] is not None),
                 (K.F_MAX_SPEED, self.max_speed[e] is not None), (K.F_V_RANGE, self.v_range[e] is not None),
+                (K.F_TRIG, e in self.trig),
             ):
                 flags |= bit if on else 0
             s.flags[e] = flags
@@ -295,11 +452,6 @@ class KernelSpec:
             s.lfm[e], s.mass[e] = self.lin_fric[e] or (0.0, 0.0)
             s.afm[e], s.moi[e] = self.ang_fric[e] or (0.0, 0.0)
             s.gsx[e], s.gsy[e] = self.gravity[e] or (0.0, 0.0)
-        for k, (a, b, dmin) in enumerate(self.ss):
-            s.ss_a[k], s.ss_b[k], s.ss_dmin[k] = a, b, dmin
-        for k, (box, sph, hw, hl, dmin0, nh) in enumerate(self.bs):
-            s.bs_box[k], s.bs_sph[k], s.bs_nh[k] = box, sph, int(nh)
-            s.bs_hw[k], s.bs_hl[k], s.bs_dmin0[k] = hw, hl, dmin0
         for i, e in enumerate(act_slots):
             s.act_slot[i] = e
         return s
@@ -317,12 +469,105 @@ def _kernel_spec(world) -> KernelSpec:
 # the plain version: one env step on [B] rows, in the kernel's order
 # ---------------------------------------------------------------------------
 
+def _pair_forces(ks, px, py, rot):
+    """Every pair's contact force, in the kernel's order (ss, ls, ll, bs,
+    bl, bb, each in spec order), as ``(i, j, fx, fy, torque_i,
+    torque_j)``: +f acts on entity i, -f on entity j, and a torque is None
+    where the type has none. Per type: ss +f on a; ls +f on the sphere, -f
+    and a torque on the line; ll +f on a, torque on both; bs +f on the
+    sphere, -f and a torque on the box; bl +f on the box, -f on the line,
+    torque on both; bb +f on a, torque on both."""
+    cm, cf = ks.cm, ks.cf
+    trig = {}
+
+    def cs(e):
+        """cos/sin of entity e's rotation, once per substep."""
+        if e not in trig:
+            trig[e] = (torch.cos(rot[e]), torch.sin(rot[e]))
+        return trig[e]
+
+    for a, b, dmin in ks.ss:
+        cfx, cfy = _constraint_force(cm, px[a], py[a], px[b], py[b], dmin, cf)
+        yield a, b, cfx, cfy, None, None
+
+    for ln, s, half, dmin in ks.ls:
+        cos, sin = cs(ln)
+        cx, cy = _closest_point_line(px[ln], py[ln], cos, sin, half, px[s], py[s])
+        sfx, sfy = _constraint_force(cm, px[s], py[s], cx, cy, dmin, cf)
+        yield s, ln, sfx, sfy, None, (cx - px[ln]) * (-sfy) - (cy - py[ln]) * (-sfx)
+
+    for a, b, ha, hb in ks.ll:
+        ca, sa = cs(a)
+        cb, sb = cs(b)
+        pax, pay, pbx, pby = _closest_points_line_line(px[a], py[a], ca, sa, ha, px[b], py[b], cb, sb, hb)
+        afx, afy = _constraint_force(cm, pax, pay, pbx, pby, LINE_MIN_DIST, cf)
+        yield (a, b, afx, afy, (pax - px[a]) * afy - (pay - py[a]) * afx,
+               (pbx - px[b]) * (-afy) - (pby - py[b]) * (-afx))
+
+    for b, s, hw, hl, dmin0, not_hollow in ks.bs:
+        cos, sin = cs(b)
+        cx, cy = _closest_point_box(px[b], py[b], cos, sin, hw, hl, px[s], py[s])
+        if not_hollow:
+            ix, iy, d = _inner_point_box(px[s], py[s], cx, cy, px[b], py[b])
+            dmin = dmin0 + d
+        else:
+            ix, iy, dmin = cx, cy, dmin0
+        sfx, sfy = _constraint_force(cm, px[s], py[s], ix, iy, dmin, cf)
+        yield s, b, sfx, sfy, None, (cx - px[b]) * (-sfy) - (cy - py[b]) * (-sfx)
+
+    for b, ln, hw, hl, lhalf, not_hollow in ks.bl:
+        cos, sin = cs(b)
+        lcos, lsin = cs(ln)
+        qbx, qby, qlx, qly = _closest_line_box(px[b], py[b], cos, sin, hw, hl, px[ln], py[ln], lcos, lsin, lhalf)
+        if not_hollow:
+            ix, iy, d = _inner_point_box(qlx, qly, qbx, qby, px[b], py[b])
+            dmin = LINE_MIN_DIST + d
+        else:
+            ix, iy, dmin = qbx, qby, LINE_MIN_DIST
+        bfx, bfy = _constraint_force(cm, ix, iy, qlx, qly, dmin, cf)
+        yield (b, ln, bfx, bfy, (qbx - px[b]) * bfy - (qby - py[b]) * bfx,
+               (qlx - px[ln]) * (-bfy) - (qly - py[ln]) * (-bfx))
+
+    for a, b, hwa, hla, hwb, hlb, nha, nhb in ks.bb:
+        ca, sa = cs(a)
+        cb, sb = cs(b)
+        qax, qay, qbx, qby = _bb_closest(px[a], py[a], ca, sa, hwa, hla, px[b], py[b], cb, sb, hwb, hlb)
+        if nha:
+            iax, iay, da = _inner_point_box(qbx, qby, qax, qay, px[a], py[a])
+        else:
+            iax, iay, da = qax, qay, 0.0
+        if nhb:
+            ibx, iby, db = _inner_point_box(qax, qay, qbx, qby, px[b], py[b])
+        else:
+            ibx, iby, db = qbx, qby, 0.0
+        afx, afy = _constraint_force(cm, iax, iay, ibx, iby, da + db + LINE_MIN_DIST, cf)
+        yield (a, b, afx, afy, (qax - px[a]) * afy - (qay - py[a]) * afx,
+               (qbx - px[b]) * (-afy) - (qby - py[b]) * (-afx))
+
+
+PAIR_TYPES = ("ss", "ls", "ll", "bs", "bl", "bb")
+
+
+def contact_counts(world, x) -> dict:
+    """Per pair type, how many (pair, env) contacts of the state rows ``x``
+    [9E + ..., B] carry a non-zero penalty force (the plain version's), so
+    a comparison can show that it exercised each type."""
+    ks = _kernel_spec(world)
+    E = ks.E
+    px, py, rot = list(x[:E]), list(x[E:2 * E]), list(x[4 * E:5 * E])
+    kinds = [t for t in PAIR_TYPES for _ in getattr(ks, t)]
+    counts = dict.fromkeys(PAIR_TYPES, 0)
+    for kind, (_, _, fx, fy, _, _) in zip(kinds, _pair_forces(ks, px, py, rot)):
+        counts[kind] += int(((fx != 0) | (fy != 0)).sum())
+    return counts
+
+
 def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq):
     """All substeps of one physics step on per-entity row lists (rebound
     in place). Per entity the forces accumulate as the kernel accumulates
-    them: action, friction, gravity, then the ss pairs and the bs pairs in
-    spec order (+f on a, -f on b)."""
-    E, cm, cf, sub_dt = ks.E, ks.cm, ks.cf, ks.sub_dt
+    them: action, friction, gravity, then the pair types in the order ss,
+    ls, ll, bs, bl, bb, each in spec order."""
+    E, sub_dt = ks.E, ks.sub_dt
     mv, ro = ks.movable, ks.rotatable
     for substep in range(ks.substeps):
         # action clamps, re-applied every substep on the persistent rows
@@ -375,35 +620,16 @@ def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq):
                 Fx[e] = Fx[e] + ks.gravity[e][0]
                 Fy[e] = Fy[e] + ks.gravity[e][1]
 
-        trig = {}
-
-        def cs(e):
-            if e not in trig:
-                trig[e] = (torch.cos(rot[e]), torch.sin(rot[e]))
-            return trig[e]
-
-        for a, b, dmin in ks.ss:
-            cfx, cfy = _constraint_force(cm, px[a], py[a], px[b], py[b], dmin, cf)
-            if mv[a]:
-                Fx[a], Fy[a] = Fx[a] + cfx, Fy[a] + cfy
-            if mv[b]:
-                Fx[b], Fy[b] = Fx[b] + (-cfx), Fy[b] + (-cfy)
-
-        for b, s, hw, hl, dmin0, not_hollow in ks.bs:
-            cos, sin = cs(b)
-            cx, cy = _closest_point_box(px[b], py[b], cos, sin, hw, hl, px[s], py[s])
-            if not_hollow:
-                ix, iy, d = _inner_point_box(px[s], py[s], cx, cy, px[b], py[b])
-                dmin = dmin0 + d
-            else:
-                ix, iy, dmin = cx, cy, dmin0
-            sfx, sfy = _constraint_force(cm, px[s], py[s], ix, iy, dmin, cf)
-            if mv[s]:
-                Fx[s], Fy[s] = Fx[s] + sfx, Fy[s] + sfy
-            if mv[b]:
-                Fx[b], Fy[b] = Fx[b] + (-sfx), Fy[b] + (-sfy)
-            if ro[b]:
-                Tq[b] = Tq[b] + ((cx - px[b]) * (-sfy) - (cy - py[b]) * (-sfx))
+        for i, j, fx_, fy_, ti, tj in _pair_forces(ks, px, py, rot):
+            # +f on i, -f on j; a torque on either where the type has one
+            if mv[i]:
+                Fx[i], Fy[i] = Fx[i] + fx_, Fy[i] + fy_
+            if ti is not None and ro[i]:
+                Tq[i] = Tq[i] + ti
+            if mv[j]:
+                Fx[j], Fy[j] = Fx[j] + (-fx_), Fy[j] + (-fy_)
+            if tj is not None and ro[j]:
+                Tq[j] = Tq[j] + tj
 
         # integrate (semi-implicit Euler; drag on the first substep only)
         for e in range(E):
@@ -499,14 +725,14 @@ def _emit_params(outputs):
     return outputs.kernel_emit()
 
 
-def _launch(spec_c, outputs, x, act, out, extra, rows_mode):
+def _launch(spec_c, table, outputs, x, act, out, extra, rows_mode):
     kind, ep = _emit_params(outputs)
     lib = K.library("fused_step")
     B = x.shape[1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.vmas_fused_step(
-            spec_c, ep, kind, x.data_ptr(),
+            spec_c, ep, kind, table.data_ptr(), x.data_ptr(),
             None if act is None else act.data_ptr(),
             out.data_ptr(), None if extra is None else extra.data_ptr(),
             B, int(rows_mode), stream,
@@ -529,9 +755,21 @@ def fused_step(world, x, outputs=None):
     B = x.shape[1]
     _check_rows("x", x, (9 * ks.E + ks.J + k_in, B))
     out = torch.empty((9 * ks.E + k_out, B), dtype=torch.float32, device=x.device)
-    _launch(ks.to_ctypes(k_in), outputs, x, None, out, None, rows_mode=False)
+    _launch(ks.to_ctypes(k_in), ks.pair_table(x.device), outputs, x, None, out, None, rows_mode=False)
     fused_step_launches += 1
     return out
+
+
+def state_rows(state):
+    """The state's 9E component rows [9E, B]: px, py, vx, vy, rot, w, fx, fy,
+    tq, each a block of E rows."""
+    return torch.cat([
+        state.pos[..., 0].T, state.pos[..., 1].T,
+        state.vel[..., 0].T, state.vel[..., 1].T,
+        state.rot.T, state.ang_vel.T,
+        state.force[..., 0].T, state.force[..., 1].T,
+        state.torque.T,
+    ], dim=0)
 
 
 def fused_physics_step(world, state, outputs=None):
@@ -540,14 +778,7 @@ def fused_physics_step(world, state, outputs=None):
     ``(state, extra [n_out, B])``."""
     spec = world.spec
     E = len(spec.mass)
-    parts = [
-        state.pos[..., 0].T, state.pos[..., 1].T,
-        state.vel[..., 0].T, state.vel[..., 1].T,
-        state.rot.T, state.ang_vel.T,
-        state.force[..., 0].T, state.force[..., 1].T,
-        state.torque.T,
-        state.joint_fixed_rot.T,
-    ]
+    parts = [state_rows(state), state.joint_fixed_rot.T]
     if outputs is not None:
         parts.append(torch.as_tensor(outputs.scratch_rows(state), dtype=torch.float32, device=state.device))
     x = torch.cat(parts, dim=0).contiguous()  # [R, B]
@@ -606,11 +837,7 @@ def rows_layout(world, outputs):
 def pack_carry(world, state, outputs):
     """State + joint fixed rotations + scratch as one [R_in, B] buffer."""
     parts = [
-        state.pos[..., 0].T, state.pos[..., 1].T,
-        state.vel[..., 0].T, state.vel[..., 1].T,
-        state.rot.T, state.ang_vel.T,
-        state.force[..., 0].T, state.force[..., 1].T,
-        state.torque.T,
+        state_rows(state),
         state.joint_fixed_rot.T.to(torch.float32),
         torch.as_tensor(outputs.scratch_rows(state), dtype=torch.float32, device=state.device),
     ]
@@ -639,7 +866,8 @@ def make_rows_step(world, outputs, act_slots):
     R_in = rows_layout(world, outputs)
     n_out = int(outputs.n_out)
     A = len(act_slots)
-    spec_c = _kernel_spec(world).to_ctypes(int(outputs.n_scratch_in), act_slots)
+    ks = _kernel_spec(world)
+    spec_c = ks.to_ctypes(int(outputs.n_scratch_in), act_slots)
 
     def step(carry, act, extra_out=None):
         global rows_step_launches
@@ -656,7 +884,7 @@ def make_rows_step(world, outputs, act_slots):
         if extra_out is None:
             extra_out = torch.empty((n_out, B), dtype=torch.float32, device=carry.device)
         _check_rows("extra_out", extra_out, (n_out, B))
-        _launch(spec_c, outputs, carry, act, out, extra_out, rows_mode=True)
+        _launch(spec_c, ks.pair_table(carry.device), outputs, carry, act, out, extra_out, rows_mode=True)
         rows_step_launches += 1
         return out, extra_out
 

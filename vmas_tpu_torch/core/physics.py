@@ -6,9 +6,9 @@ dense ``[B, P]`` computation followed by a scatter-add, and the force
 accumulation order is the JAX package's: action, friction, gravity, then
 the pair types in spec order. It stays differentiable through autograd.
 
-The port covers sphere-sphere and box-sphere contacts. Line pairs, box-line
-and box-box pairs, and joints are not ported yet: ``build_spec`` raises
-``NotImplementedError`` naming the missing type.
+The port covers all six shape-pair contact types (sphere-sphere,
+line-sphere, line-line, box-sphere, box-line, box-box). Joints are not
+ported yet: ``World.add_joint`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ def build_spec(world) -> SimpleNamespace:
     spec.silent = np.asarray([a.silent for a in agents], bool)
 
     # ---- collision pair buckets -------------------------------------------
-    ss, bs = [], []
+    ss, ls, ll, bs, bl, bb = [], [], [], [], [], []
     for ai in range(E):
         for bi in range(ai + 1, E):
             ea, eb = entities[ai], entities[bi]
@@ -90,20 +90,19 @@ def build_spec(world) -> SimpleNamespace:
             sa, sb = ea.shape, eb.shape
             if isinstance(sa, Sphere) and isinstance(sb, Sphere):
                 ss.append((ea, eb))
+            elif {type(sa), type(sb)} == {Line, Sphere}:
+                line, sphere = (ea, eb) if isinstance(sb, Sphere) else (eb, ea)
+                ls.append((line, sphere))
+            elif isinstance(sa, Line) and isinstance(sb, Line):
+                ll.append((ea, eb))
             elif {type(sa), type(sb)} == {Box, Sphere}:
                 box, sphere = (ea, eb) if isinstance(sb, Sphere) else (eb, ea)
                 bs.append((box, sphere))
-            else:
-                kind = {
-                    frozenset({Line, Sphere}): "line-sphere",
-                    frozenset({Line}): "line-line",
-                    frozenset({Box, Line}): "box-line",
-                    frozenset({Box}): "box-box",
-                }[frozenset({type(sa), type(sb)})]
-                raise NotImplementedError(
-                    f"{kind} contact ({ea.name}, {eb.name}) is not ported to "
-                    "vmas_tpu_torch yet: only sphere-sphere and box-sphere pairs are"
-                )
+            elif {type(sa), type(sb)} == {Box, Line}:
+                box, line = (ea, eb) if isinstance(sb, Line) else (eb, ea)
+                bl.append((box, line))
+            elif isinstance(sa, Box) and isinstance(sb, Box):
+                bb.append((ea, eb))
 
     idx = lambda pairs, k: np.asarray([p[k].index for p in pairs], np.int64)
     prop = lambda pairs, k, f, dt=np.float32: np.asarray([f(p[k]) for p in pairs], dt)
@@ -111,10 +110,28 @@ def build_spec(world) -> SimpleNamespace:
     spec.ss_a, spec.ss_b = idx(ss, 0), idx(ss, 1)
     spec.ss_ra, spec.ss_rb = prop(ss, 0, lambda e: e.shape.radius), prop(ss, 1, lambda e: e.shape.radius)
 
+    spec.ls_line, spec.ls_sphere = idx(ls, 0), idx(ls, 1)
+    spec.ls_len = prop(ls, 0, lambda e: e.shape.length)
+    spec.ls_rad = prop(ls, 1, lambda e: e.shape.radius)
+
+    spec.ll_a, spec.ll_b = idx(ll, 0), idx(ll, 1)
+    spec.ll_la, spec.ll_lb = prop(ll, 0, lambda e: e.shape.length), prop(ll, 1, lambda e: e.shape.length)
+
     spec.bs_box, spec.bs_sphere = idx(bs, 0), idx(bs, 1)
     spec.bs_len, spec.bs_wid = prop(bs, 0, lambda e: e.shape.length), prop(bs, 0, lambda e: e.shape.width)
     spec.bs_not_hollow = prop(bs, 0, lambda e: not e.shape.hollow, bool)
     spec.bs_rad = prop(bs, 1, lambda e: e.shape.radius)
+
+    spec.bl_box, spec.bl_line = idx(bl, 0), idx(bl, 1)
+    spec.bl_blen, spec.bl_bwid = prop(bl, 0, lambda e: e.shape.length), prop(bl, 0, lambda e: e.shape.width)
+    spec.bl_not_hollow = prop(bl, 0, lambda e: not e.shape.hollow, bool)
+    spec.bl_llen = prop(bl, 1, lambda e: e.shape.length)
+
+    spec.bb_a, spec.bb_b = idx(bb, 0), idx(bb, 1)
+    spec.bb_la, spec.bb_wa = prop(bb, 0, lambda e: e.shape.length), prop(bb, 0, lambda e: e.shape.width)
+    spec.bb_nha = prop(bb, 0, lambda e: not e.shape.hollow, bool)
+    spec.bb_lb, spec.bb_wb = prop(bb, 1, lambda e: e.shape.length), prop(bb, 1, lambda e: e.shape.width)
+    spec.bb_nhb = prop(bb, 1, lambda e: not e.shape.hollow, bool)
 
     # joints are not ported; the table stays empty so layouts keep J = 0
     spec.joint_idx_a = np.zeros(0, np.int64)
@@ -150,9 +167,19 @@ def _dev(world):
             silent=t(spec.silent, torch.bool),
             ss_a=t(spec.ss_a, torch.long), ss_b=t(spec.ss_b, torch.long),
             ss_dmin=t(spec.ss_ra + spec.ss_rb),
+            ls_line=t(spec.ls_line, torch.long), ls_sphere=t(spec.ls_sphere, torch.long),
+            ls_len=t(spec.ls_len), ls_dmin=t(spec.ls_rad + LINE_MIN_DIST),
+            ll_a=t(spec.ll_a, torch.long), ll_b=t(spec.ll_b, torch.long),
+            ll_la=t(spec.ll_la), ll_lb=t(spec.ll_lb),
             bs_box=t(spec.bs_box, torch.long), bs_sphere=t(spec.bs_sphere, torch.long),
             bs_len=t(spec.bs_len), bs_wid=t(spec.bs_wid),
             bs_not_hollow=t(spec.bs_not_hollow, torch.bool), bs_rad=t(spec.bs_rad),
+            bl_box=t(spec.bl_box, torch.long), bl_line=t(spec.bl_line, torch.long),
+            bl_blen=t(spec.bl_blen), bl_bwid=t(spec.bl_bwid), bl_llen=t(spec.bl_llen),
+            bl_not_hollow=t(spec.bl_not_hollow, torch.bool),
+            bb_a=t(spec.bb_a, torch.long), bb_b=t(spec.bb_b, torch.long),
+            bb_la=t(spec.bb_la), bb_wa=t(spec.bb_wa), bb_lb=t(spec.bb_lb), bb_wb=t(spec.bb_wb),
+            bb_nha=t(spec.bb_nha, torch.bool), bb_nhb=t(spec.bb_nhb, torch.bool),
         )
     return spec.dev
 
@@ -226,7 +253,8 @@ def _friction_force(vel, coeff, mass, sub_dt):
 
 
 def _environment_forces(world, state, forces, torques):
-    """The ss and bs shape-pair contact forces."""
+    """The six shape-pair contact forces, in the JAX package's order: ss,
+    ls, ll, bs, bl, bb."""
     spec, dv = world.spec, _dev(world)
     cm = world.contact_margin
     cf = world.collision_force
@@ -236,6 +264,29 @@ def _environment_forces(world, state, forces, torques):
         fa, fb = constraint_forces(cm, pa, pb, dv.ss_dmin[None, :], cf)
         forces = _add_force(forces, dv.movable, dv.ss_a, fa)
         forces = _add_force(forces, dv.movable, dv.ss_b, fb)
+
+    if len(spec.ls_line):
+        pos_l, pos_s = state.pos[:, dv.ls_line], state.pos[:, dv.ls_sphere]
+        rot_l = state.rot[:, dv.ls_line]
+        length = dv.ls_len[None, :].expand(rot_l.shape)
+        closest = G.closest_point_line(pos_l, rot_l, length, pos_s)
+        f_sphere, f_line = constraint_forces(cm, pos_s, closest, dv.ls_dmin[None, :], cf)
+        t_line = TorchUtils.compute_torque(f_line, closest - pos_l)
+        forces = _add_force(forces, dv.movable, dv.ls_line, f_line)
+        torques = _add_torque(torques, dv.rotatable, dv.ls_line, t_line)
+        forces = _add_force(forces, dv.movable, dv.ls_sphere, f_sphere)
+
+    if len(spec.ll_a):
+        pos_a, pos_b = state.pos[:, dv.ll_a], state.pos[:, dv.ll_b]
+        rot_a, rot_b = state.rot[:, dv.ll_a], state.rot[:, dv.ll_b]
+        la = dv.ll_la[None, :].expand(rot_a.shape)
+        lb = dv.ll_lb[None, :].expand(rot_b.shape)
+        point_a, point_b = G.closest_points_line_line(pos_a, rot_a, la, pos_b, rot_b, lb)
+        fa, fb = constraint_forces(cm, point_a, point_b, LINE_MIN_DIST, cf)
+        forces = _add_force(forces, dv.movable, dv.ll_a, fa)
+        torques = _add_torque(torques, dv.rotatable, dv.ll_a, TorchUtils.compute_torque(fa, point_a - pos_a))
+        forces = _add_force(forces, dv.movable, dv.ll_b, fb)
+        torques = _add_torque(torques, dv.rotatable, dv.ll_b, TorchUtils.compute_torque(fb, point_b - pos_b))
 
     if len(spec.bs_box):
         pos_box, pos_s = state.pos[:, dv.bs_box], state.pos[:, dv.bs_sphere]
@@ -257,6 +308,56 @@ def _environment_forces(world, state, forces, torques):
         forces = _add_force(forces, dv.movable, dv.bs_box, f_box)
         torques = _add_torque(torques, dv.rotatable, dv.bs_box, t_box)
         forces = _add_force(forces, dv.movable, dv.bs_sphere, f_sphere)
+
+    if len(spec.bl_box):
+        pos_box, pos_line = state.pos[:, dv.bl_box], state.pos[:, dv.bl_line]
+        rot_box, rot_line = state.rot[:, dv.bl_box], state.rot[:, dv.bl_line]
+        bwid = dv.bl_bwid[None, :].expand(rot_box.shape)
+        blen = dv.bl_blen[None, :].expand(rot_box.shape)
+        llen = dv.bl_llen[None, :].expand(rot_line.shape)
+        point_box, point_line = G.closest_line_box(pos_box, rot_box, bwid, blen, pos_line, rot_line, llen)
+        inner_point = point_box
+        d = torch.zeros_like(rot_box)
+        if spec.bl_not_hollow.any():
+            inner_h, d_h = G.inner_point_box(point_line, point_box, pos_box)
+            nh = dv.bl_not_hollow[None, :]
+            inner_point = torch.where(nh[..., None], inner_h, inner_point)
+            d = torch.where(nh, d_h, d)
+        f_box, f_line = constraint_forces(cm, inner_point, point_line, LINE_MIN_DIST + d, cf)
+        forces = _add_force(forces, dv.movable, dv.bl_box, f_box)
+        torques = _add_torque(
+            torques, dv.rotatable, dv.bl_box, TorchUtils.compute_torque(f_box, point_box - pos_box)
+        )
+        forces = _add_force(forces, dv.movable, dv.bl_line, f_line)
+        torques = _add_torque(
+            torques, dv.rotatable, dv.bl_line, TorchUtils.compute_torque(f_line, point_line - pos_line)
+        )
+
+    if len(spec.bb_a):
+        pos_a, pos_b = state.pos[:, dv.bb_a], state.pos[:, dv.bb_b]
+        rot_a, rot_b = state.rot[:, dv.bb_a], state.rot[:, dv.bb_b]
+        wa = dv.bb_wa[None, :].expand(rot_a.shape)
+        la = dv.bb_la[None, :].expand(rot_a.shape)
+        wb = dv.bb_wb[None, :].expand(rot_b.shape)
+        lb = dv.bb_lb[None, :].expand(rot_b.shape)
+        point_a, point_b = G.closest_box_box(pos_a, rot_a, wa, la, pos_b, rot_b, wb, lb)
+        inner_a, d_a = point_a, torch.zeros_like(rot_a)
+        if spec.bb_nha.any():
+            ih, dh = G.inner_point_box(point_b, point_a, pos_a)
+            nh = dv.bb_nha[None, :]
+            inner_a = torch.where(nh[..., None], ih, inner_a)
+            d_a = torch.where(nh, dh, d_a)
+        inner_b, d_b = point_b, torch.zeros_like(rot_b)
+        if spec.bb_nhb.any():
+            ih, dh = G.inner_point_box(point_a, point_b, pos_b)
+            nh = dv.bb_nhb[None, :]
+            inner_b = torch.where(nh[..., None], ih, inner_b)
+            d_b = torch.where(nh, dh, d_b)
+        fa, fb = constraint_forces(cm, inner_a, inner_b, d_a + d_b + LINE_MIN_DIST, cf)
+        forces = _add_force(forces, dv.movable, dv.bb_a, fa)
+        torques = _add_torque(torques, dv.rotatable, dv.bb_a, TorchUtils.compute_torque(fa, point_a - pos_a))
+        forces = _add_force(forces, dv.movable, dv.bb_b, fb)
+        torques = _add_torque(torques, dv.rotatable, dv.bb_b, TorchUtils.compute_torque(fb, point_b - pos_b))
 
     return forces, torques
 

@@ -10,26 +10,33 @@
 // Design: one thread per env, blocks of 128, grid ceil(B / 128). The row
 // buffers keep the JAX layout [R, B], row-major and contiguous over envs:
 // thread b reads x[r * B + b], so neighbouring threads read neighbouring
-// addresses. The world's structure is data (FusedSpec, passed by value),
-// not generated code; each env's state lives in per-thread arrays across
-// the substeps. The arithmetic repeats vmas_tpu_torch/core/fused.py's plain
-// version op for op, in its order, so it is built with --fmad=false and
-// without fast math.
+// addresses. The world's structure is data, not generated code: the
+// per-entity constants come by value (FusedSpec), the pair tables of all six
+// contact types as one int32 device buffer read by pointer (floats stored by
+// their bits), where every thread of a warp reads the same address at the
+// same time. Each env's state lives in per-thread arrays across the
+// substeps. The pair types run in the JAX kernel's order (ss, ls, ll, bs,
+// bl, bb), pair by pair; where the JAX kernel runs a type of 8 or more pairs
+// as one lane tile, it claims agreement with this pair-by-pair form within
+// an ulp. The arithmetic repeats vmas_tpu_torch/core/fused.py's plain version
+// op for op, in its order, so it is built with --fmad=false and without fast
+// math (IEEE division and square root: the line-line intersection's boundary
+// tests depend on them). Closest-point selections take the first strict
+// minimum, as the plain version does.
 //
-// Bound: bytes. transport@4096 moves (55 + 8 + 55 + 47) rows x 4096 x 4 B
-// = 2.70 MB per rows step and (55 + 101) rows x 4096 x 4 B = 2.56 MB per
-// fused step: about 0.8 us at 3.35 TB/s. The arithmetic is about 1 kFLOP
-// per env per step, negligible against the card's rate. But 4096 envs give
-// only 32 blocks of 128 threads on 132 SMs, so launch latency and the
-// serial per-thread chain, not bandwidth, set this kernel's time; filling
-// the card is work for a later change.
+// Bound: bytes for transport and balance, whose pairs are few and cheap:
+// transport@4096 moves (55 + 8 + 55 + 47) rows x 4096 x 4 B = 2.70 MB per
+// rows step, about 0.8 us at 3.35 TB/s. A box-box pair costs 8 box-line
+// tests of 4 line-line tests each (some 3,000 operations), so a world with
+// many box pairs can be bound by operations instead. 4096 envs give only 32
+// blocks of 128 threads on 132 SMs, so launch latency and the serial
+// per-thread chain, not bandwidth, set this kernel's time; filling the card
+// is work for a later change.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define MAX_E 32
-#define MAX_SS 64
-#define MAX_BS 16
 #define MAX_A 16
 #define MAX_K 8
 #define MAX_P 4
@@ -38,14 +45,22 @@ enum {
   F_MOVABLE = 1, F_ROTATABLE = 2, F_MAX_F = 4, F_F_RANGE = 8, F_MAX_T = 16,
   F_T_RANGE = 32, F_LIN_FRIC = 64, F_ANG_FRIC = 128, F_GRAVITY = 256,
   F_DRAG = 512, F_MAX_SPEED = 1024, F_V_RANGE = 2048,
+  F_TRIG = 4096,  // a pair reads this entity's rotation (a line or a box)
 };
 
-enum { EMIT_NONE = 0, EMIT_TRANSPORT = 1 };
+enum { EMIT_NONE = 0, EMIT_TRANSPORT = 1, EMIT_BALANCE = 2 };
+
+// vmas_tpu/core/utils.py LINE_MIN_DIST, rounded once to f32
+#define LMD_F ((float)(4.0 / 600.0))
+#define PI_F 3.14159265358979323846f
 
 // Mirrored field for field by vmas_tpu_torch/_kernels.py (ctypes).
 struct FusedSpec {
   int E, J, K_in, substeps;
-  int n_ss, n_bs, n_act, has_x, has_y;
+  // pair counts and their offsets (in words) into the pair table
+  int n_ss, n_ls, n_ll, n_bs, n_bl, n_bb;
+  int o_ss, o_ls, o_ll, o_bs, o_bl, o_bb;
+  int n_act, has_x, has_y;
   float sub_dt, cm, cf, x_semidim, y_semidim;
   int flags[MAX_E];
   float inv_mass[MAX_E], inv_moi[MAX_E], drag_fac[MAX_E];
@@ -54,21 +69,33 @@ struct FusedSpec {
   float max_speed[MAX_E], v_range[MAX_E];
   float lfm[MAX_E], mass[MAX_E], afm[MAX_E], moi[MAX_E];
   float gsx[MAX_E], gsy[MAX_E];
-  int ss_a[MAX_SS], ss_b[MAX_SS];
-  float ss_dmin[MAX_SS];
-  int bs_box[MAX_BS], bs_sph[MAX_BS], bs_nh[MAX_BS];
-  float bs_hw[MAX_BS], bs_hl[MAX_BS], bs_dmin0[MAX_BS];
   int act_slot[MAX_A];
 };
 
-struct EmitParams {
-  int carry_idx[MAX_K];  // emit row feeding scratch row k; -1 = unchanged
+// each emit's own parameters
+struct TransportParams {
   int n_agents, n_pkgs, goal;
   int agent[MAX_A];
   int pkg[MAX_P];
   float hw[MAX_P], hl[MAX_P];
   float og_dmin;  // goal radius + LINE_MIN_DIST
   float factor;   // shaping factor
+};
+
+struct BalanceParams {
+  int n_agents;
+  int agent[MAX_A];
+  int goal, pkg, line, floor;
+  float pkg_r, goal_r;
+  float pkg_dmin;  // package radius + LINE_MIN_DIST, rounded once
+  float line_half, floor_hw, floor_hl;
+  float factor, fall_rew;
+};
+
+struct EmitParams {
+  int carry_idx[MAX_K];  // emit row feeding scratch row k; -1 = unchanged
+  TransportParams transport;
+  BalanceParams balance;
 };
 
 // ---------------------------------------------------------------------------
@@ -156,15 +183,111 @@ __device__ __forceinline__ void inner_point_box(float ox, float oy, float sx, fl
   d = degenerate ? 0.f : fabsf(mag);
 }
 
+// Edge k of a box as (centre, direction, half length), in the order
+// +length, -length, +width, -width (fused.py _box_edges).
+__device__ __forceinline__ void box_edge(int k, float px, float py, float c, float s, float hw, float hl,
+                                         float& ex, float& ey, float& ec, float& es, float& eh) {
+  const float wx = -s, wy = c;
+  if (k == 0) { ex = px + c * hl; ey = py + s * hl; ec = wx; es = wy; eh = hw; }
+  else if (k == 1) { ex = px - c * hl; ey = py - s * hl; ec = wx; es = wy; eh = hw; }
+  else if (k == 2) { ex = px + wx * hw; ey = py + wy * hw; ec = c; es = s; eh = hl; }
+  else { ex = px - wx * hw; ey = py - wy * hw; ec = c; es = s; eh = hl; }
+}
+
+// First-min-wins update of a running closest pair (fused.py _pick_closest).
+__device__ __forceinline__ void pick(bool first, float c1x, float c1y, float c2x, float c2y, float& bd,
+                                     float& p1x, float& p1y, float& p2x, float& p2y) {
+  float d = nrm(c1x - c2x, c1y - c2y);
+  if (first || d < bd) {
+    p1x = c1x; p1y = c1y; p2x = c2x; p2y = c2y; bd = d;
+  }
+}
+
+// Closest points of two segments, (point on a, point on b): the
+// intersection where they cross, else the first closest of (a1, a1 on b),
+// (a2, a2 on b), (b1 on a, b1), (b2 on a, b2). A parallel pair divides by 1
+// and never crosses (fused.py _intersection, _closest_points_line_line).
+__device__ __noinline__ void closest_points_line_line(float ax, float ay, float ac, float as, float ah,
+                                                      float bx, float by, float bc, float bs, float bh,
+                                                      float& pax, float& pay, float& pbx, float& pby) {
+  const float a1x = ax + ac * ah, a1y = ay + as * ah, a2x = ax - ac * ah, a2y = ay - as * ah;
+  const float b1x = bx + bc * bh, b1y = by + bs * bh, b2x = bx - bc * bh, b2y = by - bs * bh;
+  const float rx = a2x - a1x, ry = a2y - a1y;
+  const float sx = b2x - b1x, sy = b2y - b1y;
+  const float qpx = b1x - a1x, qpy = b1y - a1y;
+  const float cross_qp_r = qpx * ry - qpy * rx;
+  const float cross_qp_s = qpx * sy - qpy * sx;
+  const float cross_r_s = rx * sy - ry * sx;
+  const float den = cross_r_s == 0.f ? 1.f : cross_r_s;
+  const float u = cross_qp_r / den;
+  const float t = cross_qp_s / den;
+  const bool hit = (cross_r_s != 0.f) && (t >= 0.f) && (t <= 1.f) && (u >= 0.f) && (u <= 1.f);
+  if (hit) {
+    pax = pbx = a1x + t * rx;
+    pay = pby = a1y + t * ry;
+    return;
+  }
+  float bd, ox, oy;
+  closest_point_line(bx, by, bc, bs, bh, a1x, a1y, ox, oy);
+  pick(true, a1x, a1y, ox, oy, bd, pax, pay, pbx, pby);
+  closest_point_line(bx, by, bc, bs, bh, a2x, a2y, ox, oy);
+  pick(false, a2x, a2y, ox, oy, bd, pax, pay, pbx, pby);
+  closest_point_line(ax, ay, ac, as, ah, b1x, b1y, ox, oy);
+  pick(false, ox, oy, b1x, b1y, bd, pax, pay, pbx, pby);
+  closest_point_line(ax, ay, ac, as, ah, b2x, b2y, ox, oy);
+  pick(false, ox, oy, b2x, b2y, bd, pax, pay, pbx, pby);
+}
+
+// Closest pair of a box's perimeter and a segment, (point on the box,
+// point on the segment), over the box's edges in box_edge order.
+__device__ __noinline__ void closest_line_box(float px, float py, float c, float s, float hw, float hl,
+                                              float lx, float ly, float lc, float ls, float lh,
+                                              float& qbx, float& qby, float& qlx, float& qly) {
+  float bd = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k) {
+    float ex, ey, ec, es, eh, p1x, p1y, p2x, p2y;
+    box_edge(k, px, py, c, s, hw, hl, ex, ey, ec, es, eh);
+    closest_points_line_line(ex, ey, ec, es, eh, lx, ly, lc, ls, lh, p1x, p1y, p2x, p2y);
+    pick(k == 0, p1x, p1y, p2x, p2y, bd, qbx, qby, qlx, qly);
+  }
+}
+
+// Closest pair of two box perimeters, (point on a, point on b): a's edges
+// against b's perimeter first, then b's edges against a's (fused.py
+// _bb_closest).
+__device__ __noinline__ void bb_closest(float ax, float ay, float ca, float sa, float hwa, float hla,
+                                        float bx, float by, float cb, float sb, float hwb, float hlb,
+                                        float& qax, float& qay, float& qbx, float& qby) {
+  float bd = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < 8; ++k) {
+    float ex, ey, ec, es, eh, ona_x, ona_y, onb_x, onb_y;
+    if (k < 4) {
+      box_edge(k, ax, ay, ca, sa, hwa, hla, ex, ey, ec, es, eh);
+      closest_line_box(bx, by, cb, sb, hwb, hlb, ex, ey, ec, es, eh, onb_x, onb_y, ona_x, ona_y);
+    } else {
+      box_edge(k - 4, bx, by, cb, sb, hwb, hlb, ex, ey, ec, es, eh);
+      closest_line_box(ax, ay, ca, sa, hwa, hla, ex, ey, ec, es, eh, ona_x, ona_y, onb_x, onb_y);
+    }
+    pick(k == 0, ona_x, ona_y, onb_x, onb_y, bd, qax, qay, qbx, qby);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the physics: every substep of one env step (fused.py _physics_rows)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void physics(const FusedSpec& sp, float* px, float* py, float* vx, float* vy,
+// pair table words: an index, or a float stored by its bits
+#define TI(i) __ldg(tab + (i))
+#define TF(i) __int_as_float(__ldg(tab + (i)))
+
+__device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restrict__ tab,
+                        float* px, float* py, float* vx, float* vy,
                         float* rot, float* w, float* fx, float* fy, float* tq) {
   const int E = sp.E;
   const float cm = sp.cm, cf = sp.cf, sub_dt = sp.sub_dt;
-  float Fx[MAX_E], Fy[MAX_E], Tq[MAX_E];
+  float Fx[MAX_E], Fy[MAX_E], Tq[MAX_E], C[MAX_E], S[MAX_E];
   for (int substep = 0; substep < sp.substeps; ++substep) {
     // action clamps, re-applied every substep on the persistent rows
     for (int e = 0; e < E; ++e) {
@@ -215,25 +338,71 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, float* px, float* p
       }
     }
 
+    // cos and sin of each rotation a pair reads, once per substep (the
+    // plain version's cs())
+    for (int e = 0; e < E; ++e) {
+      if (sp.flags[e] & F_TRIG) {
+        C[e] = cosf(rot[e]);
+        S[e] = sinf(rot[e]);
+      }
+    }
+
     // sphere-sphere pairs, in spec order: +f on a, -f on b
+#pragma unroll 1
     for (int k = 0; k < sp.n_ss; ++k) {
-      int a = sp.ss_a[k], b = sp.ss_b[k];
+      const int r = sp.o_ss + 3 * k;
+      const int a = TI(r), b = TI(r + 1);
       float cfx, cfy;
-      constraint_force(cm, cf, px[a], py[a], px[b], py[b], sp.ss_dmin[k], cfx, cfy);
+      constraint_force(cm, cf, px[a], py[a], px[b], py[b], TF(r + 2), cfx, cfy);
       Fx[a] = Fx[a] + cfx;
       Fy[a] = Fy[a] + cfy;
       Fx[b] = Fx[b] + (-cfx);
       Fy[b] = Fy[b] + (-cfy);
     }
 
-    // box-sphere pairs, in spec order: +f on the sphere, -f on the box
+    // line-sphere pairs: +f on the sphere, -f and its torque on the line
+#pragma unroll 1
+    for (int k = 0; k < sp.n_ls; ++k) {
+      const int r = sp.o_ls + 4 * k;
+      const int l = TI(r), s = TI(r + 1);
+      float cx, cy, sfx, sfy;
+      closest_point_line(px[l], py[l], C[l], S[l], TF(r + 2), px[s], py[s], cx, cy);
+      constraint_force(cm, cf, px[s], py[s], cx, cy, TF(r + 3), sfx, sfy);
+      Fx[s] = Fx[s] + sfx;
+      Fy[s] = Fy[s] + sfy;
+      Fx[l] = Fx[l] + (-sfx);
+      Fy[l] = Fy[l] + (-sfy);
+      Tq[l] = Tq[l] + ((cx - px[l]) * (-sfy) - (cy - py[l]) * (-sfx));
+    }
+
+    // line-line pairs: +f on a, -f on b, torque on both
+#pragma unroll 1
+    for (int k = 0; k < sp.n_ll; ++k) {
+      const int r = sp.o_ll + 4 * k;
+      const int a = TI(r), b = TI(r + 1);
+      float pax, pay, pbx, pby, afx, afy;
+      closest_points_line_line(px[a], py[a], C[a], S[a], TF(r + 2),
+                               px[b], py[b], C[b], S[b], TF(r + 3), pax, pay, pbx, pby);
+      constraint_force(cm, cf, pax, pay, pbx, pby, LMD_F, afx, afy);
+      Fx[a] = Fx[a] + afx;
+      Fy[a] = Fy[a] + afy;
+      Tq[a] = Tq[a] + ((pax - px[a]) * afy - (pay - py[a]) * afx);
+      Fx[b] = Fx[b] + (-afx);
+      Fy[b] = Fy[b] + (-afy);
+      Tq[b] = Tq[b] + ((pbx - px[b]) * (-afy) - (pby - py[b]) * (-afx));
+    }
+
+    // box-sphere pairs: +f on the sphere, -f and its torque on the box; a
+    // hollow box pushes from its surface point, a solid one from the inner
+    // point
+#pragma unroll 1
     for (int k = 0; k < sp.n_bs; ++k) {
-      int b = sp.bs_box[k], s = sp.bs_sph[k];
-      float c = cosf(rot[b]), sn = sinf(rot[b]);
+      const int r = sp.o_bs + 6 * k;
+      const int b = TI(r), s = TI(r + 1);
       float cx, cy;
-      closest_point_box(px[b], py[b], c, sn, sp.bs_hw[k], sp.bs_hl[k], px[s], py[s], cx, cy);
-      float ix = cx, iy = cy, dmin = sp.bs_dmin0[k];
-      if (sp.bs_nh[k]) {
+      closest_point_box(px[b], py[b], C[b], S[b], TF(r + 2), TF(r + 3), px[s], py[s], cx, cy);
+      float ix = cx, iy = cy, dmin = TF(r + 4);
+      if (TI(r + 5)) {
         float d;
         inner_point_box(px[s], py[s], cx, cy, px[b], py[b], ix, iy, d);
         dmin = dmin + d;
@@ -245,6 +414,51 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, float* px, float* p
       Fx[b] = Fx[b] + (-sfx);
       Fy[b] = Fy[b] + (-sfy);
       Tq[b] = Tq[b] + ((cx - px[b]) * (-sfy) - (cy - py[b]) * (-sfx));
+    }
+
+    // box-line pairs: +f on the box, -f on the line, torque on both
+#pragma unroll 1
+    for (int k = 0; k < sp.n_bl; ++k) {
+      const int r = sp.o_bl + 6 * k;
+      const int b = TI(r), l = TI(r + 1);
+      float qbx, qby, qlx, qly;
+      closest_line_box(px[b], py[b], C[b], S[b], TF(r + 2), TF(r + 3),
+                       px[l], py[l], C[l], S[l], TF(r + 4), qbx, qby, qlx, qly);
+      float ix = qbx, iy = qby, dmin = LMD_F;
+      if (TI(r + 5)) {
+        float d;
+        inner_point_box(qlx, qly, qbx, qby, px[b], py[b], ix, iy, d);
+        dmin = LMD_F + d;
+      }
+      float bfx, bfy;
+      constraint_force(cm, cf, ix, iy, qlx, qly, dmin, bfx, bfy);
+      Fx[b] = Fx[b] + bfx;
+      Fy[b] = Fy[b] + bfy;
+      Tq[b] = Tq[b] + ((qbx - px[b]) * bfy - (qby - py[b]) * bfx);
+      Fx[l] = Fx[l] + (-bfx);
+      Fy[l] = Fy[l] + (-bfy);
+      Tq[l] = Tq[l] + ((qlx - px[l]) * (-bfy) - (qly - py[l]) * (-bfx));
+    }
+
+    // box-box pairs: +f on a, -f on b, torque on both
+#pragma unroll 1
+    for (int k = 0; k < sp.n_bb; ++k) {
+      const int r = sp.o_bb + 8 * k;
+      const int a = TI(r), b = TI(r + 1);
+      float qax, qay, qbx, qby;
+      bb_closest(px[a], py[a], C[a], S[a], TF(r + 2), TF(r + 3),
+                 px[b], py[b], C[b], S[b], TF(r + 4), TF(r + 5), qax, qay, qbx, qby);
+      float iax = qax, iay = qay, da = 0.f, ibx = qbx, iby = qby, db = 0.f;
+      if (TI(r + 6)) inner_point_box(qbx, qby, qax, qay, px[a], py[a], iax, iay, da);
+      if (TI(r + 7)) inner_point_box(qax, qay, qbx, qby, px[b], py[b], ibx, iby, db);
+      float afx, afy;
+      constraint_force(cm, cf, iax, iay, ibx, iby, da + db + LMD_F, afx, afy);
+      Fx[a] = Fx[a] + afx;
+      Fy[a] = Fy[a] + afy;
+      Tq[a] = Tq[a] + ((qax - px[a]) * afy - (qay - py[a]) * afx);
+      Fx[b] = Fx[b] + (-afx);
+      Fy[b] = Fy[b] + (-afy);
+      Tq[b] = Tq[b] + ((qbx - px[b]) * (-afy) - (qby - py[b]) * (-afx));
     }
 
     // integrate (semi-implicit Euler; drag on the first substep only).
@@ -293,7 +507,8 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, float* px, float* p
 
 struct NoEmit {
   __device__ __forceinline__ static void emit(const EmitParams&, const float*, const float*, const float*,
-                              const float*, const float*, const float*, float*, int, int) {}
+                              const float*, const float*, const float*, const float*, float*, int,
+                              int) {}
 };
 
 // vmas_tpu/scenarios/transport.py TransportOutputs.emit, row for row:
@@ -302,35 +517,36 @@ struct NoEmit {
 // shaping rows. n_out = A * (4 + 7P) + 1 + 2P.
 struct TransportEmit {
   __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
-                              const float* vx, const float* vy, const float* rot,
+                              const float* vx, const float* vy, const float* rot, const float*,
                               const float* scratch, float* o, int B, int b) {
-    const int A = ep.n_agents, P = ep.n_pkgs;
-    const float gx = px[ep.goal], gy = py[ep.goal];
+    const TransportParams& p = ep.transport;
+    const int A = p.n_agents, P = p.n_pkgs;
+    const float gx = px[p.goal], gy = py[p.goal];
     float og[MAX_P], shaping[MAX_P];
     float rew = 0.f;
     for (int k = 0; k < P; ++k) {
-      int pi = ep.pkg[k];
+      int pi = p.pkg[k];
       float dist = nrm(px[pi] - gx, py[pi] - gy);
       float c = cosf(rot[pi]), s = sinf(rot[pi]);
       float cx, cy;
-      closest_point_box(px[pi], py[pi], c, s, ep.hw[k], ep.hl[k], gx, gy, cx, cy);
+      closest_point_box(px[pi], py[pi], c, s, p.hw[k], p.hl[k], gx, gy, cx, cy);
       float d_sphere_closest = nrm(gx - cx, gy - cy);
       float d_closest_box = nrm(px[pi] - cx, py[pi] - cy);
-      bool on = (dist < d_closest_box) || (d_sphere_closest < ep.og_dmin);
-      shaping[k] = dist * ep.factor;
+      bool on = (dist < d_closest_box) || (d_sphere_closest < p.og_dmin);
+      shaping[k] = dist * p.factor;
       float contrib = on ? 0.f : scratch[k] - shaping[k];
       rew = k == 0 ? contrib : rew + contrib;
       og[k] = on ? 1.f : 0.f;
     }
     int r = 0;
     for (int i = 0; i < A; ++i) {
-      int ai = ep.agent[i];
+      int ai = p.agent[i];
       o[(r++) * B + b] = px[ai];
       o[(r++) * B + b] = py[ai];
       o[(r++) * B + b] = vx[ai];
       o[(r++) * B + b] = vy[ai];
       for (int k = 0; k < P; ++k) {
-        int pi = ep.pkg[k];
+        int pi = p.pkg[k];
         o[(r++) * B + b] = px[pi] - gx;
         o[(r++) * B + b] = py[pi] - gy;
         o[(r++) * B + b] = px[pi] - px[ai];
@@ -346,13 +562,80 @@ struct TransportEmit {
   }
 };
 
+// vmas_tpu/scenarios/balance.py BalanceOutputs.emit, row for row: per agent
+// [pos, vel, pos - package, pos - line], then [package - goal, package vel,
+// line vel, line angular velocity, line rotation mod pi], then pos_rew,
+// ground_rew, on_ground, done and the new shaping. n_out = 8A + 8 + 5.
+struct BalanceEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float* rot, const float* w,
+                              const float* scratch, float* o, int B, int b) {
+    const BalanceParams& p = ep.balance;
+    const int fi = p.floor, pi = p.pkg, li = p.line, gi = p.goal;
+    const float fx = px[fi], fy = py[fi];
+    const float fc = cosf(rot[fi]), fs = sinf(rot[fi]);
+    // line-floor overlap: box-line distance < 0
+    float bx, by, lx, ly;
+    closest_line_box(fx, fy, fc, fs, p.floor_hw, p.floor_hl, px[li], py[li], cosf(rot[li]), sinf(rot[li]),
+                     p.line_half, bx, by, lx, ly);
+    const bool line_floor = nrm(bx - lx, by - ly) - LMD_F < 0.f;
+    // package-floor overlap: the box-sphere overlap test
+    float cx, cy;
+    closest_point_box(fx, fy, fc, fs, p.floor_hw, p.floor_hl, px[pi], py[pi], cx, cy);
+    const float d_sphere_closest = nrm(px[pi] - cx, py[pi] - cy);
+    const float d_sphere_box = nrm(px[pi] - fx, py[pi] - fy);
+    const float d_closest_box = nrm(fx - cx, fy - cy);
+    const bool pkg_floor = (d_sphere_box < d_closest_box) || (d_sphere_closest < p.pkg_dmin);
+    const bool on_ground = line_floor || pkg_floor;
+
+    const float dgx = px[pi] - px[gi], dgy = py[pi] - py[gi];
+    const float package_dist = nrm(dgx, dgy);
+    const float shaping = package_dist * p.factor;
+    const float pos_rew = scratch[0] - shaping;
+    const float ground_rew = on_ground ? p.fall_rew : 0.f;
+    // package-goal overlap: sphere-sphere distance < 0
+    const bool pkg_goal = package_dist - p.pkg_r - p.goal_r < 0.f;
+    const bool done = on_ground || pkg_goal;
+    // jnp.mod / torch.remainder: fmod, then the divisor's sign
+    float rmod = fmodf(rot[li], PI_F);
+    if (rmod != 0.f && (rmod < 0.f) != (PI_F < 0.f)) rmod = rmod + PI_F;
+
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = px[ai] - px[pi];
+      o[(r++) * B + b] = py[ai] - py[pi];
+      o[(r++) * B + b] = px[ai] - px[li];
+      o[(r++) * B + b] = py[ai] - py[li];
+    }
+    o[(r++) * B + b] = dgx;
+    o[(r++) * B + b] = dgy;
+    o[(r++) * B + b] = vx[pi];
+    o[(r++) * B + b] = vy[pi];
+    o[(r++) * B + b] = vx[li];
+    o[(r++) * B + b] = vy[li];
+    o[(r++) * B + b] = w[li];
+    o[(r++) * B + b] = rmod;
+    o[(r++) * B + b] = pos_rew;
+    o[(r++) * B + b] = ground_rew;
+    o[(r++) * B + b] = on_ground ? 1.f : 0.f;
+    o[(r++) * B + b] = done ? 1.f : 0.f;
+    o[(r++) * B + b] = shaping;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // the kernel, in both forms
 // ---------------------------------------------------------------------------
 
 template <bool ROWS, class Emit>
 __global__ void __launch_bounds__(128)
-fused_step_kernel(const FusedSpec sp, const EmitParams ep, const float* __restrict__ x,
+fused_step_kernel(const FusedSpec sp, const EmitParams ep, const int* __restrict__ tab,
+                  const float* __restrict__ x,
                   const float* __restrict__ act, float* __restrict__ out,
                   float* __restrict__ extra, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -382,7 +665,7 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const float* __restri
   }
   for (int k = 0; k < sp.K_in; ++k) scratch[k] = x[(9 * E + sp.J + k) * B + b];
 
-  physics(sp, px, py, vx, vy, rot, w, fx, fy, tq);
+  physics(sp, tab, px, py, vx, vy, rot, w, fx, fy, tq);
 
   for (int e = 0; e < E; ++e) {
     out[(0 * E + e) * B + b] = px[e];
@@ -398,7 +681,7 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const float* __restri
   // the emit rows follow the state rows (fused step) or go to their own
   // buffer (rows step)
   float* emit_rows = ROWS ? extra : out + (size_t)9 * E * B;
-  Emit::emit(ep, px, py, vx, vy, rot, scratch, emit_rows, B, b);
+  Emit::emit(ep, px, py, vx, vy, rot, w, scratch, emit_rows, B, b);
   if (ROWS) {
     // joint fixed rotations ride the carry unchanged; the scratch rows
     // carry the emit rows the scenario names (this thread wrote them)
@@ -412,25 +695,30 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const float* __restri
 
 extern "C" {
 
-// Launch one fused step on `stream`. rows_mode = 0: x [9E + J + K_in, B]
-// -> out [9E + K_out, B]. rows_mode = 1: x = carry [R_in, B], act [2A, B]
-// -> out = carry' [R_in, B], extra [n_out, B]. Returns cudaGetLastError().
-int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, int emit_kind,
+// Launch one fused step on `stream`. tab: the world's pair table (int32
+// words, FusedSpec's offsets). rows_mode = 0: x [9E + J + K_in, B] -> out
+// [9E + K_out, B]. rows_mode = 1: x = carry [R_in, B], act [2A, B] -> out =
+// carry' [R_in, B], extra [n_out, B]; it needs an emit. Returns
+// cudaGetLastError().
+int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, int emit_kind, const int* tab,
                     const float* x, const float* act, float* out, float* extra, int B,
                     int rows_mode, void* stream) {
   if (B <= 0) return 0;
   dim3 block(128), grid((B + 127) / 128);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH(ROWS, EMIT) \
+  fused_step_kernel<ROWS, EMIT><<<grid, block, 0, s>>>(*spec, *ep, tab, x, act, out, extra, B)
   if (rows_mode) {
-    if (emit_kind != EMIT_TRANSPORT) return cudaErrorInvalidValue;
-    fused_step_kernel<true, TransportEmit><<<grid, block, 0, s>>>(*spec, *ep, x, act, out, extra, B);
-  } else if (emit_kind == EMIT_TRANSPORT) {
-    fused_step_kernel<false, TransportEmit><<<grid, block, 0, s>>>(*spec, *ep, x, act, out, extra, B);
-  } else if (emit_kind == EMIT_NONE) {
-    fused_step_kernel<false, NoEmit><<<grid, block, 0, s>>>(*spec, *ep, x, act, out, extra, B);
+    if (emit_kind == EMIT_TRANSPORT) LAUNCH(true, TransportEmit);
+    else if (emit_kind == EMIT_BALANCE) LAUNCH(true, BalanceEmit);
+    else return cudaErrorInvalidValue;
   } else {
-    return cudaErrorInvalidValue;
+    if (emit_kind == EMIT_NONE) LAUNCH(false, NoEmit);
+    else if (emit_kind == EMIT_TRANSPORT) LAUNCH(false, TransportEmit);
+    else if (emit_kind == EMIT_BALANCE) LAUNCH(false, BalanceEmit);
+    else return cudaErrorInvalidValue;
   }
+#undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

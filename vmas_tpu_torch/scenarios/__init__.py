@@ -1,11 +1,13 @@
-"""Scenario registry. ``transport`` and ``road_traffic`` are ported so far;
-every other scenario of the JAX package raises ``ValueError`` when loaded."""
+"""Scenario registry. ``balance``, ``road_traffic`` and ``transport`` are
+ported so far; every other scenario of the JAX package raises
+``ValueError`` when loaded."""
 
 from __future__ import annotations
 
 import importlib
 
 _PORTED = {
+    "balance": "vmas_tpu_torch.scenarios.balance",
     "road_traffic": "vmas_tpu_torch.scenarios.road_traffic",
     "transport": "vmas_tpu_torch.scenarios.transport",
 }

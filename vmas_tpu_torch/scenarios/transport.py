@@ -213,12 +213,13 @@ class TransportOutputs(F.FusedOutputs):
             ep = K.EmitParams()
             for k, ei in enumerate(self.carry_extra_idx):
                 ep.carry_idx[k] = -1 if ei is None else int(ei)
-            ep.n_agents, ep.n_pkgs, ep.goal = self.n_agents, self.n_pkgs, self.goal_i
+            p = ep.transport
+            p.n_agents, p.n_pkgs, p.goal = self.n_agents, self.n_pkgs, self.goal_i
             for i, ai in enumerate(self.agent_i):
-                ep.agent[i] = ai
+                p.agent[i] = ai
             for k, pi in enumerate(self.pkg_i):
-                ep.pkg[k], ep.hw[k], ep.hl[k] = pi, self.pkg_hw[k], self.pkg_hl[k]
-            ep.og_dmin = self.radius + LINE_MIN_DIST
-            ep.factor = self.factor
+                p.pkg[k], p.hw[k], p.hl[k] = pi, self.pkg_hw[k], self.pkg_hl[k]
+            p.og_dmin = self.radius + LINE_MIN_DIST
+            p.factor = self.factor
             self._kernel_emit = (K.EMIT_TRANSPORT, ep)
         return self._kernel_emit
