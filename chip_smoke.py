@@ -22,13 +22,23 @@
    the counts zeroed: make_env, reset, 5 env.step calls, rows_rollout_fn
    (horizon 1000) once to warm up and 3 timed calls, env-steps/s and the
    device idle share.
-6. road_traffic at 4096 envs x 20 vehicles: the path-sweep kernel and the
+6. joints at 4096 envs: joint_passage's rows step and fused step against
+   their plain versions for 10 re-synced steps from a state in which its
+   four contact types (ss, ls, bs, bl) touch and every joint is pulled
+   apart, with the contacts per type and the lanes with a joint force,
+   then its env.step rollout against its rows rollout; waterfall's two
+   forms against their plain versions for 5 re-synced steps from a pile in
+   which all six types touch and its fixed-rotation torques act; then
+   joint_passage's main path with the counts zeroed: make_env (every
+   default), reset, 5 env.step calls, rows_rollout_fn (horizon 1000) once
+   to warm up and 3 timed calls, env-steps/s and the device idle share.
+7. road_traffic at 4096 envs x 20 vehicles: the path-sweep kernel and the
    all-ego observation kernel against their plain versions (after a reset,
    after 20 random steps, and on lanes placed on path vertices and padded
    tails), then its main path with the counts zeroed: make_env with every
    default, reset, 5 env.step calls, rollout_fn(horizon=100) once to warm up
    and 3 timed calls, with one launch of each kernel per step and reset.
-7. Prints one JSON line describing each kernel, then the result line.
+8. Prints one JSON line describing each kernel, then the result line.
 
 Any failure raises and exits non-zero. It imports nothing of JAX.
 """
@@ -62,6 +72,11 @@ RT_HORIZON = 100
 RT_ATOL = 1e-6
 # operation counts: +, -, *, /, sqrt and a compare count 1; cos and sin 20
 TRIG_OPS = 20
+# joints: steps compared (their plain versions take a few hundred ms per
+# step at 4096 envs) and plain-version calls timed
+JP_CMP_STEPS = 10
+WF_CMP_STEPS = 5
+WF_PLAIN_CALLS = 5
 
 
 def card_line():
@@ -218,13 +233,13 @@ def kernel_entry(name, source, replaces, launches, err, t, nbytes, flops):
     }
 
 
-def kernel_times(name, kern, plain, kernel_name):
+def kernel_times(name, kern, plain, kernel_name, plain_calls=20):
     """Device ms per launch (profiler), wall ms per back-to-back call (CUDA
     events) and the plain version's ms per call."""
     dev_ms = device_ms(kern, 200, kernel_name)[0]
     if dev_ms <= 0:
         raise AssertionError(f"the profiler saw no device time for {name}")
-    t = {"ms": dev_ms, "wall_ms": time_ms(kern, 500), "plain_ms": time_ms(plain, 20)}
+    t = {"ms": dev_ms, "wall_ms": time_ms(kern, 500), "plain_ms": time_ms(plain, plain_calls)}
     print(f"{name}: kernel {dev_ms * 1e3:.3f} us on the device, {t['wall_ms'] * 1e3:.3f} us per "
           f"back-to-back call, plain version {t['plain_ms'] * 1e3:.1f} us per call", flush=True)
     return t
@@ -249,7 +264,7 @@ def line_line_tests(ks, rows, fo=None):
 
     def probe(*args):
         out = real(*args)
-        hits.append(int(out[2].sum()))
+        hits.append((out[2].numel(), int(out[2].sum())))
         return out
 
     F._intersection = probe
@@ -262,11 +277,11 @@ def line_line_tests(ks, rows, fo=None):
                                 px[li], py[li], torch.cos(rot[li]), torch.sin(rot[li]), fo.line_half)
     finally:
         F._intersection = real
-    return len(hits) * rows.shape[1], sum(hits)
+    return sum(n for n, _ in hits), sum(h for _, h in hits)
 
 
 # operations read off csrc/fused_step.cu (+, -, *, /, sqrt and a compare
-# count 1; cos, sin, exp and log1p TRIG_OPS): the penalty force 60, a
+# count 1; cos, sin, exp, log1p and fmod TRIG_OPS): the penalty force 60, a
 # closest point on a segment 15, a first-minimum update 8, a box edge 6, an
 # inner point 20. Per entity and substep 20, and a cos and a sin for each
 # entity whose rotation a pair reads (KernelSpec.trig); per pair, without
@@ -276,19 +291,39 @@ def line_line_tests(ks, rows, fo=None):
 # cross, 43 + 4 x (15 + 8) where they do not.
 PAIR_OPS = {"ss": 65, "ls": 87, "ll": 80, "bs": 209, "bl": 156, "bb": 680}
 LL_CROSS_OPS, LL_MISS_OPS = 43, 135
+# per joint constraint and substep: 4 anchor coordinates 16, the attractive
+# and the repulsive penalty 2 x 60, their sum 2, two torques 12, the
+# accumulation 8; a rotate=False constraint adds its exponential torque, 31
+JOINT_OPS, JOINT_FIXED_OPS = 158, 31
+
+
+def emit_ops(fo):
+    """Operations of a scenario's emit per env, besides writing its rows:
+    transport's about 200 per package; balance's 4 trig + 4 x 14 + 116 + 40
+    + 20 and its floor-line tests; joint_passage's 2 angle distances (4
+    fmod and 10) and the goal's cos and sin, 5 per open passage and 30;
+    waterfall's 6 per agent."""
+    kind = type(fo).__name__
+    if kind == "BalanceOutputs":
+        return 4 * TRIG_OPS + 56 + 116 + 40 + 20
+    if kind == "JointPassageOutputs":
+        return 4 * TRIG_OPS + 20 + 2 * TRIG_OPS + 5 * len(fo.open_i) + 30
+    if kind == "WaterfallOutputs":
+        return 6 * fo.n_agents
+    return 200 * fo.n_pkgs
 
 
 def kernel_ops(ks, rows, fo=None):
     """Operations of one fused step on these input rows [R, B] (the line-line
-    tests counted on them, once per substep), with the emit's: transport's
-    about 200 per package plus its rows, balance's 4 trig + 4 x 14 + 116 +
-    40 + 20 plus its rows and the floor-line tests."""
+    tests counted on them, once per substep), with the emit's
+    (``emit_ops``) and its rows."""
     B = rows.shape[1]
     per_substep = (20 * ks.E + 2 * TRIG_OPS * len(ks.trig)
-                   + sum(PAIR_OPS[t] * len(getattr(ks, t)) for t in PAIR_OPS))
+                   + sum(PAIR_OPS[t] * len(getattr(ks, t)) for t in PAIR_OPS)
+                   + sum(JOINT_OPS + (0 if r[7] else JOINT_FIXED_OPS) for r in ks.joints))
     per_env = ks.substeps * per_substep
     if fo is not None:
-        per_env += (200 * fo.n_pkgs if hasattr(fo, "n_pkgs") else 4 * TRIG_OPS + 56 + 116 + 40 + 20) + fo.n_out
+        per_env += emit_ops(fo) + fo.n_out
     n, crossing = line_line_tests(ks, rows[:9 * ks.E], fo)
     return per_env * B + ks.substeps * (crossing * LL_CROSS_OPS + (n - crossing) * LL_MISS_OPS)
 
@@ -463,6 +498,224 @@ def balance_phase(card, dev):
         )
     ]
     entries[-1]["launches_on"] = "balance's main path"
+    return entries
+
+
+# -- joints: joint_passage and waterfall --------------------------------------
+
+def compare_joint_passage(tr, fo, state_k, state_p, emit_k, emit_p, tag):
+    """Kernel against plain for one joint_passage step's state and emit
+    rows; returns the number of envs excused because one of its discrete
+    tests lies within OG_MARGIN of its threshold."""
+    from vmas_tpu_torch.testing import joint_passage_flag_margin
+
+    base = fo.base
+    tr.close(f"{tag} state rows", state_k, state_p, **STATE_TOL)
+    tr.close(f"{tag} obs rows", emit_k[:base], emit_p[:base], OBS_ATOL, 1e-5)
+    differ = (emit_k[base + 7:] != emit_p[base + 7:]).any(0)
+    near = joint_passage_flag_margin(fo, state_p) < OG_MARGIN
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"{tag}: passed/just_passed/done differ in {int((differ & ~near).sum())} envs "
+                             "off the threshold")
+    ok = ~differ
+    tr.close(f"{tag} reward and shaping rows", emit_k[base:base + 7][:, ok], emit_p[base:base + 7][:, ok],
+             REW_ATOL, 1e-5)
+    return int((differ & near).sum())
+
+
+def with_actions(carry, act, slots, E):
+    """The carry with this step's actions in the agents' force rows, as
+    env.step packs the fused step's input."""
+    import torch
+
+    x = carry.clone()
+    idx = torch.as_tensor(slots, device=carry.device)
+    x[6 * E + idx] = act[:len(slots)]
+    x[7 * E + idx] = act[len(slots):]
+    return x
+
+
+def joints_phase(card, dev):
+    """joint_passage's two kernel forms against their plain versions from a
+    state with contacts and its joints pulled apart, waterfall's from a
+    pile, joint_passage's main path, and the three entries of the kernels
+    line."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import make_env
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_rollout_fn
+    from vmas_tpu_torch.testing import joint_passage_contact_state, waterfall_contact_state
+
+    B = NUM_ENVS
+    # -- (a) joint_passage's kernels against plain, at 4096 envs ---------------
+    env = make_env("joint_passage", B, device=dev, seed=0, fused_physics=True)
+    world, fo = env.world, env._fused_outputs
+    slots = [a.index for a in env.agents]
+    ks = F._kernel_spec(world)
+    E, A = ks.E, len(slots)
+    assert (ks.J, len(ks.ss), len(ks.ls), len(ks.bs), len(ks.bl), ks.substeps) == (3, 1, 12, 39, 2, 10)
+    step = F.make_rows_step(world, fo, slots)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    acts = lambda: ((torch.rand((2 * A, B), generator=gen, device=dev) * 2 - 1) * 0.8).contiguous()
+    k2, k1 = ErrTracker(), ErrTracker()
+    excused = {"rows_step": 0, "fused_step": 0}
+    counts = dict.fromkeys(F.PAIR_TYPES, 0)
+    joint_lanes = 0
+    carry = F.pack_carry(world, state_from_numpy(world, joint_passage_contact_state(env, np.random.default_rng(6))),
+                         fo)
+    for t in range(JP_CMP_STEPS):
+        act = acts()
+        x = with_actions(carry, act, slots, E)
+        for k, v in F.contact_counts(world, x).items():
+            counts[k] += v
+        joint_lanes += F.joint_counts(world, x)["force"]
+        c_k, e_k = step(carry, act)
+        c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+        excused["rows_step"] += compare_joint_passage(k2, fo, c_k[:9 * E], c_p[:9 * E], e_k, e_p,
+                                                      "joint_passage rows_step")
+        k2.close("joint_passage rows_step carried rows", c_k[9 * E:], c_p[9 * E:], REW_ATOL, 1e-5)
+        y_k, y_p = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+        excused["fused_step"] += compare_joint_passage(k1, fo, y_k[:9 * E], y_p[:9 * E], y_k[9 * E:], y_p[9 * E:],
+                                                       "joint_passage fused_step")
+        carry = c_k  # re-sync to the kernel
+    torch.cuda.synchronize()
+    for tr in (k2, k1):
+        tr.report()
+    print(f"joint_passage contacts over {JP_CMP_STEPS} steps: {counts}; (constraint, env) lanes with a joint force: "
+          f"{joint_lanes} of {JP_CMP_STEPS * ks.J * B}; envs excused within {OG_MARGIN} of a flag threshold: "
+          f"{excused}", flush=True)
+    if any(counts[k] == 0 for k in ("ss", "ls", "bs", "bl")) or joint_lanes == 0:
+        raise AssertionError("the joint_passage comparison saw no contacts of one of its types or no joint force")
+
+    # env.step's path (K1) against the rows path (K2): one device function
+    s0, st0 = env.state, env.steps
+    _, _, ta = rollout_fn(env, horizon=JP_CMP_STEPS)(s0, st0, torch.Generator(device=dev).manual_seed(7))
+    _, _, tb = rows_rollout_fn(env, horizon=JP_CMP_STEPS)(s0, st0, torch.Generator(device=dev).manual_seed(7))
+    same = torch.equal(ta["rewards"], tb["rewards"]) and all(torch.equal(a, b) for a, b in zip(ta["obs"], tb["obs"]))
+    rollout_err = max(float((a - b).abs().max()) for a, b in zip(ta["obs"], tb["obs"]))
+    print(f"joint_passage env.step rollout vs rows rollout over {JP_CMP_STEPS} steps: bitwise equal {same}, "
+          f"max abs obs err {rollout_err:.3e}", flush=True)
+    if rollout_err > OBS_ATOL or not torch.equal(ta["dones"], tb["dones"]):
+        raise AssertionError("joint_passage env.step rollout and rows rollout disagree")
+
+    act = acts()
+    x = with_actions(carry, act, slots, E)
+    extra = torch.empty((fo.n_out, B), device=dev)
+    times = {
+        "rows_step[joint_passage]": kernel_times(
+            "rows_step[joint_passage]", lambda: step(carry, act, extra),
+            lambda: F.rows_step_plain(world, fo, slots, carry, act), "fused_step_kernel"),
+        "fused_step[joint_passage]": kernel_times(
+            "fused_step[joint_passage]", lambda: F.fused_step(world, x, fo),
+            lambda: F.fused_step_plain(world, x, fo), "fused_step_kernel"),
+    }
+    R_in = F.rows_layout(world, fo)
+    work = {
+        "rows_step[joint_passage]": ((R_in + 2 * A + R_in + fo.n_out) * B * 4, kernel_ops(ks, carry, fo)),
+        "fused_step[joint_passage]": ((R_in + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo)),
+    }
+    errs = {"rows_step[joint_passage]": k2.max(), "fused_step[joint_passage]": k1.max()}
+    del env, carry, x, s0
+
+    # -- (b) waterfall's kernels against plain ----------------------------------
+    wenv = make_env("waterfall", B, device=dev, seed=0, fused_physics=True)
+    ww, wfo = wenv.world, wenv._fused_outputs
+    wslots = [a.index for a in wenv.agents]
+    wks = F._kernel_spec(ww)
+    WE, WA = wks.E, len(wslots)
+    assert {t: len(getattr(wks, t)) for t in F.PAIR_TYPES} == {"ss": 10, "ls": 21, "ll": 15, "bs": 30, "bl": 35,
+                                                                "bb": 15} and wks.J == 10
+    wstep = F.make_rows_step(ww, wfo, wslots)
+    kw = ErrTracker()
+    w_counts = dict.fromkeys(F.PAIR_TYPES, 0)
+    torque_lanes = 0
+    wcarry = F.pack_carry(ww, state_from_numpy(ww, waterfall_contact_state(wenv, np.random.default_rng(8))), wfo)
+    for t in range(WF_CMP_STEPS):
+        act = ((torch.rand((2 * WA, B), generator=gen, device=dev) * 2 - 1) * 0.7).contiguous()
+        x = with_actions(wcarry, act, wslots, WE)
+        for k, v in F.contact_counts(ww, x).items():
+            w_counts[k] += v
+        torque_lanes += F.joint_counts(ww, x)["torque"]
+        c_k, e_k = wstep(wcarry, act)
+        c_p, e_p = F.rows_step_plain(ww, wfo, wslots, wcarry, act)
+        y_k, y_p = F.fused_step(ww, x, wfo), F.fused_step_plain(ww, x, wfo)
+        kw.close("waterfall rows_step carried rows (state, fixed rotations)", c_k, c_p, **STATE_TOL)
+        kw.close("waterfall fused_step state rows", y_k[:9 * WE], y_p[:9 * WE], **STATE_TOL)
+        for tag, ek, ep in (("rows_step", e_k, e_p), ("fused_step", y_k[9 * WE:], y_p[9 * WE:])):
+            kw.close(f"waterfall {tag} obs rows", ek[:wfo.base], ep[:wfo.base], OBS_ATOL, 1e-5)
+            kw.close(f"waterfall {tag} reward rows", ek[wfo.base:], ep[wfo.base:], REW_ATOL, 1e-5)
+        wcarry = c_k  # re-sync to the kernel
+    torch.cuda.synchronize()
+    kw.report()
+    print(f"waterfall contacts over {WF_CMP_STEPS} steps from its contact state: {w_counts}; (constraint, env) lanes with "
+          f"the fixed-rotation torque active (|delta| >= 1e-9): {torque_lanes}", flush=True)
+    if any(v == 0 for v in w_counts.values()) or torque_lanes == 0:
+        raise AssertionError("the waterfall comparison saw no contacts of one type or no fixed-rotation torque")
+    xw = with_actions(wcarry, act, wslots, WE)
+    times["fused_step[waterfall]"] = kernel_times(
+        "fused_step[waterfall]", lambda: F.fused_step(ww, xw, wfo), lambda: F.fused_step_plain(ww, xw, wfo),
+        "fused_step_kernel", plain_calls=WF_PLAIN_CALLS)
+    work["fused_step[waterfall]"] = ((F.rows_layout(ww, wfo) + 9 * WE + wfo.n_out) * B * 4, kernel_ops(wks, xw, wfo))
+    errs["fused_step[waterfall]"] = kw.max()
+    del wenv, wcarry, x, xw
+
+    # -- (c) the main path -------------------------------------------------------
+    F.fused_step_launches = 0
+    F.rows_step_launches = 0
+    env = make_env("joint_passage", num_envs=B, fused_physics=True)  # every default
+    assert env.device.type == "cuda" and env.n_agents == 2
+    obs = env.reset()
+    for _ in range(5):
+        obs, rews, dones, infos = env.step(env.get_random_actions())
+    assert all(o.shape == (B, 10) and bool(torch.isfinite(o).all()) for o in obs)
+    assert all(r.shape == (B,) and bool(torch.isfinite(r).all()) for r in rews)
+    assert dones.shape == (B,) and len(infos) == 2
+    run = rows_rollout_fn(env, horizon=HORIZON)
+    rgen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    state, steps, traj = run(env.state, env.steps, rgen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    call_ms = []
+    for _ in range(TIMED_CALLS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, steps, traj = run(state, steps, rgen)
+        end.record()
+        end.synchronize()
+        call_ms.append(start.elapsed_time(end))
+    launches = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+    assert traj["rewards"].shape == (HORIZON, B, 2) and traj["dones"].shape == (HORIZON, B)
+    assert len(traj["obs"]) == 2 and all(o.shape == (HORIZON, B, 10) for o in traj["obs"])
+    assert bool(torch.isfinite(traj["rewards"]).all()) and all(bool(torch.isfinite(o).all()) for o in traj["obs"])
+    assert bool(torch.isfinite(state.pos).all())
+    assert int(steps[0]) == 5 + HORIZON * (1 + TIMED_CALLS)
+    assert launches == {"fused_step": 5, "rows_step": HORIZON * (1 + TIMED_CALLS)}, launches
+    print(f"main path: rows_rollout_fn joint_passage {B} envs x 2 agents x {HORIZON} steps: "
+          f"calls {[round(c, 3) for c in call_ms]} ms (warm-up {warm_s:.3f} s), "
+          f"best {B * HORIZON / (min(call_ms) / 1e3):.1f} env-steps/s, "
+          f"mean {B * HORIZON * TIMED_CALLS / (sum(call_ms) / 1e3):.1f} env-steps/s on {card}; "
+          f"launches {launches}; episodes ended in the last call {int(traj['dones'].sum())} of {HORIZON * B} "
+          f"env-steps", flush=True)
+    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"device time of one joint_passage rows_rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms "
+          f"wall (idle share {1 - busy_ms / min(call_ms):.3f}); top: "
+          + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
+
+    # -- (d) the kernels line ----------------------------------------------------
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    entries = [
+        kernel_entry(name, src, site, launches[form], errs[name], times[name], *work[name])
+        for name, form, site in (
+            ("rows_step[joint_passage]", "rows_step", "vmas_tpu/core/fused.py:1603"),
+            ("fused_step[joint_passage]", "fused_step", "vmas_tpu/core/fused.py:1425"),
+            ("fused_step[waterfall]", "fused_step", "vmas_tpu/core/fused.py:1425"),
+        )
+    ]
+    entries[-1]["launches_on"] = "joint_passage's main path"
     return entries
 
 
@@ -831,10 +1084,13 @@ def main():
     # -- 5. balance and the all-pairs world ------------------------------------
     balance_kernels = balance_phase(card, dev)
 
-    # -- 6. road_traffic -------------------------------------------------------
+    # -- 6. joints: joint_passage and waterfall --------------------------------
+    joint_kernels = joints_phase(card, dev)
+
+    # -- 7. road_traffic -------------------------------------------------------
     rt_kernels = road_traffic_phase(card, dev)
 
-    # -- 7. the kernels line -------------------------------------------------
+    # -- 8. the kernels line -------------------------------------------------
     flops = kernel_ops(ks, carry, fo)
     rows_bytes = (R_in + 2 * A + R_in + fo.n_out) * B * 4
     fused_bytes = (R_in + 9 * E + fo.n_out) * B * 4
@@ -844,7 +1100,7 @@ def main():
                      times["rows_step"], rows_bytes, flops),
         kernel_entry("fused_step", src, "vmas_tpu/core/fused.py:1425", launches["fused_step"], k1.max(),
                      times["fused_step"], fused_bytes, flops),
-    ] + balance_kernels + rt_kernels
+    ] + balance_kernels + joint_kernels + rt_kernels
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

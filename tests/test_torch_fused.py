@@ -220,17 +220,21 @@ def test_fused_refuses_grad():
         torch_make_env("transport", 4, device="cpu", fused_physics=True, grad_enabled=True)
 
 
-def _scenario(shape_fn, joint=False, dynamic_gravity=False):
-    from vmas_tpu_torch.core import Agent, Landmark, Sphere, World
+def _scenario(shape_fn, joint=False, dynamic_gravity=False, n_walls=1):
+    from vmas_tpu_torch.core import Agent, Joint, Landmark, Sphere, World
     from vmas_tpu_torch.scenario import BaseScenario
 
     class S(BaseScenario):
         def make_world(self, batch_dim, device=None, **kwargs):
-            w = World(batch_dim, device)
-            w.add_agent(Agent("a", shape=Sphere(0.05)))
-            w.add_landmark(Landmark("wall", shape=shape_fn(), collide=True))
+            w = World(batch_dim, device, substeps=2 if joint else 1)
+            a = Agent("a", shape=Sphere(0.05))
+            w.add_agent(a)
+            for i in range(n_walls):
+                w.add_landmark(Landmark(f"wall{i}", shape=shape_fn(), collide=True))
             if joint:
-                w.add_joint(object())
+                b = Landmark("b", shape=Sphere(0.05), movable=True)
+                w.add_landmark(b)
+                w.add_joint(Joint(a, b, dist=0.2))
             w.dynamic_gravity = dynamic_gravity
             return w
 
@@ -246,14 +250,31 @@ def _scenario(shape_fn, joint=False, dynamic_gravity=False):
     return S()
 
 
-@pytest.mark.parametrize("kind", ["dynamic_gravity", "joint"])
+@pytest.mark.parametrize("kind", ["dynamic_gravity", "entities"])
 def test_unported_worlds_raise(kind):
     from vmas_tpu_torch.core import Sphere
     from vmas_tpu_torch.environment import Environment
 
-    sc = _scenario(Sphere, joint=kind == "joint", dynamic_gravity=kind == "dynamic_gravity")
-    with pytest.raises(NotImplementedError, match="dynamic gravity" if kind == "dynamic_gravity" else "joints"):
+    sc = _scenario(Sphere, dynamic_gravity=kind == "dynamic_gravity", n_walls=32 if kind == "entities" else 1)
+    with pytest.raises(NotImplementedError, match="dynamic gravity" if kind == "dynamic_gravity" else "at most 32"):
         Environment(sc, num_envs=2, device="cpu", fused_physics=True)
+
+
+def test_joint_world_fuses():
+    """Joints are ported: a world with one steps through the fused step as
+    through the plain physics."""
+    from vmas_tpu_torch.core import Sphere
+    from vmas_tpu_torch.environment import Environment
+
+    envs = [Environment(_scenario(Sphere, joint=True), num_envs=2, device="cpu", fused_physics=f) for f in (True, False)]
+    assert envs[0].world.fused and len(envs[0].world.spec.joint_idx_a) == 2
+    for env in envs:
+        # wall, b, the joint's line, a; b 5 cm beyond the joint's reach
+        pos = torch.tensor([[[1.0, 1.0], [0.25, 0.0], [0.0, 0.0], [0.0, 0.0]]] * 2)
+        env.state = env.world.sync_joints(env.state.replace(pos=pos))
+        env.step([torch.tensor([[0.5, 0.0], [0.0, -0.5]])])
+    torch.testing.assert_close(envs[0].state.pos, envs[1].state.pos, atol=1e-5, rtol=1e-5)
+    assert bool((envs[0].state.pos[:, 1, 0] < 0.25).all())
 
 
 def test_interop_round_trip():

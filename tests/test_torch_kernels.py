@@ -13,8 +13,9 @@ rtol 1e-5, observation rows atol 2e-5, reward and shaping rows atol 2e-3;
 road_traffic's path sweeps and observations: indices, flags, short-term
 points and chosen neighbours equal, values atol 1e-6; its env with both
 kernels against the plain path atol 5e-5; balance's on_ground and done flags
-equal except within 1e-5 of a threshold. The balance and all-pairs states
-come from vmas_tpu_torch/testing.py, as chip_smoke.py's do.
+equal except within 1e-5 of a threshold; joint_passage's just_passed and
+done flags likewise. The balance, all-pairs, joint_passage and waterfall
+states come from vmas_tpu_torch/testing.py, as chip_smoke.py's do.
 """
 
 import pytest
@@ -163,6 +164,78 @@ def test_all_pairs_kernel_matches_plain():
         yk = F.fused_step(w, x)
         _close(yk, F.fused_step_plain(w, x), 1e-5)
         x = yk
+    torch.cuda.synchronize()
+
+
+# -- joints: joint_passage and waterfall ---------------------------------------
+
+def _joint_env(name, build, seed):
+    import numpy as np
+
+    from vmas_tpu_torch.interop import state_from_numpy
+
+    _cuda()
+    e = make_env(name, B, device="cuda", seed=0, fused_physics=True)
+    world, fo = e.world, e._fused_outputs
+    slots = [a.index for a in e.agents]
+    carry = F.pack_carry(world, state_from_numpy(world, build(e, np.random.default_rng(seed))), fo)
+    return e, world, fo, slots, carry
+
+
+def _both_forms(world, fo, slots, carry, act):
+    """((state, emit) of K2, of its plain version, of K1, of its plain
+    version) on one carry and action."""
+    E = len(world.entities)
+    ck, ek = F.make_rows_step(world, fo, slots)(carry, act)
+    cp, ep = F.rows_step_plain(world, fo, slots, carry, act)
+    x = carry.clone()
+    x[6 * E + torch.as_tensor(slots, device="cuda")] = act[:len(slots)]
+    x[7 * E + torch.as_tensor(slots, device="cuda")] = act[len(slots):]
+    yk, yp = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+    return ck, [((ck[:9 * E], ek), (cp[:9 * E], ep)), ((yk[:9 * E], yk[9 * E:]), (yp[:9 * E], yp[9 * E:]))]
+
+
+def test_joint_passage_kernels_match_plain():
+    from vmas_tpu_torch.testing import joint_passage_contact_state, joint_passage_flag_margin
+
+    e, world, fo, slots, carry = _joint_env("joint_passage", joint_passage_contact_state, 8)
+    base = fo.base
+    assert F.joint_counts(world, carry)["force"] > 0
+    g = torch.Generator(device="cuda").manual_seed(9)
+    n1, n2 = F.fused_step_launches, F.rows_step_launches
+    for _ in range(3):
+        act = (torch.rand((2 * len(slots), B), generator=g, device="cuda") * 2 - 1) * 0.8
+        carry_k, pairs = _both_forms(world, fo, slots, carry, act)
+        for (sk, xk), (sp, xp) in pairs:
+            _close(sk, sp, 1e-5)
+            _close(xk[:base], xp[:base], 2e-5)
+            ok = (xk[base + 7:] == xp[base + 7:]).all(0)
+            assert bool((ok | (joint_passage_flag_margin(fo, sp) < 1e-5)).all())
+            _close(xk[base:base + 7][:, ok], xp[base:base + 7][:, ok], 2e-3)
+        carry = carry_k
+    torch.cuda.synchronize()
+    assert (F.fused_step_launches, F.rows_step_launches) == (n1 + 3, n2 + 3)
+
+
+def test_waterfall_kernels_match_plain():
+    from vmas_tpu_torch.testing import waterfall_contact_state
+
+    e, world, fo, slots, carry = _joint_env("waterfall", waterfall_contact_state, 10)
+    counts = F.contact_counts(world, carry)
+    assert all(v > 0 for v in counts.values()), counts
+    assert F.joint_counts(world, carry)["torque"] > 0
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for _ in range(2):
+        act = (torch.rand((2 * len(slots), B), generator=g, device="cuda") * 2 - 1) * 0.7
+        carry_k, pairs = _both_forms(world, fo, slots, carry, act)
+        for (sk, xk), (sp, xp) in pairs:
+            _close(sk, sp, 1e-5)
+            _close(xk[:fo.base], xp[:fo.base], 2e-5)
+            _close(xk[fo.base:], xp[fo.base:], 2e-3)
+        # the fixed rotations ride the carry unchanged
+        E = len(world.entities)
+        assert torch.equal(carry_k[9 * E:], carry[9 * E:])
+        carry = carry_k
     torch.cuda.synchronize()
 
 

@@ -3,8 +3,9 @@
 A second package beside the JAX one, which stays the reference: the same
 module names, plain PyTorch around hand-written CUDA kernels for Hopper
 (``csrc/``). Environments run on the GPU unless ``device="cpu"`` is passed.
-Ported so far: the transport scenario end to end, with the fused physics
-step and the rows-carried rollout.
+Ported so far: transport, balance and joint_passage end to end, with the
+fused physics step and the rows-carried rollout; road_traffic (map 1) with
+its two kernels; the debug world waterfall.
 """
 
 __version__ = "1.5.0"

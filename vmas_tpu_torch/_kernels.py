@@ -7,8 +7,8 @@ into ``_build/`` beside this file, named by a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
 The ``ctypes`` structures below mirror ``csrc/fused_step.cu``'s structs field for
-field; the kernel takes them by value, and the world's pair tables by
-pointer (``core.fused.KernelSpec.pair_table``). ``csrc/road_traffic.cu``
+field; the kernel takes them by value, and the world's joint and pair
+tables by pointer (``core.fused.KernelSpec.pair_table``). ``csrc/road_traffic.cu``
 takes plain pointers and scalars.
 """
 
@@ -31,8 +31,8 @@ NVCC_FLAGS = [
 # kernel name -> its source; one nvcc process per source
 SOURCES = {"fused_step": "fused_step.cu", "road_traffic": "road_traffic.cu"}
 
-# capacities of the kernel's by-value spec (csrc/fused_step.cu); the pair
-# tables are a device buffer of any length
+# capacities of the kernel's by-value spec (csrc/fused_step.cu); the joint
+# and pair tables are a device buffer of any length
 MAX_E = 32
 MAX_A = 16
 MAX_K = 8
@@ -51,12 +51,14 @@ F_GRAVITY = 256
 F_DRAG = 512
 F_MAX_SPEED = 1024
 F_V_RANGE = 2048
-F_TRIG = 4096  # a pair reads the entity's rotation (a line or a box)
+F_TRIG = 4096  # a joint or a pair reads the entity's rotation
 
 # FusedOutputs.emit realizations compiled into the kernel
 EMIT_NONE = 0
 EMIT_TRANSPORT = 1
 EMIT_BALANCE = 2
+EMIT_JOINT_PASSAGE = 3
+EMIT_WATERFALL = 4
 
 _i, _f = ctypes.c_int, ctypes.c_float
 
@@ -65,9 +67,10 @@ class FusedSpec(ctypes.Structure):
     _fields_ = [
         ("E", _i), ("J", _i), ("K_in", _i), ("substeps", _i),
         ("n_ss", _i), ("n_ls", _i), ("n_ll", _i), ("n_bs", _i), ("n_bl", _i), ("n_bb", _i),
-        ("o_ss", _i), ("o_ls", _i), ("o_ll", _i), ("o_bs", _i), ("o_bl", _i), ("o_bb", _i),
+        ("o_j", _i), ("o_ss", _i), ("o_ls", _i), ("o_ll", _i), ("o_bs", _i), ("o_bl", _i), ("o_bb", _i),
         ("n_act", _i), ("has_x", _i), ("has_y", _i),
         ("sub_dt", _f), ("cm", _f), ("cf", _f), ("x_semidim", _f), ("y_semidim", _f),
+        ("jf", _f), ("tcf", _f),
         ("flags", _i * MAX_E),
         ("inv_mass", _f * MAX_E), ("inv_moi", _f * MAX_E), ("drag_fac", _f * MAX_E),
         ("max_f", _f * MAX_E), ("f_range", _f * MAX_E),
@@ -98,6 +101,24 @@ class BalanceParams(ctypes.Structure):
     ]
 
 
+class JointPassageParams(ctypes.Structure):
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A),
+        ("jl", _i), ("goal", _i),
+        ("n_open", _i), ("open", _i * MAX_E),
+        ("pw_half", _f), ("pos_f", _f), ("rot_f", _f), ("middle", _f),
+        ("all_rot", _i), ("obs_joint", _i),
+    ]
+
+
+class WaterfallParams(ctypes.Structure):
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A),
+        ("n_lm", _i), ("lm", _i * MAX_E),
+        ("goal", _i),
+    ]
+
+
 class EmitParams(ctypes.Structure):
     """The scratch-carry map, then each emit's own parameters."""
 
@@ -105,6 +126,8 @@ class EmitParams(ctypes.Structure):
         ("carry_idx", _i * MAX_K),
         ("transport", TransportParams),
         ("balance", BalanceParams),
+        ("joint_passage", JointPassageParams),
+        ("waterfall", WaterfallParams),
     ]
 
 

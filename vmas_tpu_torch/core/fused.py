@@ -19,15 +19,18 @@ share one device function. A wrapper runs the plain version for a tensor on
 the CPU and the kernel for a tensor on a GPU, and counts each kernel
 launch in ``fused_step_launches`` / ``rows_step_launches``.
 
-Covered: all six shape-pair contact types (sphere-sphere, line-sphere,
-line-line, box-sphere, box-line, box-box, in that order), action clamps,
-friction, static gravity, drag, speed clamps, semidim clamps, any substeps,
-and the emits of transport and balance. The world's pair tables live in
-one device buffer (``KernelSpec.pair_table``), so a world may have any
-number of pairs. Not ported yet: joints, dynamic gravity,
-``process_act_rows`` and ``k_steps > 1``; worlds that need them raise
-``NotImplementedError``. Forward only: ``Environment`` refuses
-``grad_enabled`` with ``fused_physics``.
+Covered: joint constraints (attractive and repulsive anchor forces, and the
+rotation torque of ``rotate=False`` constraints against the fixed
+rotations the carry holds), all six shape-pair contact types
+(sphere-sphere, line-sphere, line-line, box-sphere, box-line, box-box, in
+that order), action clamps, friction, static gravity, drag, speed clamps,
+semidim clamps, any substeps, and the emits of transport, balance,
+joint_passage and waterfall. The world's joint and pair tables live in one
+device buffer (``KernelSpec.pair_table``), so a world may have any number
+of joints and pairs. Not ported yet: dynamic gravity, ``process_act_rows``
+and ``k_steps > 1``; worlds that need them raise ``NotImplementedError``
+(or, for the rows step, are not eligible). Forward only: ``Environment``
+refuses ``grad_enabled`` with ``fused_physics``.
 """
 
 from __future__ import annotations
@@ -57,19 +60,40 @@ def _norm(x, y):
     return torch.where(is_zero, 0.0, torch.sqrt(torch.where(is_zero, 1.0, sq)))
 
 
+def _div(num, den: float):
+    """``num / den`` for a Python float ``den`` as one IEEE division, as the
+    kernel divides. (PyTorch turns ``cuda_tensor / python_float`` into a
+    multiplication by the reciprocal, and ``python_float / tensor`` into
+    ``tensor.reciprocal() * python_float`` on every device; either can
+    differ from the division in the last bit.)"""
+    return num / num.new_tensor(den)
+
+
+def _rdiv(num: float, den):
+    """``num / den`` for a Python float ``num`` as one IEEE division."""
+    return den.new_tensor(num) / den
+
+
 def _logaddexp0(x):
     # logaddexp(0, x) = max(x, 0) + log1p(exp(-|x|))
     return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
-def _constraint_force(cm, ax, ay, bx, by, dist_min, mult):
-    """Repulsive penalty force on a (negate for b)."""
+def _constraint_force(cm, ax, ay, bx, by, dist_min, mult, attractive=False):
+    """Penalty force on a (negate for b): repulsive inside ``dist_min``, or
+    attractive beyond it. The attractive form applies the sign before the
+    division by ``cm`` and drops the force inside ``dist_min``."""
     dx, dy = ax - bx, ay - by
     dist = _norm(dx, dy)
-    penetration = _logaddexp0((dist_min - dist) / cm) * cm
-    scale = mult * penetration / torch.where(dist > 0, dist, 1e-8)
+    if attractive:
+        penetration = _logaddexp0(_div((dist_min - dist) * -1.0, cm)) * cm
+        scale = -mult * penetration / torch.where(dist > 0, dist, 1e-8)
+        drop = (dist < _MIN_DIST) | (dist < dist_min)
+    else:
+        penetration = _logaddexp0(_div(dist_min - dist, cm)) * cm
+        scale = mult * penetration / torch.where(dist > 0, dist, 1e-8)
+        drop = (dist < _MIN_DIST) | (dist > dist_min)
     fx, fy = dx * scale, dy * scale
-    drop = (dist < _MIN_DIST) | (dist > dist_min)
     return torch.where(drop, 0.0, fx), torch.where(drop, 0.0, fy)
 
 
@@ -237,10 +261,8 @@ def supports(world) -> bool:
 
 def check_fusable(world) -> None:
     """Raise ``NotImplementedError`` for a world the port's kernel cannot
-    step: joints, dynamic gravity, or more than ``MAX_E`` entities."""
+    step: dynamic gravity, or more than ``MAX_E`` entities."""
     spec = world.spec
-    if len(spec.joint_idx_a):
-        raise NotImplementedError("joints are not ported to the fused kernel yet")
     if world.dynamic_gravity:
         raise NotImplementedError("dynamic gravity is not ported to the fused kernel yet")
     if len(spec.mass) > K.MAX_E:
@@ -270,6 +292,14 @@ class FusedOutputs:
           its next value (None: carried unchanged); opts into the
           rows-carried rollout, which holds unpack to reading no
           step-varying state but the emit rows.
+      process_action_noop: True where the scenario overrides
+          process_action but the override does nothing in this config
+          (joint_passage with its velocity controller off), so the rows
+          step may stand in for it.
+      unpack_reads: step-varying inputs unpack reads besides the emit
+          rows (joint_passage's observation noise: ("obs_key",)); the
+          port's rows rollout does not substitute them yet and refuses a
+          config that declares any.
     """
 
     n_scratch_in = 0
@@ -333,6 +363,20 @@ class KernelSpec:
             bs_dmin0 = [float(v) for v in spec.bs_rad + LINE_MIN_DIST]
         else:
             bs_dmin0 = [float(v) + LINE_MIN_DIST for v in spec.bs_rad]
+        # the joint table: (a, b, anchor a, anchor b, dist, rotate), in
+        # spec order; its constants are f32 values read as Python floats,
+        # as vmas_tpu/core/fused.py reads them
+        self.jf = float(world.joint_force)
+        self.tcf = float(world.torque_constraint_force)
+        self.joints = [
+            (
+                int(spec.joint_idx_a[j]), int(spec.joint_idx_b[j]),
+                float(spec.joint_anchor_a[j, 0]), float(spec.joint_anchor_a[j, 1]),
+                float(spec.joint_anchor_b[j, 0]), float(spec.joint_anchor_b[j, 1]),
+                float(spec.joint_dist[j]), bool(spec.joint_rotate[j]),
+            )
+            for j in range(self.J)
+        ]
         self.ss = [
             (int(spec.ss_a[k]), int(spec.ss_b[k]), float(spec.ss_ra[k] + spec.ss_rb[k]))
             for k in range(len(spec.ss_a))
@@ -370,26 +414,29 @@ class KernelSpec:
             )
             for k in range(len(spec.bb_a))
         ]
-        # the entities whose rotation a pair reads (lines and boxes): their
-        # cos and sin are taken once per substep
+        # the entities whose rotation a joint or a pair reads (joint ends,
+        # lines and boxes): their cos and sin are taken once per substep
         self.trig = sorted(
-            {r[0] for r in self.ls} | {e for r in self.ll for e in r[:2]} | {r[0] for r in self.bs}
+            {e for r in self.joints for e in r[:2]}
+            | {r[0] for r in self.ls} | {e for r in self.ll for e in r[:2]} | {r[0] for r in self.bs}
             | {e for t in (self.bl, self.bb) for r in t for e in r[:2]}
         )
         self.table, self.table_offsets = self._pair_table()
         self._dev_tables = {}
 
     def _pair_table(self):
-        """All pair tables as one int32 array (floats stored by their bits,
-        rounded once to f32), types in kernel order ss, ls, ll, bs, bl, bb;
-        and each type's offset into it. One record per pair:
-        ss (a, b, dmin), ls (line, sphere, half, dmin), ll (a, b, half_a,
+        """The joint table and all pair tables as one int32 array (floats
+        stored by their bits, rounded once to f32), in kernel order joints,
+        ss, ls, ll, bs, bl, bb; and each table's offset into it. One record
+        per joint: (a, b, anchor_a x, y, anchor_b x, y, dist, rotate); per
+        pair: ss (a, b, dmin), ls (line, sphere, half, dmin), ll (a, b, half_a,
         half_b), bs (box, sphere, half_w, half_l, dmin0, not_hollow), bl (box,
         line, half_w, half_l, line_half, not_hollow), bb (a, b, half_wa,
         half_la, half_wb, half_lb, not_hollow_a, not_hollow_b)."""
         words, offsets = [], []
         f = lambda v: int(np.float32(v).view(np.int32))
         for pairs, kinds in (
+            (self.joints, "iifffffi"),
             (self.ss, "iif"), (self.ls, "iiff"), (self.ll, "iiff"),
             (self.bs, "iifffi"), (self.bl, "iifffi"), (self.bb, "iiffffii"),
         ):
@@ -424,11 +471,13 @@ class KernelSpec:
         s = K.FusedSpec()
         s.E, s.J, s.K_in, s.substeps = self.E, self.J, k_in, self.substeps
         s.n_act = len(act_slots)
-        for name, off in zip(("ss", "ls", "ll", "bs", "bl", "bb"), self.table_offsets):
+        s.o_j = self.table_offsets[0]
+        for name, off in zip(PAIR_TYPES, self.table_offsets[1:]):
             setattr(s, f"n_{name}", len(getattr(self, name)))
             setattr(s, f"o_{name}", off)
         s.has_x, s.has_y = self.x_semidim is not None, self.y_semidim is not None
         s.sub_dt, s.cm, s.cf = self.sub_dt, self.cm, self.cf
+        s.jf, s.tcf = self.jf, self.tcf
         s.x_semidim = self.x_semidim or 0.0
         s.y_semidim = self.y_semidim or 0.0
         for e in range(self.E):
@@ -469,83 +518,153 @@ def _kernel_spec(world) -> KernelSpec:
 # the plain version: one env step on [B] rows, in the kernel's order
 # ---------------------------------------------------------------------------
 
-def _pair_forces(ks, px, py, rot):
+def _trig_cache(rot):
+    """``cs(e)``: cos and sin of entity e's rotation, taken once (per
+    substep: a fresh cache per substep)."""
+    trig = {}
+
+    def cs(e):
+        if e not in trig:
+            trig[e] = (torch.cos(rot[e]), torch.sin(rot[e]))
+        return trig[e]
+
+    return cs
+
+
+def _joint_forces(ks, px, py, rot, jfr, cs):
+    """Every joint constraint's force and torques, in table order, as ``(a,
+    b, fx, fy, torque_a, torque_b)``: +f on a, -f on b. The force is the
+    attractive plus the repulsive penalty between the two anchor points;
+    a ``rotate=False`` constraint adds the exponential torque that holds
+    rot_a - rot_b at its fixed rotation (``jfr``, one row per constraint)."""
+    cm, jf, tcf = ks.cm, ks.jf, ks.tcf
+    for j, (a, b, aax, aay, abx, aby, dist, rotate) in enumerate(ks.joints):
+        ca, sa = cs(a)
+        cb, sb = cs(b)
+        pjax = px[a] + aax * ca - aay * sa
+        pjay = py[a] + aax * sa + aay * ca
+        pjbx = px[b] + abx * cb - aby * sb
+        pjby = py[b] + abx * sb + aby * cb
+        fax_att, fay_att = _constraint_force(cm, pjax, pjay, pjbx, pjby, dist, jf, attractive=True)
+        fax_rep, fay_rep = _constraint_force(cm, pjax, pjay, pjbx, pjby, dist, jf)
+        fax, fay = fax_att + fax_rep, fay_att + fay_rep
+        ta = (pjax - px[a]) * fay - (pjay - py[a]) * fax
+        tb = (pjbx - px[b]) * (-fay) - (pjby - py[b]) * (-fax)
+        if not rotate:
+            delta = rot[a] - (rot[b] + jfr[j])
+            pen = torch.exp(torch.abs(delta)) - 1.0
+            tqc = tcf * torch.sign(delta) * pen
+            tqc = torch.where(torch.abs(delta) < 1e-9, 0.0, tqc)
+            ta, tb = ta + (-tqc), tb + tqc
+        yield a, b, fax, fay, ta, tb
+
+
+def _pair_forces(ks, px, py, rot, cs=None):
     """Every pair's contact force, in the kernel's order (ss, ls, ll, bs,
     bl, bb, each in spec order), as ``(i, j, fx, fy, torque_i,
     torque_j)``: +f acts on entity i, -f on entity j, and a torque is None
     where the type has none. Per type: ss +f on a; ls +f on the sphere, -f
     and a torque on the line; ll +f on a, torque on both; bs +f on the
     sphere, -f and a torque on the box; bl +f on the box, -f on the line,
-    torque on both; bb +f on a, torque on both."""
+    torque on both; bb +f on a, torque on both.
+
+    Each type is computed at once on [P, B] rows (pair constants as [P, 1]
+    f32 columns): every element sees the ops the kernel runs for its pair;
+    a hollow box takes its surface point by a per-pair select."""
     cm, cf = ks.cm, ks.cf
-    trig = {}
+    cs = cs or _trig_cache(rot)
+    dev = px[0].device
+    rows = lambda vals, idx: torch.stack([vals[i] for i in idx])
+    cos_sin = lambda idx: (torch.stack([cs(e)[0] for e in idx]), torch.stack([cs(e)[1] for e in idx]))
+    col = lambda recs, k, dt=torch.float32: torch.tensor([r[k] for r in recs], dtype=dt, device=dev)[:, None]
 
-    def cs(e):
-        """cos/sin of entity e's rotation, once per substep."""
-        if e not in trig:
-            trig[e] = (torch.cos(rot[e]), torch.sin(rot[e]))
-        return trig[e]
+    def per_pair(recs, i, j, fx, fy, ti, tj):
+        for k, r in enumerate(recs):
+            yield r[i], r[j], fx[k], fy[k], None if ti is None else ti[k], None if tj is None else tj[k]
 
-    for a, b, dmin in ks.ss:
-        cfx, cfy = _constraint_force(cm, px[a], py[a], px[b], py[b], dmin, cf)
-        yield a, b, cfx, cfy, None, None
+    if ks.ss:
+        a, b = [r[0] for r in ks.ss], [r[1] for r in ks.ss]
+        fx, fy = _constraint_force(cm, rows(px, a), rows(py, a), rows(px, b), rows(py, b), col(ks.ss, 2), cf)
+        yield from per_pair(ks.ss, 0, 1, fx, fy, None, None)
 
-    for ln, s, half, dmin in ks.ls:
-        cos, sin = cs(ln)
-        cx, cy = _closest_point_line(px[ln], py[ln], cos, sin, half, px[s], py[s])
-        sfx, sfy = _constraint_force(cm, px[s], py[s], cx, cy, dmin, cf)
-        yield s, ln, sfx, sfy, None, (cx - px[ln]) * (-sfy) - (cy - py[ln]) * (-sfx)
+    if ks.ls:
+        ln, s = [r[0] for r in ks.ls], [r[1] for r in ks.ls]
+        lx, ly, sx, sy = rows(px, ln), rows(py, ln), rows(px, s), rows(py, s)
+        cos, sin = cos_sin(ln)
+        cx, cy = _closest_point_line(lx, ly, cos, sin, col(ks.ls, 2), sx, sy)
+        sfx, sfy = _constraint_force(cm, sx, sy, cx, cy, col(ks.ls, 3), cf)
+        yield from per_pair(ks.ls, 1, 0, sfx, sfy, None, (cx - lx) * (-sfy) - (cy - ly) * (-sfx))
 
-    for a, b, ha, hb in ks.ll:
-        ca, sa = cs(a)
-        cb, sb = cs(b)
-        pax, pay, pbx, pby = _closest_points_line_line(px[a], py[a], ca, sa, ha, px[b], py[b], cb, sb, hb)
+    if ks.ll:
+        a, b = [r[0] for r in ks.ll], [r[1] for r in ks.ll]
+        ax, ay, bx, by = rows(px, a), rows(py, a), rows(px, b), rows(py, b)
+        (ca, sa), (cb, sb) = cos_sin(a), cos_sin(b)
+        pax, pay, pbx, pby = _closest_points_line_line(ax, ay, ca, sa, col(ks.ll, 2), bx, by, cb, sb, col(ks.ll, 3))
         afx, afy = _constraint_force(cm, pax, pay, pbx, pby, LINE_MIN_DIST, cf)
-        yield (a, b, afx, afy, (pax - px[a]) * afy - (pay - py[a]) * afx,
-               (pbx - px[b]) * (-afy) - (pby - py[b]) * (-afx))
+        yield from per_pair(ks.ll, 0, 1, afx, afy, (pax - ax) * afy - (pay - ay) * afx,
+                            (pbx - bx) * (-afy) - (pby - by) * (-afx))
 
-    for b, s, hw, hl, dmin0, not_hollow in ks.bs:
-        cos, sin = cs(b)
-        cx, cy = _closest_point_box(px[b], py[b], cos, sin, hw, hl, px[s], py[s])
-        if not_hollow:
-            ix, iy, d = _inner_point_box(px[s], py[s], cx, cy, px[b], py[b])
-            dmin = dmin0 + d
-        else:
-            ix, iy, dmin = cx, cy, dmin0
-        sfx, sfy = _constraint_force(cm, px[s], py[s], ix, iy, dmin, cf)
-        yield s, b, sfx, sfy, None, (cx - px[b]) * (-sfy) - (cy - py[b]) * (-sfx)
+    if ks.bs:
+        b, s = [r[0] for r in ks.bs], [r[1] for r in ks.bs]
+        bx, by, sx, sy = rows(px, b), rows(py, b), rows(px, s), rows(py, s)
+        cos, sin = cos_sin(b)
+        cx, cy = _closest_point_box(bx, by, cos, sin, col(ks.bs, 2), col(ks.bs, 3), sx, sy)
+        nh, dmin0 = col(ks.bs, 5, torch.bool), col(ks.bs, 4)
+        ix, iy, d = _inner_point_box(sx, sy, cx, cy, bx, by)
+        ix, iy = torch.where(nh, ix, cx), torch.where(nh, iy, cy)
+        sfx, sfy = _constraint_force(cm, sx, sy, ix, iy, torch.where(nh, dmin0 + d, dmin0), cf)
+        yield from per_pair(ks.bs, 1, 0, sfx, sfy, None, (cx - bx) * (-sfy) - (cy - by) * (-sfx))
 
-    for b, ln, hw, hl, lhalf, not_hollow in ks.bl:
-        cos, sin = cs(b)
-        lcos, lsin = cs(ln)
-        qbx, qby, qlx, qly = _closest_line_box(px[b], py[b], cos, sin, hw, hl, px[ln], py[ln], lcos, lsin, lhalf)
-        if not_hollow:
-            ix, iy, d = _inner_point_box(qlx, qly, qbx, qby, px[b], py[b])
-            dmin = LINE_MIN_DIST + d
-        else:
-            ix, iy, dmin = qbx, qby, LINE_MIN_DIST
+    if ks.bl:
+        b, ln = [r[0] for r in ks.bl], [r[1] for r in ks.bl]
+        bx, by, lx, ly = rows(px, b), rows(py, b), rows(px, ln), rows(py, ln)
+        (cos, sin), (lcos, lsin) = cos_sin(b), cos_sin(ln)
+        qbx, qby, qlx, qly = _closest_line_box(bx, by, cos, sin, col(ks.bl, 2), col(ks.bl, 3),
+                                               lx, ly, lcos, lsin, col(ks.bl, 4))
+        nh = col(ks.bl, 5, torch.bool)
+        ix, iy, d = _inner_point_box(qlx, qly, qbx, qby, bx, by)
+        ix, iy = torch.where(nh, ix, qbx), torch.where(nh, iy, qby)
+        dmin = torch.where(nh, LINE_MIN_DIST + d, torch.full_like(d, LINE_MIN_DIST))
         bfx, bfy = _constraint_force(cm, ix, iy, qlx, qly, dmin, cf)
-        yield (b, ln, bfx, bfy, (qbx - px[b]) * bfy - (qby - py[b]) * bfx,
-               (qlx - px[ln]) * (-bfy) - (qly - py[ln]) * (-bfx))
+        yield from per_pair(ks.bl, 0, 1, bfx, bfy, (qbx - bx) * bfy - (qby - by) * bfx,
+                            (qlx - lx) * (-bfy) - (qly - ly) * (-bfx))
 
-    for a, b, hwa, hla, hwb, hlb, nha, nhb in ks.bb:
-        ca, sa = cs(a)
-        cb, sb = cs(b)
-        qax, qay, qbx, qby = _bb_closest(px[a], py[a], ca, sa, hwa, hla, px[b], py[b], cb, sb, hwb, hlb)
-        if nha:
-            iax, iay, da = _inner_point_box(qbx, qby, qax, qay, px[a], py[a])
-        else:
-            iax, iay, da = qax, qay, 0.0
-        if nhb:
-            ibx, iby, db = _inner_point_box(qax, qay, qbx, qby, px[b], py[b])
-        else:
-            ibx, iby, db = qbx, qby, 0.0
+    if ks.bb:
+        a, b = [r[0] for r in ks.bb], [r[1] for r in ks.bb]
+        ax, ay, bx, by = rows(px, a), rows(py, a), rows(px, b), rows(py, b)
+        (ca, sa), (cb, sb) = cos_sin(a), cos_sin(b)
+        qax, qay, qbx, qby = _bb_closest(ax, ay, ca, sa, col(ks.bb, 2), col(ks.bb, 3),
+                                         bx, by, cb, sb, col(ks.bb, 4), col(ks.bb, 5))
+        nha, nhb = col(ks.bb, 6, torch.bool), col(ks.bb, 7, torch.bool)
+        iax, iay, da = _inner_point_box(qbx, qby, qax, qay, ax, ay)
+        ibx, iby, db = _inner_point_box(qax, qay, qbx, qby, bx, by)
+        iax, iay, da = torch.where(nha, iax, qax), torch.where(nha, iay, qay), torch.where(nha, da, 0.0)
+        ibx, iby, db = torch.where(nhb, ibx, qbx), torch.where(nhb, iby, qby), torch.where(nhb, db, 0.0)
         afx, afy = _constraint_force(cm, iax, iay, ibx, iby, da + db + LINE_MIN_DIST, cf)
-        yield (a, b, afx, afy, (qax - px[a]) * afy - (qay - py[a]) * afx,
-               (qbx - px[b]) * (-afy) - (qby - py[b]) * (-afx))
+        yield from per_pair(ks.bb, 0, 1, afx, afy, (qax - ax) * afy - (qay - ay) * afx,
+                            (qbx - bx) * (-afy) - (qby - by) * (-afx))
 
 
 PAIR_TYPES = ("ss", "ls", "ll", "bs", "bl", "bb")
+
+
+def joint_counts(world, x) -> dict:
+    """Over the joint constraints and envs of the state rows ``x`` [9E + J
+    + ..., B], how many carry a non-zero anchor force (``force``) and how
+    many a rotation torque, |delta| >= 1e-9 on a ``rotate=False``
+    constraint (``torque``), in the plain version's first substep, so a
+    comparison can show that it exercised the joint code."""
+    ks = _kernel_spec(world)
+    E = ks.E
+    px, py, rot = list(x[:E]), list(x[E:2 * E]), list(x[4 * E:5 * E])
+    jfr = list(x[9 * E:9 * E + ks.J])
+    counts = {"force": 0, "torque": 0}
+    for j, (a, _, fx, fy, _, _) in enumerate(_joint_forces(ks, px, py, rot, jfr, _trig_cache(rot))):
+        counts["force"] += int(((fx != 0) | (fy != 0)).sum())
+        if not ks.joints[j][7]:
+            b = ks.joints[j][1]
+            counts["torque"] += int((torch.abs(rot[a] - (rot[b] + jfr[j])) >= 1e-9).sum())
+    return counts
 
 
 def contact_counts(world, x) -> dict:
@@ -562,11 +681,13 @@ def contact_counts(world, x) -> dict:
     return counts
 
 
-def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq):
+def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr):
     """All substeps of one physics step on per-entity row lists (rebound
-    in place). Per entity the forces accumulate as the kernel accumulates
-    them: action, friction, gravity, then the pair types in the order ss,
-    ls, ll, bs, bl, bb, each in spec order."""
+    in place); ``jfr``: the joints' fixed-rotation rows. Per entity the
+    forces accumulate as the kernel accumulates them: action, friction,
+    gravity, then the joints in table order, then the pair types in the
+    order ss, ls, ll, bs, bl, bb, each in spec order (the JAX package's
+    plain path takes the same terms, in the same order per entity)."""
     E, sub_dt = ks.E, ks.sub_dt
     mv, ro = ks.movable, ks.rotatable
     for substep in range(ks.substeps):
@@ -603,15 +724,15 @@ def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq):
                 speed = _norm(vx[e], vy[e])
                 zero = speed == 0.0
                 den = torch.where(zero, 1.0, speed)
-                fcx = torch.clamp(torch.abs(vx[e]) / sub_dt * m, max=lfm)
-                fcy = torch.clamp(torch.abs(vy[e]) / sub_dt * m, max=lfm)
+                fcx = torch.clamp(_div(torch.abs(vx[e]), sub_dt) * m, max=lfm)
+                fcy = torch.clamp(_div(torch.abs(vy[e]), sub_dt) * m, max=lfm)
                 Fx[e] = Fx[e] + torch.where(zero, 0.0, -(vx[e] / den) * fcx)
                 Fy[e] = Fy[e] + torch.where(zero, 0.0, -(vy[e] / den) * fcy)
             if ks.ang_fric[e] is not None:
                 afm, moi = ks.ang_fric[e]
                 sp = torch.abs(w[e])
                 den = torch.where(sp == 0.0, 1.0, sp)
-                fc = torch.clamp(sp / sub_dt * moi, max=afm)
+                fc = torch.clamp(_div(sp, sub_dt) * moi, max=afm)
                 Tq[e] = Tq[e] + torch.where(sp == 0.0, 0.0, -(w[e] / den) * fc)
 
         # static gravity (world + per entity)
@@ -620,7 +741,9 @@ def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq):
                 Fx[e] = Fx[e] + ks.gravity[e][0]
                 Fy[e] = Fy[e] + ks.gravity[e][1]
 
-        for i, j, fx_, fy_, ti, tj in _pair_forces(ks, px, py, rot):
+        cs = _trig_cache(rot)
+        forces = list(_joint_forces(ks, px, py, rot, jfr, cs)) + list(_pair_forces(ks, px, py, rot, cs))
+        for i, j, fx_, fy_, ti, tj in forces:
             # +f on i, -f on j; a torque on either where the type has one
             if mv[i]:
                 Fx[i], Fy[i] = Fx[i] + fx_, Fy[i] + fy_
@@ -644,7 +767,7 @@ def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq):
                 if ms is not None:
                     n = torch.sqrt(vx[e] * vx[e] + vy[e] * vy[e])
                     over = n > ms
-                    s = torch.where(over, ms / torch.where(over, n, 1.0), 1.0)
+                    s = torch.where(over, _rdiv(ms, torch.where(over, n, 1.0)), 1.0)
                     vx[e] = vx[e] * s
                     vy[e] = vy[e] * s
                 vr = ks.v_range[e]
@@ -677,8 +800,9 @@ def _step_rows(ks, x, outputs, act_slots=(), act=None):
         fx[e] = act[i]
         fy[e] = act[A + i]
     k_in = int(outputs.n_scratch_in) if outputs is not None else 0
+    jfr = [x[9 * E + j] for j in range(J)]
     scratch = [x[9 * E + J + k] for k in range(k_in)]
-    _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq)
+    _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr)
     extra = []
     if outputs is not None:
         ctx = {"px": px, "py": py, "vx": vx, "vy": vy, "rot": rot, "w": w,

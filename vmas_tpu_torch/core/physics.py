@@ -1,14 +1,16 @@
 """The plain physics step, on ``[B, E, ...]`` tensors.
 
 Counterpart of vmas_tpu/core/physics.py: the per-step pair bucketing is
-hoisted to build time (:func:`build_spec`), each shape-pair type is one
-dense ``[B, P]`` computation followed by a scatter-add, and the force
-accumulation order is the JAX package's: action, friction, gravity, then
-the pair types in spec order. It stays differentiable through autograd.
+hoisted to build time (:func:`build_spec`), each shape-pair type and the
+joint table are one dense ``[B, P]`` computation followed by a
+scatter-add, and the force accumulation order is the JAX package's:
+action, friction, gravity, then the joint constraints, then the pair types
+in spec order. It stays differentiable through autograd.
 
 The port covers all six shape-pair contact types (sphere-sphere,
-line-sphere, line-line, box-sphere, box-line, box-box). Joints are not
-ported yet: ``World.add_joint`` raises ``NotImplementedError``.
+line-sphere, line-line, box-sphere, box-line, box-box) and joint
+constraints (attractive and repulsive anchor forces, and the rotation
+torque of ``rotate=False`` constraints).
 """
 
 from __future__ import annotations
@@ -80,11 +82,18 @@ def build_spec(world) -> SimpleNamespace:
 
     spec.silent = np.asarray([a.silent for a in agents], bool)
 
-    # ---- collision pair buckets -------------------------------------------
-    ss, ls, ll, bs, bl, bb = [], [], [], [], [], []
+    # ---- collision pair buckets and the joint table -------------------------
+    # the joint table takes the order of this enumeration, not add_joint's;
+    # a rigid (dist 0) constraint takes its pair out of collision
+    ss, ls, ll, bs, bl, bb, joints = [], [], [], [], [], [], []
     for ai in range(E):
         for bi in range(ai + 1, E):
             ea, eb = entities[ai], entities[bi]
+            constraint = world._constraints.get(frozenset({ea.name, eb.name}))
+            if constraint is not None:
+                joints.append(constraint)
+                if constraint.dist == 0:
+                    continue
             if not world.collides(ea, eb):
                 continue
             sa, sb = ea.shape, eb.shape
@@ -133,9 +142,21 @@ def build_spec(world) -> SimpleNamespace:
     spec.bb_lb, spec.bb_wb = prop(bb, 1, lambda e: e.shape.length), prop(bb, 1, lambda e: e.shape.width)
     spec.bb_nhb = prop(bb, 1, lambda e: not e.shape.hollow, bool)
 
-    # joints are not ported; the table stays empty so layouts keep J = 0
-    spec.joint_idx_a = np.zeros(0, np.int64)
-    spec.joint_fixed_rot_init = np.zeros(0, np.float32)
+    spec.joint_idx_a = np.asarray([c.entity_a.index for c in joints], np.int64)
+    spec.joint_idx_b = np.asarray([c.entity_b.index for c in joints], np.int64)
+    spec.joint_anchor_a = np.asarray(
+        [c.entity_a.shape.get_delta_from_anchor(c.anchor_a) for c in joints], np.float32
+    ).reshape(-1, 2)
+    spec.joint_anchor_b = np.asarray(
+        [c.entity_b.shape.get_delta_from_anchor(c.anchor_b) for c in joints], np.float32
+    ).reshape(-1, 2)
+    spec.joint_dist = np.asarray([c.dist for c in joints], np.float32)
+    spec.joint_rotate = np.asarray([c.rotate for c in joints], bool)
+    spec.joint_fixed_rot_init = np.asarray(
+        [0.0 if c.fixed_rotation is None else c.fixed_rotation for c in joints], np.float32
+    )
+    for t, c in enumerate(joints):
+        c.table_index = t
     return spec
 
 
@@ -180,6 +201,9 @@ def _dev(world):
             bb_a=t(spec.bb_a, torch.long), bb_b=t(spec.bb_b, torch.long),
             bb_la=t(spec.bb_la), bb_wa=t(spec.bb_wa), bb_lb=t(spec.bb_lb), bb_wb=t(spec.bb_wb),
             bb_nha=t(spec.bb_nha, torch.bool), bb_nhb=t(spec.bb_nhb, torch.bool),
+            joint_a=t(spec.joint_idx_a, torch.long), joint_b=t(spec.joint_idx_b, torch.long),
+            joint_anchor_a=t(spec.joint_anchor_a), joint_anchor_b=t(spec.joint_anchor_b),
+            joint_dist=t(spec.joint_dist), joint_rotate=t(spec.joint_rotate, torch.bool),
         )
     return spec.dev
 
@@ -206,6 +230,17 @@ def constraint_forces(contact_margin, pos_a, pos_b, dist_min, force_multiplier, 
     else:
         force = torch.where((dist < dist_min)[..., None], zero, force)
     return force, -force
+
+
+def constraint_torques(rot_a, rot_b, force_multiplier):
+    """Exponential rotation-constraint torque pair."""
+    min_delta_rot = 1e-9
+    delta_rot = rot_a - rot_b
+    abs_delta = torch.abs(delta_rot)
+    penetration = torch.exp(abs_delta) - 1.0
+    torque = force_multiplier * torch.sign(delta_rot) * penetration
+    torque = torch.where(abs_delta < min_delta_rot, torch.zeros_like(torque), torque)
+    return -torque, torque
 
 
 def _add_force(forces, movable, idx, f):
@@ -253,11 +288,33 @@ def _friction_force(vel, coeff, mass, sub_dt):
 
 
 def _environment_forces(world, state, forces, torques):
-    """The six shape-pair contact forces, in the JAX package's order: ss,
-    ls, ll, bs, bl, bb."""
+    """The joint constraints, then the six shape-pair contact forces, in
+    the JAX package's order: ss, ls, ll, bs, bl, bb."""
     spec, dv = world.spec, _dev(world)
     cm = world.contact_margin
     cf = world.collision_force
+
+    if len(spec.joint_idx_a):
+        ia, ib = dv.joint_a, dv.joint_b
+        pos_a, pos_b = state.pos[:, ia], state.pos[:, ib]
+        rot_a, rot_b = state.rot[:, ia], state.rot[:, ib]
+        pja = pos_a + TorchUtils.rotate_vector(dv.joint_anchor_a[None].expand(pos_a.shape), rot_a)
+        pjb = pos_b + TorchUtils.rotate_vector(dv.joint_anchor_b[None].expand(pos_b.shape), rot_b)
+        dist = dv.joint_dist[None, :]
+        fa_att, fb_att = constraint_forces(cm, pja, pjb, dist, world.joint_force, attractive=True)
+        fa_rep, fb_rep = constraint_forces(cm, pja, pjb, dist, world.joint_force, attractive=False)
+        force_a = fa_att + fa_rep
+        force_b = fb_att + fb_rep
+        ta_rot = TorchUtils.compute_torque(force_a, pja - pos_a)
+        tb_rot = TorchUtils.compute_torque(force_b, pjb - pos_b)
+        ta_fix, tb_fix = constraint_torques(rot_a, rot_b + state.joint_fixed_rot, world.torque_constraint_force)
+        rotate = dv.joint_rotate[None, :]
+        torque_a = torch.where(rotate, ta_rot, ta_rot + ta_fix)
+        torque_b = torch.where(rotate, tb_rot, tb_rot + tb_fix)
+        forces = _add_force(forces, dv.movable, ia, force_a)
+        torques = _add_torque(torques, dv.rotatable, ia, torque_a)
+        forces = _add_force(forces, dv.movable, ib, force_b)
+        torques = _add_torque(torques, dv.rotatable, ib, torque_b)
 
     if len(spec.ss_a):
         pa, pb = state.pos[:, dv.ss_a], state.pos[:, dv.ss_b]

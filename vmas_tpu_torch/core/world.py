@@ -6,7 +6,7 @@ VMAS (``World(batch_dim, device, ...)``, ``world.add_agent(Agent(...))``);
 functions are plain torch over a :class:`WorldState` of ``[B, E, ...]``
 tensors on ``world.device``.
 
-Not ported yet: joints (``add_joint``) and ray casting (``cast_rays``).
+Not ported yet: ray casting (``cast_rays``).
 """
 
 from __future__ import annotations
@@ -152,6 +152,15 @@ class Entity:
             ang_vel = ang_vel[..., 0]
         return self._set(state, "ang_vel", ang_vel, (), env_mask)
 
+    def set_rendering(self, state: WorldState, value, env_mask=None) -> WorldState:
+        arr = state.rendering
+        value = torch.as_tensor(value, dtype=torch.bool, device=arr.device).expand(arr.shape[0])
+        if env_mask is not None:
+            value = torch.where(env_mask, value, arr[:, self.index])
+        out = arr.clone()
+        out[:, self.index] = value
+        return state.replace(rendering=out)
+
     def __repr__(self):
         return f"{type(self).__name__}({self.name!r})"
 
@@ -214,6 +223,7 @@ class Agent(Entity):
         c_noise: float = 0.0,
         silent: bool = True,
         adversary: bool = False,
+        render_action: bool = False,
         drag: float = None,
         linear_friction: float = None,
         angular_friction: float = None,
@@ -249,6 +259,7 @@ class Agent(Entity):
         self.silent = silent
         self.adversary = adversary
         self.alpha = alpha
+        self.render_action = render_action
 
         from vmas_tpu_torch.dynamics.holonomic import Holonomic
 
@@ -373,6 +384,8 @@ class World:
         self.fused = False
         self._agents: List[Agent] = []
         self._landmarks: List[Landmark] = []
+        self._joint_objects: List = []
+        self._constraints = {}  # frozenset{name_a, name_b} -> JointConstraint
         self.spec = None  # set by finalize()
 
     # -- construction ---------------------------------------------------
@@ -390,7 +403,12 @@ class World:
         self._landmarks.append(landmark)
 
     def add_joint(self, joint):
-        raise NotImplementedError("joints are not ported to vmas_tpu_torch yet")
+        assert self.substeps > 1, "For joints, world substeps needs to be more than 1"
+        if joint.landmark is not None:
+            self.add_landmark(joint.landmark)
+        self._joint_objects.append(joint)
+        for constraint in joint.joint_constraints:
+            self._constraints[frozenset({constraint.entity_a.name, constraint.entity_b.name})] = constraint
 
     @property
     def agents(self) -> List[Agent]:
@@ -411,6 +429,10 @@ class World:
     @property
     def scripted_agents(self) -> List[Agent]:
         return [a for a in self._agents if a.action_script is not None]
+
+    @property
+    def joints(self):
+        return self._constraints.values()
 
     # -- finalize: bake everything static ------------------------------
     def finalize(self):
@@ -441,7 +463,8 @@ class World:
             u=tuple(z(B, a.action_size) for a in self._agents),
             uc=z(B, A, self.dim_c),
             dyn=tuple(a.dynamics.init_state(B) for a in self._agents),
-            joint_fixed_rot=z(B, J),
+            joint_fixed_rot=torch.as_tensor(self.spec.joint_fixed_rot_init, device=self.device)
+            .expand(B, J).clone(),
             rendering=torch.ones((B, E), dtype=torch.bool, device=self.device),
             scenario=scenario if scenario is not None else {},
             dyn_gravity=z(B, E, 2) if self.dynamic_gravity else None,
@@ -484,7 +507,10 @@ class World:
         return _fused.fused_physics_step(self, state, outputs)
 
     def sync_joints(self, state: WorldState) -> WorldState:
-        """Joints are not ported; without them there is nothing to sync."""
+        """Re-pose each dist > 0 joint's landmark from the entities it links
+        and refresh the inferred fixed rotations (``Joint.sync``)."""
+        for joint in self._joint_objects:
+            state = joint.sync(self, state)
         return state
 
     # -- queries ---------------------------------------------------------

@@ -11,14 +11,16 @@
 // buffers keep the JAX layout [R, B], row-major and contiguous over envs:
 // thread b reads x[r * B + b], so neighbouring threads read neighbouring
 // addresses. The world's structure is data, not generated code: the
-// per-entity constants come by value (FusedSpec), the pair tables of all six
-// contact types as one int32 device buffer read by pointer (floats stored by
-// their bits), where every thread of a warp reads the same address at the
-// same time. Each env's state lives in per-thread arrays across the
-// substeps. The pair types run in the JAX kernel's order (ss, ls, ll, bs,
-// bl, bb), pair by pair; where the JAX kernel runs a type of 8 or more pairs
-// as one lane tile, it claims agreement with this pair-by-pair form within
-// an ulp. The arithmetic repeats vmas_tpu_torch/core/fused.py's plain version
+// per-entity constants come by value (FusedSpec), the joint table and the
+// pair tables of all six contact types as one int32 device buffer read by
+// pointer (floats stored by their bits), where every thread of a warp reads
+// the same address at the same time. Each env's state lives in per-thread
+// arrays across the substeps. The joint constraints run first, constraint by
+// constraint (a rotate=False constraint reads its fixed rotation from rows
+// 9E..9E+J of the input), then the pair types in the JAX kernel's order (ss,
+// ls, ll, bs, bl, bb), pair by pair; where the JAX kernel runs a type of 8
+// or more pairs as one lane tile, it claims agreement with this pair-by-pair
+// form within an ulp. The arithmetic repeats vmas_tpu_torch/core/fused.py's plain version
 // op for op, in its order, so it is built with --fmad=false and without fast
 // math (IEEE division and square root: the line-line intersection's boundary
 // tests depend on them). Closest-point selections take the first strict
@@ -28,7 +30,9 @@
 // transport@4096 moves (55 + 8 + 55 + 47) rows x 4096 x 4 B = 2.70 MB per
 // rows step, about 0.8 us at 3.35 TB/s. A box-box pair costs 8 box-line
 // tests of 4 line-line tests each (some 3,000 operations), so a world with
-// many box pairs can be bound by operations instead. 4096 envs give only 32
+// many box pairs can be bound by operations instead, and so can a world of
+// many box-sphere pairs and stiff joints over 10 substeps (joint_passage:
+// some 12,400 operations per env and substep). 4096 envs give only 32
 // blocks of 128 threads on 132 SMs, so launch latency and the serial
 // per-thread chain, not bandwidth, set this kernel's time; filling the card
 // is work for a later change.
@@ -45,10 +49,10 @@ enum {
   F_MOVABLE = 1, F_ROTATABLE = 2, F_MAX_F = 4, F_F_RANGE = 8, F_MAX_T = 16,
   F_T_RANGE = 32, F_LIN_FRIC = 64, F_ANG_FRIC = 128, F_GRAVITY = 256,
   F_DRAG = 512, F_MAX_SPEED = 1024, F_V_RANGE = 2048,
-  F_TRIG = 4096,  // a pair reads this entity's rotation (a line or a box)
+  F_TRIG = 4096,  // a joint or a pair reads this entity's rotation
 };
 
-enum { EMIT_NONE = 0, EMIT_TRANSPORT = 1, EMIT_BALANCE = 2 };
+enum { EMIT_NONE = 0, EMIT_TRANSPORT = 1, EMIT_BALANCE = 2, EMIT_JOINT_PASSAGE = 3, EMIT_WATERFALL = 4 };
 
 // vmas_tpu/core/utils.py LINE_MIN_DIST, rounded once to f32
 #define LMD_F ((float)(4.0 / 600.0))
@@ -57,11 +61,13 @@ enum { EMIT_NONE = 0, EMIT_TRANSPORT = 1, EMIT_BALANCE = 2 };
 // Mirrored field for field by vmas_tpu_torch/_kernels.py (ctypes).
 struct FusedSpec {
   int E, J, K_in, substeps;
-  // pair counts and their offsets (in words) into the pair table
+  // pair counts, and the offsets (in words) of the joint table and the pair
+  // tables into the table buffer; J counts the joint records
   int n_ss, n_ls, n_ll, n_bs, n_bl, n_bb;
-  int o_ss, o_ls, o_ll, o_bs, o_bl, o_bb;
+  int o_j, o_ss, o_ls, o_ll, o_bs, o_bl, o_bb;
   int n_act, has_x, has_y;
   float sub_dt, cm, cf, x_semidim, y_semidim;
+  float jf, tcf;  // joint force, torque constraint force
   int flags[MAX_E];
   float inv_mass[MAX_E], inv_moi[MAX_E], drag_fac[MAX_E];
   float max_f[MAX_E], f_range[MAX_E];
@@ -92,10 +98,31 @@ struct BalanceParams {
   float factor, fall_rew;
 };
 
+struct JointPassageParams {
+  int n_agents;
+  int agent[MAX_A];
+  int jl, goal;  // the joint's line, the goal line
+  int n_open;
+  int open[MAX_E];  // the open passages, in their order
+  float pw_half;    // passage width / 2
+  float pos_f, rot_f, middle;
+  int all_rot, obs_joint;
+};
+
+struct WaterfallParams {
+  int n_agents;
+  int agent[MAX_A];
+  int n_lm;
+  int lm[MAX_E];  // every landmark, in world order
+  int goal;
+};
+
 struct EmitParams {
   int carry_idx[MAX_K];  // emit row feeding scratch row k; -1 = unchanged
   TransportParams transport;
   BalanceParams balance;
+  JointPassageParams joint_passage;
+  WaterfallParams waterfall;
 };
 
 // ---------------------------------------------------------------------------
@@ -130,6 +157,31 @@ __device__ __forceinline__ void constraint_force(float cm, float cf, float ax, f
     fx = 0.f;
     fy = 0.f;
   }
+}
+
+// The attractive form: pulls a toward b beyond dmin. The sign comes before
+// the division by cm, and the force is dropped inside dmin (fused.py
+// _constraint_force with attractive=True).
+__device__ __forceinline__ void constraint_force_att(float cm, float cf, float ax, float ay,
+                                                     float bx, float by, float dmin,
+                                                     float& fx, float& fy) {
+  float dx = ax - bx, dy = ay - by;
+  float dist = nrm(dx, dy);
+  float pen = logaddexp0((dmin - dist) * -1.f / cm) * cm;
+  float scale = -cf * pen / (dist > 0.f ? dist : 1e-8f);
+  fx = dx * scale;
+  fy = dy * scale;
+  if (dist < 1e-6f || dist < dmin) {
+    fx = 0.f;
+    fy = 0.f;
+  }
+}
+
+// jnp.mod(x, pi) / torch.remainder(x, pi): fmod, then the divisor's sign
+__device__ __forceinline__ float mod_pi(float x) {
+  float r = fmodf(x, PI_F);
+  if (r != 0.f && (r < 0.f) != (PI_F < 0.f)) r = r + PI_F;
+  return r;
 }
 
 __device__ __forceinline__ void closest_point_line(float lx, float ly, float c, float s,
@@ -282,7 +334,9 @@ __device__ __noinline__ void bb_closest(float ax, float ay, float ca, float sa, 
 #define TI(i) __ldg(tab + (i))
 #define TF(i) __int_as_float(__ldg(tab + (i)))
 
+// jfr: the joints' fixed-rotation rows ([J, B], this env at column b)
 __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restrict__ tab,
+                        const float* __restrict__ jfr, int B, int b,
                         float* px, float* py, float* vx, float* vy,
                         float* rot, float* w, float* fx, float* fy, float* tq) {
   const int E = sp.E;
@@ -345,6 +399,42 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restri
         C[e] = cosf(rot[e]);
         S[e] = sinf(rot[e]);
       }
+    }
+
+    // joint constraints, in table order: the attractive plus the repulsive
+    // penalty between the two anchor points, +f on a, -f on b, and their
+    // torques; a rotate=False constraint adds the exponential torque that
+    // holds rot_a - rot_b at its fixed rotation
+#pragma unroll 1
+    for (int j = 0; j < sp.J; ++j) {
+      const int r = sp.o_j + 8 * j;
+      const int a = TI(r), bb = TI(r + 1);
+      const float aax = TF(r + 2), aay = TF(r + 3), abx = TF(r + 4), aby = TF(r + 5), dist = TF(r + 6);
+      const float pjax = px[a] + aax * C[a] - aay * S[a];
+      const float pjay = py[a] + aax * S[a] + aay * C[a];
+      const float pjbx = px[bb] + abx * C[bb] - aby * S[bb];
+      const float pjby = py[bb] + abx * S[bb] + aby * C[bb];
+      float fax_att, fay_att, fax_rep, fay_rep;
+      constraint_force_att(cm, sp.jf, pjax, pjay, pjbx, pjby, dist, fax_att, fay_att);
+      constraint_force(cm, sp.jf, pjax, pjay, pjbx, pjby, dist, fax_rep, fay_rep);
+      const float fax = fax_att + fax_rep, fay = fay_att + fay_rep;
+      float ta = (pjax - px[a]) * fay - (pjay - py[a]) * fax;
+      float tb = (pjbx - px[bb]) * (-fay) - (pjby - py[bb]) * (-fax);
+      if (!TI(r + 7)) {
+        // expf(|d|) - 1, as the reference computes it (not expm1f)
+        const float delta = rot[a] - (rot[bb] + jfr[(size_t)j * B + b]);
+        const float ad = fabsf(delta);
+        float tqc = sp.tcf * sgn(delta) * (expf(ad) - 1.f);
+        if (ad < 1e-9f) tqc = 0.f;
+        ta = ta + (-tqc);
+        tb = tb + tqc;
+      }
+      Fx[a] = Fx[a] + fax;
+      Fy[a] = Fy[a] + fay;
+      Tq[a] = Tq[a] + ta;
+      Fx[bb] = Fx[bb] + (-fax);
+      Fy[bb] = Fy[bb] + (-fay);
+      Tq[bb] = Tq[bb] + tb;
     }
 
     // sphere-sphere pairs, in spec order: +f on a, -f on b
@@ -628,6 +718,108 @@ struct BalanceEmit {
   }
 };
 
+// |a - b| on angles mod pi, the nearer way round (joint_passage.py
+// get_line_angle_dist_0_180)
+__device__ __forceinline__ float angle_dist(float a, float b) {
+  a = mod_pi(a);
+  b = mod_pi(b);
+  return fminf(fabsf(a - b), fminf(fabsf(a - (b - PI_F)), fabsf((a - PI_F) - b)));
+}
+
+// vmas_tpu/scenarios/joint_passage.py JointPassageOutputs.emit, row for row:
+// per agent [pos, vel, pos - goal, pos - each open passage, the goal's
+// direction (cos, sin), the joint's rotation if observed], then rew,
+// pos_rew, rot_rew, the four new shapings, passed, just_passed and done.
+// Scratch in: pos_shaping_pre, pos_shaping_post, rot_shaping_pre,
+// rot_shaping_post, passed.
+struct JointPassageEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float* rot, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const JointPassageParams& p = ep.joint_passage;
+    const int jl = p.jl, gi = p.goal;
+    const bool joint_passed = py[jl] > 0.f;
+    bool all_passed = true;
+    for (int i = 0; i < p.n_agents; ++i) all_passed = all_passed && (py[p.agent[i]] > p.pw_half);
+    float dist_pass = 0.f;
+    for (int k = 0; k < p.n_open; ++k) {
+      const float d = nrm(px[jl] - px[p.open[k]], py[jl] - py[p.open[k]]);
+      dist_pass = k == 0 ? d : fminf(dist_pass, d);
+    }
+    const float pp_pre = dist_pass * p.pos_f;
+    float pos_rew = !joint_passed ? scratch[0] - pp_pre : 0.f;
+    const float dist_goal = nrm(px[jl] - px[gi], py[jl] - py[gi]);
+    const float pp_post = dist_goal * p.pos_f;
+    pos_rew = pos_rew + (joint_passed ? scratch[1] - pp_post : 0.f);
+    const bool rot_passed = p.all_rot ? all_passed : joint_passed;
+    const float rp_pre = angle_dist(rot[jl], p.middle) * p.rot_f;
+    float rot_rew = !rot_passed ? scratch[2] - rp_pre : 0.f;
+    const float dist_rot_goal = angle_dist(rot[jl], rot[gi]);
+    const float rp_post = dist_rot_goal * p.rot_f;
+    rot_rew = rot_rew + (rot_passed ? scratch[3] - rp_post : 0.f);
+    const float rew = pos_rew + rot_rew;
+    const bool just_passed = all_passed && (scratch[4] == 0.f);
+    const float passed = just_passed ? 100.f : scratch[4];
+    const bool done = (dist_goal <= 0.01f) && (dist_rot_goal <= 0.01f);
+    const float gc = cosf(rot[gi]), gs = sinf(rot[gi]);
+
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = px[ai] - px[gi];
+      o[(r++) * B + b] = py[ai] - py[gi];
+      for (int k = 0; k < p.n_open; ++k) {
+        o[(r++) * B + b] = px[ai] - px[p.open[k]];
+        o[(r++) * B + b] = py[ai] - py[p.open[k]];
+      }
+      o[(r++) * B + b] = gc;
+      o[(r++) * B + b] = gs;
+      if (p.obs_joint) o[(r++) * B + b] = rot[jl];
+    }
+    o[(r++) * B + b] = rew;
+    o[(r++) * B + b] = pos_rew;
+    o[(r++) * B + b] = rot_rew;
+    o[(r++) * B + b] = pp_pre;
+    o[(r++) * B + b] = pp_post;
+    o[(r++) * B + b] = rp_pre;
+    o[(r++) * B + b] = rp_post;
+    o[(r++) * B + b] = passed;
+    o[(r++) * B + b] = just_passed ? 1.f : 0.f;
+    o[(r++) * B + b] = done ? 1.f : 0.f;
+  }
+};
+
+// vmas_tpu/scenarios/debug/waterfall.py WaterfallOutputs.emit, row for row:
+// per agent [pos, vel, each landmark's pos - the agent's], then per agent
+// the reward, minus its distance to the goal (the floor).
+struct WaterfallEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float*, float* o, int B, int b) {
+    const WaterfallParams& p = ep.waterfall;
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      for (int k = 0; k < p.n_lm; ++k) {
+        o[(r++) * B + b] = px[p.lm[k]] - px[ai];
+        o[(r++) * B + b] = py[p.lm[k]] - py[ai];
+      }
+    }
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = -nrm(px[ai] - px[p.goal], py[ai] - py[p.goal]);
+    }
+  }
+};
+
 // ---------------------------------------------------------------------------
 // the kernel, in both forms
 // ---------------------------------------------------------------------------
@@ -665,7 +857,7 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const int* __restrict
   }
   for (int k = 0; k < sp.K_in; ++k) scratch[k] = x[(9 * E + sp.J + k) * B + b];
 
-  physics(sp, tab, px, py, vx, vy, rot, w, fx, fy, tq);
+  physics(sp, tab, x + (size_t)9 * E * B, B, b, px, py, vx, vy, rot, w, fx, fy, tq);
 
   for (int e = 0; e < E; ++e) {
     out[(0 * E + e) * B + b] = px[e];
@@ -695,8 +887,8 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const int* __restrict
 
 extern "C" {
 
-// Launch one fused step on `stream`. tab: the world's pair table (int32
-// words, FusedSpec's offsets). rows_mode = 0: x [9E + J + K_in, B] -> out
+// Launch one fused step on `stream`. tab: the world's joint and pair tables
+// (int32 words, FusedSpec's offsets). rows_mode = 0: x [9E + J + K_in, B] -> out
 // [9E + K_out, B]. rows_mode = 1: x = carry [R_in, B], act [2A, B] -> out =
 // carry' [R_in, B], extra [n_out, B]; it needs an emit. Returns
 // cudaGetLastError().
@@ -711,11 +903,15 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, int emit_kind, 
   if (rows_mode) {
     if (emit_kind == EMIT_TRANSPORT) LAUNCH(true, TransportEmit);
     else if (emit_kind == EMIT_BALANCE) LAUNCH(true, BalanceEmit);
+    else if (emit_kind == EMIT_JOINT_PASSAGE) LAUNCH(true, JointPassageEmit);
+    else if (emit_kind == EMIT_WATERFALL) LAUNCH(true, WaterfallEmit);
     else return cudaErrorInvalidValue;
   } else {
     if (emit_kind == EMIT_NONE) LAUNCH(false, NoEmit);
     else if (emit_kind == EMIT_TRANSPORT) LAUNCH(false, TransportEmit);
     else if (emit_kind == EMIT_BALANCE) LAUNCH(false, BalanceEmit);
+    else if (emit_kind == EMIT_JOINT_PASSAGE) LAUNCH(false, JointPassageEmit);
+    else if (emit_kind == EMIT_WATERFALL) LAUNCH(false, WaterfallEmit);
     else return cudaErrorInvalidValue;
   }
 #undef LAUNCH

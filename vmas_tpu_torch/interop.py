@@ -5,8 +5,9 @@
 the other way. The dict holds the fields ``pos``, ``vel``, ``rot``,
 ``ang_vel``, ``force``, ``torque``, ``c``, ``u`` (a sequence, one array per
 agent), ``uc``, ``joint_fixed_rot`` and ``rendering``, and the ``scenario``
-scratch dict. This is how a state made elsewhere (another simulator, a
-recording, a test) is injected.
+scratch dict, whose values are arrays or dicts of them (a velocity
+controller's memory, ``{"accum_errs", "prev_err"}``). This is how a state
+made elsewhere (another simulator, a recording, a test) is injected.
 """
 
 from __future__ import annotations
@@ -34,14 +35,26 @@ def state_from_numpy(world, arrays: dict) -> WorldState:
     kw = {f: _tensor(arrays[f], dev) if f in arrays else getattr(base, f) for f in FIELDS}
     u = arrays.get("u")
     kw["u"] = base.u if u is None else tuple(_tensor(x, dev) for x in u)
-    kw["scenario"] = {k: _tensor(v, dev) for k, v in arrays.get("scenario", {}).items()}
+    kw["scenario"] = _scratch_in(arrays.get("scenario", {}), dev)
     return base.replace(**kw)
+
+
+def _scratch_in(d, device):
+    return {k: _scratch_in(v, device) if isinstance(v, dict) else _tensor(v, device) for k, v in d.items()}
+
+
+def _scratch_out(d):
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out[k] = _scratch_out(v)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.detach().cpu().numpy()
+    return out
 
 
 def state_to_numpy(state: WorldState) -> dict:
     out = {f: getattr(state, f).detach().cpu().numpy() for f in FIELDS}
     out["u"] = [u.detach().cpu().numpy() for u in state.u]
-    out["scenario"] = {
-        k: v.detach().cpu().numpy() for k, v in state.scenario.items() if isinstance(v, torch.Tensor)
-    }
+    out["scenario"] = _scratch_out(state.scenario)
     return out

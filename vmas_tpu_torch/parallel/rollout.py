@@ -82,7 +82,14 @@ def rows_rollout_supported(env) -> bool:
     """Whether ``rows_rollout_fn`` can run this env: fused physics with a
     fused-outputs scenario declaring its scratch carry, noise-free
     unclamped (or discrete) actions, and a hook pipeline the kernel fully
-    replaces (see fused.rows_step_supported)."""
+    replaces (see fused.rows_step_supported). A scenario's process_action
+    override is allowed where its outputs declare it a no-op for this
+    config (``process_action_noop``). Not eligible yet, and run through
+    ``rollout_fn`` (the fused step, K1, per ``env.step``) instead: a
+    process_action the kernel would have to realize in its rows
+    (``process_act_rows``: joint_passage with ``use_controller=True``), and
+    outputs whose unpack reads per-step state (``unpack_reads``: the noisy
+    joint_passage configs)."""
     from vmas_tpu_torch.core import fused as F
     from vmas_tpu_torch.scenario import BaseScenario
 
@@ -98,7 +105,8 @@ def rows_rollout_supported(env) -> bool:
             for a in env.agents
         )
         and sc.post_rewards is BaseScenario.post_rewards
-        and sc.process_action is BaseScenario.process_action
+        and (sc.process_action is BaseScenario.process_action or getattr(fo, "process_action_noop", False))
+        and not getattr(fo, "unpack_reads", ())
         and sc.pre_step is BaseScenario.pre_step
         and sc.post_step is BaseScenario.post_step
         and F.rows_step_supported(env.world, fo, env.agents)
@@ -153,7 +161,8 @@ def rows_rollout_fn(env, horizon: int = 100):
         "rows_rollout_fn: env not eligible -- needs fused_physics=True, a "
         "fused-outputs scenario declaring carry_extra_idx, holonomic "
         "noise-free agents (continuous unclamped or discrete), no scripted "
-        "agents, no process_action/post_rewards overrides; use rollout_fn"
+        "agents, no post_rewards override, no process_action override unless "
+        "declared a no-op, no unpack_reads; use rollout_fn"
     )
     world, fo, agents = env.world, env._fused_outputs, env.agents
     act_slots = [a.index for a in agents]

@@ -1,6 +1,6 @@
-"""Scenario registry. ``balance``, ``road_traffic`` and ``transport`` are
-ported so far; every other scenario of the JAX package raises
-``ValueError`` when loaded."""
+"""Scenario registry. ``balance``, ``joint_passage``, ``road_traffic``,
+``transport`` and the debug scenario ``waterfall`` are ported so far; every
+other scenario of the JAX package raises ``ValueError`` when loaded."""
 
 from __future__ import annotations
 
@@ -8,8 +8,10 @@ import importlib
 
 _PORTED = {
     "balance": "vmas_tpu_torch.scenarios.balance",
+    "joint_passage": "vmas_tpu_torch.scenarios.joint_passage",
     "road_traffic": "vmas_tpu_torch.scenarios.road_traffic",
     "transport": "vmas_tpu_torch.scenarios.transport",
+    "waterfall": "vmas_tpu_torch.scenarios.debug.waterfall",
 }
 
 

@@ -4,8 +4,12 @@ Shared by chip_smoke.py (on the GPU) and the CPU tests (against the JAX
 package): the all-pairs world, in which all six contact pair types occur,
 a packed state of it in which every type touches, a balance state with
 contacts of its four types, and the margin of balance's flags to their
-thresholds. The states are numpy dicts made from a seeded generator, so
-that both packages can load the same one.
+thresholds; a small world of every kind of joint constraint and a state of
+it, a joint_passage state with contacts of its four types and its joints
+pulled apart, a waterfall state with all six types touching and its
+fixed-rotation torques active, and the margin of joint_passage's flags.
+The states are numpy dicts made from a seeded generator, so that both
+packages can load the same one.
 """
 
 from __future__ import annotations
@@ -33,6 +37,66 @@ def all_pairs_world(core, batch_dim, device=None):
         w.add_agent(core.Agent(name=f"b{i}", shape=core.Box(0.2, 0.1, hollow=i == 2), mass=5))
     w.finalize()
     return w
+
+
+def joints_world(core, batch_dim, device=None):
+    """A small world of every kind of joint constraint, from ``core``
+    (``vmas_tpu.core`` or ``vmas_tpu_torch.core``), substeps 2: sphere
+    agents a0-a2; a bar (a collidable line) joining a0 and a1 at their
+    surfaces; a box rigidly joined to a2 at a fixed rotation of 0.3 rad; a
+    non-collidable line joining a1 (its rotation held at the one inferred
+    at sync) and a2; a static floor line. E = 7 with 5 constraints and ss
+    3, ls 4, ll 1, bs 2, bl 2 pairs."""
+    w = core.World(batch_dim, device, substeps=2, joint_force=300)
+    a = [core.Agent(name=f"a{i}", shape=core.Sphere(0.05)) for i in range(3)]
+    for ag in a:
+        w.add_agent(ag)
+    w.add_joint(core.Joint(a[0], a[1], anchor_a=(1, 0), anchor_b=(-1, 0), dist=0.3, collidable=True))
+    box = core.Landmark(name="box", shape=core.Box(0.2, 0.1), movable=True, rotatable=True, collide=True)
+    w.add_landmark(box)
+    w.add_joint(core.Joint(a[2], box, dist=0.0, rotate_a=False, rotate_b=False,
+                           fixed_rotation_a=0.3, fixed_rotation_b=0.3))
+    w.add_joint(core.Joint(a[1], a[2], dist=0.2, rotate_a=False, rotate_b=True))
+    w.add_landmark(core.Landmark(name="floor", shape=core.Line(2.0), collide=True))
+    w.finalize()
+    return w
+
+
+def joints_state(world, rng):
+    """A numpy state dict of ``joints_world`` with every constraint pulled
+    apart by millimetres to centimetres and contacts of four pair types: a0
+    and a1 0.4 apart with the bar between them, a2 and the box touching a1
+    from below (sphere-sphere, box-sphere), the floor touching a2 and the
+    box (line-sphere, box-line); jittered per env."""
+    B = world.batch_dim
+    idx = {e.name: e.index for e in world.entities}
+    pos = np.zeros((B, len(idx), 2))
+    rot = np.zeros((B, len(idx)))
+    j = lambda s: rng.normal(0, s, (B, 2))
+    pos[:, idx["a0"]] = (-0.2, 0.0) + j(0.01)
+    pos[:, idx["a1"]] = (0.2, 0.0) + j(0.001)
+    pos[:, idx["a2"]] = (0.2, -0.098) + j(0.001)
+    pos[:, idx["box"]] = pos[:, idx["a2"]] + j(0.001)
+    pos[:, idx["floor"]] = (0.0, -0.152) + j(0.001)
+    bar, link = (e.name for e in world.landmarks if e.name.startswith("joint"))
+    for name, (p, q) in ((bar, ("a0", "a1")), (link, ("a1", "a2"))):
+        mid = (pos[:, idx[p]] + pos[:, idx[q]]) / 2
+        d = pos[:, idx[q]] - pos[:, idx[p]]
+        pos[:, idx[name]] = mid + j(0.004)
+        rot[:, idx[name]] = np.arctan2(d[:, 1], d[:, 0]) + rng.normal(0, 0.05, B)
+    rot[:, idx["a1"]] = rng.normal(0, 0.3, B)
+    rot[:, idx["a2"]] = rng.normal(0, 0.3, B)
+    rot[:, idx["box"]] = rng.normal(0, 0.05, B)
+    rot[:, idx["floor"]] = rng.normal(0, 0.005, B)
+    E = len(idx)
+    f32 = lambda a: np.asarray(a, np.float32)
+    J = len(world.spec.joint_idx_a)
+    return {
+        "pos": f32(pos), "rot": f32(rot),
+        "vel": f32(rng.normal(0, 0.02, (B, E, 2))), "ang_vel": f32(rng.normal(0, 0.1, (B, E))),
+        "force": f32(rng.normal(0, 0.2, (B, E, 2))), "torque": f32(rng.normal(0, 0.01, (B, E))),
+        "joint_fixed_rot": f32(np.asarray(world.spec.joint_fixed_rot_init)[None] + rng.normal(0, 0.05, (B, J))),
+    }
 
 
 def all_pairs_state(rng, batch_dim):
@@ -155,3 +219,213 @@ def balance_flag_margin(fo, rows):
         (F._norm(px[pi] - cx, py[pi] - cy) - (fo.pkg_r + LINE_MIN_DIST)).abs(),
         (dist - fo.pkg_r - fo.goal_r).abs(),
     ]).min(0).values
+
+
+def _np_state(state, pos, rot, vel, ang_vel, force):
+    """A numpy state dict from ``state``, with the physical fields replaced
+    (f32) and the scenario scratch copied."""
+    from vmas_tpu_torch.interop import state_to_numpy
+
+    out = state_to_numpy(state)
+    f32 = lambda a: np.asarray(a, np.float32)
+    out.update(pos=f32(pos), rot=f32(rot), vel=f32(vel), ang_vel=f32(ang_vel), force=f32(force),
+               torque=np.zeros(rot.shape, np.float32))
+    return out
+
+
+def joint_passage_contact_state(env, rng):
+    """A numpy state dict of a joint_passage env (default config) in which
+    each of its contact types touches and the joints are pulled apart, by
+    env index mod 4: (0) the bar tilted through the gap, across a side
+    face of the passage beside it (box-line); (1) the bar level under or
+    over the row of passages, the agents 0.5-4 mm short of touching the
+    passages' faces and the mass pulled off its anchor to touch too
+    (box-sphere); (2) the bar upright beside a side wall, the agents
+    touching the wall (line-sphere); (3) the agents touching each other,
+    the bar across them (sphere-sphere; its anchors some 0.22 m away). In
+    every env the agents and the mass sit 0-3 mm off their anchors; the
+    scratch holds noisy shapings, some episodes passed, and non-zero
+    controller memory."""
+    sc = env.scenario
+    B, E = env.state.pos.shape[:2]
+    st = env.state
+    cpu = lambda t: t.detach().cpu().numpy().astype(np.float64)
+    pos, rot = cpu(st.pos), cpu(st.rot)
+    u = lambda lo, hi: rng.uniform(lo, hi, B)
+    sign = lambda: rng.choice([-1.0, 1.0], B)
+    jl, ms, gl = sc.joint.landmark.index, sc.mass.index, sc.goal.index
+    a0, a1 = (a.index for a in sc.world.agents)
+    r_a, r_m, half = sc.agent_radius, sc.mass_radius, sc.joint_length / 2
+    gap_x = float(pos[0, sc.non_collide_passages[0].index, 0])
+    wall_x = 1 + r_a
+    mode = np.arange(B) % 4
+
+    cx, cy, th = np.zeros(B), np.zeros(B), np.zeros(B)
+    s = sign()
+    # (0) through the gap, across the face of the passage on side s
+    m = mode == 0
+    face = gap_x + s * sc.passage_length / 2
+    cx[m] = (face - s * u(0.001, 0.005))[m]
+    cy[m] = u(-0.08, 0.08)[m]
+    th[m] = (np.pi / 2 + u(-0.15, 0.15))[m]
+    # (1) level, under (s < 0) or over (s > 0) the row of passages
+    m = mode == 1
+    cx[m] = u(-0.7, 0.7)[m]
+    cy[m] = (s * (sc.passage_width / 2 + r_a + LINE_MIN_DIST - u(0.0005, 0.004)))[m]
+    th[m] = u(-0.01, 0.01)[m]
+    # (2) upright beside the wall on side s
+    m = mode == 2
+    cx[m] = (s * (wall_x - r_a - LINE_MIN_DIST + u(0.0005, 0.004)))[m]
+    cy[m] = (sign() * u(0.45, 0.7))[m]
+    th[m] = (np.pi / 2 + u(-0.02, 0.02))[m]
+    # (3) the agents overlapping by 0.5-4 mm, the bar across them
+    m = mode == 3
+    cx[m], cy[m], th[m] = u(-0.5, 0.5)[m], u(0.3, 0.7)[m], u(-np.pi, np.pi)[m]
+
+    along = np.stack([np.cos(th), np.sin(th)], -1)
+    centre = np.stack([cx, cy], -1)
+    jitter = lambda: rng.normal(0, 0.0015, (B, 2))
+    pos[:, jl], rot[:, jl] = centre, th
+    pos[:, a0] = centre - along * half + jitter()
+    pos[:, a1] = centre + along * half + jitter()
+    pos[:, ms] = centre + along * (sc.mass_position * half) + jitter()
+    m = mode == 1
+    pos[m, ms, 1] -= (np.sign(cy) * (r_a - r_m))[m]
+    m = mode == 3
+    gap = (2 * r_a - u(0.0005, 0.004))[m]
+    pos[m, a0] = centre[m] - along[m] * gap[:, None] / 2
+    pos[m, a1] = centre[m] + along[m] * gap[:, None] / 2
+    pos[:, gl] = np.stack([u(-0.7, 0.7), u(0.3, 0.9)], -1)
+    rot[:, gl] = u(-np.pi / 2, np.pi / 2)
+
+    movable = [jl, ms, a0, a1]
+    vel = np.zeros((B, E, 2))
+    vel[:, movable] = rng.normal(0, 0.02, (B, 4, 2))
+    ang_vel = np.zeros((B, E))
+    ang_vel[:, [jl, a0, a1]] = rng.normal(0, 0.1, (B, 3))
+    force = np.zeros((B, E, 2))
+    force[:, [a0, a1]] = rng.normal(0, 0.3, (B, 2, 2))
+    out = _np_state(env.state, pos, rot, vel, ang_vel, force)
+
+    def angle_dist(a, b):
+        a, b = np.mod(a, np.pi), np.mod(b, np.pi)
+        return np.minimum(np.abs(a - b), np.minimum(np.abs(a - (b - np.pi)), np.abs((a - np.pi) - b)))
+
+    f32 = lambda a: np.asarray(a, np.float32)
+    noise = lambda: rng.normal(0, 0.01, B)
+    d_pass = np.linalg.norm(pos[:, jl] - pos[:, sc.non_collide_passages[0].index], axis=-1)
+    scratch = out["scenario"]
+    scratch.update(
+        pos_shaping_pre=f32(d_pass + noise()),
+        pos_shaping_post=f32(np.linalg.norm(pos[:, jl] - pos[:, gl], axis=-1) + noise()),
+        rot_shaping_pre=f32(angle_dist(th, np.pi / 2) + noise()),
+        rot_shaping_post=f32(angle_dist(th, rot[:, gl]) + noise()),
+        passed=f32(rng.choice([0.0, 100.0], B)),
+    )
+    for a in sc.world.agents:
+        scratch[f"__vel_ctrl_{a.name}"] = {
+            "accum_errs": f32(rng.normal(0, 0.01, (B, 2))), "prev_err": f32(rng.normal(0, 0.1, (B, 2))),
+        }
+    return out
+
+
+def joint_passage_flag_margin(fo, rows):
+    """Per env, the smallest distance of one of joint_passage's discrete
+    tests (bar past the wall, agents past the passages, done's two
+    distances) to its threshold, on the post-step state rows [9E, B]
+    (``fo``: its ``JointPassageOutputs``)."""
+    from vmas_tpu_torch.scenarios.joint_passage import _angle_dist
+
+    E = len(rows) // 9
+    px, py, rot = rows[:E], rows[E:2 * E], rows[4 * E:5 * E]
+    jl, gi = fo.jl_i, fo.goal_i
+    tests = [py[jl].abs(), (F._norm(px[jl] - px[gi], py[jl] - py[gi]) - 0.01).abs(),
+             (_angle_dist(rot[jl], rot[gi]) - 0.01).abs()]
+    tests += [(py[ai] - fo.pw_half).abs() for ai in fo.agent_i]
+    return torch.stack(tests).min(0).values
+
+
+def waterfall_contact_state(env, rng):
+    """A numpy state dict of a waterfall env (default config) laid out on
+    its floor so that all six pair types touch by 0.5-4 mm, with tilts
+    that keep every closest point clear of a tie: the chain's agents on
+    the floor (line-sphere), the first turned so that its bar's end lies on
+    the floor (line-line), the second and third side by side (sphere-
+    sphere; the bar between them pulled 5 cm off both anchors), a box
+    across the last two (box-sphere), the joined box standing on the floor
+    (box-line) with its bar a few cm off its anchors, and two boxes on the
+    floor, one tilted against the other's side (box-line, box-box). The
+    joints are synced, then the two fixed rotations set 0.02-0.1 rad off,
+    so that their torque acts; velocities slow, random forces on the
+    agents."""
+    sc, world = env.scenario, env.world
+    B, E = env.state.pos.shape[:2]
+    st = env.state
+    u = lambda lo, hi: rng.uniform(lo, hi, B)
+    sign = lambda: rng.choice([-1.0, 1.0], B)
+    r = sc.agent_radius
+    gap = lambda: LINE_MIN_DIST - u(0.0005, 0.004)  # a surface gap in contact range
+    floor_y = -1.0
+    ag = [a.index for a in world.agents]
+    lms = world.landmarks
+    joined = lms[sc.n_agents - 1].index
+    boxes = [lm.index for lm in lms[sc.n_agents + 1:-1]]
+    pos = st.pos.detach().cpu().numpy().astype(np.float64)
+    rot = np.zeros((B, E))
+    x0 = u(-0.9, -0.8)
+    y_on_floor = lambda: floor_y + r + gap()
+    # agent 0 turned down: its anchor (1, 0) lies on the floor, and the
+    # next agent where that anchor is one bar length from its own
+    turn = u(0.05, 0.15)
+    rot[:, ag[0]] = -np.pi / 2 + turn
+    pos[:, ag[0]] = np.stack([x0, floor_y + gap() + r * np.cos(turn)], -1)
+    a0 = pos[:, ag[0]] + r * np.stack([np.cos(rot[:, ag[0]]), np.sin(rot[:, ag[0]])], -1)
+    y1 = y_on_floor()
+    dy = y1 - a0[:, 1]
+    pos[:, ag[1]] = np.stack([a0[:, 0] + np.sqrt(sc.agent_dist ** 2 - dy ** 2) + r, y1], -1)
+    # agents 1 and 2 overlapping, 2-4 spaced by a bar
+    pos[:, ag[2]] = np.stack([pos[:, ag[1], 0] + 2 * r - u(0.0005, 0.004), y_on_floor()], -1)
+    for k in (3, 4):
+        pos[:, ag[k]] = np.stack([pos[:, ag[k - 1], 0] + sc.agent_dist + 2 * r, y_on_floor()], -1)
+    # a box across agents 3 and 4, tilted
+    b0 = boxes[0]
+    rot[:, b0] = sign() * u(0.01, 0.04)
+    top = np.maximum(pos[:, ag[3], 1], pos[:, ag[4], 1]) + r
+    mid_x = (pos[:, ag[3], 0] + pos[:, ag[4], 0]) / 2
+    pos[:, b0] = np.stack([mid_x, top + 0.05 + gap() + 0.09 * np.abs(np.sin(rot[:, b0]))], -1)
+    # the joined box standing on the floor right of agent 4
+    rot[:, joined] = u(-0.02, 0.02)
+    pos[:, joined] = np.stack([pos[:, ag[4], 0] + 2 * r + sc.agent_dist + u(0.005, 0.015),
+                               floor_y + 0.15 + gap() + 0.04 * np.abs(np.sin(rot[:, joined]))], -1)
+    # two boxes on the floor, the second's corner against the first's side
+    b1, b2 = boxes[1], boxes[2]
+    rot[:, b1] = sign() * u(0.005, 0.02)
+    pos[:, b1] = np.stack([u(0.2, 0.3), floor_y + 0.05 + gap() + 0.15 * np.abs(np.sin(rot[:, b1]))], -1)
+    tilt = sign() * u(0.03, 0.08)
+    rot[:, b2] = rot[:, b1] + tilt
+    reach = 0.15 * np.cos(tilt) + 0.05 * np.abs(np.sin(tilt))
+    c, s_ = np.cos(rot[:, b1]), np.sin(rot[:, b1])
+    off_x, off_y = 0.15 + u(0.002, 0.005) + reach, u(0.015, 0.03)
+    pos[:, b2] = pos[:, b1] + np.stack([c * off_x - s_ * off_y, s_ * off_x + c * off_y], -1)
+    # the last two boxes apart, above
+    for k, b in enumerate(boxes[3:]):
+        pos[:, b] = np.stack([u(-0.7, 0.7), np.full(B, -0.3 + 0.3 * k)], -1)
+        rot[:, b] = u(-np.pi, np.pi)
+    dev = st.device
+    state = st.replace(pos=torch.as_tensor(pos, dtype=torch.float32, device=dev),
+                       rot=torch.as_tensor(rot, dtype=torch.float32, device=dev))
+    state = world.sync_joints(state)
+    jfr = state.joint_fixed_rot.detach().cpu().numpy().astype(np.float64)
+    free = ~world.spec.joint_rotate
+    jfr[:, free] += rng.choice([-1.0, 1.0], (B, int(free.sum()))) * rng.uniform(0.02, 0.1, (B, int(free.sum())))
+    cpu = lambda t: t.detach().cpu().numpy().astype(np.float64)
+    moving = [e.index for e in world.entities if e.movable]
+    vel = np.zeros((B, E, 2))
+    vel[:, moving] = rng.normal(0, 0.01, (B, len(moving), 2))
+    ang_vel = np.zeros((B, E))
+    ang_vel[:, moving] = rng.normal(0, 0.02, (B, len(moving)))
+    force = np.zeros((B, E, 2))
+    force[:, ag] = rng.normal(0, 0.1, (B, len(ag), 2))
+    out = _np_state(state, cpu(state.pos), cpu(state.rot), vel, ang_vel, force)
+    out["joint_fixed_rot"] = np.asarray(jfr, np.float32)
+    return out
