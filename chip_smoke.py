@@ -32,13 +32,28 @@
    joint_passage's main path with the counts zeroed: make_env (every
    default), reset, 5 env.step calls, rows_rollout_fn (horizon 1000) once
    to warm up and 3 timed calls, env-steps/s and the device idle share.
-7. road_traffic at 4096 envs x 20 vehicles: the path-sweep kernel and the
+7. give_way at 4096 envs: the rows step with the in-kernel PID velocity
+   controller (K2) and the fused step (K1) against their plain versions for
+   20 re-synced steps, for give_way and multi_give_way, from states in which
+   the agents touch each other and the walls, with actions that drive the
+   PID's clamp, min_input_norm zeroing, memory reset and integrator cutoff
+   (the lanes of each are counted); joint_passage with its controller, K2
+   against plain for 5 steps; one launch of 4 env steps against 4 launches
+   of one, bitwise, and against the plain version's 4 steps, at transport
+   and give_way; give_way's env.step rollout against its rows rollout,
+   bitwise in rewards, dones, observations, the final state, u and the
+   controller memory; then give_way's main path with the counts
+   zeroed: make_env, reset, 5 env.step calls, rows_rollout_fn (horizon 1000)
+   at k_steps 1 and at k_steps 4, each once to warm up and 3 timed calls,
+   env-steps/s and the device idle share; and transport's rows rollout at
+   k_steps 1 and 4 side by side.
+8. road_traffic at 4096 envs x 20 vehicles: the path-sweep kernel and the
    all-ego observation kernel against their plain versions (after a reset,
    after 20 random steps, and on lanes placed on path vertices and padded
    tails), then its main path with the counts zeroed: make_env with every
    default, reset, 5 env.step calls, rollout_fn(horizon=100) once to warm up
    and 3 timed calls, with one launch of each kernel per step and reset.
-8. Prints one JSON line describing each kernel, then the result line.
+9. Prints one JSON line describing each kernel, then the result line.
 
 Any failure raises and exits non-zero. It imports nothing of JAX.
 """
@@ -77,6 +92,11 @@ TRIG_OPS = 20
 JP_CMP_STEPS = 10
 WF_CMP_STEPS = 5
 WF_PLAIN_CALLS = 5
+# give_way: steps compared (give_way and multi_give_way, then joint_passage
+# with its controller), and the env steps per rows launch timed beside one
+GW_CMP_STEPS = 20
+JPC_CMP_STEPS = 5
+K_STEPS = 4
 
 
 def card_line():
@@ -169,11 +189,13 @@ def og_margin(fo, state_rows, E):
 
 
 def compare_rows(tr, fo, E, state_k, state_p, emit_k, emit_p, tag):
-    """Kernel against plain for one step's state and emit rows; returns the
-    number of on_goal lanes excused for lying within OG_MARGIN of the
-    threshold."""
+    """Kernel against plain for one step's state and emit rows (the state
+    rows only where ``state_k`` is given; ``state_p`` places the on_goal
+    margins); returns the number of on_goal lanes excused for lying within
+    OG_MARGIN of the threshold."""
     A, w = fo.n_agents, fo.obs_w
-    tr.close(f"{tag} state rows", state_k, state_p, **STATE_TOL)
+    if state_k is not None:
+        tr.close(f"{tag} state rows", state_k, state_p, **STATE_TOL)
     tr.close(f"{tag} obs rows", emit_k[:A * w], emit_p[:A * w], OBS_ATOL, 1e-5)
     r = A * w
     og_k, og_p = emit_k[r + 1:r + 1 + fo.n_pkgs], emit_p[r + 1:r + 1 + fo.n_pkgs]
@@ -297,13 +319,28 @@ LL_CROSS_OPS, LL_MISS_OPS = 43, 135
 JOINT_OPS, JOINT_FIXED_OPS = 158, 31
 
 
+# the in-kernel PID per controlled agent, read off pid_act: the clamp 9,
+# the zeroing test 5, the reset test 5, the error 2, the integrator with its
+# clip 8, the i term 2, the d term 6, the output 8
+PID_OPS = 45
+
+
 def emit_ops(fo):
     """Operations of a scenario's emit per env, besides writing its rows:
     transport's about 200 per package; balance's 4 trig + 4 x 14 + 116 + 40
     + 20 and its floor-line tests; joint_passage's 2 angle distances (4
     fmod and 10) and the goal's cos and sin, 5 per open passage and 30;
-    waterfall's 6 per agent."""
+    waterfall's 6 per agent; give_way's 10 per agent (goal distance,
+    reached test, shaping, reward) and 2 per other agent observed;
+    multi_give_way's 9 per agent and 9 per ordered pair of agents (the
+    collision test)."""
     kind = type(fo).__name__
+    if kind == "GiveWayOutputs":
+        A = fo.n_agents
+        return 10 * A + (2 * A * (A - 1) if fo.rel_obs else 0) + 2
+    if kind == "MultiGiveWayOutputs":
+        A = fo.n_agents
+        return 9 * A + 9 * A * (A - 1) + 2
     if kind == "BalanceOutputs":
         return 4 * TRIG_OPS + 56 + 116 + 40 + 20
     if kind == "JointPassageOutputs":
@@ -313,10 +350,11 @@ def emit_ops(fo):
     return 200 * fo.n_pkgs
 
 
-def kernel_ops(ks, rows, fo=None):
+def kernel_ops(ks, rows, fo=None, rows_form=False):
     """Operations of one fused step on these input rows [R, B] (the line-line
     tests counted on them, once per substep), with the emit's
-    (``emit_ops``) and its rows."""
+    (``emit_ops``) and its rows, and in the rows form the in-kernel PID's
+    (``PID_OPS`` per controlled agent)."""
     B = rows.shape[1]
     per_substep = (20 * ks.E + 2 * TRIG_OPS * len(ks.trig)
                    + sum(PAIR_OPS[t] * len(getattr(ks, t)) for t in PAIR_OPS)
@@ -324,6 +362,8 @@ def kernel_ops(ks, rows, fo=None):
     per_env = ks.substeps * per_substep
     if fo is not None:
         per_env += emit_ops(fo) + fo.n_out
+        if rows_form:
+            per_env += PID_OPS * fo.n_ctrl // 4
     n, crossing = line_line_tests(ks, rows[:9 * ks.E], fo)
     return per_env * B + ks.substeps * (crossing * LL_CROSS_OPS + (n - crossing) * LL_MISS_OPS)
 
@@ -454,18 +494,7 @@ def balance_phase(card, dev):
     assert dones.shape == (B,) and len(infos) == 3
     run = rows_rollout_fn(env, horizon=HORIZON)
     rgen = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
-    state, steps, traj = run(env.state, env.steps, rgen)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    call_ms = []
-    for _ in range(TIMED_CALLS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, steps, traj = run(state, steps, rgen)
-        end.record()
-        end.synchronize()
-        call_ms.append(start.elapsed_time(end))
+    state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
     launches = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
     assert traj["rewards"].shape == (HORIZON, B, 3) and traj["dones"].shape == (HORIZON, B)
     assert len(traj["obs"]) == 3 and all(o.shape == (HORIZON, B, 16) for o in traj["obs"])
@@ -674,18 +703,7 @@ def joints_phase(card, dev):
     assert dones.shape == (B,) and len(infos) == 2
     run = rows_rollout_fn(env, horizon=HORIZON)
     rgen = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
-    state, steps, traj = run(env.state, env.steps, rgen)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    call_ms = []
-    for _ in range(TIMED_CALLS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, steps, traj = run(state, steps, rgen)
-        end.record()
-        end.synchronize()
-        call_ms.append(start.elapsed_time(end))
+    state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
     launches = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
     assert traj["rewards"].shape == (HORIZON, B, 2) and traj["dones"].shape == (HORIZON, B)
     assert len(traj["obs"]) == 2 and all(o.shape == (HORIZON, B, 10) for o in traj["obs"])
@@ -716,6 +734,336 @@ def joints_phase(card, dev):
         )
     ]
     entries[-1]["launches_on"] = "joint_passage's main path"
+    return entries
+
+
+# -- give_way: the in-kernel PID velocity controller and k_steps ----------------
+
+def compare_gw_emit(tr, fo, emit_k, emit_p, tag):
+    """Kernel against plain for one give_way or multi_give_way step's emit
+    rows: observations, the goal flag (goal_reached / the reached latch,
+    the last emit row) equal, reward and shaping rows."""
+    import torch
+
+    base, flag = fo.base, fo.n_out - 1
+    tr.close(f"{tag} obs rows", emit_k[:base], emit_p[:base], OBS_ATOL, 1e-5)
+    if not torch.equal(emit_k[flag], emit_p[flag]):
+        raise AssertionError(f"{tag}: the goal flag differs in {int((emit_k[flag] != emit_p[flag]).sum())} envs")
+    tr.close(f"{tag} reward and shaping rows", emit_k[base:flag], emit_p[base:flag], REW_ATOL, 1e-5)
+
+
+def compare_pid_carry(tr, fo, R, E, c_k, c_p, e_k, e_p, tag):
+    """Kernel against plain for the rows step's carry (state, scratch and
+    controller rows) and its hook rows (the controller's output)."""
+    n_ctrl, n_out = fo.n_ctrl, fo.n_out
+    tr.close(f"{tag} state rows", c_k[:9 * E], c_p[:9 * E], **STATE_TOL)
+    tr.close(f"{tag} scratch rows", c_k[9 * E:R - n_ctrl], c_p[9 * E:R - n_ctrl], REW_ATOL, 1e-5)
+    tr.close(f"{tag} controller rows", c_k[R - n_ctrl:], c_p[R - n_ctrl:], **STATE_TOL)
+    tr.close(f"{tag} hook rows (controller output)", e_k[n_out:], e_p[n_out:], **STATE_TOL)
+
+
+def pid_act_rows(env, rng, dev):
+    """testing.pid_actions as the rows step's [2A, B] action rows on ``dev``."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch.testing import pid_actions
+
+    acts = pid_actions(env, rng)
+    rows = np.concatenate([np.stack([a[:, 0] for a in acts]), np.stack([a[:, 1] for a in acts])])
+    return torch.as_tensor(rows, device=dev).contiguous()
+
+
+def timed_rollout(run, state, steps, rgen):
+    """One warm-up call and TIMED_CALLS timed calls (CUDA events): (state,
+    steps, last traj, ms per timed call, warm-up seconds)."""
+    import torch
+
+    t0 = time.perf_counter()
+    state, steps, traj = run(state, steps, rgen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    call_ms = []
+    for _ in range(TIMED_CALLS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, steps, traj = run(state, steps, rgen)
+        end.record()
+        end.synchronize()
+        call_ms.append(start.elapsed_time(end))
+    return state, steps, traj, call_ms, warm_s
+
+
+def rollout_report(tag, run, state, steps, rgen, call_ms, warm_s, B, card):
+    """Prints a timed rollout's env-steps/s and the device idle share of one
+    more call (profiler); returns (best env-steps/s, idle share)."""
+    best = B * HORIZON / (min(call_ms) / 1e3)
+    mean = B * HORIZON * TIMED_CALLS / (sum(call_ms) / 1e3)
+    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
+    idle = 1 - busy_ms / min(call_ms)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print(f"{tag}: calls {[round(c, 3) for c in call_ms]} ms (warm-up {warm_s:.3f} s), best {best:.1f} env-steps/s, "
+          f"mean {mean:.1f} env-steps/s on {card}; device {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms "
+          f"(idle share {idle:.3f}); top: " + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in top), flush=True)
+    return best, idle
+
+
+def k_steps_check(world, fo, slots, carry, act, tag, compare):
+    """One launch of K_STEPS env steps (action rows ``act``, [K_STEPS * 2A,
+    B]) against K_STEPS launches of one, carry and output rows bitwise, and
+    against the plain version's K_STEPS steps: ``compare(tr, k, c_k, c_p,
+    e_k, e_p, mid)`` holds step k's output block (and the carry after the
+    last step) to it, ``mid`` being the carry after step k. Raises on a
+    difference; returns the tracker of the plain comparison."""
+    import torch
+    from vmas_tpu_torch.core import fused as F
+
+    A2 = 2 * len(slots)
+    c4, e4 = F.make_rows_step(world, fo, slots, k_steps=K_STEPS)(carry, act)
+    one = F.make_rows_step(world, fo, slots)
+    c1, blocks, mids = carry, [], []
+    for k in range(K_STEPS):
+        c1, e1 = one(c1, act[k * A2:(k + 1) * A2].contiguous())
+        blocks.append(e1)
+        mids.append(c1)
+    torch.cuda.synchronize()
+    e1 = torch.cat(blocks)
+    same = torch.equal(c4, c1) and torch.equal(e4, e1)
+    err = max(float((c4 - c1).abs().max()), float((e4 - e1).abs().max()))
+    print(f"{tag}: one launch of {K_STEPS} steps vs {K_STEPS} launches of one: bitwise equal {same} "
+          f"(max abs err {err:.3e})", flush=True)
+    if not same:
+        raise AssertionError(f"{tag}: k_steps={K_STEPS} does not replay k_steps=1")
+    c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act, K_STEPS)
+    n_tot = fo.n_out + fo.n_ctrl_out
+    tr = ErrTracker()
+    for k in range(K_STEPS):
+        blk = slice(k * n_tot, (k + 1) * n_tot)
+        compare(tr, k, c4, c_p, e4[blk], e_p[blk], mids[k])
+    tr.report()
+    return tr
+
+
+def give_way_phase(card, dev):
+    """give_way's and multi_give_way's kernel forms against their plain
+    versions with the in-kernel PID, joint_passage's controller config,
+    k_steps against single steps, give_way's two rollouts, give_way's main
+    path at k_steps 1 and 4, transport's rows rollout at both, and the five
+    entries of the kernels line."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_rollout_fn
+
+    B = NUM_ENVS
+    times, work, errs = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    # -- (a) K2 with the PID, and K1, against plain -----------------------------
+    for k, name in enumerate(("give_way", "multi_give_way")):
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True)
+        world, fo = env.world, env._fused_outputs
+        slots = [a.index for a in env.agents]
+        ks = F._kernel_spec(world)
+        E, A, R = ks.E, len(slots), F.rows_layout(world, fo)
+        step = F.make_rows_step(world, fo, slots)
+        k2, k1 = ErrTracker(), ErrTracker()
+        counts = dict.fromkeys(F.PAIR_TYPES, 0)
+        pid = {"reset": 0, "clamp": 0, "min_input": 0, "cutoff": 0}
+        build = getattr(testing, f"{name}_contact_state")
+        carry = F.pack_carry(world, state_from_numpy(world, build(env, np.random.default_rng(20 + k))), fo)
+        rng = np.random.default_rng(30 + k)
+        for t in range(GW_CMP_STEPS):
+            act = pid_act_rows(env, rng, dev)
+            x = with_actions(carry[:R - fo.n_ctrl], act, slots, E)
+            for kk, v in F.contact_counts(world, x).items():
+                counts[kk] += v
+            for kk, v in testing.pid_counts(world, fo, carry, act).items():
+                pid[kk] += v
+            c_k, e_k = step(carry, act)
+            c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+            compare_pid_carry(k2, fo, R, E, c_k, c_p, e_k, e_p, f"{name} rows_step")
+            compare_gw_emit(k2, fo, e_k[:fo.n_out], e_p[:fo.n_out], f"{name} rows_step")
+            y_k, y_p = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+            k1.close(f"{name} fused_step state rows", y_k[:9 * E], y_p[:9 * E], **STATE_TOL)
+            compare_gw_emit(k1, fo, y_k[9 * E:], y_p[9 * E:], f"{name} fused_step")
+            carry = c_k  # re-sync to the kernel
+        torch.cuda.synchronize()
+        for tr in (k2, k1):
+            tr.report()
+        print(f"{name} over {GW_CMP_STEPS} steps: contacts {counts}; (agent, env) lanes in which the PID's memory "
+              f"reset, the u_range clamp, the min_input_norm zeroing and the integrator cutoff acted: {pid}",
+              flush=True)
+        if counts["ss"] == 0 or counts["ls"] == 0 or not all(pid.values()):
+            raise AssertionError(f"the {name} comparison missed a contact type or a branch of the PID")
+        act = pid_act_rows(env, rng, dev)
+        x = with_actions(carry[:R - fo.n_ctrl], act, slots, E)
+        n_tot = fo.n_out + fo.n_ctrl_out
+        extra = torch.empty((n_tot, B), device=dev)
+        key = f"rows_step[{name}]"
+        times[key] = kernel_times(key, lambda: step(carry, act, extra),
+                                  lambda: F.rows_step_plain(world, fo, slots, carry, act), "fused_step_kernel")
+        work[key] = ((R + 2 * A + R + n_tot) * B * 4, kernel_ops(ks, carry, fo, rows_form=True))
+        errs[key] = k2.max()
+        if name == "give_way":
+            times["fused_step[give_way]"] = kernel_times(
+                "fused_step[give_way]", lambda: F.fused_step(world, x, fo),
+                lambda: F.fused_step_plain(world, x, fo), "fused_step_kernel")
+            work["fused_step[give_way]"] = ((R - fo.n_ctrl + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo))
+            errs["fused_step[give_way]"] = k1.max()
+            # -- (c) k_steps at give_way, then its K-step kernel's times
+            key = f"rows_step[give_way,k{K_STEPS}]"
+            act_k = torch.cat([pid_act_rows(env, rng, dev) for _ in range(K_STEPS)]).contiguous()
+
+            def gw_compare(tr, k, c_k, c_p, e_k, e_p, mid, tag=key):
+                compare_pid_carry(tr, fo, R, E, c_k, c_p, e_k, e_p, tag)
+                compare_gw_emit(tr, fo, e_k[:fo.n_out], e_p[:fo.n_out], tag)
+
+            errs[key] = k_steps_check(world, fo, slots, carry, act_k, "give_way", gw_compare).max()
+            step_k = F.make_rows_step(world, fo, slots, k_steps=K_STEPS)
+            extra_k = torch.empty((K_STEPS * n_tot, B), device=dev)
+            times[key] = kernel_times(key, lambda: step_k(carry, act_k, extra_k),
+                                      lambda: F.rows_step_plain(world, fo, slots, carry, act_k, K_STEPS),
+                                      "fused_step_kernel")
+            work[key] = ((R + K_STEPS * 2 * A + R + K_STEPS * n_tot) * B * 4,
+                         K_STEPS * kernel_ops(ks, carry, fo, rows_form=True))
+
+            # -- (d) env.step's rollout (the PID in PyTorch, then K1) against
+            # the rows rollout (the PID in K2)
+            s0, st0 = env.state, env.steps
+            sa, _, ta = rollout_fn(env, horizon=GW_CMP_STEPS)(s0, st0, torch.Generator(device=dev).manual_seed(7))
+            sb, _, tb = rows_rollout_fn(env, horizon=GW_CMP_STEPS)(s0, st0,
+                                                                   torch.Generator(device=dev).manual_seed(7))
+            mem = [(sa.scenario[kk][m], sb.scenario[kk][m])
+                   for kk in sa.scenario if kk.startswith("__vel_ctrl") for m in ("accum_errs", "prev_err")]
+            pairs = {"rewards": [(ta["rewards"], tb["rewards"])], "dones": [(ta["dones"], tb["dones"])],
+                     "obs": list(zip(ta["obs"], tb["obs"])), "final pos": [(sa.pos, sb.pos)],
+                     "final vel": [(sa.vel, sb.vel)], "final u": list(zip(sa.u, sb.u)), "controller memory": mem}
+            assert len(mem) == 2 * env.n_agents
+            differ = [name for name, ps in pairs.items() if not all(torch.equal(a, b) for a, b in ps)]
+            errs_d = {name: max(float((a.float() - b.float()).abs().max()) for a, b in ps)
+                      for name, ps in pairs.items()}
+            print(f"give_way env.step rollout vs rows rollout over {GW_CMP_STEPS} steps: bitwise equal "
+                  f"{not differ}; max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs_d.items()), flush=True)
+            if differ:
+                raise AssertionError(f"give_way env.step rollout and rows rollout differ in {differ}")
+        del env, carry, x
+
+    # -- (b) joint_passage with its controller: K2 against plain ------------------
+    env = make_env("joint_passage", B, device=dev, seed=0, fused_physics=True, use_controller=True)
+    world, fo = env.world, env._fused_outputs
+    slots = [a.index for a in env.agents]
+    ks = F._kernel_spec(world)
+    E, A, R = ks.E, len(slots), F.rows_layout(world, fo)
+    step = F.make_rows_step(world, fo, slots)
+    kj = ErrTracker()
+    pid = {"reset": 0, "clamp": 0, "min_input": 0, "cutoff": 0}
+    carry = F.pack_carry(world, state_from_numpy(world, testing.joint_passage_contact_state(
+        env, np.random.default_rng(22))), fo)
+    rng = np.random.default_rng(32)
+    for t in range(JPC_CMP_STEPS):
+        act = pid_act_rows(env, rng, dev)
+        for kk, v in testing.pid_counts(world, fo, carry, act).items():
+            pid[kk] += v
+        c_k, e_k = step(carry, act)
+        c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+        compare_pid_carry(kj, fo, R, E, c_k, c_p, e_k, e_p, "joint_passage+pid rows_step")
+        compare_joint_passage(kj, fo, c_k[:9 * E], c_p[:9 * E], e_k[:fo.n_out], e_p[:fo.n_out],
+                              "joint_passage+pid rows_step")
+        carry = c_k
+    torch.cuda.synchronize()
+    kj.report()
+    print(f"joint_passage+pid over {JPC_CMP_STEPS} steps: lanes in which the PID acted {pid}", flush=True)
+    if pid["reset"] == 0:
+        raise AssertionError("the joint_passage+pid comparison missed the PID's memory reset")
+    act = pid_act_rows(env, rng, dev)
+    extra = torch.empty((fo.n_out + fo.n_ctrl_out, B), device=dev)
+    key = "rows_step[joint_passage+pid]"
+    times[key] = kernel_times(key, lambda: step(carry, act, extra),
+                              lambda: F.rows_step_plain(world, fo, slots, carry, act), "fused_step_kernel",
+                              plain_calls=WF_PLAIN_CALLS)
+    work[key] = ((R + 2 * A + R + fo.n_out + fo.n_ctrl_out) * B * 4, kernel_ops(ks, carry, fo, rows_form=True))
+    errs[key] = kj.max()
+    del env, carry
+
+    # -- (c) k_steps at transport ---------------------------------------------------
+    tenv = make_env("transport", B, device=dev, n_agents=N_AGENTS, seed=0, fused_physics=True)
+    tfo, tE = tenv._fused_outputs, len(tenv.world.entities)
+    excused = []
+
+    def tp_compare(tr, k, c_k, c_p, e_k, e_p, mid, tag=f"transport rows_step k{K_STEPS}"):
+        # the carry after the last step; each step's on_goal margins from the state it left
+        last = k == K_STEPS - 1
+        excused.append(compare_rows(tr, tfo, tE, c_k[:9 * tE] if last else None,
+                                    c_p[:9 * tE] if last else mid[:9 * tE], e_k, e_p, tag))
+        if last:
+            tr.close(f"{tag} scratch carry", c_k[9 * tE:], c_p[9 * tE:], REW_ATOL, 1e-5)
+
+    tact = ((torch.rand((K_STEPS * 2 * N_AGENTS, B), generator=gen, device=dev) * 2 - 1) * 0.6).contiguous()
+    tcarry = F.pack_carry(tenv.world, contact_rich(tenv, gen), tfo)
+    k_steps_check(tenv.world, tfo, [a.index for a in tenv.agents], tcarry, tact, "transport", tp_compare)
+    print(f"transport k_steps {K_STEPS} vs plain: on_goal lanes within {OG_MARGIN} of the threshold per step "
+          f"{excused}", flush=True)
+
+    # -- (e) the main path at k_steps 1, then 4 ------------------------------------
+    F.fused_step_launches = 0
+    F.rows_step_launches = 0
+    env = make_env("give_way", num_envs=B, fused_physics=True)  # every default: 2 agents, the PID on
+    assert env.device.type == "cuda" and env.n_agents == 2 and env._fused_outputs.n_ctrl == 8
+    obs = env.reset()
+    for _ in range(5):
+        obs, rews, dones, infos = env.step(env.get_random_actions())
+    assert all(o.shape == (B, 4) and bool(torch.isfinite(o).all()) for o in obs)
+    assert all(r.shape == (B,) and bool(torch.isfinite(r).all()) for r in rews)
+    assert dones.shape == (B,) and len(infos) == 2
+    rgen = torch.Generator(device=dev).manual_seed(0)
+    run = rows_rollout_fn(env, horizon=HORIZON)
+    state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
+    launches = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+    assert launches == {"fused_step": 5, "rows_step": HORIZON * (1 + TIMED_CALLS)}, launches
+    F.fused_step_launches = 0
+    F.rows_step_launches = 0
+    run_k = rows_rollout_fn(env, horizon=HORIZON, k_steps=K_STEPS)
+    state, steps, traj_k, call_k_ms, warm_k_s = timed_rollout(run_k, state, steps, rgen)
+    launches_k = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+    assert launches_k == {"fused_step": 0, "rows_step": HORIZON * (1 + TIMED_CALLS) // K_STEPS}, launches_k
+    for tr in (traj, traj_k):
+        assert tr["rewards"].shape == (HORIZON, B, 2) and tr["dones"].shape == (HORIZON, B)
+        assert all(o.shape == (HORIZON, B, 4) and bool(torch.isfinite(o).all()) for o in tr["obs"])
+        assert bool(torch.isfinite(tr["rewards"]).all())
+    assert bool(torch.isfinite(state.pos).all()) and all(bool(torch.isfinite(u).all()) for u in state.u)
+    assert int(steps[0]) == 5 + 2 * HORIZON * (1 + TIMED_CALLS)
+    print(f"main path: give_way {B} envs x 2 agents x {HORIZON} steps; launches {launches} at k_steps 1, "
+          f"{launches_k} at k_steps {K_STEPS}; episodes ended in the last calls {int(traj['dones'].sum())} and "
+          f"{int(traj_k['dones'].sum())} of {HORIZON * B} env-steps", flush=True)
+    rollout_report("give_way rows_rollout_fn k_steps 1", run, state, steps, rgen, call_ms, warm_s, B, card)
+    rollout_report(f"give_way rows_rollout_fn k_steps {K_STEPS}", run_k, state, steps, rgen, call_k_ms, warm_k_s,
+                   B, card)
+    del env, state, traj, traj_k
+
+    # transport's rows rollout at k_steps 1 and 4, side by side
+    for kk in (1, K_STEPS):
+        trun = rows_rollout_fn(tenv, horizon=HORIZON, k_steps=kk)
+        ts, tst, _, t_ms, t_warm = timed_rollout(trun, tenv.state, tenv.steps, rgen)
+        rollout_report(f"transport rows_rollout_fn k_steps {kk}", trun, ts, tst, rgen, t_ms, t_warm, B, card)
+    del tenv
+
+    # -- (f) the kernels line ---------------------------------------------------------
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    entries = [
+        kernel_entry(name, src, site, n, errs[name], times[name], *work[name])
+        for name, site, n in (
+            ("rows_step[give_way]", "vmas_tpu/core/fused.py:1603", launches["rows_step"]),
+            ("fused_step[give_way]", "vmas_tpu/core/fused.py:1425", launches["fused_step"]),
+            ("rows_step[multi_give_way]", "vmas_tpu/core/fused.py:1603", launches["rows_step"]),
+            ("rows_step[joint_passage+pid]", "vmas_tpu/core/fused.py:1603", launches["rows_step"]),
+            (f"rows_step[give_way,k{K_STEPS}]", "vmas_tpu/core/fused.py:1603", launches_k["rows_step"]),
+        )
+    ]
+    for e in entries[2:4]:
+        e["launches_on"] = "give_way's main path at k_steps 1"
+    entries[4]["launches_on"] = f"give_way's main path at k_steps {K_STEPS}"
     return entries
 
 
@@ -899,18 +1247,7 @@ def road_traffic_phase(card, dev):
 
     run = rollout_fn(env, horizon=RT_HORIZON)
     rgen = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
-    state, steps, traj = run(env.state, env.steps, rgen)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    call_ms = []
-    for _ in range(TIMED_CALLS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, steps, traj = run(state, steps, rgen)
-        end.record()
-        end.synchronize()
-        call_ms.append(start.elapsed_time(end))
+    state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
     launches = {"rt_sweep": rtk.sweep_launches, "rt_obs": rtk.obs_launches}
 
     assert traj["rewards"].shape == (RT_HORIZON, B, A) and traj["dones"].shape == (RT_HORIZON, B)
@@ -1045,18 +1382,7 @@ def main():
 
     run = rows_rollout_fn(env, horizon=HORIZON)
     rgen = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
-    state, steps, traj = run(env.state, env.steps, rgen)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    call_ms = []
-    for _ in range(TIMED_CALLS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, steps, traj = run(state, steps, rgen)
-        end.record()
-        end.synchronize()
-        call_ms.append(start.elapsed_time(end))
+    state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
     launches = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
 
     assert traj["rewards"].shape == (HORIZON, NUM_ENVS, N_AGENTS)
@@ -1087,10 +1413,13 @@ def main():
     # -- 6. joints: joint_passage and waterfall --------------------------------
     joint_kernels = joints_phase(card, dev)
 
-    # -- 7. road_traffic -------------------------------------------------------
+    # -- 7. give_way: the in-kernel PID and k_steps ------------------------------
+    give_way_kernels = give_way_phase(card, dev)
+
+    # -- 8. road_traffic -------------------------------------------------------
     rt_kernels = road_traffic_phase(card, dev)
 
-    # -- 8. the kernels line -------------------------------------------------
+    # -- 9. the kernels line -------------------------------------------------
     flops = kernel_ops(ks, carry, fo)
     rows_bytes = (R_in + 2 * A + R_in + fo.n_out) * B * 4
     fused_bytes = (R_in + 9 * E + fo.n_out) * B * 4
@@ -1100,7 +1429,7 @@ def main():
                      times["rows_step"], rows_bytes, flops),
         kernel_entry("fused_step", src, "vmas_tpu/core/fused.py:1425", launches["fused_step"], k1.max(),
                      times["fused_step"], fused_bytes, flops),
-    ] + balance_kernels + joint_kernels + rt_kernels
+    ] + balance_kernels + joint_kernels + give_way_kernels + rt_kernels
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -222,16 +222,16 @@ def test_rows_rollout_equals_step_rollout(arrays):
 
 @pytest.mark.parametrize("kwargs,eligible", [
     ({}, True),
-    ({"use_controller": True}, False),
+    ({"use_controller": True}, True),
     ({"obs_noise": 0.1}, False),
     ({"observe_joint_angle": True, "joint_angle_obs_noise": 0.1}, False),
     ({"collision_reward": -1}, False),
 ])
 def test_rows_rollout_supported(kwargs, eligible):
-    """The rows rollout runs the default config; the controller config
-    needs the in-kernel controller rows, the noisy ones the per-step noise
-    in unpack, and a collision reward has no fused outputs: they run
-    through rollout_fn."""
+    """The rows rollout runs the default config and the controller config
+    (its PID in the rows step); the noisy ones need the per-step noise in
+    unpack, and a collision reward has no fused outputs: they run through
+    rollout_fn."""
     env = torch_make_env("joint_passage", 2, device="cpu", fused_physics=True, **kwargs)
     assert rows_rollout_supported(env) is eligible
     assert (env._fused_outputs is None) == ("collision_reward" in kwargs)

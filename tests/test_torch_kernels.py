@@ -14,8 +14,12 @@ road_traffic's path sweeps and observations: indices, flags, short-term
 points and chosen neighbours equal, values atol 1e-6; its env with both
 kernels against the plain path atol 5e-5; balance's on_ground and done flags
 equal except within 1e-5 of a threshold; joint_passage's just_passed and
-done flags likewise. The balance, all-pairs, joint_passage and waterfall
-states come from vmas_tpu_torch/testing.py, as chip_smoke.py's do.
+done flags likewise; give_way's and multi_give_way's rows step with the
+in-kernel PID: controller rows and the controller's output atol 1e-5, the
+goal flags equal; one launch of 4 env steps against 4 launches of one,
+bitwise. The balance, all-pairs, joint_passage, waterfall, give_way and
+multi_give_way states come from vmas_tpu_torch/testing.py, as
+chip_smoke.py's do.
 """
 
 import pytest
@@ -237,6 +241,87 @@ def test_waterfall_kernels_match_plain():
         assert torch.equal(carry_k[9 * E:], carry[9 * E:])
         carry = carry_k
     torch.cuda.synchronize()
+
+
+# -- the in-kernel PID velocity controller and k_steps --------------------------
+
+def _pid_acts(e, seed):
+    import numpy as np
+
+    from vmas_tpu_torch.testing import pid_actions
+
+    acts = pid_actions(e, np.random.default_rng(seed))
+    rows = np.concatenate([np.stack([a[:, 0] for a in acts]), np.stack([a[:, 1] for a in acts])])
+    return torch.as_tensor(rows, device="cuda").contiguous()
+
+
+@pytest.mark.parametrize("name", ["give_way", "multi_give_way"])
+def test_pid_kernels_match_plain(name):
+    """K2 with the PID hook and K1 against their plain versions from a state
+    with contacts and set controller memory: state, scratch and controller
+    rows, the emit rows and the controller's output rows."""
+    from vmas_tpu_torch import testing
+
+    build = getattr(testing, f"{name}_contact_state")
+    e, world, fo, slots, carry = _joint_env(name, build, 12)
+    E, R, n_out = len(world.entities), F.rows_layout(world, fo), fo.n_out
+    step = F.make_rows_step(world, fo, slots)
+    for t in range(3):
+        act = _pid_acts(e, 13 + t)
+        if t == 0:
+            assert all(v > 0 for v in testing.pid_counts(world, fo, carry, act).values())
+        ck, ek = step(carry, act)
+        cp, ep = F.rows_step_plain(world, fo, slots, carry, act)
+        _close(ck[:9 * E], cp[:9 * E], 1e-5)
+        _close(ck[R - fo.n_ctrl:], cp[R - fo.n_ctrl:], 1e-5)
+        _close(ek[n_out:], ep[n_out:], 1e-5)
+        _close(ek[:fo.base], ep[:fo.base], 2e-5)
+        assert torch.equal(ek[n_out - 1], ep[n_out - 1])
+        _close(ek[fo.base:n_out - 1], ep[fo.base:n_out - 1], 2e-3)
+        x = carry[:R - fo.n_ctrl].clone()
+        x[6 * E + torch.as_tensor(slots, device="cuda")] = act[:len(slots)]
+        x[7 * E + torch.as_tensor(slots, device="cuda")] = act[len(slots):]
+        yk, yp = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+        _close(yk[:9 * E], yp[:9 * E], 1e-5)
+        _close(yk[9 * E:9 * E + fo.base], yp[9 * E:9 * E + fo.base], 2e-5)
+        _close(yk[9 * E + fo.base:], yp[9 * E + fo.base:], 2e-3)
+        carry = ck
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["transport", "give_way"])
+def test_k_steps_launch_equals_single_steps(name):
+    """One launch of 4 env steps gives bitwise the carry and output rows of
+    4 launches of one step, and holds them to the plain version's 4 steps:
+    state and controller rows and the controller's output atol 1e-5,
+    observation rows 2e-5, scratch, reward, shaping and flag rows 2e-3."""
+    _cuda()
+    e = make_env(name, B, device="cuda", seed=0, fused_physics=True)
+    world, fo = e.world, e._fused_outputs
+    slots = [a.index for a in e.agents]
+    carry = F.pack_carry(world, e.state, fo)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    act = ((torch.rand((4 * 2 * len(slots), B), generator=g, device="cuda") * 2 - 1) * 0.6).contiguous()
+    one, four = F.make_rows_step(world, fo, slots), F.make_rows_step(world, fo, slots, k_steps=4)
+    c4, e4 = four(carry, act)
+    c1, blocks = carry, []
+    A2 = 2 * len(slots)
+    for k in range(4):
+        c1, e1 = one(c1, act[k * A2:(k + 1) * A2].contiguous())
+        blocks.append(e1)
+    torch.cuda.synchronize()
+    assert torch.equal(c4, c1) and torch.equal(e4, torch.cat(blocks))
+    cp, ep = F.rows_step_plain(world, fo, slots, carry, act, 4)
+    E, R, n_out = len(world.entities), F.rows_layout(world, fo), fo.n_out
+    n_tot, obs_end = n_out + fo.n_ctrl_out, fo.n_agents * fo.obs_w
+    _close(c4[:9 * E], cp[:9 * E], 1e-5)
+    _close(c4[9 * E:R - fo.n_ctrl], cp[9 * E:R - fo.n_ctrl], 2e-3)
+    _close(c4[R - fo.n_ctrl:], cp[R - fo.n_ctrl:], 1e-5)
+    for k in range(4):
+        ek, epk = e4[k * n_tot:(k + 1) * n_tot], ep[k * n_tot:(k + 1) * n_tot]
+        _close(ek[:obs_end], epk[:obs_end], 2e-5)
+        _close(ek[obs_end:n_out], epk[obs_end:n_out], 2e-3)
+        _close(ek[n_out:], epk[n_out:], 1e-5)
 
 
 # -- road_traffic: path sweeps and all-ego observations ------------------------

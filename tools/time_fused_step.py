@@ -2,18 +2,22 @@
 """Time the fused-step kernel of several source trees on one CUDA GPU.
 
     python3 tools/time_fused_step.py parent=_archive/parent change=. \\
-        change_nounroll=.:nounroll
+        change_actptr=.:actptr
 
 Each argument names a tree holding a ``vmas_tpu_torch`` package: ``label=path``
-(relative to the repository root), or ``label=path:nounroll`` for a copy of
-that tree whose pair loops in ``csrc/fused_step.cu`` lose their ``#pragma
-unroll 1`` (the copy goes under ``_archive/variants/``). The trees run in the
+(relative to the repository root), or ``label=path:variant`` for a copy of
+that tree (under ``_archive/variants/``) whose ``csrc/fused_step.cu`` is
+changed: ``nounroll``, its pair loops lose their ``#pragma unroll 1``;
+``actptr``, the kernel reads the in-kernel PID's ``ActParams`` through a
+device pointer (copied to the card before each launch that runs the PID)
+instead of taking them by value. The trees run in the
 order given and then in reverse (A B C C B A), each in a process of its own
 that imports its tree's package, builds its kernels and reports the kernel's
 device time per launch (torch.profiler, 200 launches) for:
 
 * transport, 4096 envs, 4 agents: the rows step and the fused step;
-* balance, 4096 envs, 3 agents, where the tree has it: both forms;
+* balance, 4096 envs, 3 agents, and give_way, 4096 envs, 2 agents (the
+  rows step with the in-kernel PID), where the tree has them: both forms;
 * the all-pairs world (``vmas_tpu_torch.testing``), 4096 envs, where the
   tree has it: the fused step from its packed state.
 
@@ -65,7 +69,7 @@ def child(label):
     build_s = _kernels.build_all()
     dev = torch.device("cuda")
     out = {"label": label, "package": str(Path(vmas_tpu_torch.__file__).parent), "build_s": build_s, "us": {}}
-    for name, kw in (("transport", {"n_agents": 4}), ("balance", {})):
+    for name, kw in (("transport", {"n_agents": 4}), ("balance", {}), ("give_way", {})):
         try:
             env = make_env(name, B, device=dev, seed=0, fused_physics=True, **kw)
         except ValueError:
@@ -79,8 +83,8 @@ def child(label):
         carry = F.pack_carry(world, env.state, fo)
         gen = torch.Generator(device=dev).manual_seed(1)
         act = ((torch.rand((2 * len(slots), B), generator=gen, device=dev) * 2 - 1) * 0.6).contiguous()
-        extra = torch.empty((fo.n_out, B), device=dev)
-        x = carry.clone()
+        extra = torch.empty((fo.n_out + getattr(fo, "n_ctrl_out", 0), B), device=dev)
+        x = carry[:carry.shape[0] - getattr(fo, "n_ctrl", 0)].clone()  # the fused form carries no controller rows
         out["us"][f"rows_step[{name}]"] = device_us(lambda: step(carry, act, extra))
         out["us"][f"fused_step[{name}]"] = device_us(lambda: F.fused_step(world, x, fo))
         del env
@@ -97,24 +101,59 @@ def child(label):
     print(json.dumps(out), flush=True)
 
 
+def _nounroll(src):
+    src, n = re.subn(r"[ \t]*#pragma unroll 1\n(?=[ \t]*for \(int k = 0; k < sp\.n_)", "", src)
+    if n == 0:
+        raise SystemExit("no pair loop with '#pragma unroll 1'")
+    return src
+
+
+_ACTPTR = [
+    ("const ActParams ap, const int* __restrict__ tab,",
+     "const ActParams* __restrict__ app, const int* __restrict__ tab,"),
+    ("  const int n_ctrl = ROWS ? 4 * ap.n_pid : 0;",
+     "  const int n_pid = ROWS && app ? app->n_pid : 0;\n  const int n_ctrl = 4 * n_pid;"),
+    ("if (ap.n_pid) pid_act(ap, fx, fy, vx, vy, ctrl, blk + (size_t)(n_tot - 2 * ap.n_pid) * B, B, b);",
+     "if (n_pid) pid_act(*app, fx, fy, vx, vy, ctrl, blk + (size_t)(n_tot - 2 * n_pid) * B, B, b);"),
+    ("(*spec, *ep, *ap, tab,", "(*spec, *ep, dap, tab,"),
+    ("  cudaStream_t s = static_cast<cudaStream_t>(stream);\n",
+     "  cudaStream_t s = static_cast<cudaStream_t>(stream);\n"
+     "  const ActParams* dap = nullptr;\n"
+     "  if (ap->n_pid) {\n"
+     "    static ActParams* buf = nullptr;\n"
+     "    if (!buf && cudaMalloc(&buf, sizeof(ActParams)) != cudaSuccess) return cudaErrorMemoryAllocation;\n"
+     "    cudaMemcpyAsync(buf, ap, sizeof(ActParams), cudaMemcpyHostToDevice, s);\n"
+     "    dap = buf;\n"
+     "  }\n"),
+]
+
+
+def _actptr(src):
+    for old, new in _ACTPTR:
+        if src.count(old) != 1:
+            raise SystemExit(f"not once in fused_step.cu: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+VARIANTS = {"nounroll": _nounroll, "actptr": _actptr}
+
+
 def tree_of(spec):
-    """(label, tree path) of ``label=path[:nounroll]``, making the variant."""
+    """(label, tree path) of ``label=path[:variant]``, making the variant."""
     label, _, rest = spec.partition("=")
     path, _, variant = rest.partition(":")
     tree = (ROOT / path).resolve()
     if not variant:
         return label, tree
-    if variant != "nounroll":
+    if variant not in VARIANTS:
         raise SystemExit(f"unknown variant {variant!r}")
     dst = ROOT / "_archive" / "variants" / label
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(tree / "vmas_tpu_torch", dst / "vmas_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     cu = dst / "vmas_tpu_torch" / "csrc" / "fused_step.cu"
-    src, n = re.subn(r"[ \t]*#pragma unroll 1\n(?=[ \t]*for \(int k = 0; k < sp\.n_)", "", cu.read_text())
-    if n == 0:
-        raise SystemExit(f"{label}: no pair loop with '#pragma unroll 1' in {cu}")
-    cu.write_text(src)
+    cu.write_text(VARIANTS[variant](cu.read_text()))
     return label, dst
 
 

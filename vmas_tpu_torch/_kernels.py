@@ -7,8 +7,8 @@ into ``_build/`` beside this file, named by a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
 The ``ctypes`` structures below mirror ``csrc/fused_step.cu``'s structs field for
-field; the kernel takes them by value, and the world's joint and pair
-tables by pointer (``core.fused.KernelSpec.pair_table``). ``csrc/road_traffic.cu``
+field; the kernel takes them by value (the world's constants, the emit's and
+the in-kernel PID's), and the world's joint and pair tables by pointer (``core.fused.KernelSpec.pair_table``). ``csrc/road_traffic.cu``
 takes plain pointers and scalars.
 """
 
@@ -37,6 +37,7 @@ MAX_E = 32
 MAX_A = 16
 MAX_K = 8
 MAX_P = 4
+MAX_PID = 8  # PID-controlled agents (ActParams)
 
 # per-entity flag bits (FusedSpec.flags)
 F_MOVABLE = 1
@@ -59,6 +60,8 @@ EMIT_TRANSPORT = 1
 EMIT_BALANCE = 2
 EMIT_JOINT_PASSAGE = 3
 EMIT_WATERFALL = 4
+EMIT_GIVE_WAY = 5
+EMIT_MULTI_GIVE_WAY = 6
 
 _i, _f = ctypes.c_int, ctypes.c_float
 
@@ -119,6 +122,21 @@ class WaterfallParams(ctypes.Structure):
     ]
 
 
+class GiveWayParams(ctypes.Structure):
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A), ("goal", _i * MAX_A),
+        ("goal_r", _f * MAX_A), ("factor", _f), ("final", _f), ("rel_obs", _i),
+    ]
+
+
+class MultiGiveWayParams(ctypes.Structure):
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A), ("goal", _i * MAX_A),
+        ("goal_r", _f * MAX_A), ("factor", _f), ("factor_zero", _i), ("final", _f),
+        ("coll_pen", _f), ("min_coll", _f), ("two_r", _f),
+    ]
+
+
 class EmitParams(ctypes.Structure):
     """The scratch-carry map, then each emit's own parameters."""
 
@@ -128,6 +146,23 @@ class EmitParams(ctypes.Structure):
         ("balance", BalanceParams),
         ("joint_passage", JointPassageParams),
         ("waterfall", WaterfallParams),
+        ("give_way", GiveWayParams),
+        ("multi_give_way", MultiGiveWayParams),
+    ]
+
+
+class ActParams(ctypes.Structure):
+    """The rows form's in-kernel process_action (``core.fused.PidActRows``):
+    per PID-controlled agent its entity slot, the optional clamp to
+    ``u_rng``, ``min_in`` (0: no zeroing) and the controller's constants;
+    ``n_pid = 0`` runs no hook."""
+
+    _fields_ = [
+        ("n_pid", _i), ("slot", _i * MAX_PID), ("clamp", _i * MAX_PID),
+        ("u_rng", _f * MAX_PID), ("min_in", _f * MAX_PID), ("dt", _f * MAX_PID),
+        ("gain", _f * MAX_PID), ("mass", _f * MAX_PID), ("use_i", _i * MAX_PID),
+        ("inv_ti", _f * MAX_PID), ("has_cutoff", _i * MAX_PID), ("cutoff", _f * MAX_PID),
+        ("td", _f * MAX_PID),
     ]
 
 
@@ -194,9 +229,9 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         if name == "fused_step":
             lib.vmas_fused_step.argtypes = [
-                ctypes.POINTER(FusedSpec), ctypes.POINTER(EmitParams), ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.POINTER(FusedSpec), ctypes.POINTER(EmitParams), ctypes.POINTER(ActParams), ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.vmas_fused_step.restype = ctypes.c_int
             lib.vmas_cuda_error_string.argtypes = [ctypes.c_int]

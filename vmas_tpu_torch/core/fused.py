@@ -10,7 +10,9 @@ runs every substep of the physics and then the scenario's output rows
   out; reached from ``World.step`` / ``World.step_with_outputs``.
 * ``make_rows_step``: the rows-carried rollout step; the carry is the
   kernel's own row buffer, the per-step action rows override the agents'
-  force rows, and the emit rows go to a caller-given slice.
+  force rows, the scenario's in-kernel ``process_action`` (the PID velocity
+  controller, ``PidActRows``) turns them into forces, and the emit rows go to
+  a caller-given slice. One launch runs ``k_steps`` whole env steps.
 
 Each form has a plain PyTorch version here (``fused_step_plain``,
 ``rows_step_plain``) that repeats the kernel's arithmetic in the kernel's
@@ -24,13 +26,13 @@ rotation torque of ``rotate=False`` constraints against the fixed
 rotations the carry holds), all six shape-pair contact types
 (sphere-sphere, line-sphere, line-line, box-sphere, box-line, box-box, in
 that order), action clamps, friction, static gravity, drag, speed clamps,
-semidim clamps, any substeps, and the emits of transport, balance,
-joint_passage and waterfall. The world's joint and pair tables live in one
-device buffer (``KernelSpec.pair_table``), so a world may have any number
-of joints and pairs. Not ported yet: dynamic gravity, ``process_act_rows``
-and ``k_steps > 1``; worlds that need them raise ``NotImplementedError``
-(or, for the rows step, are not eligible). Forward only: ``Environment``
-refuses ``grad_enabled`` with ``fused_physics``.
+semidim clamps, any substeps, the PID velocity controller in the rows form,
+several env steps per rows launch, and the emits of transport, balance,
+joint_passage, waterfall, give_way and multi_give_way. The world's joint and
+pair tables live in one device buffer (``KernelSpec.pair_table``), so a
+world may have any number of joints and pairs. Not ported yet: dynamic
+gravity; a world that needs it raises ``NotImplementedError``. Forward
+only: ``Environment`` refuses ``grad_enabled`` with ``fused_physics``.
 """
 
 from __future__ import annotations
@@ -300,9 +302,37 @@ class FusedOutputs:
           rows (joint_passage's observation noise: ("obs_key",)); the
           port's rows rollout does not substitute them yet and refuses a
           config that declares any.
+      n_ctrl / n_ctrl_out / ctrl_rows(state) / ctrl_updates(rows, scratch)
+      / process_act_rows(ctx) / ctrl_u_idx: an in-kernel realization of
+          the scenario's process_action override for the rows path (the PID
+          velocity controller of give_way, multi_give_way and joint_passage
+          with ``use_controller=True``). ``n_ctrl`` controller rows ride the
+          rows carry after the scratch rows (packed by ``ctrl_rows``); the
+          rows step calls ``process_act_rows`` after the action-row override
+          and before the physics substeps: it rewrites the ``fx``/``fy``
+          rows of ctx (decoded u in, the force out) and the ``ctrl`` rows in
+          place, and returns ``n_ctrl_out`` rows (the controller's raw
+          output), which follow each step's emit rows.
+          ``process_act_rows.kernel_params()`` gives its device realization
+          (``_kernels.ActParams``). ``ctrl_updates`` maps the final carried
+          rows back to scenario scratch, and ``ctrl_u_idx`` names, per
+          policy agent, the (x, y) rows of a step's output block that hold
+          its u, so the final state's ``u`` is the hook pipeline's (the
+          controller's output, not the decoded action).
+          ``attach_pid(pid)`` sets them all from a ``PidActRows``.
     """
 
     n_scratch_in = 0
+    n_ctrl = 0
+    n_ctrl_out = 0
+
+    def attach_pid(self, pid: "PidActRows"):
+        """Run ``pid`` as this config's in-kernel process_action: its carry
+        rows, hook and output rows (after the ``n_out`` emit rows)."""
+        self.process_act_rows = pid
+        self.ctrl_rows, self.ctrl_updates = pid.ctrl_rows, pid.ctrl_updates
+        self.n_ctrl, self.n_ctrl_out = pid.n_ctrl, pid.n_ctrl_out
+        self.ctrl_u_idx = tuple((self.n_out + 2 * i, self.n_out + 2 * i + 1) for i in range(len(pid.slots)))
 
 
 # ---------------------------------------------------------------------------
@@ -787,21 +817,25 @@ def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr):
                 rot[e] = rot[e] + w[e] * sub_dt
 
 
-def _step_rows(ks, x, outputs, act_slots=(), act=None):
-    """One env step on a row buffer ``x`` [R, B] (with ``act`` [2A, B]
-    overriding the force rows of the ``act_slots`` entities in the rows
-    form). Returns ``(state_rows [9E], emit_rows [n_out], scratch_in
-    [K_in])``."""
-    E, J = ks.E, ks.J
-    comps = [[x[c * E + e] for e in range(E)] for c in range(9)]
+def _step_rows(ks, comps, jfr, scratch, outputs, act_slots=(), act=None, ctrl=None):
+    """One env step on the per-entity row lists ``comps`` (px, py, vx, vy,
+    rot, w, fx, fy, tq; rebound in place), with ``act`` [2A, B] overriding
+    the force rows of the ``act_slots`` entities and then, where ``ctrl``
+    (the controller rows, a list rebound in place) is given, the scenario's
+    ``process_act_rows`` (the rows form). Returns ``(emit_rows [n_out],
+    hook_rows [n_ctrl_out])``."""
     px, py, vx, vy, rot, w, fx, fy, tq = comps
     A = len(act_slots)
     for i, e in enumerate(act_slots):
         fx[e] = act[i]
         fy[e] = act[A + i]
-    k_in = int(outputs.n_scratch_in) if outputs is not None else 0
-    jfr = [x[9 * E + j] for j in range(J)]
-    scratch = [x[9 * E + J + k] for k in range(k_in)]
+    hook_rows = []
+    if ctrl is not None:
+        hook_rows = outputs.process_act_rows({"fx": fx, "fy": fy, "vx": vx, "vy": vy, "px": px, "py": py,
+                                              "rot": rot, "w": w, "ctrl": ctrl})
+        assert len(hook_rows) == outputs.n_ctrl_out, (
+            f"process_act_rows produced {len(hook_rows)} rows, n_ctrl_out={outputs.n_ctrl_out}"
+        )
     _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr)
     extra = []
     if outputs is not None:
@@ -811,28 +845,149 @@ def _step_rows(ks, x, outputs, act_slots=(), act=None):
         assert len(extra) == int(outputs.n_out), (
             f"emit produced {len(extra)} rows, n_out={outputs.n_out}"
         )
-    return [r for comp in comps for r in comp], extra, scratch
+    return extra, hook_rows
+
+
+def _split_rows(ks, x, k_in, n_ctrl=0):
+    """A row buffer [9E + J + k_in + n_ctrl, B] as (per-entity component
+    lists, joint fixed-rotation rows, scratch rows, controller rows)."""
+    E, J = ks.E, ks.J
+    comps = [[x[c * E + e] for e in range(E)] for c in range(9)]
+    jfr = [x[9 * E + j] for j in range(J)]
+    scratch = [x[9 * E + J + k] for k in range(k_in)]
+    ctrl = [x[9 * E + J + k_in + k] for k in range(n_ctrl)]
+    return comps, jfr, scratch, ctrl
 
 
 def fused_step_plain(world, x, outputs=None):
     """Plain version of the fused step: rows [9E + J + K_in, B] ->
-    [9E + K_out, B]."""
-    rows, extra, _ = _step_rows(_kernel_spec(world), x, outputs)
-    return torch.stack(rows + extra)
-
-
-def rows_step_plain(world, outputs, act_slots, carry, act):
-    """Plain version of the rows step: (carry [R_in, B], act [2A, B]) ->
-    (carry', extra [n_out, B])."""
+    [9E + K_out, B]. The scenario's in-kernel process_action never runs
+    here: ``env.step`` ran its process_action before."""
     ks = _kernel_spec(world)
-    rows, extra, scratch = _step_rows(ks, carry, outputs, act_slots, act)
-    E, J = ks.E, ks.J
-    jfr = [carry[9 * E + j] for j in range(J)]
-    new_scratch = [
-        scratch[k] if ei is None else extra[int(ei)]
-        for k, ei in enumerate(outputs.carry_extra_idx)
-    ]
-    return torch.stack(rows + jfr + new_scratch), torch.stack(extra)
+    k_in = int(outputs.n_scratch_in) if outputs is not None else 0
+    comps, jfr, scratch, _ = _split_rows(ks, x, k_in)
+    extra, _ = _step_rows(ks, comps, jfr, scratch, outputs)
+    return torch.stack([r for comp in comps for r in comp] + extra)
+
+
+def rows_step_plain(world, outputs, act_slots, carry, act, k_steps=1):
+    """Plain version of the rows step: (carry [R_in, B], act [K*2A, B]) ->
+    (carry', extra [K*(n_out + n_ctrl_out), B]) for K = ``k_steps`` whole env
+    steps. Step k reads its actions from rows [k*2A, (k+1)*2A) and writes its
+    emit rows, then its hook rows, to block k of ``extra``; between the
+    steps the scratch rows take the emit rows ``carry_extra_idx`` names."""
+    ks = _kernel_spec(world)
+    k_in, n_ctrl = int(outputs.n_scratch_in), int(outputs.n_ctrl)
+    comps, jfr, scratch, ctrl = _split_rows(ks, carry, k_in, n_ctrl)
+    A2 = 2 * len(act_slots)
+    blocks = []
+    for k in range(k_steps):
+        extra, hook_rows = _step_rows(ks, comps, jfr, scratch, outputs, act_slots, act[k * A2:(k + 1) * A2],
+                                      ctrl if n_ctrl else None)
+        scratch = [scratch[i] if ei is None else extra[int(ei)] for i, ei in enumerate(outputs.carry_extra_idx)]
+        blocks += extra + hook_rows
+    return torch.stack([r for comp in comps for r in comp] + jfr + scratch + ctrl), torch.stack(blocks)
+
+
+def clamp_rows(ux, uy, max_norm):
+    """The vectors ``(ux, uy)`` clamped to norm ``max_norm`` on the unguarded
+    norm ``sqrt(ux * ux + uy * uy)``, in the op order of the kernel's
+    ``pid_act`` (and the JAX package's process_act_rows); returns ``(ux, uy,
+    over)``, ``over`` marking the clamped lanes."""
+    n = torch.sqrt(ux * ux + uy * uy)
+    over = n > max_norm
+    den = torch.where(over, n, 1.0)
+    return torch.where(over, ux / den * max_norm, ux), torch.where(over, uy / den * max_norm, uy), over
+
+
+def clamp_with_row_norm(u, max_norm):
+    """``TorchUtils.clamp_with_norm`` of ``[B, 2]`` vectors through
+    ``clamp_rows``: ``torch.linalg.vector_norm`` rounds differently from
+    ``sqrt(x * x + y * y)`` in some 9% of vectors on the CPU. The
+    velocity-controlled scenarios clamp their inputs with it, so that
+    ``env.step`` and the rows step clamp alike."""
+    ux, uy, _ = clamp_rows(u[:, 0], u[:, 1], max_norm)
+    return torch.stack([ux, uy], dim=-1)
+
+
+class PidActRows:
+    """``process_act_rows`` of a scenario whose policy agents take velocity
+    commands through a ``VelocityController`` each (give_way, multi_give_way,
+    joint_passage with ``use_controller=True``). Per agent, in the op order
+    of the scenarios' process_action (vmas_tpu/scenarios/give_way.py
+    GiveWayOutputs.process_act_rows): where ``u_range`` is given, the clamp
+    of u to it on the unguarded norm ``sqrt(ux*ux + uy*uy)`` (as
+    clamp_with_norm); where ``min_input_norm`` is given, u zeroed where its
+    guarded norm is below it; the reset of the controller's memory where
+    that norm is below 1e-3; then the PID update
+    (``VelocityController.rows_step``). Each agent's memory rides 4 carry
+    rows (accum x, y, prev x, y); the controller's output, the agent's
+    force, comes back as 2 rows per agent. ``kernel_params`` gives the same
+    constants to the kernel's ``pid_act``."""
+
+    def __init__(self, agents, controllers, u_range=None, min_input_norm=None):
+        vcs = [controllers[a.name] for a in agents]
+        self.slots = [a.index for a in agents]
+        self.keys = [vc.key for vc in vcs]
+        self.u_range = None if u_range is None else float(u_range)
+        self.min_in = None if min_input_norm is None else float(min_input_norm)
+        self.params = [vc.rows_params() for vc in vcs]
+        self.steps = [vc.rows_step() for vc in vcs]
+        self.n_ctrl = 4 * len(vcs)
+        self.n_ctrl_out = 2 * len(vcs)
+        self._kernel_params = None
+
+    def ctrl_rows(self, state):
+        rows = []
+        for key in self.keys:
+            cs = state.scenario[key]
+            rows += [cs["accum_errs"][:, 0], cs["accum_errs"][:, 1], cs["prev_err"][:, 0], cs["prev_err"][:, 1]]
+        return torch.stack(rows)
+
+    def ctrl_updates(self, rows, scratch=None):
+        return {
+            key: {"accum_errs": torch.stack([rows[4 * i], rows[4 * i + 1]], dim=-1),
+                  "prev_err": torch.stack([rows[4 * i + 2], rows[4 * i + 3]], dim=-1)}
+            for i, key in enumerate(self.keys)
+        }
+
+    def __call__(self, ctx):
+        fx, fy, vx, vy, ctrl = ctx["fx"], ctx["fy"], ctx["vx"], ctx["vy"], ctx["ctrl"]
+        out = []
+        for i, e in enumerate(self.slots):
+            ux, uy = fx[e], fy[e]
+            if self.u_range is not None:
+                ux, uy, _ = clamp_rows(ux, uy, self.u_range)
+            if self.min_in is not None:
+                small = _norm(ux, uy) < self.min_in
+                ux = torch.where(small, 0.0, ux)
+                uy = torch.where(small, 0.0, uy)
+            reset = _norm(ux, uy) < 1e-3
+            r = self.steps[i](ux, uy, vx[e], vy[e], *ctrl[4 * i:4 * i + 4], reset)
+            fx[e], fy[e] = r[0], r[1]
+            ctrl[4 * i:4 * i + 4] = r[2:]
+            out += [r[0], r[1]]
+        return out
+
+    def kernel_params(self) -> K.ActParams:
+        if self._kernel_params is None:
+            if len(self.slots) > K.MAX_PID:
+                raise NotImplementedError(f"the fused kernel's PID takes at most {K.MAX_PID} agents")
+            ap = K.ActParams()
+            ap.n_pid = len(self.slots)
+            for i, e in enumerate(self.slots):
+                dt, gain, mass, use_i, inv_ti, cutoff, td = self.params[i]
+                ap.slot[i] = e
+                ap.clamp[i] = self.u_range is not None
+                ap.u_rng[i] = self.u_range or 0.0
+                # a min_input_norm of 0 zeroes nothing: a norm is never below 0
+                ap.min_in[i] = self.min_in or 0.0
+                ap.dt[i], ap.gain[i], ap.mass[i] = dt, gain, mass
+                ap.use_i[i], ap.inv_ti[i] = use_i, inv_ti
+                ap.has_cutoff[i], ap.cutoff[i] = cutoff is not None, cutoff or 0.0
+                ap.td[i] = td
+            self._kernel_params = ap
+        return self._kernel_params
 
 
 # ---------------------------------------------------------------------------
@@ -849,17 +1004,20 @@ def _emit_params(outputs):
     return outputs.kernel_emit()
 
 
-def _launch(spec_c, table, outputs, x, act, out, extra, rows_mode):
+_NO_ACT = K.ActParams()  # n_pid = 0: no in-kernel process_action
+
+
+def _launch(spec_c, table, outputs, x, act, out, extra, rows_mode, k_steps=1, act_params=_NO_ACT, n_tot=0):
     kind, ep = _emit_params(outputs)
     lib = K.library("fused_step")
     B = x.shape[1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.vmas_fused_step(
-            spec_c, ep, kind, table.data_ptr(), x.data_ptr(),
+            spec_c, ep, act_params, kind, table.data_ptr(), x.data_ptr(),
             None if act is None else act.data_ptr(),
             out.data_ptr(), None if extra is None else extra.data_ptr(),
-            B, int(rows_mode), stream,
+            B, int(rows_mode), int(k_steps), int(n_tot), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -952,19 +1110,24 @@ def rows_step_supported(world, outputs, agents) -> bool:
 
 
 def rows_layout(world, outputs):
-    """R_in: carried rows (9E state + J joint fixed rotations + K scratch)."""
+    """R_in: carried rows (9E state + J joint fixed rotations + K scratch +
+    n_ctrl controller rows)."""
     E = len(world.spec.mass)
     J = len(world.spec.joint_idx_a)
-    return 9 * E + J + int(outputs.n_scratch_in)
+    return 9 * E + J + int(outputs.n_scratch_in) + int(outputs.n_ctrl)
 
 
 def pack_carry(world, state, outputs):
-    """State + joint fixed rotations + scratch as one [R_in, B] buffer."""
+    """State + joint fixed rotations + scratch (+ controller rows) as one
+    [R_in, B] buffer."""
+    dev = state.device
     parts = [
         state_rows(state),
         state.joint_fixed_rot.T.to(torch.float32),
-        torch.as_tensor(outputs.scratch_rows(state), dtype=torch.float32, device=state.device),
+        torch.as_tensor(outputs.scratch_rows(state), dtype=torch.float32, device=dev),
     ]
+    if outputs.n_ctrl:
+        parts.append(torch.as_tensor(outputs.ctrl_rows(state), dtype=torch.float32, device=dev))
     return torch.cat(parts, dim=0).contiguous()
 
 
@@ -982,33 +1145,39 @@ def unpack_carry(world, carry, state):
     )
 
 
-def make_rows_step(world, outputs, act_slots):
-    """Build ``step(carry [R_in, B], act [2A, B], extra_out=None) ->
-    (carry', extra [n_out, B])``: one kernel launch on the GPU, the plain
-    version on the CPU. ``extra_out`` (a contiguous [n_out, B] slice, e.g.
-    a rollout's ``extras[t]``) receives the emit rows in place."""
+def make_rows_step(world, outputs, act_slots, k_steps=1):
+    """Build ``step(carry [R_in, B], act [K*2A, B], extra_out=None) ->
+    (carry', extra [K*n_tot, B])`` for K = ``k_steps`` whole env steps per
+    call, n_tot = n_out + n_ctrl_out: one kernel launch on the GPU, the plain
+    version on the CPU. ``extra_out`` (a contiguous [K*n_tot, B] slice, e.g.
+    a rollout's ``extras[t:t+K]``) receives the output rows in place."""
     R_in = rows_layout(world, outputs)
-    n_out = int(outputs.n_out)
+    n_tot = int(outputs.n_out) + int(outputs.n_ctrl_out)
     A = len(act_slots)
+    Ks = int(k_steps)
+    if Ks < 1:
+        raise ValueError(f"k_steps must be at least 1, got {k_steps}")
     ks = _kernel_spec(world)
     spec_c = ks.to_ctypes(int(outputs.n_scratch_in), act_slots)
+    act_params = outputs.process_act_rows.kernel_params() if outputs.n_ctrl else _NO_ACT
 
     def step(carry, act, extra_out=None):
         global rows_step_launches
         if carry.device.type == "cpu":
-            new, extra = rows_step_plain(world, outputs, act_slots, carry, act)
+            new, extra = rows_step_plain(world, outputs, act_slots, carry, act, Ks)
             if extra_out is not None:
                 extra_out.copy_(extra)
                 extra = extra_out
             return new, extra
         B = carry.shape[1]
         _check_rows("carry", carry, (R_in, B))
-        _check_rows("act", act, (2 * A, B))
+        _check_rows("act", act, (Ks * 2 * A, B))
         out = torch.empty((R_in, B), dtype=torch.float32, device=carry.device)
         if extra_out is None:
-            extra_out = torch.empty((n_out, B), dtype=torch.float32, device=carry.device)
-        _check_rows("extra_out", extra_out, (n_out, B))
-        _launch(spec_c, ks.pair_table(carry.device), outputs, carry, act, out, extra_out, rows_mode=True)
+            extra_out = torch.empty((Ks * n_tot, B), dtype=torch.float32, device=carry.device)
+        _check_rows("extra_out", extra_out, (Ks * n_tot, B))
+        _launch(spec_c, ks.pair_table(carry.device), outputs, carry, act, out, extra_out, rows_mode=True,
+                k_steps=Ks, act_params=act_params, n_tot=n_tot)
         rows_step_launches += 1
         return out, extra_out
 

@@ -5,7 +5,11 @@
 //   * fused_physics_step (fused.py, pallas_call in its body): one env step,
 //     rows [9E + J + K_in, B] -> [9E + K_out, B];
 //   * make_rows_step (fused.py, rows_mode=True): the rows-carried rollout
-//     step, carry [R_in, B] + action rows [2A, B] -> carry' + emit [n_out, B].
+//     step, carry [R_in, B] + action rows [K*2A, B] -> carry' + output rows
+//     [K*(n_out + n_ctrl_out), B], for K = k_steps whole env steps per launch
+//     (fused.py's `for _k in range(k_steps)`), each with the scenario's
+//     in-kernel process_action (fused.py process_act_rows: the PID velocity
+//     controller, pid_act below) between the action override and physics.
 //
 // Design: one thread per env, blocks of 128, grid ceil(B / 128). The row
 // buffers keep the JAX layout [R, B], row-major and contiguous over envs:
@@ -36,6 +40,12 @@
 // blocks of 128 threads on 132 SMs, so launch latency and the serial
 // per-thread chain, not bandwidth, set this kernel's time; filling the card
 // is work for a later change.
+//
+// The rows form's k_steps loop keeps the state, scratch and controller rows
+// in the thread for K steps: they are read once and written once per launch,
+// and the launch itself (the host's cost per step) is paid once per K steps.
+// The same thread runs the same ops in the same order, so one K-step launch
+// gives bitwise the rows of K one-step launches.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,6 +54,11 @@
 #define MAX_A 16
 #define MAX_K 8
 #define MAX_P 4
+// PID-controlled agents; the kernel's by-value parameters (FusedSpec,
+// EmitParams, ActParams) stay within the 4 KB that every CUDA 12 toolkit
+// takes
+#define MAX_PID 8
+#define MAX_CTRL (4 * MAX_PID)  // PID memory: accum x, y, prev x, y per agent
 
 enum {
   F_MOVABLE = 1, F_ROTATABLE = 2, F_MAX_F = 4, F_F_RANGE = 8, F_MAX_T = 16,
@@ -52,7 +67,10 @@ enum {
   F_TRIG = 4096,  // a joint or a pair reads this entity's rotation
 };
 
-enum { EMIT_NONE = 0, EMIT_TRANSPORT = 1, EMIT_BALANCE = 2, EMIT_JOINT_PASSAGE = 3, EMIT_WATERFALL = 4 };
+enum {
+  EMIT_NONE = 0, EMIT_TRANSPORT = 1, EMIT_BALANCE = 2, EMIT_JOINT_PASSAGE = 3, EMIT_WATERFALL = 4,
+  EMIT_GIVE_WAY = 5, EMIT_MULTI_GIVE_WAY = 6,
+};
 
 // vmas_tpu/core/utils.py LINE_MIN_DIST, rounded once to f32
 #define LMD_F ((float)(4.0 / 600.0))
@@ -117,12 +135,46 @@ struct WaterfallParams {
   int goal;
 };
 
+struct GiveWayParams {
+  int n_agents;
+  int agent[MAX_A], goal[MAX_A];  // each agent and its goal
+  float goal_r[MAX_A];
+  float factor, final;  // shaping factor, final reward
+  int rel_obs;          // observe the other agents' relative positions
+};
+
+struct MultiGiveWayParams {
+  int n_agents;
+  int agent[MAX_A], goal[MAX_A];
+  float goal_r[MAX_A];
+  float factor;
+  int factor_zero;  // a shaping factor of 0: per-agent reward -dist * 1e-4
+  float final, coll_pen, min_coll;
+  float two_r;      // 2 * agent radius, rounded once
+};
+
 struct EmitParams {
   int carry_idx[MAX_K];  // emit row feeding scratch row k; -1 = unchanged
   TransportParams transport;
   BalanceParams balance;
   JointPassageParams joint_passage;
   WaterfallParams waterfall;
+  GiveWayParams give_way;
+  MultiGiveWayParams multi_give_way;
+};
+
+// The rows form's in-kernel process_action (fused.py PidActRows): per
+// PID-controlled agent its entity slot, the optional clamp of u to u_rng,
+// min_in (0: no zeroing) and the VelocityController's constants. n_pid = 0
+// runs no hook (the fused step, and the rows step of the other scenarios).
+struct ActParams {
+  int n_pid;
+  int slot[MAX_PID], clamp[MAX_PID];
+  float u_rng[MAX_PID], min_in[MAX_PID], dt[MAX_PID], gain[MAX_PID], mass[MAX_PID];
+  int use_i[MAX_PID];
+  float inv_ti[MAX_PID];
+  int has_cutoff[MAX_PID];
+  float cutoff[MAX_PID], td[MAX_PID];
 };
 
 // ---------------------------------------------------------------------------
@@ -323,6 +375,61 @@ __device__ __noinline__ void bb_closest(float ax, float ay, float ca, float sa, 
       closest_line_box(ax, ay, ca, sa, hwa, hla, ex, ey, ec, es, eh, ona_x, ona_y, onb_x, onb_y);
     }
     pick(k == 0, ona_x, ona_y, onb_x, onb_y, bd, qax, qay, qbx, qby);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the in-kernel process_action: the PID velocity controller
+// ---------------------------------------------------------------------------
+
+// fused.py PidActRows and velocity_controller.py rows_step, op for op, per
+// agent: the clamp of u (the decoded action in the force rows) to u_rng on
+// the unguarded norm; zeroing below min_in on the guarded norm; the reset
+// of the memory c (accum x, y, prev x, y) below 1e-3; then the update. The
+// force replaces u in the force rows and goes to the hook rows (2 per agent,
+// row stride B).
+__device__ __forceinline__ void pid_act(const ActParams& ap, float* fx, float* fy, const float* vx,
+                                        const float* vy, float* ctrl, float* hook, int B, int b) {
+  for (int i = 0; i < ap.n_pid; ++i) {
+    const int e = ap.slot[i];
+    float ux = fx[e], uy = fy[e];
+    if (ap.clamp[i]) {
+      const float n = sqrtf(ux * ux + uy * uy);
+      const float rng = ap.u_rng[i];
+      if (n > rng) {
+        ux = ux / n * rng;
+        uy = uy / n * rng;
+      }
+    }
+    if (nrm(ux, uy) < ap.min_in[i]) {
+      ux = 0.f;
+      uy = 0.f;
+    }
+    float* c = ctrl + 4 * i;
+    if (nrm(ux, uy) < 1e-3f) c[0] = c[1] = c[2] = c[3] = 0.f;
+    const float ex = ux - vx[e], ey = uy - vy[e];
+    float ix = 0.f, iy = 0.f;
+    if (ap.use_i[i]) {
+      c[0] = c[0] + ap.dt[i] * ex;
+      c[1] = c[1] + ap.dt[i] * ey;
+      if (ap.has_cutoff[i]) {
+        const float cut = ap.cutoff[i];
+        c[0] = fminf(fmaxf(c[0], -cut), cut);
+        c[1] = fminf(fmaxf(c[1], -cut), cut);
+      }
+      ix = ap.inv_ti[i] * c[0];
+      iy = ap.inv_ti[i] * c[1];
+    }
+    const float dx = ap.td[i] * (ex - c[2]) / ap.dt[i];
+    const float dy = ap.td[i] * (ey - c[3]) / ap.dt[i];
+    const float ox = ap.gain[i] * (ex + ix + dx) * ap.mass[i];
+    const float oy = ap.gain[i] * (ey + iy + dy) * ap.mass[i];
+    c[2] = ex;
+    c[3] = ey;
+    fx[e] = ox;
+    fy[e] = oy;
+    hook[(2 * i) * B + b] = ox;
+    hook[(2 * i + 1) * B + b] = oy;
   }
 }
 
@@ -820,21 +927,116 @@ struct WaterfallEmit {
   }
 };
 
+// vmas_tpu/scenarios/give_way.py GiveWayOutputs.emit, row for row: per
+// agent [pos, vel, then pos - each other agent's if rel_obs], then the new
+// shapings, pos_rew, final_rew and goal_reached. Scratch in: the previous
+// shapings.
+struct GiveWayEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const GiveWayParams& p = ep.give_way;
+    const int A = p.n_agents;
+    float shaping[MAX_A];
+    bool reached = true;
+    for (int i = 0; i < A; ++i) {
+      const float d = nrm(px[p.agent[i]] - px[p.goal[i]], py[p.agent[i]] - py[p.goal[i]]);
+      reached = reached && (d < p.goal_r[i]);
+      shaping[i] = d * p.factor;
+    }
+    float pos_rew = 0.f;  // Python's sum() starts at 0
+    for (int i = 0; i < A; ++i) pos_rew = pos_rew + (scratch[i] - shaping[i]);
+    int r = 0;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      if (p.rel_obs) {
+        for (int j = 0; j < A; ++j) {
+          if (j == i) continue;
+          o[(r++) * B + b] = px[ai] - px[p.agent[j]];
+          o[(r++) * B + b] = py[ai] - py[p.agent[j]];
+        }
+      }
+    }
+    for (int i = 0; i < A; ++i) o[(r++) * B + b] = shaping[i];
+    o[(r++) * B + b] = pos_rew;
+    o[(r++) * B + b] = reached ? p.final : 0.f;
+    o[(r++) * B + b] = reached ? 1.f : 0.f;
+  }
+};
+
+// vmas_tpu/scenarios/multi_give_way.py MultiGiveWayOutputs.emit, row for
+// row: per agent [pos, vel, pos - goal, its norm], then the per-agent
+// position rewards, the pairwise collision penalties (norm - 2r <= min_coll,
+// each pair with another agent in agent order), the new shapings,
+// final_rew and the reached_goal latch. Scratch in: the previous shapings,
+// then reached_goal.
+struct MultiGiveWayEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const MultiGiveWayParams& p = ep.multi_give_way;
+    const int A = p.n_agents;
+    float gx[MAX_A], gy[MAX_A], dist[MAX_A];
+    bool all_reached = true;
+    for (int i = 0; i < A; ++i) {
+      gx[i] = px[p.agent[i]] - px[p.goal[i]];
+      gy[i] = py[p.agent[i]] - py[p.goal[i]];
+      dist[i] = nrm(gx[i], gy[i]);
+      all_reached = all_reached && (dist[i] < p.goal_r[i]);
+    }
+    const bool reached_new = (scratch[A] > 0.5f) || all_reached;
+    int r = 0;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = gx[i];
+      o[(r++) * B + b] = gy[i];
+      o[(r++) * B + b] = dist[i];
+    }
+    for (int i = 0; i < A; ++i)
+      o[(r++) * B + b] = p.factor_zero ? -dist[i] * 1e-4f : scratch[i] - dist[i] * p.factor;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.agent[i];
+      float c = 0.f;
+      bool first = true;
+      for (int j = 0; j < A; ++j) {
+        if (j == i) continue;
+        const int aj = p.agent[j];
+        const float d = nrm(px[ai] - px[aj], py[ai] - py[aj]) - p.two_r;
+        const float hit = (d <= p.min_coll ? 1.f : 0.f) * p.coll_pen;
+        c = first ? hit : c + hit;
+        first = false;
+      }
+      o[(r++) * B + b] = c;
+    }
+    for (int i = 0; i < A; ++i) o[(r++) * B + b] = dist[i] * p.factor;
+    o[(r++) * B + b] = all_reached ? p.final : 0.f;
+    o[(r++) * B + b] = reached_new ? 1.f : 0.f;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // the kernel, in both forms
 // ---------------------------------------------------------------------------
 
 template <bool ROWS, class Emit>
 __global__ void __launch_bounds__(128)
-fused_step_kernel(const FusedSpec sp, const EmitParams ep, const int* __restrict__ tab,
+fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, const int* __restrict__ tab,
                   const float* __restrict__ x,
                   const float* __restrict__ act, float* __restrict__ out,
-                  float* __restrict__ extra, int B) {
+                  float* __restrict__ extra, int B, int k_steps, int n_tot) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int E = sp.E;
   float px[MAX_E], py[MAX_E], vx[MAX_E], vy[MAX_E], rot[MAX_E], w[MAX_E];
-  float fx[MAX_E], fy[MAX_E], tq[MAX_E], scratch[MAX_K];
+  float fx[MAX_E], fy[MAX_E], tq[MAX_E], scratch[MAX_K], ctrl[MAX_CTRL];
   for (int e = 0; e < E; ++e) {
     px[e] = x[(0 * E + e) * B + b];
     py[e] = x[(1 * E + e) * B + b];
@@ -846,18 +1048,46 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const int* __restrict
     fy[e] = x[(7 * E + e) * B + b];
     tq[e] = x[(8 * E + e) * B + b];
   }
-  if (ROWS) {
-    // this step's decoded actions override the agents' force rows
-    // (holonomic process_action: force = u)
-    for (int i = 0; i < sp.n_act; ++i) {
-      int e = sp.act_slot[i];
-      fx[e] = act[i * B + b];
-      fy[e] = act[(sp.n_act + i) * B + b];
+  for (int k = 0; k < sp.K_in; ++k) scratch[k] = x[(9 * E + sp.J + k) * B + b];
+  // the controller rows follow the scratch rows in the carry
+  const int n_ctrl = ROWS ? 4 * ap.n_pid : 0;
+  for (int k = 0; k < n_ctrl; ++k) ctrl[k] = x[(9 * E + sp.J + sp.K_in + k) * B + b];
+
+  // the fused form runs one step: a constant bound lets the compiler drop
+  // the loop there
+  const int n_steps = ROWS ? k_steps : 1;
+  for (int step = 0; step < n_steps; ++step) {
+    // the rows form's block of output rows for this step: its emit rows,
+    // then its hook rows
+    float* blk = extra + (size_t)step * n_tot * B;
+    if (ROWS) {
+      // this step's decoded actions override the agents' force rows
+      // (holonomic process_action: force = u)
+      const float* a = act + (size_t)step * 2 * sp.n_act * B;
+      for (int i = 0; i < sp.n_act; ++i) {
+        int e = sp.act_slot[i];
+        fx[e] = a[i * B + b];
+        fy[e] = a[(sp.n_act + i) * B + b];
+      }
+      // the scenario's process_action (n_pid is the same for every thread)
+      if (ap.n_pid) pid_act(ap, fx, fy, vx, vy, ctrl, blk + (size_t)(n_tot - 2 * ap.n_pid) * B, B, b);
+    }
+
+    physics(sp, tab, x + (size_t)9 * E * B, B, b, px, py, vx, vy, rot, w, fx, fy, tq);
+
+    // the emit rows follow the state rows (fused step) or open this step's
+    // block (rows step)
+    float* emit_rows = ROWS ? blk : out + (size_t)9 * E * B;
+    Emit::emit(ep, px, py, vx, vy, rot, w, scratch, emit_rows, B, b);
+    if (ROWS) {
+      // the scratch rows carry the emit rows the scenario names (this
+      // thread wrote them)
+      for (int k = 0; k < sp.K_in; ++k) {
+        int ei = ep.carry_idx[k];
+        if (ei >= 0) scratch[k] = emit_rows[(size_t)ei * B + b];
+      }
     }
   }
-  for (int k = 0; k < sp.K_in; ++k) scratch[k] = x[(9 * E + sp.J + k) * B + b];
-
-  physics(sp, tab, x + (size_t)9 * E * B, B, b, px, py, vx, vy, rot, w, fx, fy, tq);
 
   for (int e = 0; e < E; ++e) {
     out[(0 * E + e) * B + b] = px[e];
@@ -870,41 +1100,42 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const int* __restrict
     out[(7 * E + e) * B + b] = fy[e];
     out[(8 * E + e) * B + b] = tq[e];
   }
-  // the emit rows follow the state rows (fused step) or go to their own
-  // buffer (rows step)
-  float* emit_rows = ROWS ? extra : out + (size_t)9 * E * B;
-  Emit::emit(ep, px, py, vx, vy, rot, w, scratch, emit_rows, B, b);
   if (ROWS) {
-    // joint fixed rotations ride the carry unchanged; the scratch rows
-    // carry the emit rows the scenario names (this thread wrote them)
+    // joint fixed rotations ride the carry unchanged, then the scratch and
+    // the controller rows
     for (int j = 0; j < sp.J; ++j) out[(9 * E + j) * B + b] = x[(9 * E + j) * B + b];
-    for (int k = 0; k < sp.K_in; ++k) {
-      int ei = ep.carry_idx[k];
-      out[(9 * E + sp.J + k) * B + b] = ei < 0 ? scratch[k] : extra[(size_t)ei * B + b];
-    }
+    for (int k = 0; k < sp.K_in; ++k) out[(9 * E + sp.J + k) * B + b] = scratch[k];
+    for (int k = 0; k < n_ctrl; ++k) out[(9 * E + sp.J + sp.K_in + k) * B + b] = ctrl[k];
   }
 }
 
 extern "C" {
 
 // Launch one fused step on `stream`. tab: the world's joint and pair tables
-// (int32 words, FusedSpec's offsets). rows_mode = 0: x [9E + J + K_in, B] -> out
-// [9E + K_out, B]. rows_mode = 1: x = carry [R_in, B], act [2A, B] -> out =
-// carry' [R_in, B], extra [n_out, B]; it needs an emit. Returns
-// cudaGetLastError().
-int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, int emit_kind, const int* tab,
-                    const float* x, const float* act, float* out, float* extra, int B,
-                    int rows_mode, void* stream) {
+// (int32 words, FusedSpec's offsets). rows_mode = 0: x [9E + J + K_in, B] ->
+// out [9E + K_out, B], k_steps 1, ap->n_pid 0. rows_mode = 1: x = carry
+// [R_in, B], act [k_steps * 2A, B] -> out = carry' [R_in, B], extra
+// [k_steps * n_tot, B] (per step n_out emit rows, then 2 * ap->n_pid hook
+// rows); it needs an emit. An unknown emit kind or a k_steps, n_pid or n_tot
+// out of range returns cudaErrorInvalidValue; else cudaGetLastError().
+int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams* ap, int emit_kind,
+                    const int* tab, const float* x, const float* act, float* out, float* extra, int B,
+                    int rows_mode, int k_steps, int n_tot, void* stream) {
+  if (k_steps < 1 || ap->n_pid < 0 || ap->n_pid > MAX_PID) return cudaErrorInvalidValue;
+  if (!rows_mode && (k_steps != 1 || ap->n_pid != 0)) return cudaErrorInvalidValue;
+  if (rows_mode && n_tot < 2 * ap->n_pid) return cudaErrorInvalidValue;
   if (B <= 0) return 0;
   dim3 block(128), grid((B + 127) / 128);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LAUNCH(ROWS, EMIT) \
-  fused_step_kernel<ROWS, EMIT><<<grid, block, 0, s>>>(*spec, *ep, tab, x, act, out, extra, B)
+  fused_step_kernel<ROWS, EMIT><<<grid, block, 0, s>>>(*spec, *ep, *ap, tab, x, act, out, extra, B, k_steps, n_tot)
   if (rows_mode) {
     if (emit_kind == EMIT_TRANSPORT) LAUNCH(true, TransportEmit);
     else if (emit_kind == EMIT_BALANCE) LAUNCH(true, BalanceEmit);
     else if (emit_kind == EMIT_JOINT_PASSAGE) LAUNCH(true, JointPassageEmit);
     else if (emit_kind == EMIT_WATERFALL) LAUNCH(true, WaterfallEmit);
+    else if (emit_kind == EMIT_GIVE_WAY) LAUNCH(true, GiveWayEmit);
+    else if (emit_kind == EMIT_MULTI_GIVE_WAY) LAUNCH(true, MultiGiveWayEmit);
     else return cudaErrorInvalidValue;
   } else {
     if (emit_kind == EMIT_NONE) LAUNCH(false, NoEmit);
@@ -912,6 +1143,8 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, int emit_kind, 
     else if (emit_kind == EMIT_BALANCE) LAUNCH(false, BalanceEmit);
     else if (emit_kind == EMIT_JOINT_PASSAGE) LAUNCH(false, JointPassageEmit);
     else if (emit_kind == EMIT_WATERFALL) LAUNCH(false, WaterfallEmit);
+    else if (emit_kind == EMIT_GIVE_WAY) LAUNCH(false, GiveWayEmit);
+    else if (emit_kind == EMIT_MULTI_GIVE_WAY) LAUNCH(false, MultiGiveWayEmit);
     else return cudaErrorInvalidValue;
   }
 #undef LAUNCH

@@ -2,14 +2,15 @@
 
 Counterpart of vmas_tpu/parallel/rollout.py. ``lax.scan`` becomes a Python
 loop. ``rollout_fn`` loops the environment's own step; ``rows_rollout_fn``
-carries the fused kernel's row buffer from step to step, so one step is one
-kernel launch: the action rows are decoded for the whole horizon up front,
-each step writes its emit rows straight into its slice ``extras[t]`` of one
-``[T, n_out, B]`` buffer, and ``unpack`` runs once over that buffer after
-the loop. Both give the same trajectory for the same generator seed.
+carries the fused kernel's row buffer from step to step, so ``k_steps``
+env steps are one kernel launch: the action rows are decoded for the whole
+horizon up front, each launch writes its output rows straight into its
+slice ``extras[t:t+k_steps]`` of one ``[T, n_out + n_ctrl_out, B]`` buffer,
+and ``unpack`` runs once over that buffer after the loop. Both give the same
+trajectory for the same generator seed.
 
 Not ported yet: policies with auxiliary outputs, autoreset, ``reset_every``,
-``k_steps > 1``, ``rows_policy_rollout_fn``.
+``rows_policy_rollout_fn``.
 """
 
 from __future__ import annotations
@@ -84,12 +85,12 @@ def rows_rollout_supported(env) -> bool:
     unclamped (or discrete) actions, and a hook pipeline the kernel fully
     replaces (see fused.rows_step_supported). A scenario's process_action
     override is allowed where its outputs declare it a no-op for this
-    config (``process_action_noop``). Not eligible yet, and run through
-    ``rollout_fn`` (the fused step, K1, per ``env.step``) instead: a
-    process_action the kernel would have to realize in its rows
-    (``process_act_rows``: joint_passage with ``use_controller=True``), and
-    outputs whose unpack reads per-step state (``unpack_reads``: the noisy
-    joint_passage configs)."""
+    config (``process_action_noop``) or realize it in the kernel's rows
+    (``process_act_rows``: the PID velocity controller of give_way,
+    multi_give_way and joint_passage with ``use_controller=True``). Not
+    eligible yet, and run through ``rollout_fn`` (the fused step, K1, per
+    ``env.step``) instead: outputs whose unpack reads per-step state
+    (``unpack_reads``: the noisy configs)."""
     from vmas_tpu_torch.core import fused as F
     from vmas_tpu_torch.scenario import BaseScenario
 
@@ -105,7 +106,11 @@ def rows_rollout_supported(env) -> bool:
             for a in env.agents
         )
         and sc.post_rewards is BaseScenario.post_rewards
-        and (sc.process_action is BaseScenario.process_action or getattr(fo, "process_action_noop", False))
+        and (
+            sc.process_action is BaseScenario.process_action
+            or getattr(fo, "process_action_noop", False)
+            or getattr(fo, "process_act_rows", None) is not None
+        )
         and not getattr(fo, "unpack_reads", ())
         and sc.pre_step is BaseScenario.pre_step
         and sc.post_step is BaseScenario.post_step
@@ -151,10 +156,35 @@ def _decode_horizon(env, agent, raw):
     return u * u_mult[None, None]
 
 
-def rows_rollout_fn(env, horizon: int = 100):
+def _apply_ctrl_finish(world, fo, state_out, carry, state0):
+    """The final carry's controller rows (the in-kernel process_action's
+    memory, e.g. the PID integrator) -> scenario scratch, via the
+    scenario's ``ctrl_updates``."""
+    from vmas_tpu_torch.core import fused as F
+
+    if not fo.n_ctrl:
+        return state_out
+    base = F.rows_layout(world, fo) - fo.n_ctrl
+    updates = fo.ctrl_updates(carry[base:base + fo.n_ctrl], state0.scenario)
+    return state_out.replace(scenario={**state_out.scenario, **updates})
+
+
+def _last_us(fo, us_last, extras):
+    """The final state's per-agent u: the decoded action, unless the
+    scenario's in-kernel process_action rewrote it (``ctrl_u_idx`` names the
+    output rows holding it: the hook pipeline stores the controller's
+    output in state.u, so the rows path does too)."""
+    idx = getattr(fo, "ctrl_u_idx", None)
+    if idx is None:
+        return us_last
+    return [torch.stack([extras[-1, ix], extras[-1, iy]], dim=-1) for ix, iy in idx]
+
+
+def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1):
     """Rows-carried rollout with random actions: same contract and the same
     trajectory as ``rollout_fn(env, horizon=...)``, with one fused-kernel
-    launch per step and nothing else between launches."""
+    launch per ``k_steps`` steps and nothing else between launches.
+    ``k_steps`` must divide ``horizon``."""
     from vmas_tpu_torch.core import fused as F
 
     assert rows_rollout_supported(env), (
@@ -162,12 +192,15 @@ def rows_rollout_fn(env, horizon: int = 100):
         "fused-outputs scenario declaring carry_extra_idx, holonomic "
         "noise-free agents (continuous unclamped or discrete), no scripted "
         "agents, no post_rewards override, no process_action override unless "
-        "declared a no-op, no unpack_reads; use rollout_fn"
+        "declared a no-op or realized in the kernel, no unpack_reads; use rollout_fn"
     )
+    K = int(k_steps)
+    assert K >= 1 and horizon % K == 0, f"k_steps ({k_steps}) must divide horizon ({horizon})"
     world, fo, agents = env.world, env._fused_outputs, env.agents
     act_slots = [a.index for a in agents]
-    step = F.make_rows_step(world, fo, act_slots)
-    B, n_out = env.num_envs, int(fo.n_out)
+    step = F.make_rows_step(world, fo, act_slots, k_steps=K)
+    B, n_tot = env.num_envs, int(fo.n_out) + int(fo.n_ctrl_out)
+    A2 = 2 * len(agents)
 
     def run(state, steps, generator):
         acts = _random_actions_for_horizon(env, generator, horizon)
@@ -177,9 +210,10 @@ def rows_rollout_fn(env, horizon: int = 100):
         act_rows = torch.cat([ax, ay], dim=1).contiguous()  # [T, 2A, B]
 
         carry = F.pack_carry(world, state, fo)
-        extras = torch.empty((horizon, n_out, B), dtype=torch.float32, device=env.device)
-        for t in range(horizon):
-            carry, _ = step(carry, act_rows[t], extras[t])
+        extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
+        # K steps' rows are contiguous in both buffers: views, no copies
+        for t in range(0, horizon, K):
+            carry, _ = step(carry, act_rows[t:t + K].view(K * A2, B), extras[t:t + K].view(K * n_tot, B))
 
         state_out = F.unpack_carry(world, carry, state)
         obs, rews, terminated, updates = fo.unpack(extras, state)
@@ -188,13 +222,15 @@ def rows_rollout_fn(env, horizon: int = 100):
             truncated = steps_t >= env.max_steps
         else:
             truncated = torch.zeros_like(terminated)
-        # the final state mirrors the step pipeline's: last decoded u, last
-        # step's scratch updates
-        for a, u in zip(agents, us):
-            state_out = a.set_u(state_out, u[-1])
+        # the final state mirrors the step pipeline's: the last step's u
+        # (the controller's output where the kernel ran one), its scratch
+        # updates and the controller's memory
+        for a, u in zip(agents, _last_us(fo, [u[-1] for u in us], extras)):
+            state_out = a.set_u(state_out, u)
         state_out = state_out.replace(
             scenario={**state_out.scenario, **{k: v[-1] for k, v in updates.items()}}
         )
+        state_out = _apply_ctrl_finish(world, fo, state_out, carry, state)
         traj = {"rewards": torch.stack(rews, dim=-1), "dones": terminated | truncated, "obs": obs}
         return state_out, steps + horizon, traj
 

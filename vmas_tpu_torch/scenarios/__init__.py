@@ -1,6 +1,7 @@
-"""Scenario registry. ``balance``, ``joint_passage``, ``road_traffic``,
-``transport`` and the debug scenario ``waterfall`` are ported so far; every
-other scenario of the JAX package raises ``ValueError`` when loaded."""
+"""Scenario registry. ``balance``, ``give_way``, ``joint_passage``,
+``multi_give_way``, ``road_traffic``, ``transport`` and the debug scenario
+``waterfall`` are ported so far; every other scenario of the JAX package
+raises ``ValueError`` when loaded."""
 
 from __future__ import annotations
 
@@ -8,7 +9,9 @@ import importlib
 
 _PORTED = {
     "balance": "vmas_tpu_torch.scenarios.balance",
+    "give_way": "vmas_tpu_torch.scenarios.give_way",
     "joint_passage": "vmas_tpu_torch.scenarios.joint_passage",
+    "multi_give_way": "vmas_tpu_torch.scenarios.multi_give_way",
     "road_traffic": "vmas_tpu_torch.scenarios.road_traffic",
     "transport": "vmas_tpu_torch.scenarios.transport",
     "waterfall": "vmas_tpu_torch.scenarios.debug.waterfall",

@@ -408,7 +408,11 @@ class JointPassageOutputs(F.FusedOutputs):
     (``obs_w``); then rew, pos_rew, rot_rew, the four new shapings, passed,
     just_passed and done (10). Scratch in: pos_shaping_pre,
     pos_shaping_post, rot_shaping_pre, rot_shaping_post, passed; each
-    carried from its emit row. The observation noise is drawn in
+    carried from its emit row. With ``use_controller=True`` the rows step
+    runs the velocity controller in the kernel (``fused.PidActRows``,
+    without the input clamp and zeroing of give_way's): 4 controller rows
+    per agent in the carry, the controller's output in 2 rows per agent
+    after each step's emit rows. The observation noise is drawn in
     ``unpack`` from the same streams as ``observation``'s."""
 
     n_scratch_in = 5
@@ -429,11 +433,13 @@ class JointPassageOutputs(F.FusedOutputs):
         self.obs_w = 6 + 2 * len(self.open_i) + 2 + (1 if self.obs_joint else 0)
         self.base = A * self.obs_w
         self.n_out = self.base + 10
-        # the rows step stands in for process_action only with the
-        # controller off; the noisy configs read per-step noise in unpack
+        # with the controller off, process_action does nothing; the noisy
+        # configs read per-step noise in unpack
         self.process_action_noop = not scenario.use_controller
         self.unpack_reads = ("obs_key",) if (scenario.obs_noise > 0 or scenario.joint_angle_obs_noise > 0) else ()
         self.carry_extra_idx = tuple(self.base + 3 + k for k in range(5))
+        if scenario.use_controller:
+            self.attach_pid(F.PidActRows(world.policy_agents, scenario.controllers))
         self._kernel_emit = None
 
     @staticmethod

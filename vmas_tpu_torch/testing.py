@@ -7,7 +7,11 @@ contacts of its four types, and the margin of balance's flags to their
 thresholds; a small world of every kind of joint constraint and a state of
 it, a joint_passage state with contacts of its four types and its joints
 pulled apart, a waterfall state with all six types touching and its
-fixed-rotation torques active, and the margin of joint_passage's flags.
+fixed-rotation torques active, and the margin of joint_passage's flags;
+give_way and multi_give_way states with the agents pressed into their
+corridor walls and into each other and their velocity controllers'
+memory set, actions that drive every branch of the in-kernel PID, and
+the count of lanes each branch acted in.
 The states are numpy dicts made from a seeded generator, so that both
 packages can load the same one.
 """
@@ -429,3 +433,162 @@ def waterfall_contact_state(env, rng):
     out = _np_state(state, cpu(state.pos), cpu(state.rot), vel, ang_vel, force)
     out["joint_fixed_rot"] = np.asarray(jfr, np.float32)
     return out
+
+
+def _pid_memory(scratch, env, rng, cutoff_every=4):
+    """Random velocity-controller memory in ``scratch`` (numpy), with the
+    integrator of every ``cutoff_every``-th env at its windup cutoff."""
+    f32 = lambda a: np.asarray(a, np.float32)
+    B = env.num_envs
+    for a in env.scenario.world.agents:
+        vc = env.scenario.controllers[a.name]
+        cut = vc.integrator_windup_cutoff
+        acc = rng.normal(0, 0.05, (B, 2))
+        at_cut = np.arange(B) % cutoff_every == 1
+        acc[at_cut] = rng.choice([-1.0, 1.0], (int(at_cut.sum()), 2)) * cut
+        scratch[vc.key] = {"accum_errs": f32(acc), "prev_err": f32(rng.normal(0, 0.1, (B, 2)))}
+
+
+def give_way_contact_state(env, rng):
+    """A numpy state dict of a give_way env (default config) in which its
+    contact types touch, by env index mod 4: (0) the agents touching each
+    other (0.5-4 mm overlap), both pressed into the floor; (1) agent 0
+    pressed into an end wall, agent 1 into a small ceiling; (2) agent 0 in
+    the side passage, pressed into its side wall, agent 1 into the floor;
+    (3) both free in the corridor. Pressed means 0.5-4 mm into the contact
+    range of the wall (sphere-line). Velocities and forces are random, the
+    shapings noisy, some goals reached, and the controllers' memory random
+    with every 4th env's integrator at its cutoff."""
+    sc = env.scenario
+    B, E = env.state.pos.shape[:2]
+    st = env.state
+    pos = st.pos.detach().cpu().numpy().astype(np.float64)
+    u = lambda lo, hi: rng.uniform(lo, hi, B)
+    side = lambda: rng.choice([-1.0, 1.0], B)
+    r = sc.agent_radius
+    press = lambda: r + LINE_MIN_DIST - u(0.0005, 0.004)  # centre to wall
+    a0, a1 = (a.index for a in sc.world.agents)
+    half_w = sc.corridor_width / 2  # floor and ceilings at -half_w, +half_w
+    end = sc.scenario_length / 2
+    mode = np.arange(B) % 4
+    p0 = np.stack([u(-1.5, 1.5), u(-0.02, 0.02)], -1)
+    p1 = p0 + np.stack([u(1.0, 1.6), u(-0.02, 0.02)], -1)
+    m = mode == 0
+    floor_y = -half_w + press()
+    p0[m] = np.stack([u(-2.0, 1.5), floor_y], -1)[m]
+    p1[m] = p0[m] + np.stack([2 * r - u(0.0005, 0.004), np.zeros(B)], -1)[m]
+    m = mode == 1
+    s = side()
+    p0[m] = np.stack([s * (end - press()), u(-0.02, 0.02)], -1)[m]
+    p1[m] = np.stack([-s * u(0.6, 2.0), half_w - press()], -1)[m]
+    m = mode == 2
+    s = side()
+    p0[m] = np.stack([s * (sc.passage_length / 2 - press()), half_w + u(0.1, 0.3)], -1)[m]
+    p1[m] = np.stack([u(0.8, 2.0), -half_w + press()], -1)[m]
+    pos[:, a0], pos[:, a1] = p0, p1
+    vel = np.zeros((B, E, 2))
+    vel[:, [a0, a1]] = rng.normal(0, 0.1, (B, 2, 2))
+    force = np.zeros((B, E, 2))
+    force[:, [a0, a1]] = rng.normal(0, 0.3, (B, 2, 2))
+    out = _np_state(st, pos, st.rot.detach().cpu().numpy(), vel, np.zeros((B, E)), force)
+    goals = [pos[:, a.goal.index] for a in sc.world.agents]
+    d = np.stack([np.linalg.norm(pos[:, a] - g, axis=-1) for a, g in zip((a0, a1), goals)], -1)
+    f32 = lambda a: np.asarray(a, np.float32)
+    out["scenario"].update(shaping=f32(d * sc.pos_shaping_factor + rng.normal(0, 0.01, (B, 2))),
+                           goal_reached=rng.random(B) < 0.25)
+    _pid_memory(out["scenario"], env, rng)
+    return out
+
+
+def multi_give_way_contact_state(env, rng):
+    """A numpy state dict of a multi_give_way env in which its contact types
+    touch, by env index mod 3: (0) agents 0 and 1 touching each other in the
+    x corridor, agent 2 pressed into a long wall, agent 3 into the end wall;
+    (1) the same in the y corridor with agents 2, 3 touching and agents 0, 1
+    at the walls; (2) the agents near their starts. Pressed means 0.5-4 mm
+    into the wall's contact range. Velocities and forces are random, the
+    shapings noisy, the latch set in some envs, and the controllers' memory
+    random with every 4th env's integrator at its cutoff."""
+    sc = env.scenario
+    B, E = env.state.pos.shape[:2]
+    st = env.state
+    pos = st.pos.detach().cpu().numpy().astype(np.float64)
+    u = lambda lo, hi: rng.uniform(lo, hi, B)
+    r = sc.agent_radius
+    press = lambda: r + LINE_MIN_DIST - u(0.0005, 0.004)
+    ag = [a.index for a in sc.world.agents]
+    half_w, end = sc.scenario_width / 2, sc.scenario_length / 2
+    mode = np.arange(B) % 3
+    # (x, y) in the x corridor; mode 1 swaps the axes and the agent pairs
+    pair = u(-2.0, -1.0)
+    q = np.zeros((B, 4, 2))
+    q[:, 0] = np.stack([pair, u(-0.02, 0.02)], -1)
+    q[:, 1] = q[:, 0] + np.stack([2 * r - u(0.0005, 0.004), u(-0.02, 0.02)], -1)
+    q[:, 2] = np.stack([u(0.6, 1.2), half_w - press()], -1)
+    q[:, 3] = np.stack([end - press(), u(-0.02, 0.02)], -1)
+    m = mode == 1
+    q[m] = q[m][:, [2, 3, 0, 1]][..., ::-1]
+    for k, e in enumerate(ag):
+        pos[:, e] = np.where((mode == 2)[:, None], pos[:, e] + rng.normal(0, 0.05, (B, 2)), q[:, k])
+    vel = np.zeros((B, E, 2))
+    vel[:, ag] = rng.normal(0, 0.1, (B, 4, 2))
+    force = np.zeros((B, E, 2))
+    force[:, ag] = rng.normal(0, 0.3, (B, 4, 2))
+    out = _np_state(st, pos, st.rot.detach().cpu().numpy(), vel, np.zeros((B, E)), force)
+    d = np.stack([np.linalg.norm(pos[:, a.index] - pos[:, a.goal.index], axis=-1) for a in sc.world.agents], -1)
+    f32 = lambda a: np.asarray(a, np.float32)
+    out["scenario"].update(shaping=f32(d * sc.pos_shaping_factor + rng.normal(0, 0.01, (B, 4))),
+                           reached_goal=rng.random(B) < 0.25)
+    _pid_memory(out["scenario"], env, rng)
+    return out
+
+
+def pid_actions(env, rng):
+    """Per policy agent ``[B, 2]`` actions (numpy) that drive every branch
+    of the in-kernel PID, by env index mod 4: (0) below ``min_input_norm``
+    (zeroed, and the memory reset); (1) beyond ``u_range``, so the clamp
+    acts; (2, 3) uniform in the action space."""
+    B = env.num_envs
+    out = []
+    for a in env.agents:
+        rng_u = float(a.u_range)
+        act = rng.uniform(-rng_u, rng_u, (B, 2))
+        mode = np.arange(B) % 4
+        ang = rng.uniform(-np.pi, np.pi, B)
+        ring = np.stack([np.cos(ang), np.sin(ang)], -1)
+        act[mode == 0] = (ring * rng.uniform(0.0, 0.05, B)[:, None])[mode == 0]
+        act[mode == 1] = (ring * rng.uniform(1.05, 1.4, B)[:, None] * rng_u)[mode == 1]
+        out.append(np.asarray(act, np.float32))
+    return out
+
+
+def pid_counts(world, fo, carry, act):
+    """Over the PID-controlled agents and envs of the carry rows [R_in, B]
+    and action rows [2A, B] of one rows step, how many (agent, env) lanes
+    the ``u_range`` clamp (``clamp``), the ``min_input_norm`` zeroing
+    (``min_input``), the memory reset (``reset``) and the integrator's
+    windup cutoff (``cutoff``) act in, computed as ``fused.PidActRows``
+    computes them."""
+    pid = fo.process_act_rows
+    E = len(world.entities)
+    A = len(pid.slots)
+    base = F.rows_layout(world, fo) - fo.n_ctrl
+    counts = {"clamp": 0, "min_input": 0, "reset": 0, "cutoff": 0}
+    for i, e in enumerate(pid.slots):
+        ux, uy = act[i], act[A + i]
+        if pid.u_range is not None:
+            ux, uy, over = F.clamp_rows(ux, uy, pid.u_range)
+            counts["clamp"] += int(over.sum())
+        if pid.min_in is not None:
+            small = F._norm(ux, uy) < pid.min_in
+            counts["min_input"] += int(small.sum())
+            ux, uy = torch.where(small, 0.0, ux), torch.where(small, 0.0, uy)
+        reset = F._norm(ux, uy) < 1e-3
+        counts["reset"] += int(reset.sum())
+        dt, _, _, use_i, _, cutoff, _ = pid.params[i]
+        if use_i and cutoff is not None:
+            for c, v in ((0, 2 * E + e), (1, 3 * E + e)):
+                acc = torch.where(reset, 0.0, carry[base + 4 * i + c])
+                acc = acc + dt * ((ux if c == 0 else uy) - carry[v])
+                counts["cutoff"] += int((acc.abs() > cutoff).sum())
+    return counts
