@@ -53,7 +53,29 @@
    tails), then its main path with the counts zeroed: make_env with every
    default, reset, 5 env.step calls, rollout_fn(horizon=100) once to warm up
    and 3 timed calls, with one launch of each kernel per step and reset.
-9. Prints one JSON line describing each kernel, then the result line.
+9. wind_flocking at 4096 envs: its fused step with the dynamic-gravity rows
+   against its plain version, bitwise, on the rows of 10 env.step calls
+   from a state with the big agent's wind weakened and the agents touching
+   (the lanes of a weakened wind are counted); then its main path with the
+   counts zeroed: make_env (every default: 2 agents, the PID on), reset,
+   rollout_fn(horizon=100) once to warm up and 3 timed calls, one fused
+   step per env.step.
+10. MPE: simple_spread's rows and fused steps against their plain versions,
+   bitwise, over 10 re-synced steps at 4096 envs and 3 at 30000 from a
+   state with overlapping agents, simple's (no contact pair) over 10 at
+   4096; one launch of 4 steps against 4 launches of one and the plain
+   version's 4 steps, bitwise; simple_spread's env.step rollout against its
+   rows rollout with discrete actions, bitwise; then simple_spread's main
+   path (3 agents, discrete actions) at 4096 envs (horizon 1000) and 30000
+   envs (horizon 100), each at k_steps 1 and 4: make_env, reset, 5 env.step
+   calls, rows_rollout_fn once to warm up and 3 timed calls, env-steps/s
+   and the device idle share.
+11. The op-cost probe: its kernel against its plain version at [54, 4096]
+   with 0, 100 and 1200 operations (the ALU chain bitwise, the
+   transcendental chain within atol 1e-6 rtol 1e-5), then its path with
+   the count zeroed (tools/time_opcost.py's op sweep: 0 to 1200 operations),
+   the slope per operation and the intercept.
+12. Prints one JSON line describing each kernel, then the result line.
 
 Any failure raises and exits non-zero. It imports nothing of JAX.
 """
@@ -97,6 +119,16 @@ WF_PLAIN_CALLS = 5
 GW_CMP_STEPS = 20
 JPC_CMP_STEPS = 5
 K_STEPS = 4
+# wind_flocking: env.step calls compared, and the main path's horizon
+WFL_CMP_STEPS = 10
+WFL_HORIZON = 100
+# MPE: steps compared; simple_spread's second width and its horizon (the
+# original VMAS protocol: up to 30,000 envs, 100 steps)
+MPE_CMP_STEPS = 10
+MPE_WIDE = 30000
+MPE_WIDE_HORIZON = 100
+# the op-cost probe: op counts held to the plain version
+OPCOST_CHECK_OPS = (0, 100, 1200)
 
 
 def card_line():
@@ -327,6 +359,9 @@ PID_OPS = 45
 
 def emit_ops(fo):
     """Operations of a scenario's emit per env, besides writing its rows:
+    simple's 2 per landmark and 6 per agent (the squared distance);
+    simple_spread's 7 per (agent, landmark) distance and its minimum, 9 per
+    ordered pair of agents (the overlap test), 2 per observed offset;
     transport's about 200 per package; balance's 4 trig + 4 x 14 + 116 + 40
     + 20 and its floor-line tests; joint_passage's 2 angle distances (4
     fmod and 10) and the goal's cos and sin, 5 per open passage and 30;
@@ -347,6 +382,11 @@ def emit_ops(fo):
         return 4 * TRIG_OPS + 20 + 2 * TRIG_OPS + 5 * len(fo.open_i) + 30
     if kind == "WaterfallOutputs":
         return 6 * fo.n_agents
+    if kind == "SimpleOutputs":
+        return fo.n_agents * (2 * len(fo.lm_i) + 6)
+    if kind == "SimpleSpreadOutputs":
+        A, L = fo.n_agents, len(fo.lm_i)
+        return 7 * A * L + L + 2 + 9 * A * (A - 1) + A * (2 * L + 2 * (A - 1) * fo.obs_others)
     return 200 * fo.n_pkgs
 
 
@@ -793,11 +833,11 @@ def timed_rollout(run, state, steps, rgen):
     return state, steps, traj, call_ms, warm_s
 
 
-def rollout_report(tag, run, state, steps, rgen, call_ms, warm_s, B, card):
+def rollout_report(tag, run, state, steps, rgen, call_ms, warm_s, B, card, horizon=HORIZON):
     """Prints a timed rollout's env-steps/s and the device idle share of one
     more call (profiler); returns (best env-steps/s, idle share)."""
-    best = B * HORIZON / (min(call_ms) / 1e3)
-    mean = B * HORIZON * TIMED_CALLS / (sum(call_ms) / 1e3)
+    best = B * horizon / (min(call_ms) / 1e3)
+    mean = B * horizon * TIMED_CALLS / (sum(call_ms) / 1e3)
     _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
     idle = 1 - busy_ms / min(call_ms)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
@@ -1065,6 +1105,274 @@ def give_way_phase(card, dev):
         e["launches_on"] = "give_way's main path at k_steps 1"
     entries[4]["launches_on"] = f"give_way's main path at k_steps {K_STEPS}"
     return entries
+
+
+# -- wind_flocking: dynamic gravity in the fused step ---------------------------
+
+# operations per movable entity and substep of the dynamic-gravity term (two
+# additions, two multiplications)
+DYN_G_OPS = 4
+
+
+def wind_flocking_phase(card, dev):
+    """wind_flocking's fused step (K1 with the dynamic-gravity rows) against
+    its plain version along env.step, bitwise, with the lanes of a weakened
+    wind; its main path (rollout_fn); its entry of the kernels line."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rollout_fn
+
+    B = NUM_ENVS
+    env = make_env("wind_flocking", B, device=dev, seed=0, fused_physics=True)
+    world, sc = env.world, env.scenario
+    ks = F._kernel_spec(world)
+    E = ks.E
+    assert ks.dyn_gravity and env._fused_outputs is None
+    env.state = state_from_numpy(world, testing.wind_flocking_state(env, np.random.default_rng(50)))
+    # -- (a) K1 against plain on the rows env.step hands it, re-synced to
+    # the kernel by env.step itself
+    seen = []
+    kernel = F.fused_step
+
+    def capture(w, x, outputs=None):
+        y = kernel(w, x, outputs)
+        seen.append((x.clone(), y))
+        return y
+
+    F.fused_step = capture
+    differ, weak, contacts = 0, 0, 0
+    try:
+        for t in range(WFL_CMP_STEPS):
+            env.step(env.get_random_actions())
+            x, y = seen[-1]
+            contacts += F.contact_counts(world, x)["ss"]
+            differ += int((y != F.fused_step_plain(world, x)).any(0).sum())
+            big = env.state.dyn_gravity[:, sc.big_agent.index].norm(dim=-1)
+            weak += int(((big > 0) & (big < float(sc.wind_vec.norm()))).sum())
+    finally:
+        F.fused_step = kernel
+    torch.cuda.synchronize()
+    assert len(seen) == WFL_CMP_STEPS and seen[0][0].shape == (9 * E + 2 * E, B)
+    print(f"wind_flocking fused_step (dynamic gravity) vs plain over {WFL_CMP_STEPS} env.step calls: envs that "
+          f"differ {differ}; (step, env) lanes with the big agent's wind weakened (strictly between 0 and full) "
+          f"{weak}; sphere-sphere contacts {contacts}", flush=True)
+    if differ or weak == 0:
+        raise AssertionError("wind_flocking's fused step differs from its plain version, or no wind was weakened")
+    x = seen[-1][0]
+    key = "fused_step[wind_flocking]"
+    times = kernel_times(key, lambda: F.fused_step(world, x), lambda: F.fused_step_plain(world, x),
+                         "fused_step_kernel")
+    flops = kernel_ops(ks, x) + ks.substeps * DYN_G_OPS * sum(ks.movable) * B
+    work = ((x.shape[0] + 9 * E) * B * 4, flops)
+    del env, seen
+
+    # -- (b) the main path: env.step (the PID in PyTorch, then K1) per step
+    F.fused_step_launches = 0
+    F.rows_step_launches = 0
+    env = make_env("wind_flocking", num_envs=B, fused_physics=True)  # every default: 2 agents, the PID on
+    assert env.device.type == "cuda" and env.world.dynamic_gravity
+    env.reset()
+    rgen = torch.Generator(device=dev).manual_seed(0)
+    run = rollout_fn(env, horizon=WFL_HORIZON)
+    state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
+    launches = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+    assert launches == {"fused_step": WFL_HORIZON * (1 + TIMED_CALLS), "rows_step": 0}, launches
+    assert traj["rewards"].shape == (WFL_HORIZON, B, 2) and bool(torch.isfinite(traj["rewards"]).all())
+    assert all(o.shape == (WFL_HORIZON, B, 4) and bool(torch.isfinite(o).all()) for o in traj["obs"])
+    assert bool(torch.isfinite(state.pos).all()) and bool(torch.isfinite(state.dyn_gravity).all())
+    print(f"main path: wind_flocking {B} envs x 2 agents x {WFL_HORIZON} env.step calls; launches {launches}",
+          flush=True)
+    rollout_report("wind_flocking rollout_fn", run, state, steps, rgen, call_ms, warm_s, B, card,
+                   horizon=WFL_HORIZON)
+    entry = kernel_entry(key, "vmas_tpu_torch/csrc/fused_step.cu", "vmas_tpu/core/fused.py:1425",
+                         launches["fused_step"], 0.0, times, *work)
+    return [entry]
+
+
+# -- MPE: simple and simple_spread ------------------------------------------------
+
+def mpe_phase(card, dev):
+    """simple_spread's and simple's two kernel forms against their plain
+    versions, bitwise; a 4-step launch against 4 launches of one;
+    simple_spread's env.step rollout against its rows rollout, bitwise;
+    simple_spread's main path at 4096 and 30000 envs (discrete actions) at
+    k_steps 1 and 4; the phase's entries of the kernels line."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_rollout_fn, rows_rollout_supported
+
+    times, work, entries = {}, {}, []
+
+    def bitwise(tag, got, want):
+        if not torch.equal(got, want):
+            n = int((got != want).any(0).sum()) if got.shape == want.shape else -1
+            raise AssertionError(f"{tag}: kernel and plain version differ in {n} envs")
+
+    # -- (a) K1 and K2 against plain, bitwise --------------------------------------
+    for name, B, n_steps in (("simple_spread", NUM_ENVS, MPE_CMP_STEPS), ("simple_spread", MPE_WIDE, 3),
+                             ("simple", NUM_ENVS, MPE_CMP_STEPS)):
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True, continuous_actions=False)
+        world, fo = env.world, env._fused_outputs
+        slots = [a.index for a in env.agents]
+        ks = F._kernel_spec(world)
+        E, A = ks.E, len(slots)
+        step = F.make_rows_step(world, fo, slots)
+        carry = F.pack_carry(world, state_from_numpy(world, testing.mpe_state(env, np.random.default_rng(52))), fo)
+        gen = torch.Generator(device=dev).manual_seed(53)
+        acts = lambda: ((torch.rand((2 * A, B), generator=gen, device=dev) * 2 - 1)).contiguous()
+        contacts = 0
+        for t in range(n_steps):
+            act = acts()
+            x = with_actions(carry, act, slots, E)
+            contacts += F.contact_counts(world, x)["ss"]
+            c_k, e_k = step(carry, act)
+            c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+            bitwise(f"{name}@{B} rows_step carry", c_k, c_p)
+            bitwise(f"{name}@{B} rows_step emit", e_k, e_p)
+            bitwise(f"{name}@{B} fused_step", F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo))
+            carry = c_k
+        torch.cuda.synchronize()
+        print(f"{name}@{B}: rows_step and fused_step bitwise their plain versions over {n_steps} re-synced steps "
+              f"(E {E}, pairs {len(ks.ss)}, sphere-sphere contacts {contacts})", flush=True)
+        if name == "simple_spread" and contacts == 0:
+            raise AssertionError("the simple_spread comparison saw no contact")
+        act = acts()
+        x = with_actions(carry, act, slots, E)
+        extra = torch.empty((fo.n_out, B), device=dev)
+        tag = "" if B == NUM_ENVS else f",{B}"
+        key = f"rows_step[{name}{tag}]"
+        times[key] = kernel_times(key, lambda: step(carry, act, extra),
+                                  lambda: F.rows_step_plain(world, fo, slots, carry, act), "fused_step_kernel")
+        work[key] = ((2 * carry.shape[0] + 2 * A + fo.n_out) * B * 4, kernel_ops(ks, carry, fo, rows_form=True))
+        if B == NUM_ENVS:
+            key = f"fused_step[{name}]"
+            times[key] = kernel_times(key, lambda: F.fused_step(world, x, fo),
+                                      lambda: F.fused_step_plain(world, x, fo), "fused_step_kernel")
+            work[key] = ((x.shape[0] + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo))
+        if name == "simple_spread" and B == NUM_ENVS:
+            # -- (b) one launch of K_STEPS steps against K_STEPS launches of one,
+            # and against the plain version's K_STEPS steps, bitwise
+            act_k = torch.cat([acts() for _ in range(K_STEPS)]).contiguous()
+
+            def mpe_compare(tr, k, c_k, c_p, e_k, e_p, mid):
+                bitwise(f"simple_spread k{K_STEPS} step {k} emit", e_k, e_p)
+                if k == K_STEPS - 1:
+                    bitwise(f"simple_spread k{K_STEPS} carry", c_k, c_p)
+                tr.close("simple_spread k4 emit rows", e_k, e_p, 0.0)
+
+            k_steps_check(world, fo, slots, carry, act_k, "simple_spread", mpe_compare)
+            key = f"rows_step[simple_spread,k{K_STEPS}]"
+            step_k = F.make_rows_step(world, fo, slots, k_steps=K_STEPS)
+            extra_k = torch.empty((K_STEPS * fo.n_out, B), device=dev)
+            times[key] = kernel_times(key, lambda: step_k(carry, act_k, extra_k),
+                                      lambda: F.rows_step_plain(world, fo, slots, carry, act_k, K_STEPS),
+                                      "fused_step_kernel")
+            work[key] = ((2 * carry.shape[0] + K_STEPS * (2 * A + fo.n_out)) * B * 4,
+                         K_STEPS * kernel_ops(ks, carry, fo, rows_form=True))
+            # -- (c) env.step's rollout (K1) against the rows rollout (K2)
+            assert rows_rollout_supported(env)
+            s0, st0 = env.state, env.steps
+            sa, _, ta = rollout_fn(env, horizon=MPE_CMP_STEPS)(s0, st0, torch.Generator(device=dev).manual_seed(7))
+            sb, _, tb = rows_rollout_fn(env, horizon=MPE_CMP_STEPS)(s0, st0,
+                                                                   torch.Generator(device=dev).manual_seed(7))
+            pairs = {"rewards": [(ta["rewards"], tb["rewards"])], "dones": [(ta["dones"], tb["dones"])],
+                     "obs": list(zip(ta["obs"], tb["obs"])), "final pos": [(sa.pos, sb.pos)],
+                     "final vel": [(sa.vel, sb.vel)], "final u": list(zip(sa.u, sb.u))}
+            differ = [k for k, ps in pairs.items() if not all(torch.equal(a, b) for a, b in ps)]
+            print(f"simple_spread env.step rollout vs rows rollout over {MPE_CMP_STEPS} steps (discrete actions): "
+                  f"bitwise equal {not differ}", flush=True)
+            if differ:
+                raise AssertionError(f"simple_spread env.step rollout and rows rollout differ in {differ}")
+        del env, carry, x
+
+    # -- (d) the main path at 4096 and 30000 envs, k_steps 1 and 4 --------------------
+    launches = {}
+    for B, horizon in ((NUM_ENVS, HORIZON), (MPE_WIDE, MPE_WIDE_HORIZON)):
+        for k in (1, K_STEPS):
+            F.fused_step_launches = 0
+            F.rows_step_launches = 0
+            env = make_env("simple_spread", num_envs=B, continuous_actions=False, fused_physics=True)
+            assert env.device.type == "cuda" and env.n_agents == 3
+            obs = env.reset()
+            for _ in range(5):
+                obs, rews, dones, infos = env.step(env.get_random_actions())
+            assert all(o.shape == (B, 14) and bool(torch.isfinite(o).all()) for o in obs)
+            rgen = torch.Generator(device=dev).manual_seed(0)
+            run = rows_rollout_fn(env, horizon=horizon, k_steps=k)
+            state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
+            n = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+            assert n == {"fused_step": 5, "rows_step": horizon * (1 + TIMED_CALLS) // k}, n
+            assert traj["rewards"].shape == (horizon, B, 3) and bool(torch.isfinite(traj["rewards"]).all())
+            assert all(o.shape == (horizon, B, 14) and bool(torch.isfinite(o).all()) for o in traj["obs"])
+            assert bool(torch.isfinite(state.pos).all())
+            print(f"main path: simple_spread {B} envs x 3 agents x {horizon} steps, discrete actions, k_steps {k}; "
+                  f"launches {n}", flush=True)
+            rollout_report(f"simple_spread@{B} rows_rollout_fn k_steps {k}", run, state, steps, rgen, call_ms,
+                           warm_s, B, card, horizon=horizon)
+            launches[(B, k)] = n
+            del env, state, traj
+
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    on = "simple_spread's main path at 4096 envs, k_steps 1"
+    for key, site, n, note in (
+        ("rows_step[simple_spread]", "1603", launches[(NUM_ENVS, 1)]["rows_step"], None),
+        ("fused_step[simple_spread]", "1425", launches[(NUM_ENVS, 1)]["fused_step"], None),
+        (f"rows_step[simple_spread,k{K_STEPS}]", "1603", launches[(NUM_ENVS, K_STEPS)]["rows_step"], None),
+        (f"rows_step[simple_spread,{MPE_WIDE}]", "1603", launches[(MPE_WIDE, 1)]["rows_step"], None),
+        ("rows_step[simple]", "1603", launches[(NUM_ENVS, 1)]["rows_step"], on),
+        ("fused_step[simple]", "1425", launches[(NUM_ENVS, 1)]["fused_step"], on),
+    ):
+        e = kernel_entry(key, src, f"vmas_tpu/core/fused.py:{site}", n, 0.0, times[key], *work[key])
+        if note:
+            e["launches_on"] = note
+        entries.append(e)
+    return entries
+
+
+# -- K5: the op-cost probe ----------------------------------------------------------
+
+def opcost_phase(card, dev):
+    """The op-cost probe against its plain version, then its path
+    (tools/time_opcost.py's op sweep) with the launch count zeroed; the
+    slope and intercept; its entry of the kernels line."""
+    import importlib.util
+    from pathlib import Path
+
+    from vmas_tpu_torch import opcost
+
+    spec = importlib.util.spec_from_file_location("time_opcost", Path(__file__).resolve().parent / "tools" /
+                                                  "time_opcost.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    err = tool.check(NUM_ENVS, OPCOST_CHECK_OPS)
+    print(f"opcost kernel vs plain at [54, {NUM_ENVS}], n_ops {OPCOST_CHECK_OPS}: ALU chain bitwise (max abs err "
+          f"{err['alu']:.3e}), transcendental chain max abs err {err['trans']:.3e} (tolerance atol "
+          f"{tool.TRANS_TOL['atol']:g}, rtol {tool.TRANS_TOL['rtol']:g})", flush=True)
+    opcost.opcost_launches = 0
+    sweep = tool.op_sweep(NUM_ENVS)
+    launches = opcost.opcost_launches
+    assert launches == len(tool.OPS) * (1 + tool.LAUNCHES + tool.CALLS), launches
+    for p in sweep["points"]:
+        print(f"opcost n_ops {p['n_ops']}: kernel {p['us']:.3f} us on the device, {p['wall_us']:.3f} us per "
+              f"back-to-back call, bound {p['bound_us']:.3f} us ({p['bound_by']})", flush=True)
+    print(f"opcost slope {sweep['slope_ns']:.4f} ns per operation per thread, intercept {sweep['intercept_us']:.3f} "
+          f"us (device); wall: slope {sweep['wall_slope_ns']:.4f} ns, intercept {sweep['wall_intercept_us']:.3f} us; "
+          f"on {card}; launches {launches}", flush=True)
+    pt = next(p for p in sweep["points"] if p["n_ops"] == tool.SWEEP_OPS)
+    x = tool.probe_inputs(NUM_ENVS)
+    plain_ms = time_ms(lambda: opcost.opcost_chain_plain(x, tool.SWEEP_OPS), 5)
+    e = kernel_entry("opcost", "vmas_tpu_torch/csrc/opcost.cu", "tests/golden/time_mosaic_opcost.py:73", launches,
+                     err["trans"], {"ms": pt["us"] / 1e3, "wall_ms": pt["wall_us"] / 1e3, "plain_ms": plain_ms},
+                     2 * tool.R * NUM_ENVS * 4, tool.SWEEP_OPS * NUM_ENVS)
+    e.update(n_ops=tool.SWEEP_OPS, alu_max_abs_err=err["alu"], slope_ns=sweep["slope_ns"],
+             intercept_us=sweep["intercept_us"], launches_on="tools/time_opcost.py's op sweep")
+    return [e]
 
 
 # -- road_traffic -------------------------------------------------------------
@@ -1419,7 +1727,16 @@ def main():
     # -- 8. road_traffic -------------------------------------------------------
     rt_kernels = road_traffic_phase(card, dev)
 
-    # -- 9. the kernels line -------------------------------------------------
+    # -- 9. wind_flocking: dynamic gravity -----------------------------------
+    wfl_kernels = wind_flocking_phase(card, dev)
+
+    # -- 10. MPE simple and simple_spread --------------------------------------
+    mpe_kernels = mpe_phase(card, dev)
+
+    # -- 11. the op-cost probe -------------------------------------------------
+    opcost_kernels = opcost_phase(card, dev)
+
+    # -- 12. the kernels line ------------------------------------------------
     flops = kernel_ops(ks, carry, fo)
     rows_bytes = (R_in + 2 * A + R_in + fo.n_out) * B * 4
     fused_bytes = (R_in + 9 * E + fo.n_out) * B * 4
@@ -1429,7 +1746,7 @@ def main():
                      times["rows_step"], rows_bytes, flops),
         kernel_entry("fused_step", src, "vmas_tpu/core/fused.py:1425", launches["fused_step"], k1.max(),
                      times["fused_step"], fused_bytes, flops),
-    ] + balance_kernels + joint_kernels + give_way_kernels + rt_kernels
+    ] + balance_kernels + joint_kernels + give_way_kernels + rt_kernels + wfl_kernels + mpe_kernels + opcost_kernels
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -252,12 +252,30 @@ def _scenario(shape_fn, joint=False, dynamic_gravity=False, n_walls=1):
 
 @pytest.mark.parametrize("kind", ["dynamic_gravity", "entities"])
 def test_unported_worlds_raise(kind):
+    """The worlds the fused kernel once refused: one of more than 32
+    entities still raises; one with dynamic gravity is ported, and its fused
+    step (the dynamic-gravity rows after the state rows) matches the plain
+    physics."""
     from vmas_tpu_torch.core import Sphere
     from vmas_tpu_torch.environment import Environment
 
-    sc = _scenario(Sphere, dynamic_gravity=kind == "dynamic_gravity", n_walls=32 if kind == "entities" else 1)
-    with pytest.raises(NotImplementedError, match="dynamic gravity" if kind == "dynamic_gravity" else "at most 32"):
-        Environment(sc, num_envs=2, device="cpu", fused_physics=True)
+    if kind == "entities":
+        with pytest.raises(NotImplementedError, match="at most 32"):
+            Environment(_scenario(Sphere, n_walls=32), num_envs=2, device="cpu", fused_physics=True)
+        return
+    envs = [Environment(_scenario(Sphere, dynamic_gravity=True), num_envs=2, device="cpu", fused_physics=f)
+            for f in (True, False)]
+    assert envs[0].world.fused and envs[0].world.dynamic_gravity
+    for env in envs:
+        # the agent 3 cm into the static wall's contact range, each env in its own wind
+        env.state = env.state.replace(pos=torch.tensor([[[0.0, 0.07], [0.0, 0.0]]] * 2))
+        for e, g in zip(env.world.entities, ([0.5, -1.0], [[0.0, -2.0], [1.5, 0.25]])):
+            env.state = e.set_gravity(env.state, torch.tensor(g))
+        env.step([torch.tensor([[0.5, 0.0], [0.0, -0.5]])])
+    for field in ("pos", "vel"):
+        torch.testing.assert_close(getattr(envs[0].state, field), getattr(envs[1].state, field), atol=1e-5,
+                                   rtol=1e-5)
+    assert bool((envs[0].state.vel[:, 1] != 0).all())
 
 
 def test_joint_world_fuses():

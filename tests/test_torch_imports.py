@@ -1,5 +1,5 @@
-"""The port stands alone: no module of vmas_tpu_torch, and not chip_smoke.py,
-imports JAX, flax or anything of the JAX package."""
+"""The port stands alone: no module of vmas_tpu_torch, not chip_smoke.py and
+no script under tools/ imports JAX, flax or anything of the JAX package."""
 
 import ast
 import pathlib
@@ -7,7 +7,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "vmas_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "vmas_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "tools").glob("*.py"))
 BANNED = ("jax", "jaxlib", "flax", "vmas_tpu")
 
 

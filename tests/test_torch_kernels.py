@@ -1,5 +1,5 @@
-"""The CUDA kernels (vmas_tpu_torch/csrc/fused_step.cu, road_traffic.cu)
-against their plain PyTorch versions, on the card.
+"""The CUDA kernels (vmas_tpu_torch/csrc/fused_step.cu, road_traffic.cu,
+opcost.cu) against their plain PyTorch versions, on the card.
 
 The kernel has no CPU mode, so every test here needs a CUDA GPU: they carry
 the ``gpu`` marker and skip without one. On a machine with a card and the
@@ -17,8 +17,11 @@ equal except within 1e-5 of a threshold; joint_passage's just_passed and
 done flags likewise; give_way's and multi_give_way's rows step with the
 in-kernel PID: controller rows and the controller's output atol 1e-5, the
 goal flags equal; one launch of 4 env steps against 4 launches of one,
-bitwise. The balance, all-pairs, joint_passage, waterfall, give_way and
-multi_give_way states come from vmas_tpu_torch/testing.py, as
+bitwise; wind_flocking's fused step with dynamic gravity and the simple and
+simple_spread emits in both forms bitwise; the op-cost probe's ALU chain
+bitwise, its transcendental chain atol 1e-6 rtol 1e-5. The balance,
+all-pairs, joint_passage, waterfall, give_way, multi_give_way,
+wind_flocking and MPE states come from vmas_tpu_torch/testing.py, as
 chip_smoke.py's do.
 """
 
@@ -322,6 +325,86 @@ def test_k_steps_launch_equals_single_steps(name):
         _close(ek[:obs_end], epk[:obs_end], 2e-5)
         _close(ek[obs_end:n_out], epk[obs_end:n_out], 2e-3)
         _close(ek[n_out:], epk[n_out:], 1e-5)
+
+
+# -- dynamic gravity (wind_flocking), the MPE emits, the op-cost probe ----------
+
+def test_dynamic_gravity_kernel_matches_plain():
+    """K1 with the dynamic-gravity rows (wind_flocking: the big agent's
+    wind a random share of the full wind) bitwise its plain version over 3
+    re-synced steps, and the world's rows form refused by the launcher."""
+    import numpy as np
+
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.testing import wind_flocking_state
+
+    _cuda()
+    e = make_env("wind_flocking", B, device="cuda", seed=0, fused_physics=True)
+    world = e.world
+    s = state_from_numpy(world, wind_flocking_state(e, np.random.default_rng(15)))
+    n = F.fused_step_launches
+    for _ in range(3):
+        sk = F.fused_physics_step(world, s)
+        x = torch.cat([F.state_rows(s), s.joint_fixed_rot.T, s.dyn_gravity[..., 0].T,
+                       s.dyn_gravity[..., 1].T]).contiguous()
+        y = F.fused_step_plain(world, x)
+        assert torch.equal(F.state_rows(sk), y)
+        s = sk
+    torch.cuda.synchronize()
+    assert F.fused_step_launches == n + 3
+
+
+@pytest.mark.parametrize("name", ["simple", "simple_spread"])
+def test_mpe_kernels_match_plain(name):
+    """K2 and K1 with simple's and simple_spread's emits bitwise their plain
+    versions over 3 re-synced steps (simple: the empty pair table), and a
+    launch of 4 steps bitwise 4 launches of one."""
+    from vmas_tpu_torch.testing import mpe_state
+
+    e, world, fo, slots, carry = _joint_env(name, mpe_state, 16)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for _ in range(3):
+        act = (torch.rand((2 * len(slots), B), generator=g, device="cuda") * 2 - 1).contiguous()
+        carry_k, pairs = _both_forms(world, fo, slots, carry, act)
+        for (sk, xk), (sp, xp) in pairs:
+            assert torch.equal(sk, sp) and torch.equal(xk, xp)
+        carry = carry_k
+    act = ((torch.rand((4 * 2 * len(slots), B), generator=g, device="cuda") * 2 - 1)).contiguous()
+    c4, e4 = F.make_rows_step(world, fo, slots, k_steps=4)(carry, act)
+    c1, blocks, A2 = carry, [], 2 * len(slots)
+    for k in range(4):
+        c1, e1 = F.make_rows_step(world, fo, slots)(c1, act[k * A2:(k + 1) * A2].contiguous())
+        blocks.append(e1)
+    torch.cuda.synchronize()
+    assert torch.equal(c4, c1) and torch.equal(e4, torch.cat(blocks))
+
+
+@pytest.mark.parametrize("block", [32, 128, 256])
+@pytest.mark.parametrize("trans", [False, True])
+def test_opcost_kernel_matches_plain(trans, block):
+    """The op-cost probe at 54 rows and a ragged width: the ALU chain
+    bitwise its plain version, the transcendental chain rtol 1e-5 atol
+    1e-6 (the card's exp and log1p in two builds), the copied rows bitwise;
+    bad arguments raise."""
+    from vmas_tpu_torch import opcost
+
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(18)
+    x = (torch.rand((54, B), generator=g, device="cuda") * 1.5 + 0.5).contiguous()
+    n = opcost.opcost_launches
+    for n_ops in (0, 1, 2, 3, 100, 301):
+        y, p = opcost.opcost_chain(x, n_ops, trans, block), opcost.opcost_chain_plain(x, n_ops, trans)
+        assert torch.equal(y[1:], x[1:])
+        if trans:
+            _close(y[0], p[0], 1e-6)
+        else:
+            assert torch.equal(y[0], p[0])
+    torch.cuda.synchronize()
+    assert opcost.opcost_launches == n + 6
+    with pytest.raises(ValueError, match="block"):
+        opcost.opcost_chain(x, 10, trans, 48)
+    with pytest.raises(ValueError, match="contiguous"):
+        opcost.opcost_chain(x.t().contiguous().t(), 10, trans)
 
 
 # -- road_traffic: path sweeps and all-ego observations ------------------------

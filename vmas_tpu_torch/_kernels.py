@@ -8,8 +8,9 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 
 The ``ctypes`` structures below mirror ``csrc/fused_step.cu``'s structs field for
 field; the kernel takes them by value (the world's constants, the emit's and
-the in-kernel PID's), and the world's joint and pair tables by pointer (``core.fused.KernelSpec.pair_table``). ``csrc/road_traffic.cu``
-takes plain pointers and scalars.
+the in-kernel PID's), and the world's joint and pair tables by pointer
+(``core.fused.KernelSpec.pair_table``). ``csrc/road_traffic.cu`` and
+``csrc/opcost.cu`` take plain pointers and scalars.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ NVCC_FLAGS = [
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
 # kernel name -> its source; one nvcc process per source
-SOURCES = {"fused_step": "fused_step.cu", "road_traffic": "road_traffic.cu"}
+SOURCES = {"fused_step": "fused_step.cu", "road_traffic": "road_traffic.cu", "opcost": "opcost.cu"}
 
 # capacities of the kernel's by-value spec (csrc/fused_step.cu); the joint
 # and pair tables are a device buffer of any length
@@ -62,6 +63,8 @@ EMIT_JOINT_PASSAGE = 3
 EMIT_WATERFALL = 4
 EMIT_GIVE_WAY = 5
 EMIT_MULTI_GIVE_WAY = 6
+EMIT_SIMPLE = 7
+EMIT_SIMPLE_SPREAD = 8
 
 _i, _f = ctypes.c_int, ctypes.c_float
 
@@ -71,7 +74,7 @@ class FusedSpec(ctypes.Structure):
         ("E", _i), ("J", _i), ("K_in", _i), ("substeps", _i),
         ("n_ss", _i), ("n_ls", _i), ("n_ll", _i), ("n_bs", _i), ("n_bl", _i), ("n_bb", _i),
         ("o_j", _i), ("o_ss", _i), ("o_ls", _i), ("o_ll", _i), ("o_bs", _i), ("o_bl", _i), ("o_bb", _i),
-        ("n_act", _i), ("has_x", _i), ("has_y", _i),
+        ("n_act", _i), ("has_x", _i), ("has_y", _i), ("dyn_g", _i),
         ("sub_dt", _f), ("cm", _f), ("cf", _f), ("x_semidim", _f), ("y_semidim", _f),
         ("jf", _f), ("tcf", _f),
         ("flags", _i * MAX_E),
@@ -137,6 +140,20 @@ class MultiGiveWayParams(ctypes.Structure):
     ]
 
 
+class SimpleParams(ctypes.Structure):
+    """The policy agents are entities ``a0 .. a0 + n_agents - 1`` and the
+    landmarks ``l0 .. l0 + n_lm - 1``."""
+
+    _fields_ = [("n_agents", _i), ("a0", _i), ("n_lm", _i), ("l0", _i)]
+
+
+class SimpleSpreadParams(ctypes.Structure):
+    _fields_ = [
+        ("n_agents", _i), ("a0", _i), ("n_lm", _i), ("l0", _i),
+        ("obs_others", _i), ("radius", _f * MAX_A),
+    ]
+
+
 class EmitParams(ctypes.Structure):
     """The scratch-carry map, then each emit's own parameters."""
 
@@ -148,6 +165,8 @@ class EmitParams(ctypes.Structure):
         ("waterfall", WaterfallParams),
         ("give_way", GiveWayParams),
         ("multi_give_way", MultiGiveWayParams),
+        ("simple", SimpleParams),
+        ("simple_spread", SimpleSpreadParams),
     ]
 
 
@@ -244,5 +263,11 @@ def library(name: str) -> ctypes.CDLL:
             lib.vmas_rt_obs.restype = ctypes.c_int
             lib.vmas_rt_error_string.argtypes = [ctypes.c_int]
             lib.vmas_rt_error_string.restype = ctypes.c_char_p
+        elif name == "opcost":
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.vmas_opcost.argtypes = [p, p, i, i, i, i, i, p]
+            lib.vmas_opcost.restype = ctypes.c_int
+            lib.vmas_opcost_error_string.argtypes = [ctypes.c_int]
+            lib.vmas_opcost_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib

@@ -6,8 +6,9 @@ one column per env. One kernel (``csrc/fused_step.cu``, one thread per env)
 runs every substep of the physics and then the scenario's output rows
 (``FusedOutputs.emit``), in two forms:
 
-* ``fused_physics_step``: rows ``[9E + J + K_in, B]`` in, ``[9E + K_out, B]``
-  out; reached from ``World.step`` / ``World.step_with_outputs``.
+* ``fused_physics_step``: rows ``[9E + J (+ 2E) + K_in, B]`` in (the 2E
+  rows of a world with dynamic gravity: each entity's x, then y), ``[9E +
+  K_out, B]`` out; reached from ``World.step`` / ``World.step_with_outputs``.
 * ``make_rows_step``: the rows-carried rollout step; the carry is the
   kernel's own row buffer, the per-step action rows override the agents'
   force rows, the scenario's in-kernel ``process_action`` (the PID velocity
@@ -25,14 +26,15 @@ Covered: joint constraints (attractive and repulsive anchor forces, and the
 rotation torque of ``rotate=False`` constraints against the fixed
 rotations the carry holds), all six shape-pair contact types
 (sphere-sphere, line-sphere, line-line, box-sphere, box-line, box-box, in
-that order), action clamps, friction, static gravity, drag, speed clamps,
+that order), action clamps, friction, static gravity, per-env dynamic
+gravity (the fused form only, as in the JAX package), drag, speed clamps,
 semidim clamps, any substeps, the PID velocity controller in the rows form,
 several env steps per rows launch, and the emits of transport, balance,
-joint_passage, waterfall, give_way and multi_give_way. The world's joint and
-pair tables live in one device buffer (``KernelSpec.pair_table``), so a
-world may have any number of joints and pairs. Not ported yet: dynamic
-gravity; a world that needs it raises ``NotImplementedError``. Forward
-only: ``Environment`` refuses ``grad_enabled`` with ``fused_physics``.
+joint_passage, waterfall, give_way, multi_give_way, simple and
+simple_spread. The world's joint and pair tables live in one device buffer
+(``KernelSpec.pair_table``), so a world may have any number of joints and
+pairs. Forward only: ``Environment`` refuses ``grad_enabled`` with
+``fused_physics``.
 """
 
 from __future__ import annotations
@@ -263,10 +265,8 @@ def supports(world) -> bool:
 
 def check_fusable(world) -> None:
     """Raise ``NotImplementedError`` for a world the port's kernel cannot
-    step: dynamic gravity, or more than ``MAX_E`` entities."""
+    step: more than ``MAX_E`` entities."""
     spec = world.spec
-    if world.dynamic_gravity:
-        raise NotImplementedError("dynamic gravity is not ported to the fused kernel yet")
     if len(spec.mass) > K.MAX_E:
         raise NotImplementedError(f"the fused kernel takes at most {K.MAX_E} entities, this world has {len(spec.mass)}")
 
@@ -375,15 +375,22 @@ class KernelSpec:
         self.inv_mass = [float(v) for v in spec.inv_mass]
         self.inv_moi = [float(v) for v in spec.inv_moi]
         self.drag_fac = [1 - float(d) if float(d) != 0.0 else None for d in spec.drag]
-        self.lin_fric, self.ang_fric, self.gravity = [], [], []
+        # gravity: with dynamic gravity every movable entity takes m * (dg +
+        # eg), eg the world's plus its own static gravity (``dyn_g``, entries
+        # (m, egx, egy)); else m * eg where eg is not zero (``gravity``,
+        # entries (m * egx, m * egy))
+        self.dyn_gravity = bool(world.dynamic_gravity)
+        self.mass = [float(v) for v in spec.mass]
+        self.lin_fric, self.ang_fric, self.gravity, self.dyn_g = [], [], [], []
         for e in range(E):
-            lf, af, m = float(spec.lin_fric[e]), float(spec.ang_fric[e]), float(spec.mass[e])
+            lf, af, m = float(spec.lin_fric[e]), float(spec.ang_fric[e]), self.mass[e]
             moi = float(spec.moi[e])
             self.lin_fric.append((lf * m, m) if lf != 0.0 and self.movable[e] else None)
             self.ang_fric.append((af * moi, moi) if af != 0.0 and self.rotatable[e] else None)
             egx, egy = gx + float(spec.ent_gravity[e, 0]), gy + float(spec.ent_gravity[e, 1])
-            on = self.movable[e] and (egx != 0.0 or egy != 0.0)
+            on = self.movable[e] and (egx != 0.0 or egy != 0.0) and not self.dyn_gravity
             self.gravity.append((m * egx, m * egy) if on else None)
+            self.dyn_g.append((m, egx, egy) if self.movable[e] and self.dyn_gravity else None)
         # the pair tables, one tuple per pair in spec order. A constant is
         # computed as vmas_tpu/core/fused.py computes it for that type: a
         # type with at least _LANE_MIN pairs from its f32 tile expression,
@@ -501,6 +508,7 @@ class KernelSpec:
         s = K.FusedSpec()
         s.E, s.J, s.K_in, s.substeps = self.E, self.J, k_in, self.substeps
         s.n_act = len(act_slots)
+        s.dyn_g = self.dyn_gravity
         s.o_j = self.table_offsets[0]
         for name, off in zip(PAIR_TYPES, self.table_offsets[1:]):
             setattr(s, f"n_{name}", len(getattr(self, name)))
@@ -528,9 +536,11 @@ class KernelSpec:
             s.max_f[e], s.f_range[e] = self.max_f[e] or 0.0, self.f_range[e] or 0.0
             s.max_t[e], s.t_range[e] = self.max_t[e] or 0.0, self.t_range[e] or 0.0
             s.max_speed[e], s.v_range[e] = self.max_speed[e] or 0.0, self.v_range[e] or 0.0
-            s.lfm[e], s.mass[e] = self.lin_fric[e] or (0.0, 0.0)
+            s.lfm[e], s.mass[e] = (self.lin_fric[e] or (0.0,))[0], self.mass[e]
             s.afm[e], s.moi[e] = self.ang_fric[e] or (0.0, 0.0)
-            s.gsx[e], s.gsy[e] = self.gravity[e] or (0.0, 0.0)
+            # with dynamic gravity gsx/gsy hold the unscaled eg, which the
+            # kernel adds to dg before it multiplies by the mass
+            s.gsx[e], s.gsy[e] = self.dyn_g[e][1:] if self.dyn_g[e] else self.gravity[e] or (0.0, 0.0)
         for i, e in enumerate(act_slots):
             s.act_slot[i] = e
         return s
@@ -541,6 +551,15 @@ def _kernel_spec(world) -> KernelSpec:
     if ks is None:
         check_fusable(world)
         ks = world._kernel_spec = KernelSpec(world)
+    return ks
+
+
+def _rows_kernel_spec(world) -> KernelSpec:
+    """The spec of a world the rows form can step: as the JAX package's rows
+    kernel, it has no dynamic gravity (no rows carry it)."""
+    ks = _kernel_spec(world)
+    if ks.dyn_gravity:
+        raise NotImplementedError("the rows step does not take dynamic gravity; step such a world with env.step")
     return ks
 
 
@@ -711,9 +730,10 @@ def contact_counts(world, x) -> dict:
     return counts
 
 
-def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr):
+def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr, dg=()):
     """All substeps of one physics step on per-entity row lists (rebound
-    in place); ``jfr``: the joints' fixed-rotation rows. Per entity the
+    in place); ``jfr``: the joints' fixed-rotation rows; ``dg``: with
+    dynamic gravity its 2E rows (each entity's x, then y). Per entity the
     forces accumulate as the kernel accumulates them: action, friction,
     gravity, then the joints in table order, then the pair types in the
     order ss, ls, ll, bs, bl, bb, each in spec order (the JAX package's
@@ -765,9 +785,14 @@ def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr):
                 fc = torch.clamp(_div(sp, sub_dt) * moi, max=afm)
                 Tq[e] = Tq[e] + torch.where(sp == 0.0, 0.0, -(w[e] / den) * fc)
 
-        # static gravity (world + per entity)
+        # gravity: per-env dynamic, m * (dg + eg), in place of the static
+        # m * eg (world + per entity)
         for e in range(E):
-            if ks.gravity[e] is not None:
+            if ks.dyn_g[e] is not None:
+                m, egx, egy = ks.dyn_g[e]
+                Fx[e] = Fx[e] + m * (dg[e] + egx)
+                Fy[e] = Fy[e] + m * (dg[E + e] + egy)
+            elif ks.gravity[e] is not None:
                 Fx[e] = Fx[e] + ks.gravity[e][0]
                 Fy[e] = Fy[e] + ks.gravity[e][1]
 
@@ -817,9 +842,10 @@ def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr):
                 rot[e] = rot[e] + w[e] * sub_dt
 
 
-def _step_rows(ks, comps, jfr, scratch, outputs, act_slots=(), act=None, ctrl=None):
+def _step_rows(ks, comps, jfr, scratch, outputs, act_slots=(), act=None, ctrl=None, dg=()):
     """One env step on the per-entity row lists ``comps`` (px, py, vx, vy,
-    rot, w, fx, fy, tq; rebound in place), with ``act`` [2A, B] overriding
+    rot, w, fx, fy, tq; rebound in place) and the dynamic-gravity rows
+    ``dg`` (the fused form), with ``act`` [2A, B] overriding
     the force rows of the ``act_slots`` entities and then, where ``ctrl``
     (the controller rows, a list rebound in place) is given, the scenario's
     ``process_act_rows`` (the rows form). Returns ``(emit_rows [n_out],
@@ -836,7 +862,7 @@ def _step_rows(ks, comps, jfr, scratch, outputs, act_slots=(), act=None, ctrl=No
         assert len(hook_rows) == outputs.n_ctrl_out, (
             f"process_act_rows produced {len(hook_rows)} rows, n_ctrl_out={outputs.n_ctrl_out}"
         )
-    _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr)
+    _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr, dg)
     extra = []
     if outputs is not None:
         ctx = {"px": px, "py": py, "vx": vx, "vy": vy, "rot": rot, "w": w,
@@ -848,25 +874,28 @@ def _step_rows(ks, comps, jfr, scratch, outputs, act_slots=(), act=None, ctrl=No
     return extra, hook_rows
 
 
-def _split_rows(ks, x, k_in, n_ctrl=0):
-    """A row buffer [9E + J + k_in + n_ctrl, B] as (per-entity component
-    lists, joint fixed-rotation rows, scratch rows, controller rows)."""
+def _split_rows(ks, x, k_in, n_ctrl=0, n_dyn=0):
+    """A row buffer [9E + J + n_dyn + k_in + n_ctrl, B] as (per-entity
+    component lists, joint fixed-rotation rows, dynamic-gravity rows,
+    scratch rows, controller rows)."""
     E, J = ks.E, ks.J
     comps = [[x[c * E + e] for e in range(E)] for c in range(9)]
     jfr = [x[9 * E + j] for j in range(J)]
-    scratch = [x[9 * E + J + k] for k in range(k_in)]
-    ctrl = [x[9 * E + J + k_in + k] for k in range(n_ctrl)]
-    return comps, jfr, scratch, ctrl
+    dg = [x[9 * E + J + k] for k in range(n_dyn)]
+    base = 9 * E + J + n_dyn
+    scratch = [x[base + k] for k in range(k_in)]
+    ctrl = [x[base + k_in + k] for k in range(n_ctrl)]
+    return comps, jfr, dg, scratch, ctrl
 
 
 def fused_step_plain(world, x, outputs=None):
-    """Plain version of the fused step: rows [9E + J + K_in, B] ->
+    """Plain version of the fused step: rows [9E + J (+ 2E) + K_in, B] ->
     [9E + K_out, B]. The scenario's in-kernel process_action never runs
     here: ``env.step`` ran its process_action before."""
     ks = _kernel_spec(world)
     k_in = int(outputs.n_scratch_in) if outputs is not None else 0
-    comps, jfr, scratch, _ = _split_rows(ks, x, k_in)
-    extra, _ = _step_rows(ks, comps, jfr, scratch, outputs)
+    comps, jfr, dg, scratch, _ = _split_rows(ks, x, k_in, n_dyn=2 * ks.E if ks.dyn_gravity else 0)
+    extra, _ = _step_rows(ks, comps, jfr, scratch, outputs, dg=dg)
     return torch.stack([r for comp in comps for r in comp] + extra)
 
 
@@ -876,9 +905,9 @@ def rows_step_plain(world, outputs, act_slots, carry, act, k_steps=1):
     steps. Step k reads its actions from rows [k*2A, (k+1)*2A) and writes its
     emit rows, then its hook rows, to block k of ``extra``; between the
     steps the scratch rows take the emit rows ``carry_extra_idx`` names."""
-    ks = _kernel_spec(world)
+    ks = _rows_kernel_spec(world)
     k_in, n_ctrl = int(outputs.n_scratch_in), int(outputs.n_ctrl)
-    comps, jfr, scratch, ctrl = _split_rows(ks, carry, k_in, n_ctrl)
+    comps, jfr, _, scratch, ctrl = _split_rows(ks, carry, k_in, n_ctrl)
     A2 = 2 * len(act_slots)
     blocks = []
     for k in range(k_steps):
@@ -1026,8 +1055,8 @@ def _launch(spec_c, table, outputs, x, act, out, extra, rows_mode, k_steps=1, ac
 
 
 def fused_step(world, x, outputs=None):
-    """The fused step on rows [9E + J + K_in, B] -> [9E + K_out, B]: the
-    CUDA kernel for a GPU tensor, the plain version for a CPU tensor."""
+    """The fused step on rows [9E + J (+ 2E) + K_in, B] -> [9E + K_out, B]:
+    the CUDA kernel for a GPU tensor, the plain version for a CPU tensor."""
     global fused_step_launches
     ks = _kernel_spec(world)
     if x.device.type == "cpu":
@@ -1035,7 +1064,8 @@ def fused_step(world, x, outputs=None):
     k_in = int(outputs.n_scratch_in) if outputs is not None else 0
     k_out = int(outputs.n_out) if outputs is not None else 0
     B = x.shape[1]
-    _check_rows("x", x, (9 * ks.E + ks.J + k_in, B))
+    n_dyn = 2 * ks.E if ks.dyn_gravity else 0
+    _check_rows("x", x, (9 * ks.E + ks.J + n_dyn + k_in, B))
     out = torch.empty((9 * ks.E + k_out, B), dtype=torch.float32, device=x.device)
     _launch(ks.to_ctypes(k_in), ks.pair_table(x.device), outputs, x, None, out, None, rows_mode=False)
     fused_step_launches += 1
@@ -1061,6 +1091,8 @@ def fused_physics_step(world, state, outputs=None):
     spec = world.spec
     E = len(spec.mass)
     parts = [state_rows(state), state.joint_fixed_rot.T]
+    if world.dynamic_gravity:
+        parts += [state.dyn_gravity[..., 0].T, state.dyn_gravity[..., 1].T]
     if outputs is not None:
         parts.append(torch.as_tensor(outputs.scratch_rows(state), dtype=torch.float32, device=state.device))
     x = torch.cat(parts, dim=0).contiguous()  # [R, B]
@@ -1157,7 +1189,7 @@ def make_rows_step(world, outputs, act_slots, k_steps=1):
     Ks = int(k_steps)
     if Ks < 1:
         raise ValueError(f"k_steps must be at least 1, got {k_steps}")
-    ks = _kernel_spec(world)
+    ks = _rows_kernel_spec(world)
     spec_c = ks.to_ctypes(int(outputs.n_scratch_in), act_slots)
     act_params = outputs.process_act_rows.kernel_params() if outputs.n_ctrl else _NO_ACT
 

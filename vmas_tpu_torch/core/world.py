@@ -152,6 +152,13 @@ class Entity:
             ang_vel = ang_vel[..., 0]
         return self._set(state, "ang_vel", ang_vel, (), env_mask)
 
+    def set_gravity(self, state: WorldState, value, env_mask=None) -> WorldState:
+        """Per-env gravity override (requires world.dynamic_gravity=True)."""
+        assert state.dyn_gravity is not None, (
+            "set world.dynamic_gravity = True in make_world to use per-env gravity"
+        )
+        return self._set(state, "dyn_gravity", value, (2,), env_mask)
+
     def set_rendering(self, state: WorldState, value, env_mask=None) -> WorldState:
         arr = state.rendering
         value = torch.as_tensor(value, dtype=torch.bool, device=arr.device).expand(arr.shape[0])

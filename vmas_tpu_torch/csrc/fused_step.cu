@@ -3,7 +3,7 @@
 // Replaces the Pallas kernel generated by vmas_tpu/core/fused.py::_make_kernel
 // in both of its launch forms:
 //   * fused_physics_step (fused.py, pallas_call in its body): one env step,
-//     rows [9E + J + K_in, B] -> [9E + K_out, B];
+//     rows [9E + J (+ 2E dynamic gravity) + K_in, B] -> [9E + K_out, B];
 //   * make_rows_step (fused.py, rows_mode=True): the rows-carried rollout
 //     step, carry [R_in, B] + action rows [K*2A, B] -> carry' + output rows
 //     [K*(n_out + n_ctrl_out), B], for K = k_steps whole env steps per launch
@@ -69,7 +69,7 @@ enum {
 
 enum {
   EMIT_NONE = 0, EMIT_TRANSPORT = 1, EMIT_BALANCE = 2, EMIT_JOINT_PASSAGE = 3, EMIT_WATERFALL = 4,
-  EMIT_GIVE_WAY = 5, EMIT_MULTI_GIVE_WAY = 6,
+  EMIT_GIVE_WAY = 5, EMIT_MULTI_GIVE_WAY = 6, EMIT_SIMPLE = 7, EMIT_SIMPLE_SPREAD = 8,
 };
 
 // vmas_tpu/core/utils.py LINE_MIN_DIST, rounded once to f32
@@ -84,6 +84,11 @@ struct FusedSpec {
   int n_ss, n_ls, n_ll, n_bs, n_bl, n_bb;
   int o_j, o_ss, o_ls, o_ll, o_bs, o_bl, o_bb;
   int n_act, has_x, has_y;
+  // dynamic gravity (the fused form only): its 2E rows follow the joint
+  // rows, and every movable entity takes mass * (dg + (gsx, gsy)), gsx/gsy
+  // then holding the unscaled static gravity, in place of F_GRAVITY's
+  // gsx/gsy (which hold mass * static gravity)
+  int dyn_g;
   float sub_dt, cm, cf, x_semidim, y_semidim;
   float jf, tcf;  // joint force, torque constraint force
   int flags[MAX_E];
@@ -153,6 +158,19 @@ struct MultiGiveWayParams {
   float two_r;      // 2 * agent radius, rounded once
 };
 
+// MPE simple and simple_spread: the policy agents are entities a0 ..
+// a0 + n_agents - 1 and the landmarks l0 .. l0 + n_lm - 1 (the host checks
+// that they are contiguous), which keeps the by-value budget
+struct SimpleParams {
+  int n_agents, a0, n_lm, l0;
+};
+
+struct SimpleSpreadParams {
+  int n_agents, a0, n_lm, l0;
+  int obs_others;       // observe the other agents' relative positions
+  float radius[MAX_A];  // each agent's radius
+};
+
 struct EmitParams {
   int carry_idx[MAX_K];  // emit row feeding scratch row k; -1 = unchanged
   TransportParams transport;
@@ -161,6 +179,8 @@ struct EmitParams {
   WaterfallParams waterfall;
   GiveWayParams give_way;
   MultiGiveWayParams multi_give_way;
+  SimpleParams simple;
+  SimpleSpreadParams simple_spread;
 };
 
 // The rows form's in-kernel process_action (fused.py PidActRows): per
@@ -441,9 +461,10 @@ __device__ __forceinline__ void pid_act(const ActParams& ap, float* fx, float* f
 #define TI(i) __ldg(tab + (i))
 #define TF(i) __int_as_float(__ldg(tab + (i)))
 
-// jfr: the joints' fixed-rotation rows ([J, B], this env at column b)
+// jfr: the joints' fixed-rotation rows ([J, B], this env at column b); dg:
+// with sp.dyn_g the dynamic-gravity rows ([2E, B]: each entity's x, then y)
 __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restrict__ tab,
-                        const float* __restrict__ jfr, int B, int b,
+                        const float* __restrict__ jfr, const float* __restrict__ dg, int B, int b,
                         float* px, float* py, float* vx, float* vy,
                         float* rot, float* w, float* fx, float* fy, float* tq) {
   const int E = sp.E;
@@ -493,7 +514,13 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restri
         float fc = fminf(s / sub_dt * moi, afm);
         Tq[e] = Tq[e] + (s == 0.f ? 0.f : -(w[e] / den) * fc);
       }
-      if (fl & F_GRAVITY) {
+      if (sp.dyn_g) {
+        // per-env gravity, in place of the static term: m * (dg + eg)
+        if (fl & F_MOVABLE) {
+          Fx[e] = Fx[e] + sp.mass[e] * (__ldg(dg + (size_t)e * B + b) + sp.gsx[e]);
+          Fy[e] = Fy[e] + sp.mass[e] * (__ldg(dg + (size_t)(E + e) * B + b) + sp.gsy[e]);
+        }
+      } else if (fl & F_GRAVITY) {
         Fx[e] = Fx[e] + sp.gsx[e];
         Fy[e] = Fy[e] + sp.gsy[e];
       }
@@ -1022,6 +1049,84 @@ struct MultiGiveWayEmit {
   }
 };
 
+// vmas_tpu/scenarios/mpe/simple.py SimpleOutputs.emit, row for row: per
+// agent [vel, each landmark's pos - the agent's], then per agent the reward,
+// minus the squared distance to landmark 0.
+struct SimpleEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float*, float* o, int B, int b) {
+    const SimpleParams& p = ep.simple;
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.a0 + i;
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      for (int k = 0; k < p.n_lm; ++k) {
+        o[(r++) * B + b] = px[p.l0 + k] - px[ai];
+        o[(r++) * B + b] = py[p.l0 + k] - py[ai];
+      }
+    }
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.a0 + i;
+      const float dx = px[ai] - px[p.l0], dy = py[ai] - py[p.l0];
+      o[(r++) * B + b] = -(dx * dx + dy * dy);
+    }
+  }
+};
+
+// vmas_tpu/scenarios/mpe/simple_spread.py SimpleSpreadOutputs.emit, row for
+// row: per agent [pos, vel, each landmark's pos - the agent's, then each
+// other agent's if obs_others], then the shared reward: minus the sum over
+// landmarks of the nearest agent's distance, times the number of agents,
+// minus one per ordered pair of overlapping agents.
+struct SimpleSpreadEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float*, float* o, int B, int b) {
+    const SimpleSpreadParams& p = ep.simple_spread;
+    const int A = p.n_agents;
+    float closest_sum = 0.f;
+    for (int k = 0; k < p.n_lm; ++k) {
+      const int li = p.l0 + k;
+      float closest = 0.f;
+      for (int i = 0; i < A; ++i) {
+        const float d = nrm(px[p.a0 + i] - px[li], py[p.a0 + i] - py[li]);
+        closest = i == 0 ? d : fminf(closest, d);
+      }
+      closest_sum = k == 0 ? closest : closest_sum + closest;
+    }
+    float rew = -closest_sum * (float)A;
+    for (int i = 0; i < A; ++i) {
+      for (int j = 0; j < A; ++j) {
+        if (i == j) continue;
+        const float d = nrm(px[p.a0 + i] - px[p.a0 + j], py[p.a0 + i] - py[p.a0 + j]);
+        rew = rew - (d - p.radius[i] - p.radius[j] < 0.f ? 1.f : 0.f);
+      }
+    }
+    int r = 0;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.a0 + i;
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      for (int k = 0; k < p.n_lm; ++k) {
+        o[(r++) * B + b] = px[p.l0 + k] - px[ai];
+        o[(r++) * B + b] = py[p.l0 + k] - py[ai];
+      }
+      if (p.obs_others) {
+        for (int j = 0; j < A; ++j) {
+          if (j == i) continue;
+          o[(r++) * B + b] = px[p.a0 + j] - px[ai];
+          o[(r++) * B + b] = py[p.a0 + j] - py[ai];
+        }
+      }
+    }
+    o[(r++) * B + b] = rew;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // the kernel, in both forms
 // ---------------------------------------------------------------------------
@@ -1048,7 +1153,10 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, c
     fy[e] = x[(7 * E + e) * B + b];
     tq[e] = x[(8 * E + e) * B + b];
   }
-  for (int k = 0; k < sp.K_in; ++k) scratch[k] = x[(9 * E + sp.J + k) * B + b];
+  // the scratch rows follow the joint rows and, with dynamic gravity (the
+  // fused form only), its 2E rows
+  const int o_scr = 9 * E + sp.J + (ROWS ? 0 : 2 * E * sp.dyn_g);
+  for (int k = 0; k < sp.K_in; ++k) scratch[k] = x[(o_scr + k) * B + b];
   // the controller rows follow the scratch rows in the carry
   const int n_ctrl = ROWS ? 4 * ap.n_pid : 0;
   for (int k = 0; k < n_ctrl; ++k) ctrl[k] = x[(9 * E + sp.J + sp.K_in + k) * B + b];
@@ -1073,7 +1181,8 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, c
       if (ap.n_pid) pid_act(ap, fx, fy, vx, vy, ctrl, blk + (size_t)(n_tot - 2 * ap.n_pid) * B, B, b);
     }
 
-    physics(sp, tab, x + (size_t)9 * E * B, B, b, px, py, vx, vy, rot, w, fx, fy, tq);
+    physics(sp, tab, x + (size_t)9 * E * B, x + (size_t)(9 * E + sp.J) * B, B, b, px, py, vx, vy, rot, w, fx,
+            fy, tq);
 
     // the emit rows follow the state rows (fused step) or open this step's
     // block (rows step)
@@ -1112,18 +1221,19 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, c
 extern "C" {
 
 // Launch one fused step on `stream`. tab: the world's joint and pair tables
-// (int32 words, FusedSpec's offsets). rows_mode = 0: x [9E + J + K_in, B] ->
-// out [9E + K_out, B], k_steps 1, ap->n_pid 0. rows_mode = 1: x = carry
-// [R_in, B], act [k_steps * 2A, B] -> out = carry' [R_in, B], extra
-// [k_steps * n_tot, B] (per step n_out emit rows, then 2 * ap->n_pid hook
-// rows); it needs an emit. An unknown emit kind or a k_steps, n_pid or n_tot
-// out of range returns cudaErrorInvalidValue; else cudaGetLastError().
+// (int32 words, FusedSpec's offsets). rows_mode = 0: x [9E + J (+ 2E with
+// spec->dyn_g) + K_in, B] -> out [9E + K_out, B], k_steps 1, ap->n_pid 0.
+// rows_mode = 1: x = carry [R_in, B], act [k_steps * 2A, B] -> out = carry'
+// [R_in, B], extra [k_steps * n_tot, B] (per step n_out emit rows, then 2 *
+// ap->n_pid hook rows); it needs an emit and takes no dynamic gravity. An
+// unknown emit kind or a k_steps, n_pid or n_tot out of range returns
+// cudaErrorInvalidValue; else cudaGetLastError().
 int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams* ap, int emit_kind,
                     const int* tab, const float* x, const float* act, float* out, float* extra, int B,
                     int rows_mode, int k_steps, int n_tot, void* stream) {
   if (k_steps < 1 || ap->n_pid < 0 || ap->n_pid > MAX_PID) return cudaErrorInvalidValue;
   if (!rows_mode && (k_steps != 1 || ap->n_pid != 0)) return cudaErrorInvalidValue;
-  if (rows_mode && n_tot < 2 * ap->n_pid) return cudaErrorInvalidValue;
+  if (rows_mode && (n_tot < 2 * ap->n_pid || spec->dyn_g)) return cudaErrorInvalidValue;
   if (B <= 0) return 0;
   dim3 block(128), grid((B + 127) / 128);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1136,6 +1246,8 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     else if (emit_kind == EMIT_WATERFALL) LAUNCH(true, WaterfallEmit);
     else if (emit_kind == EMIT_GIVE_WAY) LAUNCH(true, GiveWayEmit);
     else if (emit_kind == EMIT_MULTI_GIVE_WAY) LAUNCH(true, MultiGiveWayEmit);
+    else if (emit_kind == EMIT_SIMPLE) LAUNCH(true, SimpleEmit);
+    else if (emit_kind == EMIT_SIMPLE_SPREAD) LAUNCH(true, SimpleSpreadEmit);
     else return cudaErrorInvalidValue;
   } else {
     if (emit_kind == EMIT_NONE) LAUNCH(false, NoEmit);
@@ -1145,6 +1257,8 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     else if (emit_kind == EMIT_WATERFALL) LAUNCH(false, WaterfallEmit);
     else if (emit_kind == EMIT_GIVE_WAY) LAUNCH(false, GiveWayEmit);
     else if (emit_kind == EMIT_MULTI_GIVE_WAY) LAUNCH(false, MultiGiveWayEmit);
+    else if (emit_kind == EMIT_SIMPLE) LAUNCH(false, SimpleEmit);
+    else if (emit_kind == EMIT_SIMPLE_SPREAD) LAUNCH(false, SimpleSpreadEmit);
     else return cudaErrorInvalidValue;
   }
 #undef LAUNCH

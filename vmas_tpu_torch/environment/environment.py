@@ -10,7 +10,8 @@ each reset also draws from it a fresh seed for the observation noise
 
 The env runs on the GPU unless the caller passes ``device="cpu"``; with no
 GPU present it raises instead of falling back. gymnasium is imported only
-when ``action_space``/``observation_space`` is first read.
+when a space is asked for (``action_space``, ``observation_space``,
+``get_agent_action_space``); random actions need none.
 """
 
 from __future__ import annotations
@@ -301,6 +302,13 @@ class Environment:
             return agent.action_size + (1 if not agent.silent and self.world.dim_c != 0 else 0)
         return 1
 
+    def discrete_action_nvec(self, agent: Agent):
+        """The sizes of the agent's discrete actions, then of its comm action
+        where it has one: the MultiDiscrete space's ``nvec``; the Discrete
+        space's ``n`` is their product."""
+        dim_c = self.world.dim_c
+        return list(agent.discrete_action_nvec) + ([dim_c] if not agent.silent and dim_c != 0 else [])
+
     def get_agent_action_space(self, agent: Agent):
         from gymnasium import spaces
 
@@ -319,11 +327,8 @@ class Environment:
                 dtype=np.float32,
             )
         elif self.multidiscrete_actions:
-            nvec = agent.discrete_action_nvec + ([dim_c] if not agent.silent and dim_c != 0 else [])
-            return spaces.MultiDiscrete(nvec)
-        return spaces.Discrete(
-            math.prod(agent.discrete_action_nvec) * (dim_c if not agent.silent and dim_c != 0 else 1)
-        )
+            return spaces.MultiDiscrete(self.discrete_action_nvec(agent))
+        return spaces.Discrete(math.prod(self.discrete_action_nvec(agent)))
 
     @property
     def action_space(self):
@@ -366,11 +371,11 @@ class Environment:
                 comm = torch.rand((B, self.world.dim_c), generator=gen, device=dev)
                 u = torch.cat([u, comm], dim=-1)
             return u
-        space = self.get_agent_action_space(agent)
+        nvec = self.discrete_action_nvec(agent)
         if self.multidiscrete_actions:
-            cols = [torch.randint(0, int(n), (B,), generator=gen, device=dev) for n in space.nvec]
+            cols = [torch.randint(0, n, (B,), generator=gen, device=dev) for n in nvec]
             return torch.stack(cols, dim=-1)
-        return torch.randint(0, int(space.n), (B,), generator=gen, device=dev)
+        return torch.randint(0, math.prod(nvec), (B,), generator=gen, device=dev)
 
     def get_random_actions(self):
         return [self.get_random_action(agent) for agent in self.agents]

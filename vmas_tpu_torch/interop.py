@@ -4,9 +4,10 @@
 ``world.device`` from a dict of numpy arrays; ``state_to_numpy(state)`` goes
 the other way. The dict holds the fields ``pos``, ``vel``, ``rot``,
 ``ang_vel``, ``force``, ``torque``, ``c``, ``u`` (a sequence, one array per
-agent), ``uc``, ``joint_fixed_rot`` and ``rendering``, and the ``scenario``
-scratch dict, whose values are arrays or dicts of them (a velocity
-controller's memory, ``{"accum_errs", "prev_err"}``). This is how a state
+agent), ``uc``, ``joint_fixed_rot``, ``rendering`` and, in a world with
+dynamic gravity, ``dyn_gravity``, and the ``scenario`` scratch dict, whose
+values are arrays or dicts of them (a velocity controller's memory,
+``{"accum_errs", "prev_err"}``). This is how a state
 made elsewhere (another simulator, a recording, a test) is injected.
 """
 
@@ -36,6 +37,8 @@ def state_from_numpy(world, arrays: dict) -> WorldState:
     u = arrays.get("u")
     kw["u"] = base.u if u is None else tuple(_tensor(x, dev) for x in u)
     kw["scenario"] = _scratch_in(arrays.get("scenario", {}), dev)
+    if base.dyn_gravity is not None and "dyn_gravity" in arrays:
+        kw["dyn_gravity"] = _tensor(arrays["dyn_gravity"], dev)
     return base.replace(**kw)
 
 
@@ -57,4 +60,6 @@ def state_to_numpy(state: WorldState) -> dict:
     out = {f: getattr(state, f).detach().cpu().numpy() for f in FIELDS}
     out["u"] = [u.detach().cpu().numpy() for u in state.u]
     out["scenario"] = _scratch_out(state.scenario)
+    if state.dyn_gravity is not None:
+        out["dyn_gravity"] = state.dyn_gravity.detach().cpu().numpy()
     return out

@@ -15,6 +15,7 @@ Not ported yet: policies with auxiliary outputs, autoreset, ``reset_every``,
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -34,15 +35,12 @@ def _random_actions_for_horizon(env, generator, horizon):
                 u = torch.cat([u, comm], dim=-1)
             xs.append(u)
         else:
-            space = env.get_agent_action_space(a)
+            nvec = env.discrete_action_nvec(a)
             if env.multidiscrete_actions:
-                cols = [
-                    torch.randint(0, int(n), (horizon, B), generator=generator, device=dev)
-                    for n in space.nvec
-                ]
+                cols = [torch.randint(0, n, (horizon, B), generator=generator, device=dev) for n in nvec]
                 xs.append(torch.stack(cols, dim=-1))
             else:
-                xs.append(torch.randint(0, int(space.n), (horizon, B), generator=generator, device=dev))
+                xs.append(torch.randint(0, math.prod(nvec), (horizon, B), generator=generator, device=dev))
     return tuple(xs)
 
 
@@ -122,8 +120,6 @@ def _decode_horizon(env, agent, raw):
     """``Environment._decode_action``'s u math over a leading horizon axis
     (same ops per element, so bitwise the per-step decode): ``u [T, B,
     action_size]``. Noise-free unclamped actions, no comm."""
-    import math
-
     dev = env.device
     u_range = torch.as_tensor(agent.u_range_array, device=dev)
     u_mult = torch.as_tensor(agent.u_multiplier_array, device=dev)

@@ -1,5 +1,6 @@
 """Scenario registry. ``balance``, ``give_way``, ``joint_passage``,
-``multi_give_way``, ``road_traffic``, ``transport`` and the debug scenario
+``multi_give_way``, ``road_traffic``, ``transport``, ``wind_flocking``, the
+MPE scenarios ``simple`` and ``simple_spread`` and the debug scenario
 ``waterfall`` are ported so far; every other scenario of the JAX package
 raises ``ValueError`` when loaded."""
 
@@ -13,8 +14,11 @@ _PORTED = {
     "joint_passage": "vmas_tpu_torch.scenarios.joint_passage",
     "multi_give_way": "vmas_tpu_torch.scenarios.multi_give_way",
     "road_traffic": "vmas_tpu_torch.scenarios.road_traffic",
+    "simple": "vmas_tpu_torch.scenarios.mpe.simple",
+    "simple_spread": "vmas_tpu_torch.scenarios.mpe.simple_spread",
     "transport": "vmas_tpu_torch.scenarios.transport",
     "waterfall": "vmas_tpu_torch.scenarios.debug.waterfall",
+    "wind_flocking": "vmas_tpu_torch.scenarios.wind_flocking",
 }
 
 

@@ -11,7 +11,8 @@ fixed-rotation torques active, and the margin of joint_passage's flags;
 give_way and multi_give_way states with the agents pressed into their
 corridor walls and into each other and their velocity controllers'
 memory set, actions that drive every branch of the in-kernel PID, and
-the count of lanes each branch acted in.
+the count of lanes each branch acted in; a wind_flocking state with the
+big agent's wind rescaled, and an MPE state with agents overlapping.
 The states are numpy dicts made from a seeded generator, so that both
 packages can load the same one.
 """
@@ -592,3 +593,57 @@ def pid_counts(world, fo, carry, act):
                 acc = acc + dt * ((ux if c == 0 else uy) - carry[v])
                 counts["cutoff"] += int((acc.abs() > cutoff).sum())
     return counts
+
+
+def wind_flocking_state(env, rng):
+    """A numpy state dict of a wind_flocking env: the pair about 1 m apart
+    at any angle (so that the big agent is below the small one in about half
+    of the envs, where its wind weakens), the agents 1-2 cm into each other's
+    contact range in every 4th env, random velocities and forces, the big
+    agent's wind a random share of the full wind and the small one's the
+    full wind, the clock ``t`` between 0 and 11 (the energy and wind rewards
+    start at 10 and 5), noisy shapings and random controller memory."""
+    sc = env.scenario
+    B, E = env.state.pos.shape[:2]
+    st = env.state
+    big, small = sc.big_agent.index, sc.small_agent.index
+    ang = rng.uniform(-np.pi, np.pi, B)
+    dist = rng.uniform(0.7, 1.3, B)
+    touch = np.arange(B) % 4 == 3
+    dist[touch] = 0.08 - rng.uniform(0.01, 0.02, int(touch.sum()))
+    pos = np.zeros((B, E, 2))
+    pos[:, small] = rng.uniform(-1.0, 1.0, (B, 2))
+    pos[:, big] = pos[:, small] + dist[:, None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+    vel = rng.normal(0, 0.2, (B, E, 2))
+    force = rng.normal(0, 0.5, (B, E, 2))
+    out = _np_state(st, pos, np.zeros((B, E)), vel, np.zeros((B, E)), force)
+    f32 = lambda a: np.asarray(a, np.float32)
+    wind = st.dyn_gravity[0, small].detach().cpu().numpy()
+    dg = np.zeros((B, E, 2))
+    dg[:, big] = wind * rng.uniform(0.0, 1.0, (B, 1))
+    dg[:, small] = wind
+    out["dyn_gravity"] = f32(dg)
+    scr = out["scenario"]
+    scr["t"] = rng.integers(0, 12, B).astype(np.int32)
+    for k in ("vel_shaping", "wind_shaping", "energy_shaping"):
+        scr[k] = f32(np.abs(rng.normal(0.5, 0.3, (B, 2))))
+    for k in ("distance_shaping", "pos_shaping", "rot_shaping"):
+        scr[k] = f32(np.abs(rng.normal(0.3, 0.2, B)))
+    _pid_memory(scr, env, rng)
+    return out
+
+
+def mpe_state(env, rng):
+    """A numpy state dict of an MPE env (simple, simple_spread): entities
+    uniform in [-1, 1]^2, with agent 1 0-10 cm from agent 0 in every other
+    env (simple_spread's agents, of radius 0.15, then overlap), random
+    velocities and forces."""
+    B, E = env.state.pos.shape[:2]
+    st = env.state
+    pos = rng.uniform(-1.0, 1.0, (B, E, 2))
+    ag = [a.index for a in env.world.agents]
+    if len(ag) > 1:
+        near = np.arange(B) % 2 == 0
+        pos[near, ag[1]] = pos[near, ag[0]] + rng.uniform(-0.07, 0.07, (int(near.sum()), 2))
+    return _np_state(st, pos, np.zeros((B, E)), rng.normal(0, 0.3, (B, E, 2)), np.zeros((B, E)),
+                     rng.normal(0, 0.5, (B, E, 2)))
