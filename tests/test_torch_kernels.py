@@ -482,3 +482,86 @@ def test_rt_wrappers_reject_bad_input(rt_env):
     xs = list(sc.obs_inputs(rt_env.state))
     with pytest.raises(ValueError, match="K must be"):
         rtk.obs_all(*xs, **{**sc.obs_kw, "K": 20})
+
+
+# -- the lane kernel: every lane count, ragged widths ---------------------------
+
+_LANE_WORLDS = {
+    "transport": ({"n_agents": 4}, "transport_contact_state"),
+    "joint_passage": ({}, "joint_passage_contact_state"),
+    "waterfall": ({}, "waterfall_contact_state"),
+    "multi_give_way": ({}, "multi_give_way_contact_state"),
+}
+
+
+@pytest.mark.parametrize("width", [301, 4096 + 3])
+@pytest.mark.parametrize("lanes", F.LANES)
+@pytest.mark.parametrize("name", list(_LANE_WORLDS))
+def test_lane_kernels_bitwise_plain(name, lanes, width):
+    """K2 (one and two env steps per launch) and K1 at every lane count the
+    rule can pick, bitwise their plain versions, at widths that leave the
+    last block ragged for every group count (301 is a multiple of none of
+    4, 8, 16, 32; 4099 of none)."""
+    import numpy as np
+
+    from vmas_tpu_torch import testing
+    from vmas_tpu_torch.interop import state_from_numpy
+
+    _cuda()
+    kw, build = _LANE_WORLDS[name]
+    e = make_env(name, width, device="cuda", seed=0, fused_physics=True, **kw)
+    world, fo = e.world, e._fused_outputs
+    ks = F._kernel_spec(world)
+    slots = [a.index for a in e.agents]
+    rng = np.random.default_rng(19)
+    carry = F.pack_carry(world, state_from_numpy(world, getattr(testing, build)(e, rng)), fo)
+    if fo.n_ctrl:
+        act = torch.cat([_pid_acts(e, 20), _pid_acts(e, 21)])
+    else:
+        g = torch.Generator(device="cuda").manual_seed(20)
+        act = (torch.rand((4 * len(slots), width), generator=g, device="cuda") * 2 - 1) * 0.8
+    act = act.contiguous()
+    A2, R = 2 * len(slots), F.rows_layout(world, fo)
+    rule, ks.lanes = ks.lanes, lanes
+    try:
+        for k in (1, 2):
+            ck, ek = F.make_rows_step(world, fo, slots, k_steps=k)(carry, act[:k * A2].contiguous())
+            cp, ep = F.rows_step_plain(world, fo, slots, carry, act[:k * A2], k)
+            assert torch.equal(ck, cp) and torch.equal(ek, ep)
+        x = with_actions_rows(carry[:R - fo.n_ctrl], act[:A2], slots, len(world.entities))
+        assert torch.equal(F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo))
+        torch.cuda.synchronize()
+    finally:
+        ks.lanes = rule
+
+
+def with_actions_rows(carry, act, slots, E):
+    """The fused form's input rows: the carry with the agents' force rows
+    set to the action rows."""
+    x = carry.clone()
+    idx = torch.as_tensor(slots, device=carry.device)
+    x[6 * E + idx] = act[:len(slots)]
+    x[7 * E + idx] = act[len(slots):]
+    return x
+
+
+def test_launcher_rejects_bad_lanes_and_shared_memory(env):
+    """A lane count the kernel is not built for and a block beyond the
+    device's shared memory raise; neither falls back."""
+    from vmas_tpu_torch import _kernels as K
+
+    world, fo = env.world, env._fused_outputs
+    ks = F._kernel_spec(world)
+    x = F.pack_carry(world, env.state, fo)
+    out = torch.empty((9 * ks.E + fo.n_out, B), device="cuda")
+    rule = ks.lanes
+    try:
+        ks.lanes = 3
+        with pytest.raises(RuntimeError, match="launch failed"):
+            F.fused_step(world, x, fo)
+    finally:
+        ks.lanes = rule
+    with pytest.raises(ValueError, match="shared memory"):
+        F._launch(ks, ks.to_ctypes(int(fo.n_scratch_in)), fo, x, None, out, None, rows_mode=False, n_tot=100000)
+    lib = K.library("fused_step")
+    assert lib.vmas_fused_smem(ks.to_ctypes(int(fo.n_scratch_in)), rule, 0, 0, 100000) > lib.vmas_max_smem()

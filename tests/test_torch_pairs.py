@@ -153,4 +153,8 @@ def test_more_pairs_than_the_old_caps():
     a, b = TF.fused_physics_step(w, s), TP.physics_step(w, s)
     for name in FIELDS:
         torch.testing.assert_close(getattr(a, name), getattr(b, name), **STATE_TOL)
-    assert len(TF.KernelSpec(w).table) == 3 * 66 + 6 * 24
+    # the pair records, then the lane lists: 8 words per entity and each
+    # agent's 11 sphere-sphere and 2 box-sphere entries (the boxes are fixed)
+    ks = TF.KernelSpec(w)
+    assert ks.table_offsets[-1] == 3 * 66 + 6 * 24
+    assert len(ks.table) == 3 * 66 + 6 * 24 + 8 * 14 + 12 * 13

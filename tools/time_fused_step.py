@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
 """Time the fused-step kernel of several source trees on one CUDA GPU.
 
-    python3 tools/time_fused_step.py parent=_archive/parent change=. \\
-        change_actptr=.:actptr
+    git archive HEAD~1 vmas_tpu_torch | tar -x -C _archive/parent  # the parent
+    python3 tools/time_fused_step.py parent=_archive/parent change=.
 
 Each argument names a tree holding a ``vmas_tpu_torch`` package: ``label=path``
 (relative to the repository root), or ``label=path:variant`` for a copy of
 that tree (under ``_archive/variants/``) whose ``csrc/fused_step.cu`` is
-changed: ``nounroll``, its pair loops lose their ``#pragma unroll 1``;
-``actptr``, the kernel reads the in-kernel PID's ``ActParams`` through a
-device pointer (copied to the card before each launch that runs the PID)
-instead of taking them by value. The trees run in the
-order given and then in reverse (A B C C B A), each in a process of its own
-that imports its tree's package, builds its kernels and reports the kernel's
-device time per launch (torch.profiler, 200 launches) for:
+changed: ``minbN`` (N a number) asks the compiler for N resident blocks of the
+group kernel per SM (``__launch_bounds__(NT, N)``), which caps its registers. The
+trees run in the order given and then in reverse (A B C C B A), each in a
+process of its own that imports its tree's package, builds its kernels and
+reports the kernel's device time per launch (torch.profiler, 200 launches;
+20 for a launch above 1 ms) for each world and form:
 
-* transport, 4096 envs, 4 agents: the rows step and the fused step;
-* balance, 4096 envs, 3 agents, and give_way, 4096 envs, 2 agents (the
-  rows step with the in-kernel PID), where the tree has them: both forms;
-* the all-pairs world (``vmas_tpu_torch.testing``), 4096 envs, where the
-  tree has it: the fused step from its packed state.
+* transport (4 agents), balance and give_way (the in-kernel PID), 4096 envs,
+  each after a reset and 5 random steps: the rows step and the fused step,
+  and give_way's rows step of 4 env steps per launch;
+* joint_passage (the rows step and the fused step; with its PID, the rows
+  step), multi_give_way (the rows step), waterfall and wind_flocking (the
+  fused step; wind_flocking's has dynamic gravity), 4096 envs, from
+  ``vmas_tpu_torch.testing``'s contact states;
+* simple_spread, 3 agents and discrete actions, at 4096 envs (both forms,
+  and the rows step of 4 env steps) and 30000 envs (the rows step), and
+  simple (both forms), from ``testing.mpe_state``;
+* the all-pairs world, 4096 envs: the fused step from its packed state.
 
-States: each env after a reset and 5 random steps; the all-pairs world's
-packed state from seed 4. Prints the card's name and power limit, one JSON
-line per run, and a table of the mean per tree and form. Needs one GPU.
+In a tree whose kernel runs an env on a group of lanes (``fused.LANES``; 1 is
+one thread per env) each form is timed at every lane count, and the count the
+world's rule picks is marked; a tree of one thread per env only (before the
+lane kernel) is timed once per form, as ``thread``. Prints the card's name and
+power limit, one JSON line per run, and a table of each tree's mean, minimum
+and maximum per form and lane count. Needs one GPU.
 """
 
 import json
@@ -36,10 +44,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 B = 4096
+WIDE = 30000
 LAUNCHES = 200
 
 
-def device_us(fn, n=LAUNCHES):
+def device_us(fn):
     """Device time per call of ``fn`` in kernels named fused_step_kernel."""
     import torch
     from torch.autograd import DeviceType
@@ -47,6 +56,12 @@ def device_us(fn, n=LAUNCHES):
 
     fn()
     torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    n = LAUNCHES if start.elapsed_time(end) < 1.0 else LAUNCHES // 10
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
@@ -58,85 +73,102 @@ def device_us(fn, n=LAUNCHES):
     return us / n
 
 
+# label -> (scenario, make_env kwargs, envs, testing's state builder or None
+# for a reset and 5 random steps, forms timed: rows, fused, or rows4, the
+# rows step of 4 env steps per launch)
+MPE = {"continuous_actions": False}
+WORLDS = {
+    "transport": ("transport", {"n_agents": 4}, B, None, ("rows", "fused")),
+    "balance": ("balance", {}, B, None, ("rows", "fused")),
+    "give_way": ("give_way", {}, B, None, ("rows", "fused", "rows4")),
+    "joint_passage": ("joint_passage", {}, B, "joint_passage_contact_state", ("rows", "fused")),
+    "joint_passage+pid": ("joint_passage", {"use_controller": True}, B, "joint_passage_contact_state", ("rows",)),
+    "multi_give_way": ("multi_give_way", {}, B, "multi_give_way_contact_state", ("rows",)),
+    "waterfall": ("waterfall", {}, B, "waterfall_contact_state", ("fused",)),
+    "wind_flocking": ("wind_flocking", {}, B, "wind_flocking_state", ("fused",)),
+    "simple_spread": ("simple_spread", MPE, B, "mpe_state", ("rows", "fused", "rows4")),
+    f"simple_spread@{WIDE}": ("simple_spread", MPE, WIDE, "mpe_state", ("rows",)),
+    "simple": ("simple", MPE, B, "mpe_state", ("rows", "fused")),
+}
+
+
 def child(label):
     import numpy as np
     import torch
 
     import vmas_tpu_torch
-    from vmas_tpu_torch import _kernels, make_env
+    import vmas_tpu_torch.core as TC
+    from vmas_tpu_torch import _kernels, make_env, testing
     from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
 
     build_s = _kernels.build_all()
     dev = torch.device("cuda")
-    out = {"label": label, "package": str(Path(vmas_tpu_torch.__file__).parent), "build_s": build_s, "us": {}}
-    for name, kw in (("transport", {"n_agents": 4}), ("balance", {}), ("give_way", {})):
+    out = {"label": label, "package": str(Path(vmas_tpu_torch.__file__).parent), "build_s": build_s,
+           "us": {}, "rule": {}}
+    lanes = getattr(F, "LANES", None)
+
+    def timed(key, ks, fn):
+        if lanes is None:
+            out["us"][key] = {"thread": device_us(fn)}
+            return
+        rule = ks.lanes
+        out["rule"][key] = rule
         try:
-            env = make_env(name, B, device=dev, seed=0, fused_physics=True, **kw)
+            res = {}
+            for L in lanes:
+                ks.lanes = L
+                res[str(L)] = device_us(fn)
+            out["us"][key] = res
+        finally:
+            ks.lanes = rule
+
+    for world, (name, kw, n, build, forms) in WORLDS.items():
+        try:
+            env = make_env(name, n, device=dev, seed=0, fused_physics=True, **kw)
         except ValueError:
             continue  # not in this tree
-        env.reset()
-        for _ in range(5):
-            env.step(env.get_random_actions())
-        world, fo = env.world, env._fused_outputs
+        if build is None:
+            env.reset()
+            for _ in range(5):
+                env.step(env.get_random_actions())
+            state = env.state
+        else:
+            state = state_from_numpy(env.world, getattr(testing, build)(env, np.random.default_rng(3)))
+        wd, fo = env.world, env._fused_outputs
+        ks = F._kernel_spec(wd)
         slots = [a.index for a in env.agents]
-        step = F.make_rows_step(world, fo, slots)
-        carry = F.pack_carry(world, env.state, fo)
         gen = torch.Generator(device=dev).manual_seed(1)
-        act = ((torch.rand((2 * len(slots), B), generator=gen, device=dev) * 2 - 1) * 0.6).contiguous()
-        extra = torch.empty((fo.n_out + getattr(fo, "n_ctrl_out", 0), B), device=dev)
-        x = carry[:carry.shape[0] - getattr(fo, "n_ctrl", 0)].clone()  # the fused form carries no controller rows
-        out["us"][f"rows_step[{name}]"] = device_us(lambda: step(carry, act, extra))
-        out["us"][f"fused_step[{name}]"] = device_us(lambda: F.fused_step(world, x, fo))
-        del env
-    try:
-        import vmas_tpu_torch.core as TC
-        from vmas_tpu_torch.interop import state_from_numpy
-        from vmas_tpu_torch.testing import all_pairs_state, all_pairs_world
-    except ImportError:
-        pass  # not in this tree
-    else:
-        aw = all_pairs_world(TC, B, dev)
-        xa = F.state_rows(state_from_numpy(aw, all_pairs_state(np.random.default_rng(4), B))).contiguous()
-        out["us"]["fused_step[all_pairs]"] = device_us(lambda: F.fused_step(aw, xa))
+        act = ((torch.rand((2 * len(slots), n), generator=gen, device=dev) * 2 - 1) * 0.6).contiguous()
+        for k in (1, 4):
+            if f"rows{'' if k == 1 else k}" not in forms:
+                continue
+            step = F.make_rows_step(wd, fo, slots, k_steps=k)
+            carry = F.pack_carry(wd, state, fo)
+            act_k = act.repeat(k, 1).contiguous()
+            extra = torch.empty((k * (fo.n_out + fo.n_ctrl_out), n), device=dev)
+            timed(f"rows_step[{world}{'' if k == 1 else f',k{k}'}]", ks, lambda: step(carry, act_k, extra))
+        if "fused" in forms:
+            parts = [F.state_rows(state), state.joint_fixed_rot.T]
+            if ks.dyn_gravity:
+                parts += [state.dyn_gravity[..., 0].T, state.dyn_gravity[..., 1].T]
+            if fo is not None:
+                parts.append(torch.as_tensor(fo.scratch_rows(state), dtype=torch.float32, device=dev))
+            x = torch.cat(parts).contiguous()
+            timed(f"fused_step[{world}]", ks, lambda: F.fused_step(wd, x, fo))
+        del env, state
+    aw = testing.all_pairs_world(TC, B, dev)
+    xa = F.state_rows(state_from_numpy(aw, testing.all_pairs_state(np.random.default_rng(4), B))).contiguous()
+    timed("fused_step[all_pairs]", F._kernel_spec(aw), lambda: F.fused_step(aw, xa))
     print(json.dumps(out), flush=True)
 
 
-def _nounroll(src):
-    src, n = re.subn(r"[ \t]*#pragma unroll 1\n(?=[ \t]*for \(int k = 0; k < sp\.n_)", "", src)
-    if n == 0:
-        raise SystemExit("no pair loop with '#pragma unroll 1'")
+def _minblocks(src, n):
+    src, k = re.subn(r"__launch_bounds__\(NT\)\nfused_step_kernel\(", f"__launch_bounds__(NT, {n})\nfused_step_kernel(",
+                     src)
+    if k != 1:
+        raise SystemExit("no __launch_bounds__(NT) on fused_step_kernel in fused_step.cu")
     return src
-
-
-_ACTPTR = [
-    ("const ActParams ap, const int* __restrict__ tab,",
-     "const ActParams* __restrict__ app, const int* __restrict__ tab,"),
-    ("  const int n_ctrl = ROWS ? 4 * ap.n_pid : 0;",
-     "  const int n_pid = ROWS && app ? app->n_pid : 0;\n  const int n_ctrl = 4 * n_pid;"),
-    ("if (ap.n_pid) pid_act(ap, fx, fy, vx, vy, ctrl, blk + (size_t)(n_tot - 2 * ap.n_pid) * B, B, b);",
-     "if (n_pid) pid_act(*app, fx, fy, vx, vy, ctrl, blk + (size_t)(n_tot - 2 * n_pid) * B, B, b);"),
-    ("(*spec, *ep, *ap, tab,", "(*spec, *ep, dap, tab,"),
-    ("  cudaStream_t s = static_cast<cudaStream_t>(stream);\n",
-     "  cudaStream_t s = static_cast<cudaStream_t>(stream);\n"
-     "  const ActParams* dap = nullptr;\n"
-     "  if (ap->n_pid) {\n"
-     "    static ActParams* buf = nullptr;\n"
-     "    if (!buf && cudaMalloc(&buf, sizeof(ActParams)) != cudaSuccess) return cudaErrorMemoryAllocation;\n"
-     "    cudaMemcpyAsync(buf, ap, sizeof(ActParams), cudaMemcpyHostToDevice, s);\n"
-     "    dap = buf;\n"
-     "  }\n"),
-]
-
-
-def _actptr(src):
-    for old, new in _ACTPTR:
-        if src.count(old) != 1:
-            raise SystemExit(f"not once in fused_step.cu: {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
-VARIANTS = {"nounroll": _nounroll, "actptr": _actptr}
 
 
 def tree_of(spec):
@@ -146,14 +178,15 @@ def tree_of(spec):
     tree = (ROOT / path).resolve()
     if not variant:
         return label, tree
-    if variant not in VARIANTS:
+    m = re.fullmatch(r"minb(\d+)", variant)
+    if not m:
         raise SystemExit(f"unknown variant {variant!r}")
     dst = ROOT / "_archive" / "variants" / label
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(tree / "vmas_tpu_torch", dst / "vmas_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     cu = dst / "vmas_tpu_torch" / "csrc" / "fused_step.cu"
-    cu.write_text(VARIANTS[variant](cu.read_text()))
+    cu.write_text(_minblocks(cu.read_text(), int(m.group(1))))
     return label, dst
 
 
@@ -182,13 +215,21 @@ def main():
             raise SystemExit(f"{label}: imported {line['package']}, not the tree's package")
         print(json.dumps(line), flush=True)
         runs.append(line)
-    forms = sorted({f for r in runs for f in r["us"]})
-    print(f"device us per launch, mean of each tree's runs ({card}):")
-    print("tree".ljust(20) + "".join(f.rjust(24) for f in forms))
-    for label, _ in trees:
-        mine = [r["us"] for r in runs if r["label"] == label]
-        cells = [sum(m[f] for m in mine) / len(mine) if all(f in m for m in mine) else None for f in forms]
-        print(label.ljust(20) + "".join(("-" if c is None else f"{c:.3f}").rjust(24) for c in cells))
+    forms = list(dict.fromkeys(f for r in runs for f in r["us"]))
+    print(f"device us per launch, mean [min, max] of each tree's runs; * the lane count the rule picks ({card}):")
+    for form in forms:
+        print(form)
+        for label, _ in trees:
+            mine = [r for r in runs if r["label"] == label and form in r["us"]]
+            if not mine:
+                continue
+            rule = mine[0]["rule"].get(form)
+            cells = []
+            for key in mine[0]["us"][form]:
+                v = [r["us"][form][key] for r in mine]
+                mark = "*" if key == str(rule) else ""
+                cells.append(f"{key}{mark} {sum(v) / len(v):.3f} [{min(v):.3f}, {max(v):.3f}]")
+            print(f"  {label.ljust(12)} " + "; ".join(cells))
 
 
 if __name__ == "__main__":

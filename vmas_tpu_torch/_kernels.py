@@ -27,7 +27,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 # kernel name -> its source; one nvcc process per source
 SOURCES = {"fused_step": "fused_step.cu", "road_traffic": "road_traffic.cu", "opcost": "opcost.cu"}
@@ -74,6 +74,7 @@ class FusedSpec(ctypes.Structure):
         ("E", _i), ("J", _i), ("K_in", _i), ("substeps", _i),
         ("n_ss", _i), ("n_ls", _i), ("n_ll", _i), ("n_bs", _i), ("n_bl", _i), ("n_bb", _i),
         ("o_j", _i), ("o_ss", _i), ("o_ls", _i), ("o_ll", _i), ("o_bs", _i), ("o_bl", _i), ("o_bb", _i),
+        ("o_lst", _i), ("n_tab", _i),
         ("n_act", _i), ("has_x", _i), ("has_y", _i), ("dyn_g", _i),
         ("sub_dt", _f), ("cm", _f), ("cf", _f), ("x_semidim", _f), ("y_semidim", _f),
         ("jf", _f), ("tcf", _f),
@@ -203,7 +204,9 @@ def _lib_path(name: str) -> Path:
 
 def build_all() -> float:
     """Compile every source whose library is missing, one nvcc process per
-    source, all started together. Returns the wall seconds it took."""
+    source, all started together; each build's output (ptxas's registers,
+    shared memory and spills per kernel) is kept beside its library
+    (``build_log``). Returns the wall seconds it took."""
     t0 = time.perf_counter()
     _BUILD.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -218,8 +221,18 @@ def build_all() -> float:
         log, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed building {out.name}:\n{log.decode(errors='replace')}")
+        out.with_suffix(".log").write_bytes(log)
         os.replace(tmp, out)
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of kernel ``name``'s build (built first if
+    needed)."""
+    path = _lib_path(name)
+    if not path.exists():
+        build_all()
+    return path.with_suffix(".log").read_text()
 
 
 def check_tensor(name: str, t, dtype, shape) -> None:
@@ -249,10 +262,15 @@ def library(name: str) -> ctypes.CDLL:
         if name == "fused_step":
             lib.vmas_fused_step.argtypes = [
                 ctypes.POINTER(FusedSpec), ctypes.POINTER(EmitParams), ctypes.POINTER(ActParams), ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.vmas_fused_step.restype = ctypes.c_int
+            lib.vmas_fused_smem.argtypes = [ctypes.POINTER(FusedSpec), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int]
+            lib.vmas_fused_smem.restype = ctypes.c_longlong
+            lib.vmas_max_smem.argtypes = []
+            lib.vmas_max_smem.restype = ctypes.c_int
             lib.vmas_cuda_error_string.argtypes = [ctypes.c_int]
             lib.vmas_cuda_error_string.restype = ctypes.c_char_p
         elif name == "road_traffic":

@@ -2,9 +2,10 @@
 
 Counterpart of vmas_tpu/core/fused.py. The state is packed as
 component rows ``[9E, B]`` (px, py, vx, vy, rot, w, fx, fy, tq per entity),
-one column per env. One kernel (``csrc/fused_step.cu``, one thread per env)
-runs every substep of the physics and then the scenario's output rows
-(``FusedOutputs.emit``), in two forms:
+one column per env. One kernel (``csrc/fused_step.cu``: each env on a group of
+``KernelSpec.lanes`` lanes, its items spread over them, its rows in shared
+memory) runs every substep of the physics and then the scenario's output
+rows (``FusedOutputs.emit``), in two forms:
 
 * ``fused_physics_step``: rows ``[9E + J (+ 2E) + K_in, B]`` in (the 2E
   rows of a world with dynamic gravity: each entity's x, then y), ``[9E +
@@ -35,6 +36,11 @@ simple_spread. The world's joint and pair tables live in one device buffer
 (``KernelSpec.pair_table``), so a world may have any number of joints and
 pairs. Forward only: ``Environment`` refuses ``grad_enabled`` with
 ``fused_physics``.
+
+The kernel adds each item's contributions to an entity in the plain
+version's order by walking the entity's list (``KernelSpec.lists``, in the
+table buffer), so the two agree bitwise; ``lanes_for`` is the rule that
+picks the lanes per env from the world's spec.
 """
 
 from __future__ import annotations
@@ -339,6 +345,48 @@ class FusedOutputs:
 # the constants both versions read
 # ---------------------------------------------------------------------------
 
+# the item types in the order both versions accumulate them, and per type
+# the record positions of its side-0 (+f) and side-1 (-f) entities and
+# whether it has a torque on each side (the plain version's yields)
+ITEM_TYPES = ("joints", "ss", "ls", "ll", "bs", "bl", "bb")
+ITEM_SIDES = {
+    "joints": (0, 1, True, True),
+    "ss": (0, 1, False, False),
+    "ls": (1, 0, False, True),
+    "ll": (0, 1, True, True),
+    "bs": (1, 0, False, True),
+    "bl": (0, 1, True, True),
+    "bb": (0, 1, True, True),
+}
+
+# the lane counts the kernel is built for: 1, one thread per env; 4 to 32,
+# a group of lanes per env
+LANES = (1, 4, 8, 16, 32)
+
+
+# the most items of one type (joints or a pair type) a world may have and
+# still run one thread per env
+FEW_ITEMS = 3
+
+
+def lanes_for(ks) -> int:
+    """Lanes per env of the kernel for this world, from its spec alone: 1
+    (one thread per env) where no item type has more than ``FEW_ITEMS``
+    items, else 8.
+
+    Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6,
+    tools/time_fused_step.py): at 4096 envs 8 lanes were the fastest count
+    or within 24% of it in every world with more items, and 3.6-4.9x
+    faster than one thread per env in the item-heavy ones (joint_passage,
+    multi_give_way, waterfall); 32 lanes were never the fastest. A world of
+    a few items spends its step in the serial emit, which a group runs on
+    one of its lanes: one thread per env was 2.1-8.8x faster than any group
+    at 30000 envs (simple_spread) and as fast at 4096 (wind_flocking).
+    """
+    n = max(len(getattr(ks, t)) for t in ITEM_TYPES)
+    return 1 if n <= FEW_ITEMS else 8
+
+
 class KernelSpec:
     """Every constant of one world's step, computed on the host exactly as
     vmas_tpu/core/fused.py computes its Python constants (double precision,
@@ -458,18 +506,42 @@ class KernelSpec:
             | {r[0] for r in self.ls} | {e for r in self.ll for e in r[:2]} | {r[0] for r in self.bs}
             | {e for t in (self.bl, self.bb) for r in t for e in r[:2]}
         )
+        self.lists = self._lane_lists()
         self.table, self.table_offsets = self._pair_table()
+        self.lanes = lanes_for(self)
         self._dev_tables = {}
 
+    def _lane_lists(self):
+        """Per entity, the items whose contributions the kernel's lane that
+        owns the entity adds to its accumulators, as ``(type, item, side)``
+        in the plain version's order (``_accumulate``): the joints in table
+        order, then the pair types ss, ls, ll, bs, bl, bb, each in spec
+        order. ``type`` indexes ``ITEM_TYPES``; side 0 is the item's +f
+        entity, side 1 its -f entity. An entry is listed where it adds to an
+        accumulator that is read: the entity is movable, or it is rotatable
+        and the item has a torque on its side. An entity whose accumulators
+        are never read has an empty list."""
+        lists = [[] for _ in range(self.E)]
+        for t, name in enumerate(ITEM_TYPES):
+            pos0, pos1, torque0, torque1 = ITEM_SIDES[name]
+            for k, rec in enumerate(getattr(self, name)):
+                for side, e, torque in ((0, rec[pos0], torque0), (1, rec[pos1], torque1)):
+                    if self.movable[e] or (torque and self.rotatable[e]):
+                        lists[e].append((t, k, side))
+        return lists
+
     def _pair_table(self):
-        """The joint table and all pair tables as one int32 array (floats
-        stored by their bits, rounded once to f32), in kernel order joints,
-        ss, ls, ll, bs, bl, bb; and each table's offset into it. One record
-        per joint: (a, b, anchor_a x, y, anchor_b x, y, dist, rotate); per
-        pair: ss (a, b, dmin), ls (line, sphere, half, dmin), ll (a, b, half_a,
-        half_b), bs (box, sphere, half_w, half_l, dmin0, not_hollow), bl (box,
-        line, half_w, half_l, line_half, not_hollow), bb (a, b, half_wa,
-        half_la, half_wb, half_lb, not_hollow_a, not_hollow_b)."""
+        """The joint table, all pair tables and the lane lists as one int32
+        array (floats stored by their bits, rounded once to f32), in kernel
+        order joints, ss, ls, ll, bs, bl, bb, then the lists; and each
+        part's offset into it. One record per joint: (a, b, anchor_a x, y,
+        anchor_b x, y, dist, rotate); per pair: ss (a, b, dmin), ls (line,
+        sphere, half, dmin), ll (a, b, half_a, half_b), bs (box, sphere,
+        half_w, half_l, dmin0, not_hollow), bl (box, line, half_w, half_l,
+        line_half, not_hollow), bb (a, b, half_wa, half_la, half_wb,
+        half_lb, not_hollow_a, not_hollow_b). The lists: 8 words per entity,
+        the offsets in the array of its entries of each of the seven types
+        and of their end, then the entries, ``item << 1 | side``."""
         words, offsets = [], []
         f = lambda v: int(np.float32(v).view(np.int32))
         for pairs, kinds in (
@@ -480,7 +552,16 @@ class KernelSpec:
             offsets.append(len(words))
             for rec in pairs:
                 words += [f(v) if k == "f" else int(v) for v, k in zip(rec, kinds)]
-        return np.asarray(words, np.int32), offsets
+        o_lst = len(words)
+        offsets.append(o_lst)
+        seg, entries = [], []
+        at = o_lst + 8 * self.E
+        for lst in self.lists:
+            for t in range(len(ITEM_TYPES)):
+                seg.append(at + len(entries))
+                entries += [k << 1 | side for tt, k, side in lst if tt == t]
+            seg.append(at + len(entries))
+        return np.asarray(words + seg + entries, np.int32), offsets
 
     def pair_table(self, device) -> torch.Tensor:
         """The pair table on ``device``: uploaded once per device, then the
@@ -488,9 +569,7 @@ class KernelSpec:
         key = str(device)
         t = self._dev_tables.get(key)
         if t is None:
-            # a world without pairs still passes a valid pointer
-            words = self.table if self.table.size else np.zeros(1, np.int32)
-            t = self._dev_tables[key] = torch.as_tensor(words, device=device)
+            t = self._dev_tables[key] = torch.as_tensor(self.table, device=device)
         return t
 
     def to_ctypes(self, k_in: int, act_slots=()) -> K.FusedSpec:
@@ -513,6 +592,7 @@ class KernelSpec:
         for name, off in zip(PAIR_TYPES, self.table_offsets[1:]):
             setattr(s, f"n_{name}", len(getattr(self, name)))
             setattr(s, f"o_{name}", off)
+        s.o_lst, s.n_tab = self.table_offsets[-1], self.table.size
         s.has_x, s.has_y = self.x_semidim is not None, self.y_semidim is not None
         s.sub_dt, s.cm, s.cf = self.sub_dt, self.cm, self.cf
         s.jf, s.tcf = self.jf, self.tcf
@@ -730,6 +810,22 @@ def contact_counts(world, x) -> dict:
     return counts
 
 
+def _accumulate(ks, forces, Fx, Fy, Tq):
+    """Add every item's contributions, in item order, to the accumulators
+    that are read (those of movable entities, and the torques of rotatable
+    ones): +f on i, -f on j, a torque on either where the type has one."""
+    mv, ro = ks.movable, ks.rotatable
+    for i, j, fx_, fy_, ti, tj in forces:
+        if mv[i]:
+            Fx[i], Fy[i] = Fx[i] + fx_, Fy[i] + fy_
+        if ti is not None and ro[i]:
+            Tq[i] = Tq[i] + ti
+        if mv[j]:
+            Fx[j], Fy[j] = Fx[j] + (-fx_), Fy[j] + (-fy_)
+        if tj is not None and ro[j]:
+            Tq[j] = Tq[j] + tj
+
+
 def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr, dg=()):
     """All substeps of one physics step on per-entity row lists (rebound
     in place); ``jfr``: the joints' fixed-rotation rows; ``dg``: with
@@ -798,16 +894,7 @@ def _physics_rows(ks, px, py, vx, vy, rot, w, fx, fy, tq, jfr, dg=()):
 
         cs = _trig_cache(rot)
         forces = list(_joint_forces(ks, px, py, rot, jfr, cs)) + list(_pair_forces(ks, px, py, rot, cs))
-        for i, j, fx_, fy_, ti, tj in forces:
-            # +f on i, -f on j; a torque on either where the type has one
-            if mv[i]:
-                Fx[i], Fy[i] = Fx[i] + fx_, Fy[i] + fy_
-            if ti is not None and ro[i]:
-                Tq[i] = Tq[i] + ti
-            if mv[j]:
-                Fx[j], Fy[j] = Fx[j] + (-fx_), Fy[j] + (-fy_)
-            if tj is not None and ro[j]:
-                Tq[j] = Tq[j] + tj
+        _accumulate(ks, forces, Fx, Fy, Tq)
 
         # integrate (semi-implicit Euler; drag on the first substep only)
         for e in range(E):
@@ -1036,14 +1123,35 @@ def _emit_params(outputs):
 _NO_ACT = K.ActParams()  # n_pid = 0: no in-kernel process_action
 
 
-def _launch(spec_c, table, outputs, x, act, out, extra, rows_mode, k_steps=1, act_params=_NO_ACT, n_tot=0):
+def _check_smem(lib, ks, spec_c, rows_mode, n_ctrl, n_tot):
+    """Raise ``ValueError`` where a block of the kernel at ``ks.lanes`` lanes
+    per env needs more shared memory than the device gives one block
+    (checked once per world, form and lane count)."""
+    key = (ks.lanes, bool(rows_mode), n_ctrl, n_tot, int(spec_c.K_in), int(spec_c.n_act))
+    checked = ks.__dict__.setdefault("_smem_checked", set())
+    if key in checked:
+        return
+    need = lib.vmas_fused_smem(spec_c, ks.lanes, int(rows_mode), n_ctrl, n_tot)
+    limit = lib.vmas_max_smem()
+    if need > limit:
+        raise ValueError(f"the fused kernel at {ks.lanes} lanes per env needs {need} bytes of shared memory "
+                         f"per block for this world, the device gives {limit}")
+    checked.add(key)
+
+
+def _launch(ks, spec_c, outputs, x, act, out, extra, rows_mode, k_steps=1, act_params=_NO_ACT, n_tot=0):
+    """One launch of the kernel at ``ks.lanes`` lanes per env; ``n_tot``: the
+    output rows per step after the state rows (the fused form's emit rows;
+    the rows form's emit and hook rows)."""
     kind, ep = _emit_params(outputs)
     lib = K.library("fused_step")
     B = x.shape[1]
+    table = ks.pair_table(x.device)
     with torch.cuda.device(x.device):
+        _check_smem(lib, ks, spec_c, rows_mode, 4 * int(act_params.n_pid), int(n_tot))
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.vmas_fused_step(
-            spec_c, ep, act_params, kind, table.data_ptr(), x.data_ptr(),
+            spec_c, ep, act_params, kind, ks.lanes, table.data_ptr(), x.data_ptr(),
             None if act is None else act.data_ptr(),
             out.data_ptr(), None if extra is None else extra.data_ptr(),
             B, int(rows_mode), int(k_steps), int(n_tot), stream,
@@ -1067,7 +1175,7 @@ def fused_step(world, x, outputs=None):
     n_dyn = 2 * ks.E if ks.dyn_gravity else 0
     _check_rows("x", x, (9 * ks.E + ks.J + n_dyn + k_in, B))
     out = torch.empty((9 * ks.E + k_out, B), dtype=torch.float32, device=x.device)
-    _launch(ks.to_ctypes(k_in), ks.pair_table(x.device), outputs, x, None, out, None, rows_mode=False)
+    _launch(ks, ks.to_ctypes(k_in), outputs, x, None, out, None, rows_mode=False, n_tot=k_out)
     fused_step_launches += 1
     return out
 
@@ -1208,8 +1316,8 @@ def make_rows_step(world, outputs, act_slots, k_steps=1):
         if extra_out is None:
             extra_out = torch.empty((Ks * n_tot, B), dtype=torch.float32, device=carry.device)
         _check_rows("extra_out", extra_out, (Ks * n_tot, B))
-        _launch(spec_c, ks.pair_table(carry.device), outputs, carry, act, out, extra_out, rows_mode=True,
-                k_steps=Ks, act_params=act_params, n_tot=n_tot)
+        _launch(ks, spec_c, outputs, carry, act, out, extra_out, rows_mode=True, k_steps=Ks,
+                act_params=act_params, n_tot=n_tot)
         rows_step_launches += 1
         return out, extra_out
 

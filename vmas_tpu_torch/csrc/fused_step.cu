@@ -11,41 +11,64 @@
 //     in-kernel process_action (fused.py process_act_rows: the PID velocity
 //     controller, pid_act below) between the action override and physics.
 //
-// Design: one thread per env, blocks of 128, grid ceil(B / 128). The row
-// buffers keep the JAX layout [R, B], row-major and contiguous over envs:
-// thread b reads x[r * B + b], so neighbouring threads read neighbouring
-// addresses. The world's structure is data, not generated code: the
-// per-entity constants come by value (FusedSpec), the joint table and the
-// pair tables of all six contact types as one int32 device buffer read by
-// pointer (floats stored by their bits), where every thread of a warp reads
-// the same address at the same time. Each env's state lives in per-thread
-// arrays across the substeps. The joint constraints run first, constraint by
-// constraint (a rotate=False constraint reads its fixed rotation from rows
-// 9E..9E+J of the input), then the pair types in the JAX kernel's order (ss,
-// ls, ll, bs, bl, bb), pair by pair; where the JAX kernel runs a type of 8
-// or more pairs as one lane tile, it claims agreement with this pair-by-pair
-// form within an ulp. The arithmetic repeats vmas_tpu_torch/core/fused.py's plain version
-// op for op, in its order, so it is built with --fmad=false and without fast
-// math (IEEE division and square root: the line-line intersection's boundary
-// tests depend on them). Closest-point selections take the first strict
-// minimum, as the plain version does.
+// What bounds it on this card. One env's step is a long chain of scalar work
+// (joint_passage: some 12,400 operations per substep over 3 joints and 54
+// contact pairs), and one thread's dependent chain costs 11.5-12.7 ns per
+// operation with its operands in per-thread local memory (the op-cost probe,
+// csrc/opcost.cu, on an NVIDIA H100 80GB HBM3 at 700 W). With one thread per env, 4096 envs make 32 blocks of 128
+// threads on 132 SMs, and each thread walks every item of its env in turn.
 //
-// Bound: bytes for transport and balance, whose pairs are few and cheap:
-// transport@4096 moves (55 + 8 + 55 + 47) rows x 4096 x 4 B = 2.70 MB per
-// rows step, about 0.8 us at 3.35 TB/s. A box-box pair costs 8 box-line
-// tests of 4 line-line tests each (some 3,000 operations), so a world with
-// many box pairs can be bound by operations instead, and so can a world of
-// many box-sphere pairs and stiff joints over 10 substeps (joint_passage:
-// some 12,400 operations per env and substep). 4096 envs give only 32
-// blocks of 128 threads on 132 SMs, so launch latency and the serial
-// per-thread chain, not bandwidth, set this kernel's time; filling the card
-// is work for a later change.
+// Design: each env on a group of L lanes (L = 4, 8, 16 or 32, a template
+// parameter), G = 128 / L envs per block of 128 threads, grid ceil(B / G);
+// KernelSpec.lanes (core/fused.py lanes_for) picks L from the world's spec.
+//   * Each block copies the world's table (pair records and lane lists) to
+//     shared memory, and its G envs' input rows, row by row over neighbouring
+//     envs; the env's state stays in shared memory for every substep and, in
+//     the rows form, for all k_steps steps of the launch.
+//   * Per substep: each entity's own work (action clamps, the accumulators
+//     opened with the action force, friction, gravity, cos and sin) on the
+//     lane that owns it (e, e + L, ...); then the item types one at a time
+//     (joints, ss, ls, ll, bs, bl, bb, never two types in one round, so a
+//     warp does not serialise two types' code), lane k on items k, k + L,
+//     ... of the type, each writing its force and torques to a buffer; then
+//     the lane that owns each entity walks the entity's list of that type's
+//     items (KernelSpec.lists) and adds them in the plain version's order.
+//     No shuffle tree and no atomic: each sum keeps its order, so the result
+//     is bitwise the plain version's. Then the integration, on the owning
+//     lane.
+//   * The serial parts, the rows form's action override, the PID (pid_act)
+//     and the scenario's emit, run on lane 0 of the group against shared
+//     memory; the block writes the output rows, coalesced.
+//   * __syncwarp orders one group's phases (a group lies in one warp),
+//     __syncthreads the block's loads and stores. Every thread runs every
+//     phase: a group beyond B computes on zero rows and stores nothing.
+// L = 1 is the one-thread form: one thread per env, blocks of 128, the
+// env's state in per-thread arrays and the table read from device memory.
+// A world of a few items spends its step in the serial emit, which a group
+// runs on one lane of L: there one thread per env does less work per env
+// (PERF.md §6).
 //
-// The rows form's k_steps loop keeps the state, scratch and controller rows
-// in the thread for K steps: they are read once and written once per launch,
-// and the launch itself (the host's cost per step) is paid once per K steps.
-// The same thread runs the same ops in the same order, so one K-step launch
-// gives bitwise the rows of K one-step launches.
+// The world's structure is data, not generated code: the per-entity
+// constants come by value (FusedSpec), the joint table, the pair tables of
+// all six contact types and the lane lists as one int32 device buffer
+// (floats stored by their bits). The arithmetic repeats
+// vmas_tpu_torch/core/fused.py's plain version op for op, in its order, so
+// it is built with --fmad=false and without fast math (IEEE division and
+// square root: the line-line intersection's boundary tests depend on them).
+// Closest-point selections take the first strict minimum, as the plain
+// version does. The rows form's k_steps loop runs the same ops in the same
+// order as K launches of one step, so their rows are bitwise the same.
+//
+// Bound: bytes for transport and balance, whose pairs are few and cheap
+// (transport@4096 moves (55 + 8 + 55 + 47) rows x 4096 x 4 B = 2.70 MB per
+// rows step, about 0.8 us at 3.35 TB/s); operations for worlds of many box
+// pairs and stiff joints (joint_passage: 509 MFLOP per step at 4096 envs,
+// 7.6 us at 67 TFLOP/s). On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+// §6): joint_passage's rows step takes 188.7 us at 8 lanes against 688.8 us
+// one thread per env, still 25x its bound. What bounds it now is occupancy:
+// 128-157 registers a thread leave some 2 blocks of 4 warps per SM at 4096
+// envs, too few to hide the latency of the item rounds, and the emit runs
+// on one lane of the group.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,6 +106,9 @@ struct FusedSpec {
   // tables into the table buffer; J counts the joint records
   int n_ss, n_ls, n_ll, n_bs, n_bl, n_bb;
   int o_j, o_ss, o_ls, o_ll, o_bs, o_bl, o_bb;
+  // the lane lists (KernelSpec's): entity e's segment offsets of the seven
+  // item types at o_lst + 8e; n_tab: the table's length in words
+  int o_lst, n_tab;
   int n_act, has_x, has_y;
   // dynamic gravity (the fused form only): its 2E rows follow the joint
   // rows, and every movable entity takes mass * (dg + (gsx, gsy)), gsx/gsy
@@ -454,16 +480,19 @@ __device__ __forceinline__ void pid_act(const ActParams& ap, float* fx, float* f
 }
 
 // ---------------------------------------------------------------------------
-// the physics: every substep of one env step (fused.py _physics_rows)
+// the physics: every substep of one env step (fused.py _physics_rows), on one
+// thread (L = 1)
 // ---------------------------------------------------------------------------
 
-// pair table words: an index, or a float stored by its bits
+// table words read from device memory: an index, or a float stored by its
+// bits
 #define TI(i) __ldg(tab + (i))
 #define TF(i) __int_as_float(__ldg(tab + (i)))
 
-// jfr: the joints' fixed-rotation rows ([J, B], this env at column b); dg:
-// with sp.dyn_g the dynamic-gravity rows ([2E, B]: each entity's x, then y)
-__device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restrict__ tab,
+// The one-thread form: jfr, the joints' fixed-rotation rows ([J, B], this
+// env at column b); dg, with sp.dyn_g, the dynamic-gravity rows ([2E, B]:
+// each entity's x, then y); the env's state in per-thread arrays.
+__device__ __forceinline__ void physics_thread(const FusedSpec& sp, const int* __restrict__ tab,
                         const float* __restrict__ jfr, const float* __restrict__ dg, int B, int b,
                         float* px, float* py, float* vx, float* vy,
                         float* rot, float* w, float* fx, float* fy, float* tq) {
@@ -722,6 +751,362 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restri
         rot[e] = rot[e] + w[e] * sub_dt;
       }
     }
+  }
+}
+
+#undef TI
+#undef TF
+
+// ---------------------------------------------------------------------------
+// the physics: every substep of one env step (fused.py _physics_rows), on a
+// group of L lanes
+// ---------------------------------------------------------------------------
+
+// table words (the block's copy in shared memory): an index, or a float
+// stored by its bits
+#define TI(i) (tab[i])
+#define TF(i) __int_as_float(tab[i])
+
+// One env's group: its lane (0 .. L-1) and the mask of its lanes in the warp.
+// Every lane of a group runs the same phases in the same order, and the
+// phases' trip counts come from the spec alone, so each __syncwarp is
+// reached by all lanes of its mask.
+struct Lanes {
+  int lane;
+  unsigned mask;
+};
+
+// One env's rows in shared memory: the input rows as the row buffer holds
+// them (9E state, J fixed rotations, then the 2E dynamic-gravity rows or the
+// scratch and controller rows), the force and torque accumulators and the
+// cos and sin of each F_TRIG rotation.
+struct EnvRows {
+  float *px, *py, *vx, *vy, *rot, *w, *fx, *fy, *tq;
+  const float *jfr, *dg;
+  float *Fx, *Fy, *Tq, *C, *S;
+};
+
+// Each item's contributions, one float4: the force on side 0 (side 1 takes
+// its negation), the torque on side 0, the torque on side 1. Side 0 is the
+// plain version's i (+f), side 1 its j (-f).
+__device__ __forceinline__ void put(float4* buf, int k, float fx, float fy, float t0, float t1) {
+  buf[k] = make_float4(fx, fy, t0, t1);
+}
+
+// The accumulation of one item type: the lane that owns entity e walks e's
+// list for the type (KernelSpec's lane lists: for entity e and type t the
+// entries tab[seg[t]] .. tab[seg[t + 1]] with seg = tab + o_lst + 8e, each
+// (item << 1) | side), in item order, and adds each contribution to e's
+// accumulators as the plain version's loop adds it. T0 / T1: the type has a
+// torque on side 0 / side 1.
+template <int L, bool T0, bool T1>
+__device__ __forceinline__ void accumulate(const int* __restrict__ tab, int o_lst, int t, int E, Lanes ln,
+                                           const float4* buf, EnvRows& s) {
+#pragma unroll 1
+  for (int e = ln.lane; e < E; e += L) {
+    const int* seg = tab + o_lst + 8 * e + t;
+    const int lo = seg[0], hi = seg[1];
+    if (lo == hi) continue;
+    float ax = s.Fx[e], ay = s.Fy[e], at = s.Tq[e];
+#pragma unroll 1
+    for (int i = lo; i < hi; ++i) {
+      const int en = tab[i];
+      const float4 c = buf[en >> 1];
+      if (en & 1) {
+        ax = ax + (-c.x);
+        ay = ay + (-c.y);
+        if (T1) at = at + c.w;
+      } else {
+        ax = ax + c.x;
+        ay = ay + c.y;
+        if (T0) at = at + c.z;
+      }
+    }
+    s.Fx[e] = ax;
+    s.Fy[e] = ay;
+    s.Tq[e] = at;
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restrict__ tab, Lanes ln, float4* buf,
+                                        EnvRows& s) {
+  const int E = sp.E;
+  const float cm = sp.cm, cf = sp.cf, sub_dt = sp.sub_dt;
+  const int lane = ln.lane;
+  float *px = s.px, *py = s.py, *vx = s.vx, *vy = s.vy, *rot = s.rot, *w = s.w;
+  float *Fx = s.Fx, *Fy = s.Fy, *Tq = s.Tq, *C = s.C, *S = s.S;
+#pragma unroll 1
+  for (int substep = 0; substep < sp.substeps; ++substep) {
+    // each entity's own phase on its lane: the action clamps (re-applied
+    // every substep on the persistent rows), the action forces open the
+    // accumulators, then friction and gravity; the cos and sin of each
+    // rotation a pair reads (the plain version's cs())
+#pragma unroll 1
+    for (int e = lane; e < E; e += L) {
+      const int fl = sp.flags[e];
+      float fxe = s.fx[e], fye = s.fy[e], tqe = s.tq[e];
+      if (fl & F_MAX_F) {
+        float mf = sp.max_f[e];
+        float n = sqrtf(fxe * fxe + fye * fye);
+        if (n > mf) {
+          fxe = fxe / n * mf;
+          fye = fye / n * mf;
+        }
+      }
+      if (fl & F_F_RANGE) {
+        float fr = sp.f_range[e];
+        fxe = fminf(fmaxf(fxe, -fr), fr);
+        fye = fminf(fmaxf(fye, -fr), fr);
+      }
+      if (fl & F_MAX_T) tqe = fminf(fmaxf(tqe, -sp.max_t[e]), sp.max_t[e]);
+      if (fl & F_T_RANGE) tqe = fminf(fmaxf(tqe, -sp.t_range[e]), sp.t_range[e]);
+      s.fx[e] = fxe;
+      s.fy[e] = fye;
+      s.tq[e] = tqe;
+
+      float ax = fxe, ay = fye, at = tqe;
+      const float vxe = vx[e], vye = vy[e];
+      if (fl & F_LIN_FRIC) {
+        float m = sp.mass[e], lfm = sp.lfm[e];
+        float speed = nrm(vxe, vye);
+        bool zero = speed == 0.f;
+        float den = zero ? 1.f : speed;
+        float fcx = fminf(fabsf(vxe) / sub_dt * m, lfm);
+        float fcy = fminf(fabsf(vye) / sub_dt * m, lfm);
+        ax = ax + (zero ? 0.f : -(vxe / den) * fcx);
+        ay = ay + (zero ? 0.f : -(vye / den) * fcy);
+      }
+      if (fl & F_ANG_FRIC) {
+        float moi = sp.moi[e], afm = sp.afm[e];
+        float sw = fabsf(w[e]);
+        float den = sw == 0.f ? 1.f : sw;
+        float fc = fminf(sw / sub_dt * moi, afm);
+        at = at + (sw == 0.f ? 0.f : -(w[e] / den) * fc);
+      }
+      if (sp.dyn_g) {
+        // per-env gravity, in place of the static term: m * (dg + eg)
+        if (fl & F_MOVABLE) {
+          ax = ax + sp.mass[e] * (s.dg[e] + sp.gsx[e]);
+          ay = ay + sp.mass[e] * (s.dg[E + e] + sp.gsy[e]);
+        }
+      } else if (fl & F_GRAVITY) {
+        ax = ax + sp.gsx[e];
+        ay = ay + sp.gsy[e];
+      }
+      Fx[e] = ax;
+      Fy[e] = ay;
+      Tq[e] = at;
+      if (fl & F_TRIG) {
+        C[e] = cosf(rot[e]);
+        S[e] = sinf(rot[e]);
+      }
+    }
+    __syncwarp(ln.mask);
+
+    // joint constraints, lane k on constraints k, k + L, ...: the
+    // attractive plus the repulsive penalty between the two anchor points,
+    // +f on a, -f on b, and their torques; a rotate=False constraint adds
+    // the exponential torque that holds rot_a - rot_b at its fixed rotation
+    if (sp.J) {
+#pragma unroll 1
+      for (int j = lane; j < sp.J; j += L) {
+        const int r = sp.o_j + 8 * j;
+        const int a = TI(r), bb = TI(r + 1);
+        const float aax = TF(r + 2), aay = TF(r + 3), abx = TF(r + 4), aby = TF(r + 5), dist = TF(r + 6);
+        const float pjax = px[a] + aax * C[a] - aay * S[a];
+        const float pjay = py[a] + aax * S[a] + aay * C[a];
+        const float pjbx = px[bb] + abx * C[bb] - aby * S[bb];
+        const float pjby = py[bb] + abx * S[bb] + aby * C[bb];
+        float fax_att, fay_att, fax_rep, fay_rep;
+        constraint_force_att(cm, sp.jf, pjax, pjay, pjbx, pjby, dist, fax_att, fay_att);
+        constraint_force(cm, sp.jf, pjax, pjay, pjbx, pjby, dist, fax_rep, fay_rep);
+        const float fax = fax_att + fax_rep, fay = fay_att + fay_rep;
+        float ta = (pjax - px[a]) * fay - (pjay - py[a]) * fax;
+        float tb = (pjbx - px[bb]) * (-fay) - (pjby - py[bb]) * (-fax);
+        if (!TI(r + 7)) {
+          // expf(|d|) - 1, as the reference computes it (not expm1f)
+          const float delta = rot[a] - (rot[bb] + s.jfr[j]);
+          const float ad = fabsf(delta);
+          float tqc = sp.tcf * sgn(delta) * (expf(ad) - 1.f);
+          if (ad < 1e-9f) tqc = 0.f;
+          ta = ta + (-tqc);
+          tb = tb + tqc;
+        }
+        put(buf, j, fax, fay, ta, tb);
+      }
+      __syncwarp(ln.mask);
+      accumulate<L, true, true>(tab, sp.o_lst, 0, E, ln, buf, s);
+      __syncwarp(ln.mask);
+    }
+
+    // sphere-sphere pairs: +f on a, -f on b
+    if (sp.n_ss) {
+#pragma unroll 1
+      for (int k = lane; k < sp.n_ss; k += L) {
+        const int r = sp.o_ss + 3 * k;
+        const int a = TI(r), b = TI(r + 1);
+        float cfx, cfy;
+        constraint_force(cm, cf, px[a], py[a], px[b], py[b], TF(r + 2), cfx, cfy);
+        put(buf, k, cfx, cfy, 0.f, 0.f);
+      }
+      __syncwarp(ln.mask);
+      accumulate<L, false, false>(tab, sp.o_lst, 1, E, ln, buf, s);
+      __syncwarp(ln.mask);
+    }
+
+    // line-sphere pairs: +f on the sphere, -f and its torque on the line
+    if (sp.n_ls) {
+#pragma unroll 1
+      for (int k = lane; k < sp.n_ls; k += L) {
+        const int r = sp.o_ls + 4 * k;
+        const int l = TI(r), sph = TI(r + 1);
+        float cx, cy, sfx, sfy;
+        closest_point_line(px[l], py[l], C[l], S[l], TF(r + 2), px[sph], py[sph], cx, cy);
+        constraint_force(cm, cf, px[sph], py[sph], cx, cy, TF(r + 3), sfx, sfy);
+        put(buf, k, sfx, sfy, 0.f, (cx - px[l]) * (-sfy) - (cy - py[l]) * (-sfx));
+      }
+      __syncwarp(ln.mask);
+      accumulate<L, false, true>(tab, sp.o_lst, 2, E, ln, buf, s);
+      __syncwarp(ln.mask);
+    }
+
+    // line-line pairs: +f on a, -f on b, torque on both
+    if (sp.n_ll) {
+#pragma unroll 1
+      for (int k = lane; k < sp.n_ll; k += L) {
+        const int r = sp.o_ll + 4 * k;
+        const int a = TI(r), b = TI(r + 1);
+        float pax, pay, pbx, pby, afx, afy;
+        closest_points_line_line(px[a], py[a], C[a], S[a], TF(r + 2),
+                                 px[b], py[b], C[b], S[b], TF(r + 3), pax, pay, pbx, pby);
+        constraint_force(cm, cf, pax, pay, pbx, pby, LMD_F, afx, afy);
+        put(buf, k, afx, afy, (pax - px[a]) * afy - (pay - py[a]) * afx,
+            (pbx - px[b]) * (-afy) - (pby - py[b]) * (-afx));
+      }
+      __syncwarp(ln.mask);
+      accumulate<L, true, true>(tab, sp.o_lst, 3, E, ln, buf, s);
+      __syncwarp(ln.mask);
+    }
+
+    // box-sphere pairs: +f on the sphere, -f and its torque on the box; a
+    // hollow box pushes from its surface point, a solid one from the inner
+    // point
+    if (sp.n_bs) {
+#pragma unroll 1
+      for (int k = lane; k < sp.n_bs; k += L) {
+        const int r = sp.o_bs + 6 * k;
+        const int b = TI(r), sph = TI(r + 1);
+        float cx, cy;
+        closest_point_box(px[b], py[b], C[b], S[b], TF(r + 2), TF(r + 3), px[sph], py[sph], cx, cy);
+        float ix = cx, iy = cy, dmin = TF(r + 4);
+        if (TI(r + 5)) {
+          float d;
+          inner_point_box(px[sph], py[sph], cx, cy, px[b], py[b], ix, iy, d);
+          dmin = dmin + d;
+        }
+        float sfx, sfy;
+        constraint_force(cm, cf, px[sph], py[sph], ix, iy, dmin, sfx, sfy);
+        put(buf, k, sfx, sfy, 0.f, (cx - px[b]) * (-sfy) - (cy - py[b]) * (-sfx));
+      }
+      __syncwarp(ln.mask);
+      accumulate<L, false, true>(tab, sp.o_lst, 4, E, ln, buf, s);
+      __syncwarp(ln.mask);
+    }
+
+    // box-line pairs: +f on the box, -f on the line, torque on both
+    if (sp.n_bl) {
+#pragma unroll 1
+      for (int k = lane; k < sp.n_bl; k += L) {
+        const int r = sp.o_bl + 6 * k;
+        const int b = TI(r), l = TI(r + 1);
+        float qbx, qby, qlx, qly;
+        closest_line_box(px[b], py[b], C[b], S[b], TF(r + 2), TF(r + 3),
+                         px[l], py[l], C[l], S[l], TF(r + 4), qbx, qby, qlx, qly);
+        float ix = qbx, iy = qby, dmin = LMD_F;
+        if (TI(r + 5)) {
+          float d;
+          inner_point_box(qlx, qly, qbx, qby, px[b], py[b], ix, iy, d);
+          dmin = LMD_F + d;
+        }
+        float bfx, bfy;
+        constraint_force(cm, cf, ix, iy, qlx, qly, dmin, bfx, bfy);
+        put(buf, k, bfx, bfy, (qbx - px[b]) * bfy - (qby - py[b]) * bfx,
+            (qlx - px[l]) * (-bfy) - (qly - py[l]) * (-bfx));
+      }
+      __syncwarp(ln.mask);
+      accumulate<L, true, true>(tab, sp.o_lst, 5, E, ln, buf, s);
+      __syncwarp(ln.mask);
+    }
+
+    // box-box pairs: +f on a, -f on b, torque on both
+    if (sp.n_bb) {
+#pragma unroll 1
+      for (int k = lane; k < sp.n_bb; k += L) {
+        const int r = sp.o_bb + 8 * k;
+        const int a = TI(r), b = TI(r + 1);
+        float qax, qay, qbx, qby;
+        bb_closest(px[a], py[a], C[a], S[a], TF(r + 2), TF(r + 3),
+                   px[b], py[b], C[b], S[b], TF(r + 4), TF(r + 5), qax, qay, qbx, qby);
+        float iax = qax, iay = qay, da = 0.f, ibx = qbx, iby = qby, db = 0.f;
+        if (TI(r + 6)) inner_point_box(qbx, qby, qax, qay, px[a], py[a], iax, iay, da);
+        if (TI(r + 7)) inner_point_box(qax, qay, qbx, qby, px[b], py[b], ibx, iby, db);
+        float afx, afy;
+        constraint_force(cm, cf, iax, iay, ibx, iby, da + db + LMD_F, afx, afy);
+        put(buf, k, afx, afy, (qax - px[a]) * afy - (qay - py[a]) * afx,
+            (qbx - px[b]) * (-afy) - (qby - py[b]) * (-afx));
+      }
+      __syncwarp(ln.mask);
+      accumulate<L, true, true>(tab, sp.o_lst, 6, E, ln, buf, s);
+      __syncwarp(ln.mask);
+    }
+
+    // integrate each entity on the lane that owns it (semi-implicit Euler;
+    // drag on the first substep only). Accumulators of entities that are not
+    // movable (rotatable) are never read, so they need no masks.
+#pragma unroll 1
+    for (int e = lane; e < E; e += L) {
+      const int fl = sp.flags[e];
+      const bool drag = substep == 0 && (fl & F_DRAG);
+      if (fl & F_MOVABLE) {
+        float vxe = vx[e], vye = vy[e];
+        if (drag) {
+          vxe = vxe * sp.drag_fac[e];
+          vye = vye * sp.drag_fac[e];
+        }
+        float inv_m = sp.inv_mass[e];
+        vxe = vxe + Fx[e] * inv_m * sub_dt;
+        vye = vye + Fy[e] * inv_m * sub_dt;
+        if (fl & F_MAX_SPEED) {
+          float ms = sp.max_speed[e];
+          float n = sqrtf(vxe * vxe + vye * vye);
+          float sc = n > ms ? ms / n : 1.f;
+          vxe = vxe * sc;
+          vye = vye * sc;
+        }
+        if (fl & F_V_RANGE) {
+          float vr = sp.v_range[e];
+          vxe = fminf(fmaxf(vxe, -vr), vr);
+          vye = fminf(fmaxf(vye, -vr), vr);
+        }
+        float pxe = px[e] + vxe * sub_dt;
+        float pye = py[e] + vye * sub_dt;
+        if (sp.has_x) pxe = fminf(fmaxf(pxe, -sp.x_semidim), sp.x_semidim);
+        if (sp.has_y) pye = fminf(fmaxf(pye, -sp.y_semidim), sp.y_semidim);
+        vx[e] = vxe;
+        vy[e] = vye;
+        px[e] = pxe;
+        py[e] = pye;
+      }
+      if (fl & F_ROTATABLE) {
+        float we = w[e];
+        if (drag) we = we * sp.drag_fac[e];
+        we = we + Tq[e] * sp.inv_moi[e] * sub_dt;
+        w[e] = we;
+        rot[e] = rot[e] + we * sub_dt;
+      }
+    }
+    __syncwarp(ln.mask);
   }
 }
 
@@ -1131,9 +1516,159 @@ struct SimpleSpreadEmit {
 // the kernel, in both forms
 // ---------------------------------------------------------------------------
 
+#define NT 128  // threads per block
+
+// The block's dynamic shared memory, in 4-byte words: the G groups' item
+// buffers (float4, first, so they are 16-byte aligned), the G env records
+// (the env's input rows, then Fx, Fy, Tq, C and S: 5E), the output rows
+// [n_rows_out][G] (the emit rows, then in the rows form the hook rows), the
+// rows form's action rows of one step [2 n_act][G], and the world's table.
+// A record's stride is padded to L modulo 32 words, so the lanes of the
+// groups that share a warp read entity e of their records from distinct
+// banks.
+struct Smem {
+  int G, n_max, R_x, stride, o_rec, o_out, o_act, o_tab, words;
+};
+
+__host__ __device__ inline Smem smem_layout(const FusedSpec& sp, bool rows, int n_ctrl, int n_rows_out, int L) {
+  Smem m;
+  m.G = NT / L;
+  int n_max = sp.J;
+  const int ns[6] = {sp.n_ss, sp.n_ls, sp.n_ll, sp.n_bs, sp.n_bl, sp.n_bb};
+  for (int t = 0; t < 6; ++t) n_max = ns[t] > n_max ? ns[t] : n_max;
+  m.n_max = n_max;
+  m.R_x = 9 * sp.E + sp.J + (rows ? sp.K_in + n_ctrl : 2 * sp.E * sp.dyn_g + sp.K_in);
+  const int rec = m.R_x + 5 * sp.E;
+  m.stride = rec + ((L - rec % 32) % 32 + 32) % 32;
+  m.o_rec = 4 * m.G * n_max;
+  m.o_out = m.o_rec + m.G * m.stride;
+  m.o_act = m.o_out + n_rows_out * m.G;
+  m.o_tab = m.o_act + (rows ? 2 * sp.n_act * m.G : 0);
+  m.words = m.o_tab + sp.n_tab;
+  return m;
+}
+
+// One group of L lanes per env (L = 4, 8, 16 or 32), G = NT / L envs per block (block env0 +
+// g). Every thread of the block runs every phase: a group whose env lies
+// beyond B computes on zero rows and stores nothing, so no barrier is
+// skipped on a ragged last block.
+template <bool ROWS, class Emit, int L>
+__global__ void __launch_bounds__(NT)
+fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, const int* __restrict__ gtab,
+                  const float* __restrict__ x, const float* __restrict__ act, float* __restrict__ out,
+                  float* __restrict__ extra, int B, int k_steps, int n_rows_out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int E = sp.E;
+  const int n_ctrl = ROWS ? 4 * ap.n_pid : 0;
+  const Smem m = smem_layout(sp, ROWS, n_ctrl, n_rows_out, L);
+  constexpr int G = NT / L;
+  const int tid = threadIdx.x, env0 = blockIdx.x * G;
+  const int g = tid / L;
+  Lanes ln;
+  ln.lane = tid % L;
+  ln.mask = L == 32 ? 0xffffffffu : ((1u << L) - 1u) << ((tid & 31) & ~(L - 1));
+  int* tab = reinterpret_cast<int*>(smem + m.o_tab);
+  float* rec = smem + m.o_rec + g * m.stride;
+  float* sh_out = smem + m.o_out;
+  float* sh_act = smem + m.o_act;
+  float4* buf = smem4 + g * m.n_max;
+
+  // the world's table, once per block; the G envs' input rows, row by row
+  // over neighbouring envs
+  for (int i = tid; i < sp.n_tab; i += NT) tab[i] = __ldg(gtab + i);
+  for (int i = tid; i < m.R_x * G; i += NT) {
+    const int r = i / G, gg = i % G, b = env0 + gg;
+    smem[m.o_rec + gg * m.stride + r] = b < B ? __ldg(x + (size_t)r * B + b) : 0.f;
+  }
+  __syncthreads();
+
+  EnvRows s;
+  s.px = rec;
+  s.py = rec + E;
+  s.vx = rec + 2 * E;
+  s.vy = rec + 3 * E;
+  s.rot = rec + 4 * E;
+  s.w = rec + 5 * E;
+  s.fx = rec + 6 * E;
+  s.fy = rec + 7 * E;
+  s.tq = rec + 8 * E;
+  s.jfr = rec + 9 * E;
+  // the scratch rows follow the joint rows and, with dynamic gravity (the
+  // fused form only), its 2E rows; the controller rows follow the scratch
+  // rows in the carry
+  s.dg = rec + 9 * E + sp.J;
+  float* scratch = rec + 9 * E + sp.J + (ROWS ? 0 : 2 * E * sp.dyn_g);
+  float* ctrl = scratch + sp.K_in;
+  s.Fx = rec + m.R_x;
+  s.Fy = s.Fx + E;
+  s.Tq = s.Fx + 2 * E;
+  s.C = s.Fx + 3 * E;
+  s.S = s.Fx + 4 * E;
+
+  // the fused form runs one step: a constant bound lets the compiler drop
+  // the loop there
+  const int n_steps = ROWS ? k_steps : 1;
+  for (int step = 0; step < n_steps; ++step) {
+    if (ROWS) {
+      // this step's action rows, then on one lane of each group the action
+      // override (holonomic process_action: force = u) and the scenario's
+      // process_action, which writes its hook rows after the emit rows
+      const float* a = act + (size_t)step * 2 * sp.n_act * B;
+      for (int i = tid; i < 2 * sp.n_act * G; i += NT) {
+        const int r = i / G, b = env0 + i % G;
+        sh_act[i] = b < B ? __ldg(a + (size_t)r * B + b) : 0.f;
+      }
+      __syncthreads();
+      if (ln.lane == 0) {
+        for (int i = 0; i < sp.n_act; ++i) {
+          const int e = sp.act_slot[i];
+          s.fx[e] = sh_act[i * G + g];
+          s.fy[e] = sh_act[(sp.n_act + i) * G + g];
+        }
+        if (ap.n_pid) pid_act(ap, s.fx, s.fy, s.vx, s.vy, ctrl, sh_out + (n_rows_out - 2 * ap.n_pid) * G, G, g);
+      }
+      __syncwarp(ln.mask);
+    }
+
+    physics<L>(sp, tab, ln, buf, s);
+
+    // the emit rows, on one lane of each group, into the block's output rows
+    if (ln.lane == 0) {
+      Emit::emit(ep, s.px, s.py, s.vx, s.vy, s.rot, s.w, scratch, sh_out, G, g);
+      if (ROWS) {
+        // the scratch rows carry the emit rows the scenario names
+        for (int k = 0; k < sp.K_in; ++k) {
+          const int ei = ep.carry_idx[k];
+          if (ei >= 0) scratch[k] = sh_out[ei * G + g];
+        }
+      }
+    }
+    __syncthreads();
+    // the output rows: this step's block of the rows form's extra rows (its
+    // emit rows, then its hook rows), or the fused form's rows after the
+    // state rows
+    float* o = ROWS ? extra + (size_t)step * n_rows_out * B : out + (size_t)9 * E * B;
+    for (int i = tid; i < n_rows_out * G; i += NT) {
+      const int r = i / G, b = env0 + i % G;
+      if (b < B) o[(size_t)r * B + b] = sh_out[i];
+    }
+  }
+
+  // the state rows; the rows form's carry also holds the joints' fixed
+  // rotations (unchanged), the scratch and the controller rows
+  const int n_store = ROWS ? m.R_x : 9 * E;
+  for (int i = tid; i < n_store * G; i += NT) {
+    const int r = i / G, gg = i % G, b = env0 + gg;
+    if (b < B) out[(size_t)r * B + b] = smem[m.o_rec + gg * m.stride + r];
+  }
+}
+
+// The one-thread form (L = 1): one thread per env, blocks of NT, the env's
+// state in per-thread arrays, the table read from device memory.
 template <bool ROWS, class Emit>
-__global__ void __launch_bounds__(128)
-fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, const int* __restrict__ tab,
+__global__ void __launch_bounds__(NT)
+fused_step_kernel_thread(const FusedSpec sp, const EmitParams ep, const ActParams ap, const int* __restrict__ tab,
                   const float* __restrict__ x,
                   const float* __restrict__ act, float* __restrict__ out,
                   float* __restrict__ extra, int B, int k_steps, int n_tot) {
@@ -1181,7 +1716,7 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, c
       if (ap.n_pid) pid_act(ap, fx, fy, vx, vy, ctrl, blk + (size_t)(n_tot - 2 * ap.n_pid) * B, B, b);
     }
 
-    physics(sp, tab, x + (size_t)9 * E * B, x + (size_t)(9 * E + sp.J) * B, B, b, px, py, vx, vy, rot, w, fx,
+    physics_thread(sp, tab, x + (size_t)9 * E * B, x + (size_t)(9 * E + sp.J) * B, B, b, px, py, vx, vy, rot, w, fx,
             fy, tq);
 
     // the emit rows follow the state rows (fused step) or open this step's
@@ -1218,51 +1753,113 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, c
   }
 }
 
+template <bool ROWS, class Emit, int L>
+static int launch(const FusedSpec& sp, const EmitParams& ep, const ActParams& ap, const int* tab, const float* x,
+                  const float* act, float* out, float* extra, int B, int k_steps, int n_rows_out, size_t smem,
+                  cudaStream_t s) {
+  // above 48 KB a block's dynamic shared memory needs the kernel's opt-in,
+  // set once per instantiation to the largest size asked so far
+  static size_t opted = 48 * 1024;
+  if (smem > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(fused_step_kernel<ROWS, Emit, L>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = smem;
+  }
+  constexpr int G = NT / L;
+  fused_step_kernel<ROWS, Emit, L><<<(B + G - 1) / G, NT, smem, s>>>(sp, ep, ap, tab, x, act, out, extra, B,
+                                                                    k_steps, n_rows_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ROWS, class Emit>
+static int launch_lanes(int lanes, const FusedSpec& sp, const EmitParams& ep, const ActParams& ap, const int* tab,
+                        const float* x, const float* act, float* out, float* extra, int B, int k_steps,
+                        int n_rows_out, size_t smem, cudaStream_t s) {
+  if (lanes == 1) {
+    fused_step_kernel_thread<ROWS, Emit><<<(B + NT - 1) / NT, NT, 0, s>>>(sp, ep, ap, tab, x, act, out, extra, B,
+                                                                         k_steps, n_rows_out);
+    return static_cast<int>(cudaGetLastError());
+  }
+#define LANES(L) launch<ROWS, Emit, L>(sp, ep, ap, tab, x, act, out, extra, B, k_steps, n_rows_out, smem, s)
+  if (lanes == 4) return LANES(4);
+  if (lanes == 8) return LANES(8);
+  if (lanes == 16) return LANES(16);
+  if (lanes == 32) return LANES(32);
+#undef LANES
+  return cudaErrorInvalidValue;
+}
+
+// the device's limit, read once per device
+static int max_smem_optin() {
+  static int limit[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (limit[dev] == 0 &&
+      cudaDeviceGetAttribute(&limit[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    limit[dev] = 0;
+  return limit[dev];
+}
+
 extern "C" {
 
-// Launch one fused step on `stream`. tab: the world's joint and pair tables
-// (int32 words, FusedSpec's offsets). rows_mode = 0: x [9E + J (+ 2E with
-// spec->dyn_g) + K_in, B] -> out [9E + K_out, B], k_steps 1, ap->n_pid 0.
-// rows_mode = 1: x = carry [R_in, B], act [k_steps * 2A, B] -> out = carry'
-// [R_in, B], extra [k_steps * n_tot, B] (per step n_out emit rows, then 2 *
-// ap->n_pid hook rows); it needs an emit and takes no dynamic gravity. An
-// unknown emit kind or a k_steps, n_pid or n_tot out of range returns
-// cudaErrorInvalidValue; else cudaGetLastError().
-int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams* ap, int emit_kind,
+// The dynamic shared memory, in bytes, of one block of the kernel with
+// `lanes` lanes per env (rows_mode, n_ctrl controller rows and n_rows_out
+// output rows as vmas_fused_step takes them).
+long long vmas_fused_smem(const FusedSpec* spec, int lanes, int rows_mode, int n_ctrl, int n_rows_out) {
+  return lanes == 1 ? 0 : 4LL * smem_layout(*spec, rows_mode != 0, n_ctrl, n_rows_out, lanes).words;
+}
+
+// The largest dynamic shared memory a block may opt in to on the current
+// device, in bytes.
+int vmas_max_smem() { return max_smem_optin(); }
+
+// Launch one fused step on `stream`, `lanes` lanes per env: 1, the one-thread
+// form; 4, 8, 16 or 32, the group form.
+// tab: the world's joint and pair tables and lane lists (int32 words,
+// FusedSpec's offsets, spec->n_tab of them). rows_mode = 0: x [9E + J (+ 2E
+// with spec->dyn_g) + K_in, B] -> out [9E + n_tot, B] (n_tot: the emit's
+// rows), k_steps 1, ap->n_pid 0. rows_mode = 1: x = carry [R_in, B], act
+// [k_steps * 2A, B] -> out = carry' [R_in, B], extra [k_steps * n_tot, B]
+// (per step n_out emit rows, then 2 * ap->n_pid hook rows); it needs an emit
+// and takes no dynamic gravity. An unknown emit kind or lane count, a
+// k_steps, n_pid or n_tot out of range, or a block's shared memory beyond
+// the device's limit returns cudaErrorInvalidValue; else cudaGetLastError().
+int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams* ap, int emit_kind, int lanes,
                     const int* tab, const float* x, const float* act, float* out, float* extra, int B,
                     int rows_mode, int k_steps, int n_tot, void* stream) {
-  if (k_steps < 1 || ap->n_pid < 0 || ap->n_pid > MAX_PID) return cudaErrorInvalidValue;
+  if (k_steps < 1 || ap->n_pid < 0 || ap->n_pid > MAX_PID || n_tot < 0) return cudaErrorInvalidValue;
   if (!rows_mode && (k_steps != 1 || ap->n_pid != 0)) return cudaErrorInvalidValue;
   if (rows_mode && (n_tot < 2 * ap->n_pid || spec->dyn_g)) return cudaErrorInvalidValue;
+  if (lanes != 1 && lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)vmas_fused_smem(spec, lanes, rows_mode, rows_mode ? 4 * ap->n_pid : 0, n_tot);
+  if (smem > (size_t)max_smem_optin()) return cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  dim3 block(128), grid((B + 127) / 128);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LAUNCH(ROWS, EMIT) \
-  fused_step_kernel<ROWS, EMIT><<<grid, block, 0, s>>>(*spec, *ep, *ap, tab, x, act, out, extra, B, k_steps, n_tot)
+  launch_lanes<ROWS, EMIT>(lanes, *spec, *ep, *ap, tab, x, act, out, extra, B, k_steps, n_tot, smem, s)
   if (rows_mode) {
-    if (emit_kind == EMIT_TRANSPORT) LAUNCH(true, TransportEmit);
-    else if (emit_kind == EMIT_BALANCE) LAUNCH(true, BalanceEmit);
-    else if (emit_kind == EMIT_JOINT_PASSAGE) LAUNCH(true, JointPassageEmit);
-    else if (emit_kind == EMIT_WATERFALL) LAUNCH(true, WaterfallEmit);
-    else if (emit_kind == EMIT_GIVE_WAY) LAUNCH(true, GiveWayEmit);
-    else if (emit_kind == EMIT_MULTI_GIVE_WAY) LAUNCH(true, MultiGiveWayEmit);
-    else if (emit_kind == EMIT_SIMPLE) LAUNCH(true, SimpleEmit);
-    else if (emit_kind == EMIT_SIMPLE_SPREAD) LAUNCH(true, SimpleSpreadEmit);
-    else return cudaErrorInvalidValue;
+    if (emit_kind == EMIT_TRANSPORT) return LAUNCH(true, TransportEmit);
+    if (emit_kind == EMIT_BALANCE) return LAUNCH(true, BalanceEmit);
+    if (emit_kind == EMIT_JOINT_PASSAGE) return LAUNCH(true, JointPassageEmit);
+    if (emit_kind == EMIT_WATERFALL) return LAUNCH(true, WaterfallEmit);
+    if (emit_kind == EMIT_GIVE_WAY) return LAUNCH(true, GiveWayEmit);
+    if (emit_kind == EMIT_MULTI_GIVE_WAY) return LAUNCH(true, MultiGiveWayEmit);
+    if (emit_kind == EMIT_SIMPLE) return LAUNCH(true, SimpleEmit);
+    if (emit_kind == EMIT_SIMPLE_SPREAD) return LAUNCH(true, SimpleSpreadEmit);
   } else {
-    if (emit_kind == EMIT_NONE) LAUNCH(false, NoEmit);
-    else if (emit_kind == EMIT_TRANSPORT) LAUNCH(false, TransportEmit);
-    else if (emit_kind == EMIT_BALANCE) LAUNCH(false, BalanceEmit);
-    else if (emit_kind == EMIT_JOINT_PASSAGE) LAUNCH(false, JointPassageEmit);
-    else if (emit_kind == EMIT_WATERFALL) LAUNCH(false, WaterfallEmit);
-    else if (emit_kind == EMIT_GIVE_WAY) LAUNCH(false, GiveWayEmit);
-    else if (emit_kind == EMIT_MULTI_GIVE_WAY) LAUNCH(false, MultiGiveWayEmit);
-    else if (emit_kind == EMIT_SIMPLE) LAUNCH(false, SimpleEmit);
-    else if (emit_kind == EMIT_SIMPLE_SPREAD) LAUNCH(false, SimpleSpreadEmit);
-    else return cudaErrorInvalidValue;
+    if (emit_kind == EMIT_NONE) return LAUNCH(false, NoEmit);
+    if (emit_kind == EMIT_TRANSPORT) return LAUNCH(false, TransportEmit);
+    if (emit_kind == EMIT_BALANCE) return LAUNCH(false, BalanceEmit);
+    if (emit_kind == EMIT_JOINT_PASSAGE) return LAUNCH(false, JointPassageEmit);
+    if (emit_kind == EMIT_WATERFALL) return LAUNCH(false, WaterfallEmit);
+    if (emit_kind == EMIT_GIVE_WAY) return LAUNCH(false, GiveWayEmit);
+    if (emit_kind == EMIT_MULTI_GIVE_WAY) return LAUNCH(false, MultiGiveWayEmit);
+    if (emit_kind == EMIT_SIMPLE) return LAUNCH(false, SimpleEmit);
+    if (emit_kind == EMIT_SIMPLE_SPREAD) return LAUNCH(false, SimpleSpreadEmit);
   }
 #undef LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return cudaErrorInvalidValue;
 }
 
 const char* vmas_cuda_error_string(int err) {

@@ -11,8 +11,9 @@ fixed-rotation torques active, and the margin of joint_passage's flags;
 give_way and multi_give_way states with the agents pressed into their
 corridor walls and into each other and their velocity controllers'
 memory set, actions that drive every branch of the in-kernel PID, and
-the count of lanes each branch acted in; a wind_flocking state with the
-big agent's wind rescaled, and an MPE state with agents overlapping.
+the count of lanes each branch acted in; a transport state with the
+agents pressed against the package, a wind_flocking state with the big
+agent's wind rescaled, and an MPE state with agents overlapping.
 The states are numpy dicts made from a seeded generator, so that both
 packages can load the same one.
 """
@@ -593,6 +594,30 @@ def pid_counts(world, fo, carry, act):
                 acc = acc + dt * ((ux if c == 0 else uy) - carry[v])
                 counts["cutoff"] += int((acc.abs() > cutoff).sum())
     return counts
+
+
+def transport_contact_state(env, rng):
+    """A numpy state dict of a transport env in which every env is in
+    contact: agents 0 and 1 side by side against the package's -x face,
+    the other agents around it at contact range, the goal near the
+    package; random rotations, velocities and forces (``chip_smoke.py``'s
+    ``contact_rich``, made from a numpy generator)."""
+    sc = env.scenario
+    B, E = env.state.pos.shape[:2]
+    pi, gi = sc.packages[0].index, sc.goal.index
+    ai = [a.index for a in env.world.agents]
+    pos = np.zeros((B, E, 2))
+    pkg = rng.uniform(-0.8, 0.8, (B, 2))
+    pos[:, pi] = pkg
+    pos[:, gi] = pkg + rng.normal(0, 0.15, (B, 2))
+    pos[:, ai[0]] = pkg + np.array([-0.1, 0.024]) + rng.normal(0, 0.004, (B, 2))
+    pos[:, ai[1]] = pkg + np.array([-0.1, -0.024]) + rng.normal(0, 0.004, (B, 2))
+    for a in ai[2:]:
+        ang = rng.uniform(0, 2 * np.pi, B)
+        r = 0.1 + rng.normal(0, 0.01, B)
+        pos[:, a] = pkg + np.stack([np.cos(ang), np.sin(ang)], -1) * r[:, None]
+    return _np_state(env.state, pos, rng.uniform(-3.14159, 3.14159, (B, E)), rng.normal(0, 0.3, (B, E, 2)),
+                     rng.normal(0, 0.2, (B, E)), rng.normal(0, 0.5, (B, E, 2)))
 
 
 def wind_flocking_state(env, rng):
