@@ -47,12 +47,16 @@
    at k_steps 1 and at k_steps 4, each once to warm up and 3 timed calls,
    env-steps/s and the device idle share; and transport's rows rollout at
    k_steps 1 and 4 side by side.
-8. road_traffic at 4096 envs x 20 vehicles: the path-sweep kernel and the
-   all-ego observation kernel against their plain versions (after a reset,
-   after 20 random steps, and on lanes placed on path vertices and padded
-   tails), then its main path with the counts zeroed: make_env with every
-   default, reset, 5 env.step calls, rollout_fn(horizon=100) once to warm up
-   and 3 timed calls, with one launch of each kernel per step and reset.
+8. road_traffic at 4096 envs x 20 vehicles: each road_traffic kernel's
+   registers, stack and spills; the path-sweep kernel's group form and the
+   all-ego observation kernel's tile form, as the scenario runs them,
+   bitwise against their one-thread forms and against their plain versions
+   (after a reset, after 20 random steps, and on lanes placed on path
+   vertices and padded tails); both forms' device time in turns (one-thread,
+   default, default, one-thread); then its main path with the counts zeroed:
+   make_env with every default, reset, 5 env.step calls,
+   rollout_fn(horizon=100) once to warm up and 3 timed calls, with one
+   launch of each kernel per step and reset.
 9. wind_flocking at 4096 envs: its fused step with the dynamic-gravity rows
    against its plain version, bitwise, on the rows of 10 env.step calls
    from a state with the big agent's wind weakened and the agents touching
@@ -1397,10 +1401,12 @@ def rt_sweep_work(tables, pid, S):
     """(bytes, operations) of one path-sweep launch on these lanes, from the
     loops of csrc/road_traffic.cu and this run's paths: per centre-line
     segment 26 (segment set-up 6, point-to-segment distance 19, running
-    minimum 1); per boundary segment 185 (set-up 6, 5 points x 20, straddle
-    tests 3 + 4 edges x 19); per lane the rectangle (40, cos and sin) and
-    the edge set-up (2 boundaries x 32). Bytes: pid, pos and rot in, the
-    16 + 2S output rows out, the path tables once."""
+    minimum 1); per boundary segment 181 (set-up 6, the CG's distance 19
+    and its minimum 1, 4 corners' squared distances 18 and their minima 1,
+    straddle tests 3 + 4 edges x 19); per lane the rectangle (40, cos and
+    sin), the edge set-up (2 boundaries x 32) and the corners' 8 roots,
+    taken once after their minima. Bytes: pid, pos and rot in, the 16 + 2S
+    output rows out, the path tables once."""
     import torch
 
     Mc, Mb = tables.center.shape[1], tables.left.shape[1]
@@ -1409,7 +1415,7 @@ def rt_sweep_work(tables, pid, S):
     seg_c = int(nseg(meta[:, 0], Mc))
     seg_b = int(nseg(meta[:, 1], Mb)) + int(nseg(meta[:, 2], Mb))
     N = pid.numel()
-    ops = 26 * seg_c + 185 * seg_b + N * (40 + 2 * TRIG_OPS + 64)
+    ops = 26 * seg_c + 181 * seg_b + N * (40 + 2 * TRIG_OPS + 64 + 8)
     table_bytes = sum(t.numel() * t.element_size() for t in (tables.center, tables.left, tables.right, tables.meta))
     return N * (8 + 8 + 4 + 4 * (16 + 2 * S)) + table_bytes, ops
 
@@ -1447,12 +1453,32 @@ def rt_selection(obs, pos, rot, verts, S, K, norm_pos):
     return torch.stack(picks, -1)  # [A, B, K]
 
 
-def rt_compare_sweep(sc, pid, pos, rot, tag):
-    """The path-sweep kernel against its plain version on these lanes:
-    indices, straddle flags and short-term points equal, distances within
-    RT_ATOL. Returns the max abs distance error."""
+def rt_forms_sweep(sc, pid, pos, rot, tag):
+    """The path-sweep kernel's group form (every group size built) against
+    its one-thread form (lanes=1), bitwise on all 16 + 2S output rows;
+    raises on any difference."""
+    import torch
     from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
 
+    T = sc._sweep_tables
+    ref = rtk.sweep_rows(T, pid, pos, rot, lanes=1, **sc.sweep_kw).view(torch.int32)
+    for lanes in rtk.SWEEP_LANES_BUILT[1:]:
+        got = rtk.sweep_rows(T, pid, pos, rot, lanes=lanes, **sc.sweep_kw).view(torch.int32)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"rt_sweep at {lanes} lanes differs from the one-thread form ({tag}): "
+                                 f"{int((got != ref).sum())} of {ref.numel()} values")
+    print(f"rt_sweep, {tag}: lanes {rtk.SWEEP_LANES_BUILT[1:]} bitwise the one-thread form "
+          f"({ref.shape[0]} rows x {ref.shape[1]} lanes)", flush=True)
+
+
+def rt_compare_sweep(sc, pid, pos, rot, tag):
+    """The path-sweep kernel, the group form bitwise the one-thread form and
+    the default form against its plain version on these lanes: indices,
+    straddle flags and short-term points equal, distances within RT_ATOL.
+    Returns the max abs distance error."""
+    from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
+
+    rt_forms_sweep(sc, pid, pos, rot, tag)
     got = rtk.sweep_all(sc._sweep_tables, pid, pos, rot, **sc.sweep_kw)
     want = rtk.sweep_all_plain(sc._sweep_tables, pid, pos, rot, **sc.sweep_kw)
     mism = {k: int((got[k] != want[k]).sum()) for k in RT_EXACT}
@@ -1467,13 +1493,21 @@ def rt_compare_sweep(sc, pid, pos, rot, tag):
 
 
 def rt_compare_obs(sc, state, tag):
-    """The observation kernel against its plain version on one state: the
-    same neighbours and far masks, values within RT_ATOL. Returns the max
-    abs error."""
+    """The observation kernel, the default (tile) form bitwise the
+    one-thread form (tile=0) and against its plain version on one state:
+    the same neighbours and far masks, values within RT_ATOL. Returns the
+    max abs error."""
+    import torch
     from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
 
     xs = sc.obs_inputs(state)
+    ref = rtk.obs_all(*xs, **sc.obs_kw, tile=0).view(torch.int32)
     got = rtk.obs_all(*xs, **sc.obs_kw)
+    if not torch.equal(got.view(torch.int32), ref):
+        raise AssertionError(f"rt_obs's default form differs from the one-thread form ({tag}): "
+                             f"{int((got.view(torch.int32) != ref).sum())} of {ref.numel()} values")
+    print(f"rt_obs, {tag}: tile {rtk.obs_tile(sc.n_agents, sc.sweep_kw['S'], sc.obs_kw['K'], got.device)} "
+          f"bitwise the one-thread form", flush=True)
     want = rtk.obs_all_plain(*xs, **sc.obs_kw)
     S, K = sc.sweep_kw["S"], sc.obs_kw["K"]
     sel = [rt_selection(o, xs[0], xs[1], xs[4], S, K, sc.obs_kw["norm_pos"]) for o in (got, want)]
@@ -1486,16 +1520,58 @@ def rt_compare_obs(sc, state, tag):
     return err
 
 
+def rt_form_times(name, run, forms, kernel_of):
+    """Device ms per launch of each form of one kernel (torch.profiler, 200
+    launches), taken in turns: the forms, then the forms in reverse (the
+    one-thread form first: one-thread, default, default, one-thread).
+    Returns {form: mean ms}, and prints both readings."""
+    got = {f: [] for f in forms}
+    for f in [*forms, *reversed(forms)]:
+        got[f].append(device_ms(lambda: run(f), 200, kernel_of(f))[0])
+    for f, v in got.items():
+        if min(v) <= 0:
+            raise AssertionError(f"the profiler saw no device time for {name} form {f}")
+    print(f"{name} forms, us per launch in turns (forward, reverse): "
+          + "; ".join(f"{f}: {v[0] * 1e3:.3f} / {v[1] * 1e3:.3f}" for f, v in got.items()), flush=True)
+    return {f: sum(v) / len(v) for f, v in got.items()}
+
+
+def rt_ptxas_report():
+    """Print registers, stack and spills of each road_traffic kernel
+    instantiation (``-Xptxas -v``)."""
+    import re
+
+    from vmas_tpu_torch import _kernels
+    from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
+
+    n = 0
+    for part in _kernels.build_log("road_traffic").split("Compiling entry function '")[1:]:
+        m = re.search(r"(rt_\w+?_kernel)(?:ILi(\d+)E)?", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        if not (m and regs and frame):
+            continue
+        tmpl = f"<{m.group(2)}>" if m.group(2) else ""
+        print(f"ptxas {m.group(1)}{tmpl}: {regs.group(1)} registers, {frame.group(1)} B stack, "
+              f"spill stores {frame.group(2)} B, loads {frame.group(3)} B", flush=True)
+        n += 1
+    want = len(rtk.SWEEP_LANES_BUILT) + 2  # every sweep form, both observation forms
+    if n != want:
+        raise AssertionError(f"the build log lists {n} road_traffic kernels, not {want}")
+
+
 def road_traffic_phase(card, dev):
-    """road_traffic's kernels against their plain versions, its main path,
-    and its two entries of the kernels line."""
+    """road_traffic's kernels against their one-thread forms and their plain
+    versions, each form's time, its main path, and its two entries of the
+    kernels line."""
     import torch
-    from vmas_tpu_torch import make_env
+    from vmas_tpu_torch import make_env, testing
     from vmas_tpu_torch.parallel.rollout import rollout_fn
     from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
 
     B, A = NUM_ENVS, RT_AGENTS
-    # -- kernels against plain, at full width ---------------------------------
+    rt_ptxas_report()
+    # -- kernels against their one-thread forms and plain, at full width --------
     env = make_env("road_traffic", B, device=dev, seed=0)
     sc, T = env.scenario, env.scenario._sweep_tables
     S, K = sc.sweep_kw["S"], sc.obs_kw["K"]
@@ -1507,19 +1583,9 @@ def road_traffic_phase(card, dev):
     s_steps = env.state
     sweep_err = max(rt_compare_sweep(sc, *lanes(s_reset), "after reset"),
                     rt_compare_sweep(sc, *lanes(s_steps), f"after {RT_CMP_STEPS} random steps"))
-    g = torch.Generator(device=dev).manual_seed(5)
-    NP, Mc = T.center.shape[:2]
-    pid = torch.randint(0, NP, (B, A), generator=g, device=dev)
-    n = T.meta[pid, 0].long()
-    u = torch.rand((B, A), generator=g, device=dev)
-    tail = torch.clamp(n - 1 + (u * (Mc - n + 1)).long(), max=Mc - 1)  # padded tail, [n-1, Mc)
-    on = torch.where(torch.arange(A, device=dev) % 2 == 0, tail, (u * n).long())
-    rot = torch.rand((B, A), generator=g, device=dev) * 6.283185307179586
-    sweep_err = max(sweep_err, rt_compare_sweep(sc, pid, T.center[pid, on].contiguous(), rot,
-                                                "on centre-line vertices and padded tails"))
-    on_l = (u * T.meta[pid, 1].long()).long()
-    sweep_err = max(sweep_err, rt_compare_sweep(sc, pid, T.left[pid, on_l].contiguous(), rot,
-                                                "on left-boundary vertices"))
+    pid, on_c, on_l, rot = testing.rt_vertex_lanes(T, B, A, dev)
+    sweep_err = max(sweep_err, rt_compare_sweep(sc, pid, on_c, rot, "on centre-line vertices and padded tails"))
+    sweep_err = max(sweep_err, rt_compare_sweep(sc, pid, on_l, rot, "on left-boundary vertices"))
     obs_err = max(rt_compare_obs(sc, s_reset, "after reset"),
                   rt_compare_obs(sc, s_steps, f"after {RT_CMP_STEPS} random steps"))
 
@@ -1539,16 +1605,26 @@ def road_traffic_phase(card, dev):
           f"{env_err:.3e}, dones equal", flush=True)
     del envs
 
+    # each form's device time in turns, then the default form's wall time
+    # per call and the plain version's
     pid, pos, rot = lanes(s_steps)
     xs = sc.obs_inputs(s_steps)
-    times = {
-        "rt_sweep": kernel_times(
-            "rt_sweep", lambda: rtk.sweep_all(T, pid, pos, rot, **sc.sweep_kw),
-            lambda: rtk.sweep_all_plain(T, pid, pos, rot, **sc.sweep_kw), "rt_sweep_kernel"),
-        "rt_obs": kernel_times(
-            "rt_obs", lambda: rtk.obs_all(*xs, **sc.obs_kw), lambda: rtk.obs_all_plain(*xs, **sc.obs_kw),
-            "rt_obs_kernel"),
-    }
+    sweep_fn = lambda L: rtk.sweep_all(T, pid, pos, rot, **sc.sweep_kw, lanes=L)
+    obs_fn = lambda tile: rtk.obs_all(*xs, **sc.obs_kw, tile=tile)
+    obs_tile = rtk.obs_tile(A, S, K, dev)
+    sweep_us = rt_form_times("rt_sweep", sweep_fn, (1, rtk.SWEEP_LANES),
+                             lambda L: "rt_sweep_kernel" if L == 1 else "rt_sweep_group_kernel")
+    obs_us = rt_form_times("rt_obs", obs_fn, (0, obs_tile),
+                           lambda tile: "rt_obs_kernel" if tile == 0 else "rt_obs_tile_kernel")
+    times = {}
+    for name, fn, plain, form, thread, by_form in (
+            ("rt_sweep", sweep_fn, lambda: rtk.sweep_all_plain(T, pid, pos, rot, **sc.sweep_kw), rtk.SWEEP_LANES, 1,
+             sweep_us),
+            ("rt_obs", obs_fn, lambda: rtk.obs_all_plain(*xs, **sc.obs_kw), obs_tile, 0, obs_us)):
+        times[name] = {"ms": by_form[form], "wall_ms": time_ms(lambda: fn(None), 500), "plain_ms": time_ms(plain, 20)}
+        print(f"{name}: default form ({form}) {by_form[form] * 1e3:.3f} us on the device against the one-thread "
+              f"form's {by_form[thread] * 1e3:.3f} us, same run; {times[name]['wall_ms'] * 1e3:.3f} us per "
+              f"back-to-back call, plain version {times[name]['plain_ms'] * 1e3:.1f} us per call", flush=True)
     sweep_work, obs_work = rt_sweep_work(T, pid, S), rt_obs_work(B, A, S, K)
     del env, s_reset, s_steps, xs
 
@@ -1586,21 +1662,22 @@ def road_traffic_phase(card, dev):
           f"launches {launches} ({n_steps} steps, 2 resets)", flush=True)
 
     # where one main-path call's device time goes (after the counts)
-    _, busy_ms, by_name, n_ops = device_ms(lambda: run(state, steps, rgen), 1, "rt_sweep_kernel")
+    _, busy_ms, by_name, n_ops = device_ms(lambda: run(state, steps, rgen), 1, "rt_sweep")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    rt_ms = sum(v for k, v in by_name.items() if "rt_sweep_kernel" in k or "rt_obs_kernel" in k)
+    rt_ms = sum(v for k, v in by_name.items() if "rt_sweep" in k or "rt_obs" in k)
     print(f"device time of one road_traffic rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms wall "
           f"(idle share {1 - busy_ms / min(call_ms):.3f}); rt_sweep + rt_obs {rt_ms:.3f} ms; "
           f"{n_ops / RT_HORIZON:.1f} device operations per step; top: "
           + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
 
     src = "vmas_tpu_torch/csrc/road_traffic.cu"
-    return [
-        kernel_entry("rt_sweep", src, "vmas_tpu/scenarios/road_traffic_kernel.py:403", launches["rt_sweep"],
-                     sweep_err, times["rt_sweep"], *sweep_work),
-        kernel_entry("rt_obs", src, "vmas_tpu/scenarios/road_traffic_kernel.py:360", launches["rt_obs"],
-                     obs_err, times["rt_obs"], *obs_work),
-    ]
+    sweep = kernel_entry("rt_sweep", src, "vmas_tpu/scenarios/road_traffic_kernel.py:403", launches["rt_sweep"],
+                         sweep_err, times["rt_sweep"], *sweep_work)
+    sweep.update(lanes=rtk.SWEEP_LANES, thread_us=sweep_us[1] * 1e3)
+    obs = kernel_entry("rt_obs", src, "vmas_tpu/scenarios/road_traffic_kernel.py:360", launches["rt_obs"],
+                       obs_err, times["rt_obs"], *obs_work)
+    obs.update(tile=obs_tile, thread_us=obs_us[0] * 1e3)
+    return [sweep, obs]
 
 
 def main():

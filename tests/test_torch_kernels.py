@@ -10,8 +10,10 @@ CUDA toolkit:
 (``--noconftest`` keeps the repository's JAX test configuration out; these
 tests import no JAX.) Tolerances as in chip_smoke.py: state rows atol 1e-5
 rtol 1e-5, observation rows atol 2e-5, reward and shaping rows atol 2e-3;
-road_traffic's path sweeps and observations: indices, flags, short-term
-points and chosen neighbours equal, values atol 1e-6; its env with both
+road_traffic's path sweeps and observations: the sweep kernel's group
+form and the observation kernel at every tile its rule picks bitwise their
+one-thread forms; indices, flags, short-term points and chosen neighbours
+equal to the plain version's, values atol 1e-6; its env with both
 kernels against the plain path atol 5e-5; balance's on_ground and done flags
 equal except within 1e-5 of a threshold; joint_passage's just_passed and
 done flags likewise; give_way's and multi_give_way's rows step with the
@@ -482,6 +484,121 @@ def test_rt_wrappers_reject_bad_input(rt_env):
     xs = list(sc.obs_inputs(rt_env.state))
     with pytest.raises(ValueError, match="K must be"):
         rtk.obs_all(*xs, **{**sc.obs_kw, "K": 20})
+
+
+def _bits(x):
+    """A float tensor's bits, so that equal NaNs compare equal."""
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("width", [301, 4099])
+def test_rt_sweep_group_forms_bitwise_one_thread(width):
+    """The path-sweep kernel's group form (every group size built) bitwise
+    its one-thread form on all 16 + 2S rows, and against the plain version
+    as the default form is (indices, flags, short-term points equal;
+    distances atol 1e-6): at widths of 301 x 20 and 4099 x 20 lanes
+    (ragged for every group count), on stepped lanes, on chip_smoke.py's centre-line vertex, padded
+    tail and left-boundary vertex lanes, and with invalid path ids (NaN
+    rows)."""
+    from vmas_tpu_torch import testing
+
+    _cuda()
+    e = make_env("road_traffic", width, device="cuda", seed=3, is_add_noise=False)
+    for _ in range(2):
+        e.step(e.get_random_actions())
+    sc, T = e.scenario, e.scenario._sweep_tables
+    pid, on_c, on_l, rot = testing.rt_vertex_lanes(T, width, sc.n_agents, "cuda")
+    bad = pid.clone()
+    bad[0, 0], bad[1, 3] = -1, T.center.shape[0]
+    for case in (_rt_lanes(e), (pid, on_c, rot), (pid, on_l, rot)):
+        ref = rtk.sweep_rows(T, *case, lanes=1, **sc.sweep_kw)
+        want = rtk.sweep_all_plain(T, *case, **sc.sweep_kw)
+        for lanes in rtk.SWEEP_LANES_BUILT[1:]:
+            assert torch.equal(_bits(rtk.sweep_rows(T, *case, lanes=lanes, **sc.sweep_kw)), _bits(ref)), lanes
+            got = rtk.sweep_all(T, *case, lanes=lanes, **sc.sweep_kw)
+            for k in ("idx_ref", "idx_l", "idx_r", "coll_l", "coll_r", "short_term"):
+                assert torch.equal(got[k], want[k]), (lanes, k)
+            for k in ("d_ref", "dl5", "dr5"):
+                _close(got[k], want[k], 1e-6, 0.0)
+    ref = rtk.sweep_rows(T, bad, on_c, rot, lanes=1, **sc.sweep_kw)  # lane n = b * A + a
+    assert bool(ref[:, 0].isnan().all()) and bool(ref[:, sc.n_agents + 3].isnan().all())
+    for lanes in rtk.SWEEP_LANES_BUILT[1:]:
+        assert torch.equal(_bits(rtk.sweep_rows(T, bad, on_c, rot, lanes=lanes, **sc.sweep_kw)), _bits(ref)), lanes
+    torch.cuda.synchronize()
+
+
+def _rt_obs_inputs(B, A, S=3, seed=0):
+    """Random egos on the card, with exact distance ties (in every env,
+    agents 1 and 2 mirror each other about agent 0) and agents beyond the
+    mask threshold."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *sh: torch.rand(sh, generator=g) * 2 - 1
+    pos = u(B, A, 2) * 2.5
+    pos[:, 1] = pos[:, 0] + torch.tensor([0.3, 0.4])
+    pos[:, 2] = pos[:, 0] + torch.tensor([-0.3, 0.4])
+    rot = u(B, A) * 3.14159
+    verts = pos[:, :, None] + u(B, A, 5, 2) * 0.1
+    xs = [pos, rot, u(B, A, 2), pos[:, :, None] + u(B, A, S, 2) * 0.3, verts,
+          u(B, A).abs() * 0.2, u(B, A).abs() * 0.2, u(B, A).abs() * 0.2]
+    return [x.contiguous().cuda() for x in xs]
+
+
+@pytest.mark.parametrize("B,A,K", [(301, 20, 2), (4099, 20, 2), (301, 4, 3), (301, 20, rtk.K_MAX_OBS)])
+def test_rt_obs_tile_forms_bitwise_one_thread(B, A, K):
+    """The observation kernel at every tile its rule picks (8, 4, 2, 1)
+    bitwise its one-thread form, and against the plain version (far masks
+    equal, values atol 1e-6), at ragged B, at A = 4 with K = 3 and at
+    K = K_MAX_OBS."""
+    _cuda()
+    xs = _rt_obs_inputs(B, A)
+    kw = dict(K=K, apply_mask=True, norm_pos=1.6, norm_v=1.0, norm_dist=0.45, thresh=1.6)
+    ref = rtk.obs_all(*xs, **kw, tile=0)
+    want = rtk.obs_all_plain(*xs, **kw)
+    far = [10 + 11 * k + 10 for k in range(K)]
+    assert bool((want[..., far] == 1.0).any()) and not bool((want[..., far] == 1.0).all())
+    for tile in (1, 2, 4, 8):
+        got = rtk.obs_all(*xs, **kw, tile=tile)
+        assert torch.equal(_bits(got), _bits(ref)), tile
+        assert torch.equal(got[..., far] == 1.0, want[..., far] == 1.0), tile
+        _close(got, want, 1e-6, 0.0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("A", [64, 130])
+def test_rt_obs_tile_rule_many_vehicles(A):
+    """With more vehicles than a block of 8 envs holds (A = 64: too much
+    shared memory; A = 130: more than 1024 threads), the observation
+    kernel runs at the smaller tile its rule picks, bitwise its one-thread
+    form and against the plain version (far masks equal, values atol
+    1e-6); road_traffic steps at that width on the card."""
+    _cuda()
+    e = make_env("road_traffic", 33, device="cuda", seed=2, n_agents=A, is_add_noise=False)
+    obs, _, _, _ = e.step(e.get_random_actions())
+    assert all(bool(torch.isfinite(o).all()) for o in obs)
+    sc = e.scenario
+    S, K = sc.sweep_kw["S"], sc.obs_kw["K"]
+    tile = rtk.obs_tile(A, S, K, "cuda")
+    assert 0 < tile < rtk.OBS_TILE and tile * A <= 1024
+    xs = sc.obs_inputs(e.state)
+    got = rtk.obs_all(*xs, **sc.obs_kw)
+    assert torch.equal(_bits(got), _bits(rtk.obs_all(*xs, **sc.obs_kw, tile=0)))
+    want = rtk.obs_all_plain(*xs, **sc.obs_kw)
+    far = [1 + 2 * S + 3 + 11 * k + 10 for k in range(K)]
+    assert torch.equal(got[..., far] == 1.0, want[..., far] == 1.0)
+    _close(got, want, 1e-6, 0.0)
+    torch.cuda.synchronize()
+
+
+def test_rt_wrappers_reject_forms_not_built(rt_env):
+    sc = rt_env.scenario
+    lanes = _rt_lanes(rt_env)
+    for bad in (2, 3, 4, 16, 32, 64):
+        with pytest.raises(ValueError, match="built for lanes"):
+            rtk.sweep_all(sc._sweep_tables, *lanes, lanes=bad, **sc.sweep_kw)
+    xs = sc.obs_inputs(rt_env.state)
+    for bad in (-1, 52):  # 52 envs of 20 agents: more than 1024 threads a block
+        with pytest.raises(ValueError, match="tile must be"):
+            rtk.obs_all(*xs, tile=bad, **sc.obs_kw)
 
 
 # -- the lane kernel: every lane count, ragged widths ---------------------------

@@ -251,41 +251,51 @@ def check_tensor(name: str, t, dtype, shape) -> None:
 _LIBS = {}
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+def library(name: str, path=None) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed; with
+    ``path``, the library at ``path`` instead (a build of a variant of the
+    same source, for the timing tools), bound the same way and not kept."""
+    if path is not None:
+        return _bind(name, ctypes.CDLL(str(path)))
     lib = _LIBS.get(name)
     if lib is None:
         path = _lib_path(name)
         if not path.exists():
             build_all()
-        lib = ctypes.CDLL(str(path))
-        if name == "fused_step":
-            lib.vmas_fused_step.argtypes = [
-                ctypes.POINTER(FusedSpec), ctypes.POINTER(EmitParams), ctypes.POINTER(ActParams), ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.vmas_fused_step.restype = ctypes.c_int
-            lib.vmas_fused_smem.argtypes = [ctypes.POINTER(FusedSpec), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_int]
-            lib.vmas_fused_smem.restype = ctypes.c_longlong
-            lib.vmas_max_smem.argtypes = []
-            lib.vmas_max_smem.restype = ctypes.c_int
-            lib.vmas_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.vmas_cuda_error_string.restype = ctypes.c_char_p
-        elif name == "road_traffic":
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.vmas_rt_sweep.argtypes = [p, p, p, p, i, i, i, p, p, p, i, f, f, i, i, i, p, p]
-            lib.vmas_rt_sweep.restype = ctypes.c_int
-            lib.vmas_rt_obs.argtypes = [p] * 8 + [i] * 6 + [f] * 4 + [p, p]
-            lib.vmas_rt_obs.restype = ctypes.c_int
-            lib.vmas_rt_error_string.argtypes = [ctypes.c_int]
-            lib.vmas_rt_error_string.restype = ctypes.c_char_p
-        elif name == "opcost":
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.vmas_opcost.argtypes = [p, p, i, i, i, i, i, p]
-            lib.vmas_opcost.restype = ctypes.c_int
-            lib.vmas_opcost_error_string.argtypes = [ctypes.c_int]
-            lib.vmas_opcost_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        lib = _LIBS[name] = _bind(name, ctypes.CDLL(str(path)))
+    return lib
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of kernel ``name``'s C entry points."""
+    if name == "fused_step":
+        lib.vmas_fused_step.argtypes = [
+            ctypes.POINTER(FusedSpec), ctypes.POINTER(EmitParams), ctypes.POINTER(ActParams), ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.vmas_fused_step.restype = ctypes.c_int
+        lib.vmas_fused_smem.argtypes = [ctypes.POINTER(FusedSpec), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int]
+        lib.vmas_fused_smem.restype = ctypes.c_longlong
+        lib.vmas_max_smem.argtypes = []
+        lib.vmas_max_smem.restype = ctypes.c_int
+        lib.vmas_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.vmas_cuda_error_string.restype = ctypes.c_char_p
+    elif name == "road_traffic":
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.vmas_rt_sweep.argtypes = [p, p, p, p, i, i, i, p, p, p, i, f, f, i, i, i, i, p, p]
+        lib.vmas_rt_sweep.restype = ctypes.c_int
+        lib.vmas_rt_obs.argtypes = [p] * 8 + [i] * 6 + [f] * 4 + [i, p, p]
+        lib.vmas_rt_obs.restype = ctypes.c_int
+        lib.vmas_rt_max_smem.argtypes = []
+        lib.vmas_rt_max_smem.restype = ctypes.c_int
+        lib.vmas_rt_error_string.argtypes = [ctypes.c_int]
+        lib.vmas_rt_error_string.restype = ctypes.c_char_p
+    elif name == "opcost":
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.vmas_opcost.argtypes = [p, p, i, i, i, i, i, p]
+        lib.vmas_opcost.restype = ctypes.c_int
+        lib.vmas_opcost_error_string.argtypes = [ctypes.c_int]
+        lib.vmas_opcost_error_string.restype = ctypes.c_char_p
     return lib

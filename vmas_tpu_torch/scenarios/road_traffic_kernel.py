@@ -22,6 +22,16 @@ tensors (or raises), and counts each launch in ``sweep_launches`` /
 The TPU kernel gathered each lane's path rows as a one-hot matmul (TPU
 gathers are slow); here the tables are path-major (``[NP, M, 2]``) and the
 kernel reads its path's rows with indexed loads.
+
+Each kernel has two forms on the card, bitwise equal: the path sweeps run
+one (env, agent) lane on a group of ``SWEEP_LANES`` threads (``lanes=1``:
+one thread per lane), the observations one tile of envs per block with
+coalesced stores (``tile=0``: one thread per (env, ego)); the tile is the
+largest of ``OBS_TILE``, ``OBS_TILE / 2``, ..., 1 envs whose block fits
+1024 threads and the device's shared memory (:func:`obs_tile_for`), and 0
+where none does. The scenario runs the defaults; the ``lanes``/``tile``
+keywords are for the tests and chip_smoke.py, which hold the forms against
+each other.
 """
 
 from __future__ import annotations
@@ -49,6 +59,15 @@ R_ST = 16         # 2S rows (x then y)
 # the largest K the observation kernel's selection array holds
 # (csrc/road_traffic.cu, K_MAX)
 K_MAX_OBS = 8
+
+# threads per lane the sweep kernel is built for (1: one thread per lane),
+# and the count it runs at, chosen by measurement of 4, 8, 16 and 32
+# (PERF.md; tools/time_rt_kernels.py)
+SWEEP_LANES_BUILT = (1, 8)
+SWEEP_LANES = 8
+# the most envs per block of the observation kernel's tile form, chosen by
+# measurement (PERF.md); fewer where a block of them does not fit
+OBS_TILE = 8
 
 # kernel launches; only the CUDA wrappers add to them
 sweep_launches = 0
@@ -219,17 +238,81 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} kernel launch failed: {lib.vmas_rt_error_string(err).decode()}")
 
 
-def sweep_all(tables, pid, pos, rot, *, lh, wh, S, interval, shift):
+def _check_lanes(lanes):
+    lanes = SWEEP_LANES if lanes is None else lanes
+    if lanes not in SWEEP_LANES_BUILT:
+        raise ValueError(f"the sweep kernel is built for lanes in {SWEEP_LANES_BUILT}, got {lanes}")
+    return lanes
+
+
+def _check_tile(tile, A):
+    if tile is not None and not (isinstance(tile, int) and 0 <= tile and tile * A <= 1024):
+        raise ValueError(f"tile must be an int in [0, 1024 / A] envs per block (A={A}), got {tile}")
+
+
+def obs_tile_bytes(tile, A, S, K):
+    """Shared memory of one block of the observation kernel's tile form, in
+    bytes (csrc/road_traffic.cu, obs_tile_floats)."""
+    W = 1 + 2 * S + 3 + 11 * K
+    return 4 * tile * A * ((16 + 2 * S) + (A | 1) + (W | 1))
+
+
+def obs_tile_for(A, S, K, smem_limit):
+    """The tile the observation kernel runs at: the largest of OBS_TILE,
+    OBS_TILE / 2, ..., 1 envs whose block holds at most 1024 threads and
+    ``smem_limit`` bytes of shared memory, or 0 (one thread per (env, ego))
+    where none does."""
+    tile = OBS_TILE
+    while tile >= 1:
+        if tile * A <= 1024 and obs_tile_bytes(tile, A, S, K) <= smem_limit:
+            return tile
+        tile //= 2
+    return 0
+
+
+_smem_limit = {}  # device index -> bytes a block may opt in to
+
+
+def obs_tile(A, S, K, device):
+    """:func:`obs_tile_for` at the shared-memory limit of CUDA ``device``."""
+    device = torch.device(device)
+    idx = torch.cuda.current_device() if device.index is None else device.index
+    if idx not in _smem_limit:
+        with torch.cuda.device(idx):
+            _smem_limit[idx] = _kernels.library("road_traffic").vmas_rt_max_smem()
+    return obs_tile_for(A, S, K, _smem_limit[idx])
+
+
+def sweep_all(tables, pid, pos, rot, *, lh, wh, S, interval, shift, lanes=None):
     """Run the path sweeps for every (env, agent) lane.
 
     tables: :func:`build_tables`; pid [B, A] int64; pos [B, A, 2]; rot
     [B, A]. Returns a dict: d_ref, idx_ref, idx_l, idx_r [B, A]; dl5/dr5
     [B, A, 5]; coll_l, coll_r [B, A] bool; short_term [B, A, S, 2]. The
-    CUDA kernel for GPU tensors, the plain version for CPU tensors."""
-    global sweep_launches
+    CUDA kernel for GPU tensors (``lanes`` threads per lane, default
+    ``SWEEP_LANES``), the plain version for CPU tensors."""
     kw = dict(lh=lh, wh=wh, S=S, interval=interval, shift=shift)
+    lanes = _check_lanes(lanes)
     if pid.device.type == "cpu":
         return sweep_all_plain(tables, pid, pos, rot, **kw)
+    B, A = pid.shape
+    out = sweep_rows(tables, pid, pos, rot, lanes=lanes, **kw)
+    ba = lambda r: out[r].view(B, A)
+    return dict(
+        d_ref=ba(R_D_REF), idx_ref=ba(R_IDX_REF).long(),
+        dl5=out[R_DL:R_DL + 5].view(5, B, A).permute(1, 2, 0),
+        dr5=out[R_DR:R_DR + 5].view(5, B, A).permute(1, 2, 0),
+        idx_l=ba(R_IDX_L).long(), idx_r=ba(R_IDX_R).long(),
+        coll_l=ba(R_COLL_L) > 0.0, coll_r=ba(R_COLL_R) > 0.0,
+        short_term=out[R_ST:R_ST + 2 * S].view(2, S, B, A).permute(2, 3, 1, 0),
+    )
+
+
+def sweep_rows(tables, pid, pos, rot, *, lh, wh, S, interval, shift, lanes=None):
+    """The sweep kernel's raw output rows [16 + 2S, B*A] (``R_*``) for CUDA
+    tensors; :func:`sweep_all` reads its dict from them."""
+    global sweep_launches
+    lanes = _check_lanes(lanes)
     B, A = pid.shape
     N = B * A
     NP, Mc, _ = tables.center.shape
@@ -250,37 +333,31 @@ def sweep_all(tables, pid, pos, rot, *, lh, wh, S, interval, shift):
             tables.center.data_ptr(), tables.left.data_ptr(), tables.right.data_ptr(),
             tables.meta.data_ptr(), NP, Mc, Mb,
             pid.data_ptr(), pos.data_ptr(), rot.data_ptr(), N,
-            ctypes.c_float(lh), ctypes.c_float(wh), S, interval, shift,
+            ctypes.c_float(lh), ctypes.c_float(wh), S, interval, shift, lanes,
             out.data_ptr(), torch.cuda.current_stream(pid.device).cuda_stream,
         )
     _raise_on(lib, err, "road_traffic sweep")
     sweep_launches += 1
-    ba = lambda r: out[r].view(B, A)
-    return dict(
-        d_ref=ba(R_D_REF), idx_ref=ba(R_IDX_REF).long(),
-        dl5=out[R_DL:R_DL + 5].view(5, B, A).permute(1, 2, 0),
-        dr5=out[R_DR:R_DR + 5].view(5, B, A).permute(1, 2, 0),
-        idx_l=ba(R_IDX_L).long(), idx_r=ba(R_IDX_R).long(),
-        coll_l=ba(R_COLL_L) > 0.0, coll_r=ba(R_COLL_R) > 0.0,
-        short_term=out[R_ST:R_ST + 2 * S].view(2, S, B, A).permute(2, 3, 1, 0),
-    )
+    return out
 
 
 def obs_all(pos, rot, vel, short_term, verts, d_ref, d_left_min, d_right_min,
-            *, K, apply_mask, norm_pos, norm_v, norm_dist, thresh):
+            *, K, apply_mask, norm_pos, norm_v, norm_dist, thresh, tile=None):
     """All-ego default-config observations.
 
     pos/vel [B, A, 2]; rot [B, A]; short_term [B, A, S, 2]; verts
     [B, A, V, 2] with V >= 4 (the first 4 corners are used);
     d_ref/d_left_min/d_right_min [B, A]. Returns [A, B, W] with
-    W = 1 + 2S + 3 + 11K, noise-free. The CUDA kernel for GPU tensors, the
-    plain version for CPU tensors."""
+    W = 1 + 2S + 3 + 11K, noise-free. The CUDA kernel for GPU tensors
+    (``tile`` envs per block, default :func:`obs_tile`'s; 0: one thread
+    per (env, ego)), the plain version for CPU tensors."""
     global obs_launches
     kw = dict(K=K, apply_mask=apply_mask, norm_pos=norm_pos, norm_v=norm_v,
               norm_dist=norm_dist, thresh=thresh)
+    B, A = rot.shape
+    _check_tile(tile, A)
     if pos.device.type == "cpu":
         return obs_all_plain(pos, rot, vel, short_term, verts, d_ref, d_left_min, d_right_min, **kw)
-    B, A = rot.shape
     S, V = short_term.shape[2], verts.shape[2]
     if V < 4:
         raise ValueError(f"verts needs at least 4 corners, got {V}")
@@ -296,6 +373,8 @@ def obs_all(pos, rot, vel, short_term, verts, d_ref, d_left_min, d_right_min,
     _kernels.check_tensor("verts", verts, f32, (B, A, V, 2))
     for name, t in (("d_ref", d_ref), ("d_left_min", d_left_min), ("d_right_min", d_right_min)):
         _kernels.check_tensor(name, t, f32, (B, A))
+    if tile is None:
+        tile = obs_tile(A, S, K, pos.device)
     W = 1 + 2 * S + 3 + 11 * K
     out = torch.empty((A, B, W), dtype=f32, device=pos.device)
     lib = _kernels.library("road_traffic")
@@ -305,7 +384,7 @@ def obs_all(pos, rot, vel, short_term, verts, d_ref, d_left_min, d_right_min,
             d_ref.data_ptr(), d_left_min.data_ptr(), d_right_min.data_ptr(),
             B, A, S, V, K, int(apply_mask),
             ctypes.c_float(norm_pos), ctypes.c_float(norm_v), ctypes.c_float(norm_dist),
-            ctypes.c_float(thresh), out.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream,
+            ctypes.c_float(thresh), tile, out.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream,
         )
     _raise_on(lib, err, "road_traffic obs")
     obs_launches += 1

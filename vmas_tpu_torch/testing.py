@@ -15,7 +15,8 @@ the count of lanes each branch acted in; a transport state with the
 agents pressed against the package, a wind_flocking state with the big
 agent's wind rescaled, and an MPE state with agents overlapping.
 The states are numpy dicts made from a seeded generator, so that both
-packages can load the same one.
+packages can load the same one. For road_traffic's path sweeps: lanes on
+centre-line vertices and padded tails, and on left-boundary vertices.
 """
 
 from __future__ import annotations
@@ -672,3 +673,21 @@ def mpe_state(env, rng):
         pos[near, ag[1]] = pos[near, ag[0]] + rng.uniform(-0.07, 0.07, (int(near.sum()), 2))
     return _np_state(st, pos, np.zeros((B, E)), rng.normal(0, 0.3, (B, E, 2)), np.zeros((B, E)),
                      rng.normal(0, 0.5, (B, E, 2)))
+
+
+def rt_vertex_lanes(tables, B, A, device, seed=5):
+    """road_traffic sweep lanes [B, A] where first-min ties are exact:
+    random paths and yaws, each agent on a vertex of its path's centre line
+    (the even agents on the padded tail, points n-1 .. Mc-1) or of its left
+    boundary. Returns (pid, pos on the centre line, pos on the left
+    boundary, rot)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    NP, Mc = tables.center.shape[:2]
+    pid = torch.randint(0, NP, (B, A), generator=g, device=device)
+    n = tables.meta[pid, 0].long()
+    u = torch.rand((B, A), generator=g, device=device)
+    tail = torch.clamp(n - 1 + (u * (Mc - n + 1)).long(), max=Mc - 1)
+    on = torch.where(torch.arange(A, device=device) % 2 == 0, tail, (u * n).long())
+    rot = torch.rand((B, A), generator=g, device=device) * 6.283185307179586
+    on_l = (u * tables.meta[pid, 1].long()).long()
+    return pid, tables.center[pid, on].contiguous(), tables.left[pid, on_l].contiguous(), rot
