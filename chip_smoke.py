@@ -79,12 +79,26 @@
    transcendental chain within atol 1e-6 rtol 1e-5), then its path with
    the count zeroed (tools/time_opcost.py's op sweep: 0 to 1200 operations),
    the slope per operation and the intercept.
-12. Prints one JSON line describing each kernel, then the result line.
+12. PPO at transport@4096, 4 agents (bench.py's training half): the rows
+   policy rollout (K2 per step) against the env.step policy rollout (K1 per
+   step) with policy_aux over 20 steps from one state and one seed, bitwise
+   in rewards, dones, observations, raw samples, log-densities and the
+   final state; each kernel against its plain version for 5 re-synced
+   steps at the policy's actions; then, with the counts zeroed before each:
+   rows_policy_rollout_fn at horizon 1000 once to warm up and 4 timed calls
+   (1000 K2 launches a call, no K1), env-steps/s and the device idle share;
+   8 PPO updates a block (collect="rows", horizon 128, 4 epochs) in bf16
+   and in f32, one warm-up block and 3 timed blocks (128 K2 launches an
+   update), env-steps/s, the idle share of one update, the loss and the
+   parameters finite and moved; 2 updates with collect="step" (128 K1
+   launches an update).
+13. Prints one JSON line describing each kernel, then the result line.
 
 Any failure raises and exits non-zero. It imports nothing of JAX.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -127,6 +141,17 @@ MPE_WIDE = 30000
 MPE_WIDE_HORIZON = 100
 # the op-cost probe: op counts held to the plain version
 OPCOST_CHECK_OPS = (0, 100, 1200)
+# PPO (bench.py's training half): steps of the bitwise rollout check and of
+# the kernels against plain on the path's inputs; collection calls timed
+# after one warm-up; updates a block, blocks timed after one warm-up, and
+# updates of collect="step"
+PPO_CMP_STEPS = 20
+PPO_PLAIN_STEPS = 5
+COLLECT_CALLS = 4
+TRAIN_HORIZON = 128
+TRAIN_UPDATES = 8
+TRAIN_BLOCKS = 3
+STEP_UPDATES = 2
 
 
 def card_line():
@@ -832,8 +857,8 @@ def pid_act_rows(env, rng, dev):
     return torch.as_tensor(rows, device=dev).contiguous()
 
 
-def timed_rollout(run, state, steps, rgen):
-    """One warm-up call and TIMED_CALLS timed calls (CUDA events): (state,
+def timed_rollout(run, state, steps, rgen, calls=TIMED_CALLS):
+    """One warm-up call and ``calls`` timed calls (CUDA events): (state,
     steps, last traj, ms per timed call, warm-up seconds)."""
     import torch
 
@@ -842,7 +867,7 @@ def timed_rollout(run, state, steps, rgen):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     call_ms = []
-    for _ in range(TIMED_CALLS):
+    for _ in range(calls):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         state, steps, traj = run(state, steps, rgen)
@@ -856,13 +881,14 @@ def rollout_report(tag, run, state, steps, rgen, call_ms, warm_s, B, card, horiz
     """Prints a timed rollout's env-steps/s and the device idle share of one
     more call (profiler); returns (best env-steps/s, idle share)."""
     best = B * horizon / (min(call_ms) / 1e3)
-    mean = B * horizon * TIMED_CALLS / (sum(call_ms) / 1e3)
-    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
+    mean = B * horizon * len(call_ms) / (sum(call_ms) / 1e3)
+    _, busy_ms, by_name, n_ops = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
     idle = 1 - busy_ms / min(call_ms)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     print(f"{tag}: calls {[round(c, 3) for c in call_ms]} ms (warm-up {warm_s:.3f} s), best {best:.1f} env-steps/s, "
           f"mean {mean:.1f} env-steps/s on {card}; device {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms "
-          f"(idle share {idle:.3f}); top: " + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in top), flush=True)
+          f"(idle share {idle:.3f}, {n_ops / horizon:.1f} device operations a step); top: "
+          + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in top), flush=True)
     return best, idle
 
 
@@ -1680,6 +1706,252 @@ def road_traffic_phase(card, dev):
     return [sweep, obs]
 
 
+# -- 12. PPO at transport@4096 ---------------------------------------------------
+
+def ppo_bitwise(env, policy, dev, card):
+    """The rows policy rollout (K2) against the env.step policy rollout (K1)
+    from one state and one generator seed over PPO_CMP_STEPS steps, bitwise
+    in every output and the final state; then, at the policy's actions from
+    the path's states, each kernel against its plain version for
+    PPO_PLAIN_STEPS re-synced steps, and each kernel timed on the next
+    step's carry and the policy's actions. Raises on any difference; returns the
+    trackers of the two kernels, their times and that carry."""
+    import torch
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.parallel import rollout_fn, rows_policy_rollout_fn
+
+    s0, st0 = contact_rich(env, torch.Generator(device=dev).manual_seed(11)), env.steps
+    sa, sta, ta = rollout_fn(env, policy, PPO_CMP_STEPS, policy_aux=True)(
+        s0, st0, torch.Generator(device=dev).manual_seed(5))
+    sb, stb, tb = rows_policy_rollout_fn(env, policy, PPO_CMP_STEPS, policy_aux=True)(
+        s0, st0, torch.Generator(device=dev).manual_seed(5))
+    pairs = [("rewards", ta["rewards"], tb["rewards"]), ("dones", ta["dones"], tb["dones"]),
+             ("raw", ta["policy_aux"]["raw"], tb["policy_aux"]["raw"]),
+             ("logp", ta["policy_aux"]["logp"], tb["policy_aux"]["logp"]), ("steps", sta, stb)]
+    pairs += [(f"obs[{i}]", a, b) for i, (a, b) in enumerate(zip(ta["obs"], tb["obs"]))]
+    pairs += [(f"obs0[{i}]", a, b) for i, (a, b) in enumerate(zip(ta["obs0"], tb["obs0"]))]
+    pairs += [(f"final {f}", getattr(sa, f), getattr(sb, f))
+              for f in ("pos", "vel", "rot", "ang_vel", "force", "torque")]
+    pairs += [(f"final u[{i}]", a, b) for i, (a, b) in enumerate(zip(sa.u, sb.u))]
+    pairs += [(f"final scenario[{k}]", sa.scenario[k], sb.scenario[k]) for k in sa.scenario]
+    differ = [name for name, a, b in pairs if not torch.equal(a, b)]
+    err = max(float((a.float() - b.float()).abs().max()) for _, a, b in pairs)
+    print(f"PPO: env.step policy rollout vs rows_policy_rollout_fn (policy_aux) over {PPO_CMP_STEPS} steps at "
+          f"{env.num_envs} envs on {card}: {len(pairs)} outputs, bitwise equal {not differ} (max abs err "
+          f"{err:.3e}); rewards shaped in {int((tb['rewards'] != 0).any(-1).sum())} env-steps", flush=True)
+    if differ:
+        raise AssertionError(f"the rows and env.step policy rollouts differ in {differ}")
+
+    world, fo = env.world, env._fused_outputs
+    slots = [a.index for a in env.agents]
+    E, A = len(world.spec.mass), len(slots)
+    step = F.make_rows_step(world, fo, slots)
+    k2, k1 = ErrTracker(), ErrTracker()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    idx = torch.as_tensor(slots, device=dev)
+
+    def inputs(carry, obs):
+        """The policy's action rows on ``obs`` (K2's input) and the carry
+        with them written in, as env.step packs it (K1's)."""
+        acts = policy(obs, gen)[0]
+        act = torch.cat([torch.stack([a[:, 0] for a in acts]), torch.stack([a[:, 1] for a in acts])]).contiguous()
+        x = carry.clone()
+        x[6 * E + idx], x[7 * E + idx] = act[:A], act[A:]
+        return act, x
+
+    carry = F.pack_carry(world, sb, fo)
+    obs = env._observations(sb)
+    for _ in range(PPO_PLAIN_STEPS):
+        act, x = inputs(carry, obs)
+        c_k, e_k = step(carry, act)
+        c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+        compare_rows(k2, c_k, c_p, e_k, e_p, "rows_step[ppo]")
+        y_k, y_p = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+        compare_rows(k1, y_k[:9 * E], y_p[:9 * E], y_k[9 * E:], y_p[9 * E:], "fused_step[ppo]")
+        carry, obs = c_k, fo.unpack(e_k, sb)[0]
+    torch.cuda.synchronize()
+    act, x = inputs(carry, obs)
+    k2.report()
+    k1.report()
+    extra = torch.empty((fo.n_out, env.num_envs), device=dev)
+    times = {
+        "rows_step": kernel_times("rows_step[transport,ppo]", lambda: step(carry, act, extra),
+                                  lambda: F.rows_step_plain(world, fo, slots, carry, act), "fused_step_kernel"),
+        "fused_step": kernel_times("fused_step[transport,ppo]", lambda: F.fused_step(world, x, fo),
+                                   lambda: F.fused_step_plain(world, x, fo), "fused_step_kernel"),
+    }
+    return k2, k1, times, x
+
+
+def ppo_train(env, card, dev, dtype, seed):
+    """TRAIN_UPDATES PPO updates (collect="rows", TRAIN_HORIZON steps, 4
+    epochs) a block: one warm-up block and TRAIN_BLOCKS timed blocks (CUDA
+    events), with the launch counts zeroed before the first; then one more
+    update under the profiler. Checks the counts, a finite loss and
+    finite parameters that moved; returns (best env-steps/s, idle share,
+    K2 launches)."""
+    import torch
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.parallel import init_actor_critic, make_ppo_update, obs_dim_of
+
+    tag = f"PPO update {'bf16' if dtype is not None else 'f32'}"
+    model = init_actor_critic(obs_dim_of(env), 2, generator=torch.Generator(device=dev).manual_seed(seed))
+    update, make_opt = make_ppo_update(env, horizon=TRAIN_HORIZON, collect="rows", epochs=4, compute_dtype=dtype)
+    opt = make_opt(model)
+    p0 = [p.detach().clone() for p in model.parameters()]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    carry = [env.state, env.steps, None]
+
+    def block():
+        for _ in range(TRAIN_UPDATES):
+            carry[0], carry[1], carry[2] = update(model, opt, carry[0], carry[1], gen)
+
+    F.fused_step_launches = 0
+    F.rows_step_launches = 0
+    t0 = time.perf_counter()
+    block()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    block_ms = []
+    for _ in range(TRAIN_BLOCKS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        block()
+        end.record()
+        end.synchronize()
+        block_ms.append(start.elapsed_time(end))
+    launches = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+    n_updates = TRAIN_UPDATES * (1 + TRAIN_BLOCKS)
+    if launches != {"fused_step": 0, "rows_step": TRAIN_HORIZON * n_updates}:
+        raise AssertionError(f"{tag}: launches {launches}, want {TRAIN_HORIZON} rows steps per update")
+    metrics = carry[2]
+    loss = float(metrics["loss"])
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(model.parameters(), p0))
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    if not (math.isfinite(loss) and finite and moved > 0):
+        raise AssertionError(f"{tag}: loss {loss}, parameters finite {finite}, moved {moved}")
+    rate = env.num_envs * TRAIN_HORIZON * TRAIN_UPDATES / (min(block_ms) / 1e3)
+    mean = env.num_envs * TRAIN_HORIZON * TRAIN_UPDATES * TRAIN_BLOCKS / (sum(block_ms) / 1e3)
+    one = lambda: update(model, opt, carry[0], carry[1], gen)
+    _, busy_ms, by_name, n_ops = device_ms(one, 1, "fused_step_kernel")
+    upd_ms = min(block_ms) / TRAIN_UPDATES
+    idle = 1 - busy_ms / upd_ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"{tag}: {TRAIN_UPDATES} x (horizon {TRAIN_HORIZON}, 4 epochs) at {env.num_envs} envs x "
+          f"{env.n_agents} agents: blocks {[round(b, 3) for b in block_ms]} ms (warm-up {warm_s:.3f} s), best "
+          f"{rate:.1f} env-steps/s, mean {mean:.1f} env-steps/s on {card}; one update {upd_ms:.3f} ms, device "
+          f"{busy_ms:.3f} ms busy (idle share {idle:.3f}, {n_ops:.0f} device operations); loss {loss:.6f}, "
+          f"mean reward {float(metrics['mean_reward']):.3e}, parameters finite, moved up to {moved:.3e}; "
+          f"launches {launches}; top: " + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in top), flush=True)
+    ppo_split(env, model, opt, dtype, carry, gen, card, tag)
+    return rate, idle, launches["rows_step"]
+
+
+def ppo_split(env, model, opt, dtype, carry, gen, card, tag):
+    """Where one update's time goes: its three parts run apart, each timed by
+    CUDA events with the device's busy time of the part (profiler) beside
+    it: the collection (TRAIN_HORIZON rows policy steps), the batch build
+    (values over T+1 steps and GAE), and the 4 epochs of fit."""
+    import torch
+    from vmas_tpu_torch.parallel import make_gaussian_policy, rows_policy_rollout_fn
+    from vmas_tpu_torch.parallel import ppo as P
+
+    pol = make_gaussian_policy(env, dtype=dtype)
+    run = rows_policy_rollout_fn(env, lambda obs, g: pol(model, obs, g), TRAIN_HORIZON, policy_aux=True)
+    traj = run(carry[0], carry[1], gen)[2]
+    batch = P.rows_batch(model, traj, dtype=dtype)
+    parts = {
+        "collect": lambda: run(carry[0], carry[1], gen),
+        "batch": lambda: P.rows_batch(model, traj, dtype=dtype),
+        "fit": lambda: P.fit(model, opt, batch, 4, dtype=dtype),
+    }
+    out = []
+    for name, fn in parts.items():
+        wall = time_ms(fn, 2)
+        _, busy, _, n_ops = device_ms(fn, 1, "fused_step_kernel")
+        out.append(f"{name} {wall:.3f} ms ({busy:.3f} busy, {n_ops:.0f} device operations)")
+    print(f"{tag}, one update's parts on {card}: " + "; ".join(out), flush=True)
+
+
+def ppo_phase(card, dev):
+    """PPO at transport@4096, 4 agents (bench.py's training half): the rows
+    policy rollout bitwise the env.step policy rollout, each kernel against
+    its plain version on the path's inputs, collection at bench.py's
+    protocol, full PPO iterations in bf16 and f32, and collect="step".
+    Returns the two kernels' trackers, their times on the path's inputs, the
+    carry they were timed on, and their launches."""
+    import torch
+    from vmas_tpu_torch import make_env
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.parallel import (
+        init_actor_critic, make_gaussian_policy, make_ppo_update, obs_dim_of, rows_policy_rollout_fn,
+    )
+
+    env = make_env("transport", NUM_ENVS, n_agents=N_AGENTS, seed=0, fused_physics=True)
+    model = init_actor_critic(obs_dim_of(env), 2, generator=torch.Generator(device=dev).manual_seed(1))
+    pol = make_gaussian_policy(env)
+    policy = lambda obs, g: pol(model, obs, g)
+
+    # (a) rows policy rollout against env.step's, and the kernels against plain
+    k2, k1, times, carry = ppo_bitwise(env, policy, dev, card)
+
+    # (b) collection at bench.py's protocol: the policy's actions only
+    F.fused_step_launches = 0
+    F.rows_step_launches = 0
+    run = rows_policy_rollout_fn(env, lambda obs, g: pol(model, obs, g)[0], HORIZON)
+    rgen = torch.Generator(device=dev).manual_seed(0)
+    state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen, calls=COLLECT_CALLS)
+    collect_launches = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+    if collect_launches != {"fused_step": 0, "rows_step": HORIZON * (1 + COLLECT_CALLS)}:
+        raise AssertionError(f"PPO collection: launches {collect_launches}, want {HORIZON} rows steps a call")
+    assert traj["rewards"].shape == (HORIZON, NUM_ENVS, N_AGENTS)
+    assert all(o.shape == (HORIZON, NUM_ENVS, 11) and bool(torch.isfinite(o).all()) for o in traj["obs"])
+    assert bool(torch.isfinite(traj["rewards"]).all()) and bool(torch.isfinite(state.pos).all())
+    assert int(steps[0]) == HORIZON * (1 + COLLECT_CALLS)
+    rollout_report(f"PPO collection rows_policy_rollout_fn ({HORIZON} steps a call, launches {collect_launches})",
+                   run, state, steps, rgen, call_ms, warm_s, NUM_ENVS, card)
+
+    # (c) full PPO iterations: bf16 (bench.py's) and f32
+    train = {name: ppo_train(env, card, dev, dtype, seed=1)
+             for name, dtype in (("bf16", torch.bfloat16), ("f32", None))}
+    print(f"PPO full iterations on {card}: bf16 {train['bf16'][0]:.1f} env-steps/s (idle {train['bf16'][1]:.3f}), "
+          f"f32 {train['f32'][0]:.1f} env-steps/s (idle {train['f32'][1]:.3f})", flush=True)
+
+    # (d) collect="step": env.step (K1) per step, masked resets
+    model = init_actor_critic(obs_dim_of(env), 2, generator=torch.Generator(device=dev).manual_seed(1))
+    update, make_opt = make_ppo_update(env, horizon=TRAIN_HORIZON, collect="step", epochs=4)
+    opt = make_opt(model)
+    p0 = [p.detach().clone() for p in model.parameters()]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    state, steps = env.state, env.steps
+    F.fused_step_launches = 0
+    F.rows_step_launches = 0
+    upd_ms = []
+    for _ in range(STEP_UPDATES):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, steps, metrics = update(model, opt, state, steps, gen)
+        end.record()
+        end.synchronize()
+        upd_ms.append(start.elapsed_time(end))
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"PPO collect='step': loss {float(metrics['loss'])}")
+    step_launches = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+    if step_launches != {"fused_step": TRAIN_HORIZON * STEP_UPDATES, "rows_step": 0}:
+        raise AssertionError(f"PPO collect='step': launches {step_launches}, "
+                             f"want {TRAIN_HORIZON} fused steps an update")
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(model.parameters(), p0))
+    if not (all(bool(torch.isfinite(p).all()) for p in model.parameters()) and moved > 0):
+        raise AssertionError(f"PPO collect='step': parameters not finite or not moved ({moved})")
+    rate = NUM_ENVS * TRAIN_HORIZON / (min(upd_ms) / 1e3)
+    print(f"PPO update collect='step' f32: {STEP_UPDATES} updates of horizon {TRAIN_HORIZON} (4 epochs) at "
+          f"{NUM_ENVS} envs: {[round(u, 3) for u in upd_ms]} ms ({rate:.1f} env-steps/s) on {card}; "
+          f"loss {float(metrics['loss']):.6f}, parameters finite, moved up to {moved:.3e}; launches {step_launches}",
+          flush=True)
+    rows_launches = collect_launches["rows_step"] + sum(t[2] for t in train.values())
+    return k2, k1, times, carry, {"rows_step": rows_launches, "fused_step": step_launches["fused_step"]}
+
+
 def main():
     import torch
 
@@ -1824,8 +2096,12 @@ def main():
     # -- 11. the op-cost probe -------------------------------------------------
     opcost_kernels = opcost_phase(card, dev)
 
-    # -- 12. the kernels line ------------------------------------------------
+    # -- 12. PPO at transport@4096 ----------------------------------------------
+    ppo_k2, ppo_k1, ppo_times, ppo_carry, ppo_launches = ppo_phase(card, dev)
+
+    # -- 13. the kernels line ------------------------------------------------
     flops = kernel_ops(ks, carry, fo)
+    ppo_flops = kernel_ops(ks, ppo_carry, fo)
     rows_bytes = (R_in + 2 * A + R_in + fo.n_out) * B * 4
     fused_bytes = (R_in + 9 * E + fo.n_out) * B * 4
     src = "vmas_tpu_torch/csrc/fused_step.cu"
@@ -1834,6 +2110,12 @@ def main():
                      times["rows_step"], rows_bytes, flops),
         kernel_entry("fused_step", src, "vmas_tpu/core/fused.py:1425", launches["fused_step"], k1.max(),
                      times["fused_step"], fused_bytes, flops),
+        # the same kernels and shapes on the PPO path: its launches, its
+        # comparison with plain and its times, on the policy's inputs
+        kernel_entry("rows_step[transport,ppo]", src, "vmas_tpu/core/fused.py:1603", ppo_launches["rows_step"],
+                     ppo_k2.max(), ppo_times["rows_step"], rows_bytes, ppo_flops),
+        kernel_entry("fused_step[transport,ppo]", src, "vmas_tpu/core/fused.py:1425", ppo_launches["fused_step"],
+                     ppo_k1.max(), ppo_times["fused_step"], fused_bytes, ppo_flops),
     ] + balance_kernels + joint_kernels + give_way_kernels + rt_kernels + wfl_kernels + mpe_kernels + opcost_kernels
     entry_lanes(kernels, picked)
     print(json.dumps({"kernels": kernels, "card": card}))

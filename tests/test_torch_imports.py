@@ -3,6 +3,8 @@ no script under tools/ imports JAX, flax or anything of the JAX package."""
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -33,3 +35,12 @@ def test_no_jax_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [m for m in _imported(tree) if m.split(".")[0] in BANNED]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_parallel_imports_without_jax():
+    """The port's rollouts, PPO and interop import nothing of JAX (a fresh
+    interpreter: the test session itself has JAX loaded)."""
+    code = ("import sys, vmas_tpu_torch.parallel, vmas_tpu_torch.parallel.ppo, vmas_tpu_torch.interop; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in " + repr(BANNED) + "))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
+    assert out.stdout.strip() == "[]", out.stdout

@@ -682,3 +682,56 @@ def test_launcher_rejects_bad_lanes_and_shared_memory(env):
         F._launch(ks, ks.to_ctypes(int(fo.n_scratch_in)), fo, x, None, out, None, rows_mode=False, n_tot=100000)
     lib = K.library("fused_step")
     assert lib.vmas_fused_smem(ks.to_ctypes(int(fo.n_scratch_in)), rule, 0, 0, 100000) > lib.vmas_max_smem()
+
+
+# -- the PPO path: policy rollouts and an update on the card -------------------
+
+def _ppo_env_model(num_envs):
+    _cuda()
+    from vmas_tpu_torch.parallel import init_actor_critic, obs_dim_of
+
+    env = make_env("transport", num_envs, device="cuda", seed=0, n_agents=4, fused_physics=True)
+    model = init_actor_critic(obs_dim_of(env), 2, generator=torch.Generator(device="cuda").manual_seed(0))
+    return env, model
+
+
+def test_rows_policy_rollout_on_the_card_equals_step_policy_rollout():
+    """At a ragged width (4099 envs), the rows policy rollout (K2 a step)
+    and the env.step policy rollout (K1 a step) from one state and one
+    seed: bitwise in the trajectory, the recorded samples and the final
+    state."""
+    from vmas_tpu_torch.parallel import make_gaussian_policy, rollout_fn, rows_policy_rollout_fn
+
+    env, model = _ppo_env_model(4099)
+    pol = make_gaussian_policy(env)
+    policy = lambda obs, g: pol(model, obs, g)
+    F.fused_step_launches = F.rows_step_launches = 0
+    sa, _, ta = rollout_fn(env, policy, 8, policy_aux=True)(env.state, env.steps,
+                                                            torch.Generator(device="cuda").manual_seed(4))
+    sb, _, tb = rows_policy_rollout_fn(env, policy, 8, policy_aux=True)(env.state, env.steps,
+                                                                        torch.Generator(device="cuda").manual_seed(4))
+    assert (F.fused_step_launches, F.rows_step_launches) == (8, 8)
+    assert torch.equal(ta["rewards"], tb["rewards"]) and torch.equal(ta["dones"], tb["dones"])
+    assert all(torch.equal(a, b) for a, b in zip(ta["obs"], tb["obs"]))
+    for k in ("raw", "logp"):
+        assert torch.equal(ta["policy_aux"][k], tb["policy_aux"][k]), k
+    for name in ("pos", "vel", "rot", "ang_vel", "force", "torque"):
+        assert torch.equal(getattr(sa, name), getattr(sb, name)), name
+    assert not torch.equal(sb.pos, env.state.pos)
+
+
+def test_ppo_bf16_rows_update_on_the_card():
+    """One bf16 collect="rows" update on the card: one K2 launch per
+    collection step, a finite loss, parameters finite and moved."""
+    from vmas_tpu_torch.parallel import make_ppo_update
+
+    env, model = _ppo_env_model(1000)
+    update, make_opt = make_ppo_update(env, horizon=16, collect="rows", epochs=2, compute_dtype=torch.bfloat16)
+    p0 = [p.detach().clone() for p in model.parameters()]
+    F.fused_step_launches = F.rows_step_launches = 0
+    _, steps, metrics = update(model, make_opt(model), env.state, env.steps,
+                               torch.Generator(device="cuda").manual_seed(1))
+    assert (F.fused_step_launches, F.rows_step_launches) == (0, 16)
+    assert bool(torch.isfinite(metrics["loss"])) and bool((steps == 16).all())
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    assert all(not torch.equal(p, q) for p, q in zip(model.parameters(), p0))

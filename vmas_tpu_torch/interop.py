@@ -9,6 +9,12 @@ dynamic gravity, ``dyn_gravity``, and the ``scenario`` scratch dict, whose
 values are arrays or dicts of them (a velocity controller's memory,
 ``{"accum_errs", "prev_err"}``). This is how a state
 made elsewhere (another simulator, a recording, a test) is injected.
+
+``actor_critic_from_numpy(params)`` builds the PPO actor-critic
+(``parallel.ppo.ActorCritic``) from the JAX package's ``init_actor_critic``
+pytree as numpy arrays, ``{"pi": [{"w", "b"}, ...], "v": [...],
+"log_std"}`` with each ``w`` ``[in, out]``; ``actor_critic_to_numpy(model)``
+goes the other way, bitwise.
 """
 
 from __future__ import annotations
@@ -63,3 +69,33 @@ def state_to_numpy(state: WorldState) -> dict:
     if state.dyn_gravity is not None:
         out["dyn_gravity"] = state.dyn_gravity.detach().cpu().numpy()
     return out
+
+
+def actor_critic_from_numpy(params: dict, device=None):
+    """The PPO actor-critic with the weights of ``params`` (``w`` is ``[in,
+    out]``, ``nn.Linear.weight`` its transpose), on the GPU unless
+    ``device`` says otherwise."""
+    from vmas_tpu_torch.core.utils import resolve_device
+    from vmas_tpu_torch.parallel.ppo import ActorCritic
+
+    device = resolve_device(device)
+    pi, v = params["pi"], params["v"]
+    hidden = tuple(np.shape(layer["w"])[1] for layer in pi[:-1])
+    model = ActorCritic(np.shape(pi[0]["w"])[0], np.shape(pi[-1]["w"])[1], hidden, device=device)
+    with torch.no_grad():
+        for layers, src in ((model.pi, pi), (model.v, v)):
+            for layer, p in zip(layers, src):
+                layer.weight.copy_(torch.tensor(np.asarray(p["w"], np.float32).T))
+                layer.bias.copy_(torch.tensor(np.asarray(p["b"], np.float32)))
+        model.log_std.copy_(torch.tensor(np.asarray(params["log_std"], np.float32)))
+    return model
+
+
+def actor_critic_to_numpy(model) -> dict:
+    def trunk(layers):
+        return [
+            {"w": layer.weight.detach().cpu().numpy().T.copy(), "b": layer.bias.detach().cpu().numpy().copy()}
+            for layer in layers
+        ]
+
+    return {"pi": trunk(model.pi), "v": trunk(model.v), "log_std": model.log_std.detach().cpu().numpy().copy()}

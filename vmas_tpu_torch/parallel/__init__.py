@@ -1,3 +1,33 @@
-from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_rollout_fn, rows_rollout_supported
+from vmas_tpu_torch.parallel.ppo import (
+    ActorCritic,
+    gaussian_logp,
+    init_actor_critic,
+    make_evaluate,
+    make_gaussian_policy,
+    make_ppo_update,
+    obs_dim_of,
+    policy_dist,
+)
+from vmas_tpu_torch.parallel.rollout import (
+    rollout,
+    rollout_fn,
+    rows_policy_rollout_fn,
+    rows_rollout_fn,
+    rows_rollout_supported,
+)
 
-__all__ = ["rollout_fn", "rows_rollout_fn", "rows_rollout_supported"]
+__all__ = [
+    "ActorCritic",
+    "gaussian_logp",
+    "init_actor_critic",
+    "make_evaluate",
+    "make_gaussian_policy",
+    "make_ppo_update",
+    "obs_dim_of",
+    "policy_dist",
+    "rollout",
+    "rollout_fn",
+    "rows_policy_rollout_fn",
+    "rows_rollout_fn",
+    "rows_rollout_supported",
+]

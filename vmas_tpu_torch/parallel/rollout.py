@@ -6,11 +6,19 @@ carries the fused kernel's row buffer from step to step, so ``k_steps``
 env steps are one kernel launch: the action rows are decoded for the whole
 horizon up front, each launch writes its output rows straight into its
 slice ``extras[t:t+k_steps]`` of one ``[T, n_out + n_ctrl_out, B]`` buffer,
-and ``unpack`` runs once over that buffer after the loop. Both give the same
-trajectory for the same generator seed.
+and ``unpack`` runs once over that buffer after the loop.
+``rows_policy_rollout_fn`` does the same with a policy between launches:
+the policy acts on the observations of the previous launch's output rows.
 
-Not ported yet: policies with auxiliary outputs, autoreset, ``reset_every``,
-``rows_policy_rollout_fn``.
+Randomness: each call forks two generators from the caller's (one for the
+policy or the random actions, one for the env steps and resets), as the JAX
+rollouts split their key, so the policy's draws do not depend on what the
+steps draw. ``rollout_fn`` and the rows rollouts therefore give the same
+trajectory for the same generator seed, with random actions or a policy.
+
+Not ported yet: the rows paths of outputs with ``unpack_reads`` (the noisy
+configs; they run through ``rollout_fn``), ``post_rewards_rollout_safe``
+and ``step_count_keys`` (no ported scenario declares them).
 """
 
 from __future__ import annotations
@@ -19,6 +27,19 @@ import math
 from typing import Callable, Optional
 
 import torch
+
+from vmas_tpu_torch.environment.environment import _obs_seed
+
+
+def _fork(generator, n):
+    """``n`` generators on ``generator``'s device, each seeded from it (the
+    caller's generator advances by ``n`` draws)."""
+    out = []
+    for _ in range(n):
+        g = torch.Generator(device=generator.device)
+        g.manual_seed(_obs_seed(generator))
+        out.append(g)
+    return out
 
 
 def _random_actions_for_horizon(env, generator, horizon):
@@ -44,37 +65,105 @@ def _random_actions_for_horizon(env, generator, horizon):
     return tuple(xs)
 
 
-def rollout_fn(env, policy: Optional[Callable] = None, horizon: int = 100):
+def _stack_tree(xs):
+    """A list of per-step pytrees (dicts, tuples, lists of tensors) -> one
+    pytree of tensors stacked over a leading T axis."""
+    x0 = xs[0]
+    if isinstance(x0, dict):
+        return {k: _stack_tree([x[k] for x in xs]) for k in x0}
+    if isinstance(x0, (tuple, list)):
+        return type(x0)(_stack_tree([x[i] for x in xs]) for i in range(len(x0)))
+    return torch.stack(xs)
+
+
+def _cat_tree(xs):
+    """Pytrees of [T_i, ...] tensors -> one, concatenated over T."""
+    x0 = xs[0]
+    if isinstance(x0, dict):
+        return {k: _cat_tree([x[k] for x in xs]) for k in x0}
+    if isinstance(x0, (tuple, list)):
+        return type(x0)(_cat_tree([x[i] for x in xs]) for i in range(len(x0)))
+    return torch.cat(xs)
+
+
+def rollout_fn(env, policy: Optional[Callable] = None, horizon: int = 100,
+               autoreset: bool = False, policy_aux: bool = False):
     """Build ``run(state, steps, generator) -> (state', steps', traj)``
     stepping ``horizon`` env steps through the env's own step.
 
     ``policy(obs_tuple, generator) -> actions_tuple`` acts on the previous
     step's observations; the default draws uniform random actions.
     ``traj`` holds ``rewards [T, B, A]``, ``dones [T, B]`` and ``obs`` (a
-    tuple of ``[T, B, obs_dim]`` per agent)."""
+    tuple of ``[T, B, obs_dim]`` per agent).
+
+    ``policy_aux=True``: the policy returns ``(actions, aux)``; the per-step
+    ``aux`` (a pytree of tensors) is recorded stacked over T in
+    ``traj["policy_aux"]``, and the initial observations in
+    ``traj["obs0"]``.
+
+    ``autoreset=True``: after each step the envs whose ``terminated |
+    truncated`` flag is set are re-spawned (the env's masked reset), their
+    step counters zeroed, and their recorded and carried observations are
+    the post-reset ones; the done flag still marks the boundary."""
+    assert not (policy_aux and policy is None), "policy_aux needs an explicit policy returning (actions, aux)"
 
     def run(state, steps, generator):
+        g_pol, g_step = _fork(generator, 2)
         if policy is None:
-            acts = _random_actions_for_horizon(env, generator, horizon)
+            acts = _random_actions_for_horizon(env, g_pol, horizon)
         else:
-            obs = env._observations(state)
-        rews, dones, obs_t = [], [], []
+            obs = obs0 = env._observations(state)
+        rews, dones, obs_t, auxs = [], [], [], []
         for t in range(horizon):
-            actions = [a[t] for a in acts] if policy is None else policy(obs, generator)
-            state, obs, r, terminated, truncated, _, steps = env._step_fn_raw(
-                state, steps, actions, generator
-            )
+            if policy is None:
+                actions = [a[t] for a in acts]
+            elif policy_aux:
+                actions, aux = policy(obs, g_pol)
+                auxs.append(aux)
+            else:
+                actions = policy(obs, g_pol)
+            state, obs, r, terminated, truncated, _, steps = env._step_fn_raw(state, steps, actions, g_step)
+            done = terminated | truncated
+            if autoreset:
+                state, steps, obs_reset, _, _, _ = env._reset_fn(state, steps, g_step, done)
+                obs = tuple(
+                    torch.where(done.view((-1,) + (1,) * (o.ndim - 1)), o_r, o) for o, o_r in zip(obs, obs_reset)
+                )
             rews.append(torch.stack(r, dim=-1))
-            dones.append(terminated | truncated)
+            dones.append(done)
             obs_t.append(obs)
         traj = {
             "rewards": torch.stack(rews),
             "dones": torch.stack(dones),
             "obs": tuple(torch.stack([o[i] for o in obs_t]) for i in range(len(env.agents))),
         }
+        if policy_aux:
+            traj["policy_aux"] = _stack_tree(auxs)
+            traj["obs0"] = obs0
         return state, steps, traj
 
     return run
+
+
+def rollout(env, policy: Optional[Callable] = None, horizon: int = 100, generator=None):
+    """Run a rollout on the env's current state and write the final state
+    back to ``env.state`` and ``env.steps``; returns the trajectory.
+
+    Rows-eligible envs (``rows_rollout_supported``) take the rows paths
+    (``rows_rollout_fn``, or ``rows_policy_rollout_fn`` with a policy),
+    which give the same trajectory as ``rollout_fn``, unless the scenario's
+    outputs opt out with ``rows_auto = False``; other envs take
+    ``rollout_fn``. ``generator`` defaults to the env's own."""
+    generator = env.generator if generator is None else generator
+    rows_ok = rows_rollout_supported(env) and getattr(env._fused_outputs, "rows_auto", True)
+    if not rows_ok:
+        build = rollout_fn(env, policy, horizon)
+    elif policy is None:
+        build = rows_rollout_fn(env, horizon)
+    else:
+        build = rows_policy_rollout_fn(env, policy, horizon)
+    env.state, env.steps, traj = build(env.state, env.steps, generator)
+    return traj
 
 
 def rows_rollout_supported(env) -> bool:
@@ -116,20 +205,22 @@ def rows_rollout_supported(env) -> bool:
     )
 
 
-def _decode_horizon(env, agent, raw):
-    """``Environment._decode_action``'s u math over a leading horizon axis
-    (same ops per element, so bitwise the per-step decode): ``u [T, B,
-    action_size]``. Noise-free unclamped actions, no comm."""
+def _decoder(env, agent):
+    """``Environment._decode_action``'s u math over any leading axes (same
+    ops per element, so bitwise the per-step decode), as a function ``raw
+    -> u [..., B, action_size]`` with its constants on the env's device.
+    Noise-free unclamped actions, no comm."""
     dev = env.device
     u_range = torch.as_tensor(agent.u_range_array, device=dev)
     u_mult = torch.as_tensor(agent.u_multiplier_array, device=dev)
-    if env.continuous_actions:
-        u = raw.detach().to(torch.float32)[..., : agent.action_size]
-    else:
+    nvec = list(agent.discrete_action_nvec)
+
+    def decode(raw):
+        if env.continuous_actions:
+            return raw.detach().to(torch.float32)[..., : agent.action_size] * u_mult
         action = raw
         if action.ndim == 2:  # flat Discrete: [T, B]
             action = action[..., None]
-        nvec = list(agent.discrete_action_nvec)
         if not env.multidiscrete_actions:
             flat = torch.clamp(action[..., 0].to(torch.int64), 0, math.prod(nvec) - 1)
             cols = []
@@ -148,8 +239,9 @@ def _decode_horizon(env, agent, raw):
                 a = torch.where(stay, n // 2, torch.where(decrement, a - 1, a))
             u_max = u_range[j]
             us.append((a.to(torch.float32) / (n - 1)) * (2 * u_max) - u_max)
-        u = torch.stack(us, dim=-1)
-    return u * u_mult[None, None]
+        return torch.stack(us, dim=-1) * u_mult
+
+    return decode
 
 
 def _apply_ctrl_finish(world, fo, state_out, carry, state0):
@@ -176,20 +268,81 @@ def _last_us(fo, us_last, extras):
     return [torch.stack([extras[-1, ix], extras[-1, iy]], dim=-1) for ix, iy in idx]
 
 
-def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1):
+def _finish_rows_rollout(env, state, steps, carry, extras, us_last, horizon):
+    """The rows rollouts' finale: one ``unpack`` over all the output rows,
+    the truncation flags, and a final state that mirrors the step
+    pipeline's (the last step's u, or the controller's output where the
+    kernel ran one, its scratch updates and the controller's memory)."""
+    from vmas_tpu_torch.core import fused as F
+
+    world, fo = env.world, env._fused_outputs
+    state_out = F.unpack_carry(world, carry, state)
+    obs, rews, terminated, updates = fo.unpack(extras, state)
+    if env.max_steps is not None:
+        steps_t = steps[None] + 1 + torch.arange(horizon, device=env.device)[:, None]
+        truncated = steps_t >= env.max_steps
+    else:
+        truncated = torch.zeros_like(terminated)
+    for a, u in zip(env.agents, _last_us(fo, us_last, extras)):
+        state_out = a.set_u(state_out, u)
+    state_out = state_out.replace(
+        scenario={**state_out.scenario, **{k: v[-1] for k, v in updates.items()}}
+    )
+    state_out = _apply_ctrl_finish(world, fo, state_out, carry, state)
+    traj = {"rewards": torch.stack(rews, dim=-1), "dones": terminated | truncated, "obs": obs}
+    return state_out, steps + horizon, traj
+
+
+def _chunked_reset_rollout(env, run_chunk, horizon, reset_every):
+    """Wrap a rows rollout's ``run`` with synchronized resets every
+    ``reset_every`` steps: the rows carry cannot reset some envs mid-loop,
+    so episodes are fixed-length and every env resets at the boundary. The
+    boundary step's observations are the post-reset ones and its done flag
+    is True for every env (the convention of ``rollout_fn``'s autoreset),
+    so returns, GAE masks and PPO's observation/action alignment hold
+    across chunks."""
+    assert reset_every >= 1 and horizon % reset_every == 0, (
+        f"reset_every ({reset_every}) must divide horizon ({horizon})"
+    )
+
+    def run(state, steps, generator):
+        parts = []
+        for _ in range(horizon // reset_every):
+            state, steps, traj = run_chunk(state, steps, generator)
+            state, steps, obs_reset, _, _, _ = env._reset_fn(state, steps, generator, None)
+            traj["obs"] = tuple(torch.cat([o[:-1], o_r[None]]) for o, o_r in zip(traj["obs"], obs_reset))
+            traj["dones"] = traj["dones"].clone()
+            traj["dones"][-1] = True
+            parts.append(traj)
+        out = {k: _cat_tree([p[k] for p in parts]) for k in ("rewards", "dones", "obs")}
+        if "policy_aux" in parts[0]:
+            out["policy_aux"] = _cat_tree([p["policy_aux"] for p in parts])
+            out["obs0"] = parts[0]["obs0"]
+        return state, steps, out
+
+    return run
+
+
+_NOT_ELIGIBLE = (
+    "not eligible -- needs fused_physics=True, a fused-outputs scenario declaring carry_extra_idx, "
+    "holonomic noise-free agents (continuous unclamped or discrete), no scripted agents, no "
+    "post_rewards override, no process_action override unless declared a no-op or realized in the "
+    "kernel, no unpack_reads; use rollout_fn"
+)
+
+
+def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Optional[int] = None):
     """Rows-carried rollout with random actions: same contract and the same
     trajectory as ``rollout_fn(env, horizon=...)``, with one fused-kernel
     launch per ``k_steps`` steps and nothing else between launches.
-    ``k_steps`` must divide ``horizon``."""
+    ``k_steps`` must divide ``horizon``. ``reset_every=N`` resets every env
+    every N steps (``_chunked_reset_rollout``)."""
     from vmas_tpu_torch.core import fused as F
 
-    assert rows_rollout_supported(env), (
-        "rows_rollout_fn: env not eligible -- needs fused_physics=True, a "
-        "fused-outputs scenario declaring carry_extra_idx, holonomic "
-        "noise-free agents (continuous unclamped or discrete), no scripted "
-        "agents, no post_rewards override, no process_action override unless "
-        "declared a no-op or realized in the kernel, no unpack_reads; use rollout_fn"
-    )
+    if reset_every is not None:
+        chunk = rows_rollout_fn(env, reset_every, k_steps)
+        return _chunked_reset_rollout(env, chunk, horizon, reset_every)
+    assert rows_rollout_supported(env), "rows_rollout_fn: env " + _NOT_ELIGIBLE
     K = int(k_steps)
     assert K >= 1 and horizon % K == 0, f"k_steps ({k_steps}) must divide horizon ({horizon})"
     world, fo, agents = env.world, env._fused_outputs, env.agents
@@ -199,8 +352,9 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1):
     A2 = 2 * len(agents)
 
     def run(state, steps, generator):
-        acts = _random_actions_for_horizon(env, generator, horizon)
-        us = [_decode_horizon(env, a, acts[i]) for i, a in enumerate(agents)]
+        g_act, _ = _fork(generator, 2)
+        acts = _random_actions_for_horizon(env, g_act, horizon)
+        us = [_decoder(env, a)(acts[i]) for i, a in enumerate(agents)]
         ax = torch.stack([u[..., 0] for u in us], dim=1)  # [T, A, B]
         ay = torch.stack([u[..., 1] for u in us], dim=1)
         act_rows = torch.cat([ax, ay], dim=1).contiguous()  # [T, 2A, B]
@@ -210,24 +364,61 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1):
         # K steps' rows are contiguous in both buffers: views, no copies
         for t in range(0, horizon, K):
             carry, _ = step(carry, act_rows[t:t + K].view(K * A2, B), extras[t:t + K].view(K * n_tot, B))
+        return _finish_rows_rollout(env, state, steps, carry, extras, [u[-1] for u in us], horizon)
 
-        state_out = F.unpack_carry(world, carry, state)
-        obs, rews, terminated, updates = fo.unpack(extras, state)
-        if env.max_steps is not None:
-            steps_t = steps[None] + 1 + torch.arange(horizon, device=env.device)[:, None]
-            truncated = steps_t >= env.max_steps
-        else:
-            truncated = torch.zeros_like(terminated)
-        # the final state mirrors the step pipeline's: the last step's u
-        # (the controller's output where the kernel ran one), its scratch
-        # updates and the controller's memory
-        for a, u in zip(agents, _last_us(fo, [u[-1] for u in us], extras)):
-            state_out = a.set_u(state_out, u)
-        state_out = state_out.replace(
-            scenario={**state_out.scenario, **{k: v[-1] for k, v in updates.items()}}
-        )
-        state_out = _apply_ctrl_finish(world, fo, state_out, carry, state)
-        traj = {"rewards": torch.stack(rews, dim=-1), "dones": terminated | truncated, "obs": obs}
-        return state_out, steps + horizon, traj
+    return run
+
+
+def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux: bool = False,
+                           reset_every: Optional[int] = None):
+    """Rows-carried policy rollout: same contract and the same trajectory as
+    ``rollout_fn(env, policy, horizon, policy_aux=policy_aux)`` for
+    rows-eligible envs. Each step is the policy on the observations of the
+    previous step's output rows (the env's observations of the initial
+    state at t=0), the decode of its actions into the ``[2A, B]`` action
+    rows, one fused-kernel launch writing into ``extras[t]``, and the
+    observations of that step's rows (``unpack``). After the loop, one
+    ``unpack`` over all the rows gives the trajectory, as in
+    ``rows_rollout_fn``.
+
+    No gradient flows through it (the kernel is forward-only; it runs
+    under ``torch.no_grad``): it collects experience, and the policy is
+    fitted on the recorded trajectory. ``policy_aux`` and ``reset_every``
+    as in ``rollout_fn`` and ``rows_rollout_fn``."""
+    from vmas_tpu_torch.core import fused as F
+
+    if reset_every is not None:
+        chunk = rows_policy_rollout_fn(env, policy, reset_every, policy_aux)
+        return _chunked_reset_rollout(env, chunk, horizon, reset_every)
+    assert rows_rollout_supported(env), "rows_policy_rollout_fn: env " + _NOT_ELIGIBLE
+    world, fo, agents = env.world, env._fused_outputs, env.agents
+    A, B = len(agents), env.num_envs
+    step = F.make_rows_step(world, fo, [a.index for a in agents])
+    n_tot = int(fo.n_out) + int(fo.n_ctrl_out)
+    decoders = [_decoder(env, a) for a in agents]
+
+    def run(state, steps, generator):
+        g_pol, _ = _fork(generator, 2)
+        extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
+        auxs = []
+        with torch.no_grad():
+            obs = obs0 = env._observations(state)
+            carry = F.pack_carry(world, state, fo)
+            for t in range(horizon):
+                if policy_aux:
+                    actions, aux = policy(obs, g_pol)
+                    auxs.append(aux)
+                else:
+                    actions = policy(obs, g_pol)
+                u = torch.stack([d(a[None])[0] for d, a in zip(decoders, actions)])  # [A, B, 2]
+                # the action rows: x of every agent, then y
+                carry, _ = step(carry, u.permute(2, 0, 1).reshape(2 * A, B), extras[t])
+                # the policy at t+1 acts on the observations this step emitted
+                obs = fo.unpack(extras[t], state)[0]
+            out = _finish_rows_rollout(env, state, steps, carry, extras, list(u), horizon)
+        if policy_aux:
+            out[2]["policy_aux"] = _stack_tree(auxs)
+            out[2]["obs0"] = obs0
+        return out
 
     return run
