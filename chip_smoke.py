@@ -74,12 +74,29 @@
    envs (horizon 100), each at k_steps 1 and 4: make_env, reset, 5 env.step
    calls, rows_rollout_fn once to warm up and 3 timed calls, env-steps/s
    and the device idle share.
-11. The op-cost probe: its kernel against its plain version at [54, 4096]
+11. The rest of the MPE family at 4096 envs (simple_tag, simple_world_comm,
+   simple_push, simple_adversary, simple_reference, simple_speaker_listener
+   at their defaults): each world's rows and fused steps against their
+   plain versions, bitwise, over 5 re-synced steps from a state with
+   catches, contacts and food in reach (the contacts, catches and food
+   eaten counted), at the rule's lanes and at the other form, and a launch
+   of 4 steps against 4 launches of one and the plain version's 4 steps;
+   the env.step rollout against the rows rollout over 20 steps for
+   simple_tag, simple_world_comm and simple_reference (the comm state
+   substituted per step), and simple_reference's env.step policy rollout
+   against its rows policy rollout with continuous comm from a linear
+   policy, bitwise; then each world's main path with the counts zeroed:
+   make_env, reset, 5 env.step calls, rows_rollout_fn (horizon 1000 for
+   simple_tag and simple_world_comm, 100 for the others) at k_steps 1 and
+   4, once to warm up and 3 timed calls, env-steps/s and the device idle
+   share; and simple_crypto's (unfused: rollout_fn, 100 steps, no kernel
+   launch).
+12. The op-cost probe: its kernel against its plain version at [54, 4096]
    with 0, 100 and 1200 operations (the ALU chain bitwise, the
    transcendental chain within atol 1e-6 rtol 1e-5), then its path with
    the count zeroed (tools/time_opcost.py's op sweep: 0 to 1200 operations),
    the slope per operation and the intercept.
-12. PPO at transport@4096, 4 agents (bench.py's training half): the rows
+13. PPO at transport@4096, 4 agents (bench.py's training half): the rows
    policy rollout (K2 per step) against the env.step policy rollout (K1 per
    step) with policy_aux over 20 steps from one state and one seed, bitwise
    in rewards, dones, observations, raw samples, log-densities and the
@@ -92,7 +109,7 @@
    update), env-steps/s, the idle share of one update, the loss and the
    parameters finite and moved; 2 updates with collect="step" (128 K1
    launches an update).
-13. Prints one JSON line describing each kernel, then the result line.
+14. Prints one JSON line describing each kernel, then the result line.
 
 Any failure raises and exits non-zero. It imports nothing of JAX.
 """
@@ -139,6 +156,16 @@ WFL_HORIZON = 100
 MPE_CMP_STEPS = 10
 MPE_WIDE = 30000
 MPE_WIDE_HORIZON = 100
+# the rest of the MPE family: steps compared from a state with catches and
+# contacts, steps of the rollouts compared, and the main paths' horizons
+# (the two worlds of many contact pairs at the bench's 1000, the others at
+# the VMAS protocol's 100)
+MPEF_WORLDS = ("simple_tag", "simple_world_comm", "simple_push", "simple_adversary", "simple_reference",
+               "simple_speaker_listener")
+MPEF_LONG = ("simple_tag", "simple_world_comm")
+MPEF_CMP_STEPS = 5
+MPEF_ROLLOUT_STEPS = 20
+MPEF_SHORT_HORIZON = 100
 # the op-cost probe: op counts held to the plain version
 OPCOST_CHECK_OPS = (0, 100, 1200)
 # PPO (bench.py's training half): steps of the bitwise rollout check and of
@@ -281,6 +308,10 @@ def kernel_entry(name, source, replaces, launches, err, t, nbytes, flops):
     }
 
 
+# instantiations of the fused kernel per lane count: the fused form with
+# no emit and with each of 14, the rows form with each of 14
+FUSED_FORMS = 29
+
 # the worlds K1/K2 run here: (make_env name and kwargs) by the name their
 # entries of the kernels line carry between brackets
 LANE_WORLDS = {
@@ -289,6 +320,7 @@ LANE_WORLDS = {
     "waterfall": ("waterfall", {}), "give_way": ("give_way", {}), "multi_give_way": ("multi_give_way", {}),
     "wind_flocking": ("wind_flocking", {}), "simple": ("simple", {"continuous_actions": False}),
     "simple_spread": ("simple_spread", {"continuous_actions": False}),
+    **{name: (name, {}) for name in MPEF_WORLDS},
 }
 
 
@@ -323,9 +355,9 @@ def lane_report(dev):
     from vmas_tpu_torch.testing import all_pairs_world
 
     rows = ptxas_table(_kernels.build_log("fused_step"))
-    if sorted({r[2] for r in rows}) != list(F.LANES) or len(rows) != 17 * len(F.LANES):
+    if sorted({r[2] for r in rows}) != list(F.LANES) or len(rows) != FUSED_FORMS * len(F.LANES):
         raise AssertionError(f"the build log lists {len(rows)} instantiations of the fused kernel, not "
-                             f"17 for each of the lane counts {F.LANES}")
+                             f"{FUSED_FORMS} for each of the lane counts {F.LANES}")
     for form, emit, lanes, regs, stack, sst, sld in rows:
         print(f"ptxas fused_step_kernel<{form}, {emit}, L={lanes}>: {regs} registers, {stack} B stack, "
               f"spill stores {sst} B, loads {sld} B", flush=True)
@@ -372,19 +404,20 @@ def at_lanes(ks, lanes, fn):
 
 
 def other_form_bitwise(ks, pairs, tag):
-    """In a world whose rule picks one thread per env, the group form (8
-    lanes) against the plain version too: each (kernel, plain) of ``pairs``
-    bitwise."""
+    """The form the rule does not pick for the world of ``ks`` against the
+    plain version too: the group form (8 lanes) where the rule picks one
+    thread per env, else the one-thread form; each (kernel, plain) of
+    ``pairs`` bitwise."""
     import torch
 
-    assert ks.lanes == 1, ks.lanes
+    other = 8 if ks.lanes == 1 else 1
     for i, (kern, plain) in enumerate(pairs):
-        got, want = at_lanes(ks, 8, kern), plain()
+        got, want = at_lanes(ks, other, kern), plain()
         for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
             if not torch.equal(g, w):
-                raise AssertionError(f"{tag}: the 8-lane form differs from the plain version ({i})")
-    print(f"{tag}: the 8-lane form bitwise its plain version too ({len(pairs)} comparisons; the rule picks one "
-          f"thread per env)", flush=True)
+                raise AssertionError(f"{tag}: the {other}-lane form differs from the plain version ({i})")
+    print(f"{tag}: the {other}-lane form bitwise its plain version too ({len(pairs)} comparisons; the rule picks "
+          f"{ks.lanes} lane{'s' if ks.lanes > 1 else ''} per env)", flush=True)
 
 
 def kernel_times(name, kern, plain, kernel_name, plain_calls=20):
@@ -487,7 +520,42 @@ def emit_ops(fo):
     if kind == "SimpleSpreadOutputs":
         A, L = fo.n_agents, len(fo.lm_i)
         return 7 * A * L + L + 2 + 9 * A * (A - 1) + A * (2 * L + 2 * (A - 1) * fo.obs_others)
+    if kind in MPEF_EMITS:
+        return mpe_family_ops(fo)
     return 200 * fo.n_pkgs
+
+
+MPEF_EMITS = ("SimplePushOutputs", "SimpleAdversaryOutputs", "SimpleTagOutputs", "SimpleReferenceOutputs",
+              "SpeakerListenerOutputs", "SimpleWorldCommOutputs")
+
+
+def mpe_family_ops(fo):
+    """Operations of the other MPE emits per env, besides writing their
+    rows: 2 per relative position, 7 per distance, 8 per distance folded
+    into a minimum or a sum, 10 per catch or food test and its term, 6 per
+    landmark of a goal selection (a compare, a multiply and an add for x
+    and y)."""
+    kind = type(fo).__name__
+    L = len(fo.lm_i)
+    if kind == "SpeakerListenerOutputs":
+        return 2 * L + 6 * L + 9
+    A = fo.n_agents
+    if kind == "SimpleReferenceOutputs":
+        return A * 2 * L + A * (6 * L + 9)
+    goods = sum(1 for adv in fo.adv if not adv)
+    advs = A - goods
+    rels = 2 * A * (L + A - 1)
+    if kind == "SimplePushOutputs":
+        return 6 * L + rels + 2 * goods + 8 * goods * advs + 8 * A
+    if kind == "SimpleAdversaryOutputs":
+        return 6 * L + rels + 2 * goods + 8 * A + 2 * A
+    if kind == "SimpleTagOutputs":
+        shaped = 8 * advs * goods * (fo.shape_adv + fo.shape_agent)
+        return 2 * A * L + sum(2 * len(p) for p, _ in fo.partners) + 2 * 10 * advs * goods + shaped
+    # SimpleWorldCommOutputs: the leader's rows, the team catch sum, each
+    # good agent's catches, food tests and nearest food
+    nf = len(fo.food_i)
+    return 2 * A * L + 2 * (A - 1) + 10 * advs * goods + goods * (10 * advs + 10 * nf + 8 * nf + 2)
 
 
 def kernel_ops(ks, rows, fo=None, rows_form=False):
@@ -1378,6 +1446,227 @@ def mpe_phase(card, dev):
     return entries
 
 
+# -- the rest of the MPE family ------------------------------------------------------
+
+def mpe_family_events(name, fo, extra):
+    """The events an emit step's rows show: the catches (simple_tag: a reward
+    term of 10; simple_world_comm: an adversary's nonzero reward) and the
+    food eaten (simple_world_comm: a good agent's reward above 1)."""
+    rew = extra[fo.base:fo.base + fo.n_agents]
+    if name == "simple_tag":
+        return {"catches": int((rew.abs() > 5).sum())}
+    if name == "simple_world_comm":
+        adv = torch_mask(fo.adv, rew.device)
+        return {"catches": int((rew[adv] != 0).sum()), "food": int((rew[~adv] > 1).sum())}
+    return {}
+
+
+def torch_mask(flags, device):
+    import torch
+
+    return torch.tensor(flags, dtype=torch.bool, device=device)
+
+
+def linear_comm_policy(env, seed):
+    """A fixed linear policy on each agent's observations: its physical
+    actions in (-1, 1) (tanh), its comm actions in (0, 1) (sigmoid), as
+    JAX tests/test_rows_rollout.py's comm policy."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    obs = env._observations(env.state)
+    Ws = [torch.tensor(rng.normal(size=(o.shape[-1], env.get_agent_action_size(a))) * 0.2, dtype=torch.float32,
+                       device=env.device) for o, a in zip(obs, env.agents)]
+    sizes = [a.action_size for a in env.agents]
+
+    def policy(obs, generator):
+        return tuple(torch.cat([torch.tanh((o @ W)[:, :n]), torch.sigmoid((o @ W)[:, n:])], -1)
+                     for o, W, n in zip(obs, Ws, sizes))
+
+    return policy
+
+
+def rollouts_bitwise(tag, ta, tb, sa, sb, card):
+    """Two rollouts' outputs and final states, bitwise; raises on any
+    difference."""
+    import torch
+
+    pairs = [("rewards", ta["rewards"], tb["rewards"]), ("dones", ta["dones"], tb["dones"])]
+    pairs += [(f"obs[{i}]", a, b) for i, (a, b) in enumerate(zip(ta["obs"], tb["obs"]))]
+    pairs += [(f"final {f}", getattr(sa, f), getattr(sb, f)) for f in ("pos", "vel", "force", "c", "uc")]
+    pairs += [(f"final u[{i}]", a, b) for i, (a, b) in enumerate(zip(sa.u, sb.u))]
+    pairs += [(f"final scenario[{k}]", sa.scenario[k], sb.scenario[k]) for k in sa.scenario]
+    differ = [name for name, a, b in pairs if not torch.equal(a, b)]
+    print(f"{tag} on {card}: {len(pairs)} outputs, bitwise equal {not differ}", flush=True)
+    if differ:
+        raise AssertionError(f"{tag}: the rollouts differ in {differ}")
+
+
+def mpe_family_phase(card, dev):
+    """simple_push, simple_adversary, simple_tag, simple_reference,
+    simple_speaker_listener and simple_world_comm at 4096 envs: each
+    world's K2 and K1 bitwise their plain versions over MPEF_CMP_STEPS
+    re-synced steps from a state with catches, contacts and food in reach,
+    at the rule's lanes and at the other form, and a 4-step launch bitwise 4
+    launches of one; the rows rollout bitwise the env.step rollout for
+    simple_tag, simple_world_comm and simple_reference (the comm state
+    given to unpack per step), and simple_reference's rows policy rollout
+    bitwise its env.step policy rollout with continuous comm; then each
+    world's main path (rows_rollout_fn, horizon 1000 for simple_tag and
+    simple_world_comm, 100 for the others, k_steps 1 and 4) and
+    simple_crypto's (rollout_fn, 100 steps); the phase's entries of the
+    kernels line."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_policy_rollout_fn, rows_rollout_fn
+
+    times, work, errs = {}, {}, {}
+    B = NUM_ENVS
+    # -- (a) K2 and K1 against plain, bitwise, at both forms; k_steps ---------------
+    for name in MPEF_WORLDS:
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True)
+        world, fo = env.world, env._fused_outputs
+        slots = [a.index for a in env.agents]
+        ks = F._kernel_spec(world)
+        E, A = ks.E, len(slots)
+        step = F.make_rows_step(world, fo, slots)
+        carry = F.pack_carry(world, state_from_numpy(world, testing.mpe_family_state(env, np.random.default_rng(70))),
+                             fo)
+        gen = torch.Generator(device=dev).manual_seed(71)
+        acts = lambda: (torch.rand((2 * A, B), generator=gen, device=dev) * 2 - 1).contiguous()
+        k2, k1 = ErrTracker(), ErrTracker()
+        contacts, events = 0, {}
+        for t in range(MPEF_CMP_STEPS):
+            act = acts()
+            x = with_actions(carry, act, slots, E)
+            contacts += F.contact_counts(world, x)["ss"]
+            c_k, e_k = step(carry, act)
+            c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+            compare_rows(k2, c_k, c_p, e_k, e_p, f"{name} rows_step")
+            y_k, y_p = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+            compare_rows(k1, y_k[:9 * E], y_p[:9 * E], y_k[9 * E:], y_p[9 * E:], f"{name} fused_step")
+            for k, v in mpe_family_events(name, fo, e_p).items():
+                events[k] = events.get(k, 0) + v
+            carry = c_k
+        torch.cuda.synchronize()
+        print(f"{name}@{B}: rows_step and fused_step bitwise their plain versions over {MPEF_CMP_STEPS} re-synced "
+              f"steps at {ks.lanes} lane{'s' if ks.lanes > 1 else ''} per env (E {E}, sphere-sphere pairs "
+              f"{len(ks.ss)}, contacts {contacts}, {events}) on {card}", flush=True)
+        if name in MPEF_LONG and (contacts == 0 or 0 in events.values()):
+            raise AssertionError(f"the {name} comparison saw no contact, catch or food eaten: {contacts}, {events}")
+        errs[f"rows_step[{name}]"], errs[f"fused_step[{name}]"] = k2.max(), k1.max()
+        act = acts()
+        x = with_actions(carry, act, slots, E)
+        other_form_bitwise(ks, [(lambda: step(carry, act), lambda: F.rows_step_plain(world, fo, slots, carry, act)),
+                                (lambda: F.fused_step(world, x, fo), lambda: F.fused_step_plain(world, x, fo))],
+                           f"{name}@{B}")
+        act_k = torch.cat([acts() for _ in range(K_STEPS)]).contiguous()
+
+        def compare(tr, k, c_k, c_p, e_k, e_p, mid, name=name):
+            tr.close(f"{name} k{K_STEPS} step {k} emit rows", e_k, e_p)
+            if k == K_STEPS - 1:
+                tr.close(f"{name} k{K_STEPS} carry", c_k, c_p)
+
+        k_steps_check(world, fo, slots, carry, act_k, f"{name}@{B}", compare)
+        extra = torch.empty((fo.n_out, B), device=dev)
+        key = f"rows_step[{name}]"
+        times[key] = kernel_times(key, lambda: step(carry, act, extra),
+                                  lambda: F.rows_step_plain(world, fo, slots, carry, act), "fused_step_kernel")
+        work[key] = ((2 * carry.shape[0] + 2 * A + fo.n_out) * B * 4, kernel_ops(ks, carry, fo, rows_form=True))
+        key = f"fused_step[{name}]"
+        times[key] = kernel_times(key, lambda: F.fused_step(world, x, fo), lambda: F.fused_step_plain(world, x, fo),
+                                  "fused_step_kernel")
+        work[key] = ((x.shape[0] + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo))
+        # the rows step at the form the rule does not pick, for the rule's check
+        other = 8 if ks.lanes == 1 else 1
+        other_ms = at_lanes(ks, other, lambda: device_ms(lambda: step(carry, act, extra), 200, "fused_step_kernel")[0])
+        times[f"rows_step[{name}]"]["other"] = (other, other_ms)
+        print(f"rows_step[{name}] at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the "
+              f"device (the rule's {ks.lanes}: {times[f'rows_step[{name}]']['ms'] * 1e3:.3f} us)", flush=True)
+        del env, carry, x
+
+    # -- (b) the rows rollouts against the env.step rollouts, bitwise --------------
+    for name in ("simple_tag", "simple_world_comm", "simple_reference"):
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True)
+        s0, st0 = env.state, env.steps
+        sa, _, ta = rollout_fn(env, horizon=MPEF_ROLLOUT_STEPS)(s0, st0, torch.Generator(device=dev).manual_seed(7))
+        sb, _, tb = rows_rollout_fn(env, horizon=MPEF_ROLLOUT_STEPS)(s0, st0,
+                                                                     torch.Generator(device=dev).manual_seed(7))
+        rollouts_bitwise(f"{name}@{B} env.step rollout vs rows rollout over {MPEF_ROLLOUT_STEPS} steps", ta, tb, sa,
+                         sb, card)
+        if name == "simple_reference":
+            policy = linear_comm_policy(env, 3)
+            sa, _, ta = rollout_fn(env, policy, MPEF_ROLLOUT_STEPS)(s0, st0, torch.Generator(device=dev).manual_seed(23))
+            sb, _, tb = rows_policy_rollout_fn(env, policy, MPEF_ROLLOUT_STEPS)(
+                s0, st0, torch.Generator(device=dev).manual_seed(23))
+            if torch.equal(ta["obs"][0][-1, :, -10:], ta["obs"][0][0, :, -10:]):
+                raise AssertionError("simple_reference's observed comm did not change over the policy rollout")
+            rollouts_bitwise(f"simple_reference@{B} env.step policy rollout vs rows policy rollout (continuous "
+                             f"comm, a linear policy) over {MPEF_ROLLOUT_STEPS} steps", ta, tb, sa, sb, card)
+        del env
+
+    # -- (c) the main paths: each world's rows rollout at k_steps 1 and 4 -------------
+    launches = {}
+    for name in MPEF_WORLDS:
+        horizon = HORIZON if name in MPEF_LONG else MPEF_SHORT_HORIZON
+        for k in (1, K_STEPS):
+            F.fused_step_launches = 0
+            F.rows_step_launches = 0
+            env = make_env(name, num_envs=B, fused_physics=True)
+            assert env.device.type == "cuda"
+            obs = env.reset()
+            for _ in range(5):
+                obs, rews, dones, infos = env.step(env.get_random_actions())
+            rgen = torch.Generator(device=dev).manual_seed(0)
+            run = rows_rollout_fn(env, horizon=horizon, k_steps=k)
+            state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
+            n = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+            assert n == {"fused_step": 5, "rows_step": horizon * (1 + TIMED_CALLS) // k}, n
+            widths = [o.shape[-1] for o in obs]
+            assert traj["rewards"].shape == (horizon, B, env.n_agents) and bool(torch.isfinite(traj["rewards"]).all())
+            assert all(o.shape == (horizon, B, w) and bool(torch.isfinite(o).all()) for o, w in zip(traj["obs"], widths))
+            assert bool(torch.isfinite(state.pos).all())
+            print(f"main path: {name} {B} envs x {env.n_agents} agents x {horizon} steps, k_steps {k}; launches {n}",
+                  flush=True)
+            rollout_report(f"{name}@{B} rows_rollout_fn k_steps {k}", run, state, steps, rgen, call_ms, warm_s, B, card,
+                           horizon=horizon)
+            launches[(name, k)] = n
+            del env, state, traj
+    F.fused_step_launches = 0
+    F.rows_step_launches = 0
+    env = make_env("simple_crypto", num_envs=B)
+    rgen = torch.Generator(device=dev).manual_seed(0)
+    run = rollout_fn(env, horizon=MPEF_SHORT_HORIZON)
+    state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
+    n = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+    assert n == {"fused_step": 0, "rows_step": 0}, n
+    assert traj["rewards"].shape == (MPEF_SHORT_HORIZON, B, 3) and bool(torch.isfinite(traj["rewards"]).all())
+    assert [o.shape for o in traj["obs"]] == [(MPEF_SHORT_HORIZON, B, w) for w in (4, 8, 8)]
+    assert all(bool(torch.isfinite(o).all()) for o in traj["obs"]) and bool((traj["rewards"] != 0).any())
+    print(f"main path: simple_crypto {B} envs x 3 agents x {MPEF_SHORT_HORIZON} steps through rollout_fn (the hook "
+          f"pipeline, no fused step); launches {n}", flush=True)
+    rollout_report(f"simple_crypto@{B} rollout_fn", run, state, steps, rgen, call_ms, warm_s, B, card,
+                   horizon=MPEF_SHORT_HORIZON)
+    del env, state, traj
+
+    entries = []
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    for name in MPEF_WORLDS:
+        n = launches[(name, 1)]
+        for form, site in (("rows_step", "1603"), ("fused_step", "1425")):
+            key = f"{form}[{name}]"
+            e = kernel_entry(key, src, f"vmas_tpu/core/fused.py:{site}", n[form], errs[key], times[key], *work[key])
+            e["launches_on"] = f"{name}'s main path at {NUM_ENVS} envs, k_steps 1"
+            if "other" in times[key]:
+                e["other_lanes"], e["other_us"] = times[key]["other"][0], times[key]["other"][1] * 1e3
+            entries.append(e)
+    return entries
+
+
 # -- K5: the op-cost probe ----------------------------------------------------------
 
 def opcost_phase(card, dev):
@@ -1966,7 +2255,8 @@ def main():
     print(card, flush=True)
 
     # -- 2. build -----------------------------------------------------------
-    print(f"build: {_kernels.build_all():.1f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)})", flush=True)
+    print(f"build: {_kernels.build_all():.1f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)}; the three sources in "
+          f"parallel, fused_step the longest; 101-135 s before the MPE family's six emits)", flush=True)
     picked = lane_report(torch.device("cuda"))
 
     # -- 3. kernel against plain, at full width ------------------------------
@@ -2093,13 +2383,16 @@ def main():
     # -- 10. MPE simple and simple_spread --------------------------------------
     mpe_kernels = mpe_phase(card, dev)
 
-    # -- 11. the op-cost probe -------------------------------------------------
+    # -- 11. the rest of the MPE family -------------------------------------------
+    mpef_kernels = mpe_family_phase(card, dev)
+
+    # -- 12. the op-cost probe -------------------------------------------------
     opcost_kernels = opcost_phase(card, dev)
 
-    # -- 12. PPO at transport@4096 ----------------------------------------------
+    # -- 13. PPO at transport@4096 ----------------------------------------------
     ppo_k2, ppo_k1, ppo_times, ppo_carry, ppo_launches = ppo_phase(card, dev)
 
-    # -- 13. the kernels line ------------------------------------------------
+    # -- 14. the kernels line ------------------------------------------------
     flops = kernel_ops(ks, carry, fo)
     ppo_flops = kernel_ops(ks, ppo_carry, fo)
     rows_bytes = (R_in + 2 * A + R_in + fo.n_out) * B * 4
@@ -2116,7 +2409,8 @@ def main():
                      ppo_k2.max(), ppo_times["rows_step"], rows_bytes, ppo_flops),
         kernel_entry("fused_step[transport,ppo]", src, "vmas_tpu/core/fused.py:1425", ppo_launches["fused_step"],
                      ppo_k1.max(), ppo_times["fused_step"], fused_bytes, ppo_flops),
-    ] + balance_kernels + joint_kernels + give_way_kernels + rt_kernels + wfl_kernels + mpe_kernels + opcost_kernels
+    ] + (balance_kernels + joint_kernels + give_way_kernels + rt_kernels + wfl_kernels + mpe_kernels + mpef_kernels
+         + opcost_kernels)
     entry_lanes(kernels, picked)
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,3 +44,15 @@ def test_parallel_imports_without_jax():
             "print(sorted(m for m in sys.modules if m.split('.')[0] in " + repr(BANNED) + "))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_scenarios_import_without_jax():
+    """Every ported scenario module, the MPE family's included, loads in a
+    fresh interpreter without bringing in JAX or the JAX package."""
+    code = ("import importlib, sys; scenarios = importlib.import_module('vmas_tpu_torch.scenarios'); "
+            "[scenarios.load(n) for n in sorted(scenarios._PORTED)]; "
+            "print(len(scenarios._PORTED), sorted(m for m in sys.modules if m.split('.')[0] in "
+            + repr(BANNED) + "))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
+    n, banned = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 17 and banned == "[]", out.stdout

@@ -19,8 +19,11 @@ equal except within 1e-5 of a threshold; joint_passage's just_passed and
 done flags likewise; give_way's and multi_give_way's rows step with the
 in-kernel PID: controller rows and the controller's output atol 1e-5, the
 goal flags equal; one launch of 4 env steps against 4 launches of one,
-bitwise; wind_flocking's fused step with dynamic gravity and the simple and
-simple_spread emits in both forms bitwise; the op-cost probe's ALU chain
+bitwise; wind_flocking's fused step with dynamic gravity and the MPE emits
+(simple, simple_spread, simple_push, simple_adversary, simple_tag,
+simple_reference, simple_speaker_listener, simple_world_comm) in both
+forms bitwise, and simple_world_comm's rows rollout bitwise its env.step
+rollout; the op-cost probe's ALU chain
 bitwise, its transcendental chain atol 1e-6 rtol 1e-5. The balance,
 all-pairs, joint_passage, waterfall, give_way, multi_give_way,
 wind_flocking and MPE states come from vmas_tpu_torch/testing.py, as
@@ -379,6 +382,61 @@ def test_mpe_kernels_match_plain(name):
         blocks.append(e1)
     torch.cuda.synchronize()
     assert torch.equal(c4, c1) and torch.equal(e4, torch.cat(blocks))
+
+
+MPE_FAMILY = ["simple_push", "simple_adversary", "simple_tag", "simple_reference", "simple_speaker_listener",
+              "simple_world_comm"]
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("name", MPE_FAMILY)
+def test_mpe_family_kernels_bitwise_plain(name, lanes):
+    """K2 (one and 4 env steps per launch) and K1 with each of the other MPE
+    emits bitwise their plain versions at 4099 envs (a ragged last block at
+    every group count), in the one-thread form and the 8-lane form, from a
+    state with catches, contacts and food in reach."""
+    import numpy as np
+
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.testing import mpe_family_state
+
+    _cuda()
+    width = 4096 + 3
+    e = make_env(name, width, device="cuda", seed=0, fused_physics=True)
+    world, fo = e.world, e._fused_outputs
+    ks = F._kernel_spec(world)
+    slots, A2 = [a.index for a in e.agents], 2 * len(e.agents)
+    carry = F.pack_carry(world, state_from_numpy(world, mpe_family_state(e, np.random.default_rng(23))), fo)
+    g = torch.Generator(device="cuda").manual_seed(24)
+    act = ((torch.rand((4 * A2, width), generator=g, device="cuda") * 2 - 1)).contiguous()
+    rule, ks.lanes = ks.lanes, lanes
+    try:
+        for k in (1, 4):
+            ck, ek = F.make_rows_step(world, fo, slots, k_steps=k)(carry, act[:k * A2].contiguous())
+            cp, ep = F.rows_step_plain(world, fo, slots, carry, act[:k * A2], k)
+            assert torch.equal(ck, cp) and torch.equal(ek, ep), k
+        x = with_actions_rows(carry, act[:A2], slots, len(world.entities))
+        assert torch.equal(F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo))
+        torch.cuda.synchronize()
+    finally:
+        ks.lanes = rule
+
+
+def test_world_comm_rows_rollout_on_the_card_equals_step_rollout():
+    """simple_world_comm's rows rollout (K2, the leader's comm state given
+    to unpack per step) against its env.step rollout (K1) at 4099 envs,
+    bitwise."""
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_rollout_fn
+
+    _cuda()
+    e = make_env("simple_world_comm", 4096 + 3, device="cuda", seed=0, fused_physics=True)
+    s0, st0 = e.state, e.steps
+    sa, _, ta = rollout_fn(e, horizon=6)(s0, st0, torch.Generator(device="cuda").manual_seed(9))
+    sb, _, tb = rows_rollout_fn(e, horizon=6)(s0, st0, torch.Generator(device="cuda").manual_seed(9))
+    assert torch.equal(ta["rewards"], tb["rewards"]) and torch.equal(ta["dones"], tb["dones"])
+    assert all(torch.equal(a, b) for a, b in zip(ta["obs"], tb["obs"]))
+    for field in ("pos", "vel", "c", "uc"):
+        assert torch.equal(getattr(sa, field), getattr(sb, field)), field
 
 
 @pytest.mark.parametrize("block", [32, 128, 256])

@@ -24,6 +24,9 @@ reports the kernel's device time per launch (torch.profiler, 200 launches;
 * simple_spread, 3 agents and discrete actions, at 4096 envs (both forms,
   and the rows step of 4 env steps) and 30000 envs (the rows step), and
   simple (both forms), from ``testing.mpe_state``;
+* simple_tag, simple_world_comm, simple_push, simple_adversary,
+  simple_reference and simple_speaker_listener at their defaults, 4096
+  envs (both forms), from ``testing.mpe_family_state``;
 * the all-pairs world, 4096 envs: the fused step from its packed state.
 
 In a tree whose kernel runs an env on a group of lanes (``fused.LANES``; 1 is
@@ -89,6 +92,9 @@ WORLDS = {
     "simple_spread": ("simple_spread", MPE, B, "mpe_state", ("rows", "fused", "rows4")),
     f"simple_spread@{WIDE}": ("simple_spread", MPE, WIDE, "mpe_state", ("rows",)),
     "simple": ("simple", MPE, B, "mpe_state", ("rows", "fused")),
+    **{name: (name, {}, B, "mpe_family_state", ("rows", "fused")) for name in (
+        "simple_tag", "simple_world_comm", "simple_push", "simple_adversary", "simple_reference",
+        "simple_speaker_listener")},
 }
 
 

@@ -39,6 +39,7 @@ MAX_A = 16
 MAX_K = 8
 MAX_P = 4
 MAX_PID = 8  # PID-controlled agents (ActParams)
+MAX_RC = 4  # distinct agent radii of an MPE emit's collision tests
 
 # per-entity flag bits (FusedSpec.flags)
 F_MOVABLE = 1
@@ -65,6 +66,12 @@ EMIT_GIVE_WAY = 5
 EMIT_MULTI_GIVE_WAY = 6
 EMIT_SIMPLE = 7
 EMIT_SIMPLE_SPREAD = 8
+EMIT_SIMPLE_PUSH = 9
+EMIT_SIMPLE_ADVERSARY = 10
+EMIT_SIMPLE_TAG = 11
+EMIT_SIMPLE_REFERENCE = 12
+EMIT_SPEAKER_LISTENER = 13
+EMIT_SIMPLE_WORLD_COMM = 14
 
 _i, _f = ctypes.c_int, ctypes.c_float
 
@@ -155,11 +162,44 @@ class SimpleSpreadParams(ctypes.Structure):
     ]
 
 
-class EmitParams(ctypes.Structure):
-    """The scratch-carry map, then each emit's own parameters."""
+class MpeTeamParams(ctypes.Structure):
+    """simple_push's and simple_adversary's: the agents' and landmarks'
+    runs of entity indices, and which agents are adversaries."""
+
+    _fields_ = [("n_agents", _i), ("a0", _i), ("n_lm", _i), ("l0", _i), ("adversary", _i * MAX_A)]
+
+
+class SimpleTagParams(ctypes.Structure):
+    """Each agent's role, whether it collides and its radius class;
+    ``hit_r[i * MAX_RC + j]`` is the collision distance of classes i and j,
+    the two radii summed in double precision and rounded once."""
 
     _fields_ = [
-        ("carry_idx", _i * MAX_K),
+        ("n_agents", _i), ("a0", _i), ("n_lm", _i), ("l0", _i),
+        ("adversary", _i * MAX_A), ("collide", _i * MAX_A), ("rcls", _i * MAX_A),
+        ("hit_r", _f * (MAX_RC * MAX_RC)),
+        ("shape_agent", _i), ("shape_adv", _i), ("same_team", _i), ("obs_pos", _i), ("obs_vel", _i),
+    ]
+
+
+class SpeakerListenerParams(ctypes.Structure):
+    _fields_ = [("n_agents", _i), ("listener", _i), ("n_lm", _i), ("l0", _i)]
+
+
+class SimpleWorldCommParams(ctypes.Structure):
+    """As ``SimpleTagParams``, with the leader, the food entities ``f0 ..
+    f0 + n_food - 1`` and ``food_r``, each radius class's distance to a
+    food item (rounded once)."""
+
+    _fields_ = [
+        ("n_agents", _i), ("a0", _i), ("n_lm", _i), ("l0", _i), ("f0", _i), ("n_food", _i),
+        ("adversary", _i * MAX_A), ("leader", _i * MAX_A), ("collide", _i * MAX_A), ("rcls", _i * MAX_A),
+        ("hit_r", _f * (MAX_RC * MAX_RC)), ("food_r", _f * MAX_RC),
+    ]
+
+
+class _EmitUnion(ctypes.Union):
+    _fields_ = [
         ("transport", TransportParams),
         ("balance", BalanceParams),
         ("joint_passage", JointPassageParams),
@@ -168,7 +208,21 @@ class EmitParams(ctypes.Structure):
         ("multi_give_way", MultiGiveWayParams),
         ("simple", SimpleParams),
         ("simple_spread", SimpleSpreadParams),
+        ("simple_push", MpeTeamParams),
+        ("simple_adversary", MpeTeamParams),
+        ("simple_tag", SimpleTagParams),
+        ("simple_reference", SimpleParams),
+        ("speaker_listener", SpeakerListenerParams),
+        ("simple_world_comm", SimpleWorldCommParams),
     ]
+
+
+class EmitParams(ctypes.Structure):
+    """The scratch-carry map, then the parameters of the one emit a launch
+    runs: a union of every emit's, each scenario filling its own member."""
+
+    _anonymous_ = ("u",)
+    _fields_ = [("carry_idx", _i * MAX_K), ("u", _EmitUnion)]
 
 
 class ActParams(ctypes.Structure):

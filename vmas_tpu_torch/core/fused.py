@@ -31,8 +31,10 @@ that order), action clamps, friction, static gravity, per-env dynamic
 gravity (the fused form only, as in the JAX package), drag, speed clamps,
 semidim clamps, any substeps, the PID velocity controller in the rows form,
 several env steps per rows launch, and the emits of transport, balance,
-joint_passage, waterfall, give_way, multi_give_way, simple and
-simple_spread. The world's joint and pair tables live in one device buffer
+joint_passage, waterfall, give_way, multi_give_way and the MPE worlds
+simple, simple_spread, simple_push, simple_adversary, simple_tag,
+simple_reference, simple_speaker_listener and simple_world_comm. The
+world's joint and pair tables live in one device buffer
 (``KernelSpec.pair_table``), so a world may have any number of joints and
 pairs. Forward only: ``Environment`` refuses ``grad_enabled`` with
 ``fused_physics``.
@@ -82,6 +84,13 @@ def _div(num, den: float):
 def _rdiv(num: float, den):
     """``num / den`` for a Python float ``num`` as one IEEE division."""
     return den.new_tensor(num) / den
+
+
+def _one_hot_select(idx_row, rows):
+    """The row ``rows[idx]`` per env, for a float index row ``idx_row`` (a
+    scratch row): ``sum((idx == k) * rows[k])`` from 0, as the JAX package
+    and the kernel compute it (the one exact term is the gathered value)."""
+    return sum((idx_row == float(k)).to(torch.float32) * r for k, r in enumerate(rows))
 
 
 def _logaddexp0(x):

@@ -82,6 +82,8 @@
 // takes
 #define MAX_PID 8
 #define MAX_CTRL (4 * MAX_PID)  // PID memory: accum x, y, prev x, y per agent
+// distinct agent radii of an MPE emit's collision tests
+#define MAX_RC 4
 
 enum {
   F_MOVABLE = 1, F_ROTATABLE = 2, F_MAX_F = 4, F_F_RANGE = 8, F_MAX_T = 16,
@@ -93,6 +95,8 @@ enum {
 enum {
   EMIT_NONE = 0, EMIT_TRANSPORT = 1, EMIT_BALANCE = 2, EMIT_JOINT_PASSAGE = 3, EMIT_WATERFALL = 4,
   EMIT_GIVE_WAY = 5, EMIT_MULTI_GIVE_WAY = 6, EMIT_SIMPLE = 7, EMIT_SIMPLE_SPREAD = 8,
+  EMIT_SIMPLE_PUSH = 9, EMIT_SIMPLE_ADVERSARY = 10, EMIT_SIMPLE_TAG = 11, EMIT_SIMPLE_REFERENCE = 12,
+  EMIT_SPEAKER_LISTENER = 13, EMIT_SIMPLE_WORLD_COMM = 14,
 };
 
 // vmas_tpu/core/utils.py LINE_MIN_DIST, rounded once to f32
@@ -197,16 +201,59 @@ struct SimpleSpreadParams {
   float radius[MAX_A];  // each agent's radius
 };
 
+// simple_push and simple_adversary: the agents and landmarks as above, and
+// which agents are adversaries
+struct MpeTeamParams {
+  int n_agents, a0, n_lm, l0;
+  int adversary[MAX_A];
+};
+
+// simple_tag: each agent's role, whether it collides and its radius class;
+// hit_r[i * MAX_RC + j], the collision distance of classes i and j (the two
+// radii summed in double precision on the host and rounded once, as the
+// JAX package compares against the Python sum); the reward and observation
+// flags
+struct SimpleTagParams {
+  int n_agents, a0, n_lm, l0;
+  int adversary[MAX_A], collide[MAX_A], rcls[MAX_A];
+  float hit_r[MAX_RC * MAX_RC];
+  int shape_agent, shape_adv, same_team, obs_pos, obs_vel;
+};
+
+struct SpeakerListenerParams {
+  int n_agents, listener, n_lm, l0;
+};
+
+// simple_world_comm: as simple_tag's, with the leader, the food entities f0
+// .. f0 + n_food - 1 and food_r, each radius class's distance to a food
+// item (rounded once on the host)
+struct SimpleWorldCommParams {
+  int n_agents, a0, n_lm, l0, f0, n_food;
+  int adversary[MAX_A], leader[MAX_A], collide[MAX_A], rcls[MAX_A];
+  float hit_r[MAX_RC * MAX_RC];
+  float food_r[MAX_RC];
+};
+
+// A launch runs one emit and reads only its parameters: a union, each
+// scenario's kernel_emit() filling its own member.
 struct EmitParams {
   int carry_idx[MAX_K];  // emit row feeding scratch row k; -1 = unchanged
-  TransportParams transport;
-  BalanceParams balance;
-  JointPassageParams joint_passage;
-  WaterfallParams waterfall;
-  GiveWayParams give_way;
-  MultiGiveWayParams multi_give_way;
-  SimpleParams simple;
-  SimpleSpreadParams simple_spread;
+  union {
+    TransportParams transport;
+    BalanceParams balance;
+    JointPassageParams joint_passage;
+    WaterfallParams waterfall;
+    GiveWayParams give_way;
+    MultiGiveWayParams multi_give_way;
+    SimpleParams simple;
+    SimpleSpreadParams simple_spread;
+    MpeTeamParams simple_push;
+    MpeTeamParams simple_adversary;
+    SimpleTagParams simple_tag;
+    SimpleParams simple_reference;
+    SpeakerListenerParams speaker_listener;
+    SimpleWorldCommParams simple_world_comm;
+  };
 };
 
 // The rows form's in-kernel process_action (fused.py PidActRows): per
@@ -222,6 +269,12 @@ struct ActParams {
   int has_cutoff[MAX_PID];
   float cutoff[MAX_PID], td[MAX_PID];
 };
+
+// The kernel's parameters by value: the three structs, five pointers and
+// three ints, within the 4 KB that every CUDA 12 toolkit takes.
+static_assert(sizeof(FusedSpec) + sizeof(EmitParams) + sizeof(ActParams) + 5 * sizeof(void*) + 3 * sizeof(int) <=
+                  4096,
+              "the fused kernel's by-value parameters exceed 4 KB");
 
 // ---------------------------------------------------------------------------
 // helpers (fused.py: _norm, _logaddexp0, _constraint_force, ...)
@@ -1512,6 +1565,327 @@ struct SimpleSpreadEmit {
   }
 };
 
+// fused.py _one_hot_select: the row of landmark `idx` (a float index row
+// of scratch) among landmarks l0 .. l0 + n - 1, as the sum from 0 of
+// (idx == k) * row_k, which is the gathered value
+__device__ __forceinline__ float one_hot_sel(float idx, const float* r, int l0, int n) {
+  float acc = 0.f;
+  for (int k = 0; k < n; ++k) acc = acc + (idx == (float)k ? 1.f : 0.f) * r[l0 + k];
+  return acc;
+}
+
+// the rows of each other agent's pos - agent i's (i among a0 .. a0 + A - 1)
+__device__ __forceinline__ void other_rels(const float* px, const float* py, int a0, int A, int i, float* o, int B,
+                                           int b, int& r) {
+  for (int j = 0; j < A; ++j) {
+    if (j == i) continue;
+    o[(r++) * B + b] = px[a0 + j] - px[a0 + i];
+    o[(r++) * B + b] = py[a0 + j] - py[a0 + i];
+  }
+}
+
+// the rows of each landmark's pos - agent ai's
+__device__ __forceinline__ void landmark_rels(const float* px, const float* py, int l0, int n_lm, int ai, float* o,
+                                              int B, int b, int& r) {
+  for (int k = 0; k < n_lm; ++k) {
+    o[(r++) * B + b] = px[l0 + k] - px[ai];
+    o[(r++) * B + b] = py[l0 + k] - py[ai];
+  }
+}
+
+// vmas_tpu/scenarios/mpe/simple_push.py SimplePushOutputs.emit, row for row:
+// the goal landmark picked by the goal_idx scratch row; per agent [vel, the
+// goal's pos - the agent's (good agents only), each landmark's, each other
+// agent's], then per agent the reward: a good agent's minus its distance
+// to the goal, an adversary's the good agents' nearest distance to the goal
+// minus its own.
+struct SimplePushEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const MpeTeamParams& p = ep.simple_push;
+    const int A = p.n_agents;
+    const float gx = one_hot_sel(scratch[0], px, p.l0, p.n_lm);
+    const float gy = one_hot_sel(scratch[0], py, p.l0, p.n_lm);
+    int r = 0;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.a0 + i;
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      if (!p.adversary[i]) {
+        o[(r++) * B + b] = gx - px[ai];
+        o[(r++) * B + b] = gy - py[ai];
+      }
+      landmark_rels(px, py, p.l0, p.n_lm, ai, o, B, b, r);
+      other_rels(px, py, p.a0, A, i, o, B, b, r);
+    }
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.a0 + i;
+      if (p.adversary[i]) {
+        float pos_rew = 0.f;
+        bool first = true;
+        for (int j = 0; j < A; ++j) {
+          if (p.adversary[j]) continue;
+          const float d = nrm(px[p.a0 + j] - gx, py[p.a0 + j] - gy);
+          pos_rew = first ? d : fminf(pos_rew, d);
+          first = false;
+        }
+        o[(r++) * B + b] = pos_rew - nrm(gx - px[ai], gy - py[ai]);
+      } else {
+        o[(r++) * B + b] = -nrm(px[ai] - gx, py[ai] - gy);
+      }
+    }
+  }
+};
+
+// vmas_tpu/scenarios/mpe/simple_adversary.py SimpleAdversaryOutputs.emit,
+// row for row: the goal landmark picked by the goal_idx scratch row; per
+// agent [the goal's pos - the agent's (good agents only), each landmark's,
+// each other agent's], then per agent the reward: an adversary's minus its
+// distance to the goal, a good agent's the adversaries' summed distance
+// minus the good agents' nearest.
+struct SimpleAdversaryEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float*, const float*, const float*, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const MpeTeamParams& p = ep.simple_adversary;
+    const int A = p.n_agents;
+    const float gx = one_hot_sel(scratch[0], px, p.l0, p.n_lm);
+    const float gy = one_hot_sel(scratch[0], py, p.l0, p.n_lm);
+    int r = 0;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.a0 + i;
+      if (!p.adversary[i]) {
+        o[(r++) * B + b] = gx - px[ai];
+        o[(r++) * B + b] = gy - py[ai];
+      }
+      landmark_rels(px, py, p.l0, p.n_lm, ai, o, B, b, r);
+      other_rels(px, py, p.a0, A, i, o, B, b, r);
+    }
+    // Python's sum: from 0, in agent order
+    float adv_sum = 0.f, good_min = 0.f;
+    bool first = true;
+    for (int j = 0; j < A; ++j) {
+      const float d = nrm(px[p.a0 + j] - gx, py[p.a0 + j] - gy);
+      if (p.adversary[j]) {
+        adv_sum = adv_sum + d;
+      } else {
+        good_min = first ? d : fminf(good_min, d);
+        first = false;
+      }
+    }
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.a0 + i;
+      o[(r++) * B + b] = p.adversary[i] ? -nrm(px[ai] - gx, py[ai] - gy) : -good_min + adv_sum;
+    }
+  }
+};
+
+// 1 where agents a and b (entity indices) are closer than thr, else 0
+__device__ __forceinline__ float hit(const float* px, const float* py, int a, int b, float thr) {
+  return nrm(px[a] - px[b], py[a] - py[b]) < thr ? 1.f : 0.f;
+}
+
+// vmas_tpu/scenarios/mpe/simple_tag.py SimpleTagOutputs.emit, row for row:
+// per agent [vel if observed, pos if observed, each landmark's pos - the
+// agent's, its position partners' pos - its own, its velocity partners'
+// vel] (an adversary sees the good agents' pos and vel and, with
+// same_team, the other adversaries' pos; a good agent the adversaries' pos
+// and, with same_team, the other good agents' pos and vel), then per agent
+// the reward: an adversary's -0.1 x its nearest good agent's distance if
+// shaped, plus 10 per good agent it touches; a good agent's, per
+// adversary, 0.1 x its distance if shaped and -10 if they touch; the terms
+// added in that order.
+struct SimpleTagEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float*, float* o, int B, int b) {
+    const SimpleTagParams& p = ep.simple_tag;
+    const int A = p.n_agents, a0 = p.a0;
+    int r = 0;
+    for (int i = 0; i < A; ++i) {
+      const int ai = a0 + i;
+      const bool adv = p.adversary[i];
+      if (p.obs_vel) {
+        o[(r++) * B + b] = vx[ai];
+        o[(r++) * B + b] = vy[ai];
+      }
+      if (p.obs_pos) {
+        o[(r++) * B + b] = px[ai];
+        o[(r++) * B + b] = py[ai];
+      }
+      landmark_rels(px, py, p.l0, p.n_lm, ai, o, B, b, r);
+      for (int j = 0; j < A; ++j) {
+        if (j == i || (adv == (bool)p.adversary[j] && !p.same_team)) continue;
+        o[(r++) * B + b] = px[a0 + j] - px[ai];
+        o[(r++) * B + b] = py[a0 + j] - py[ai];
+      }
+      for (int j = 0; j < A; ++j) {
+        if (j == i || p.adversary[j] || (!adv && !p.same_team)) continue;
+        o[(r++) * B + b] = vx[a0 + j];
+        o[(r++) * B + b] = vy[a0 + j];
+      }
+    }
+    for (int i = 0; i < A; ++i) {
+      const int ai = a0 + i;
+      float rew = 0.f;
+      bool any = false;
+      if (p.adversary[i]) {
+        if (p.shape_adv) {
+          float m = 0.f;
+          bool first = true;
+          for (int j = 0; j < A; ++j) {
+            if (p.adversary[j]) continue;
+            const float d = nrm(px[a0 + j] - px[ai], py[a0 + j] - py[ai]);
+            m = first ? d : fminf(m, d);
+            first = false;
+          }
+          rew = -0.1f * m;
+          any = true;
+        }
+        if (p.collide[i]) {
+          for (int j = 0; j < A; ++j) {
+            if (p.adversary[j]) continue;
+            const float t = 10.f * hit(px, py, a0 + j, ai, p.hit_r[p.rcls[j] * MAX_RC + p.rcls[i]]);
+            rew = any ? rew + t : t;
+            any = true;
+          }
+        }
+      } else {
+        for (int j = 0; j < A; ++j) {
+          if (!p.adversary[j]) continue;
+          if (p.shape_agent) {
+            const float t = 0.1f * nrm(px[ai] - px[a0 + j], py[ai] - py[a0 + j]);
+            rew = any ? rew + t : t;
+            any = true;
+          }
+          if (p.collide[i]) {
+            const float t = -10.f * hit(px, py, a0 + j, ai, p.hit_r[p.rcls[j] * MAX_RC + p.rcls[i]]);
+            rew = any ? rew + t : t;
+            any = true;
+          }
+        }
+      }
+      o[(r++) * B + b] = rew;
+    }
+  }
+};
+
+// vmas_tpu/scenarios/mpe/simple_reference.py SimpleReferenceOutputs.emit,
+// row for row: per agent [vel, each landmark's pos - the agent's], then the
+// shared reward: the sum over the two agents of minus the other agent's
+// distance to the landmark the agent's goal_b scratch row picks.
+struct SimpleReferenceEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const SimpleParams& p = ep.simple_reference;
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.a0 + i;
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      landmark_rels(px, py, p.l0, p.n_lm, ai, o, B, b, r);
+    }
+    float rew = 0.f;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ga = p.a0 + 1 - i;
+      const float gx = one_hot_sel(scratch[i], px, p.l0, p.n_lm);
+      const float gy = one_hot_sel(scratch[i], py, p.l0, p.n_lm);
+      const float d = -nrm(px[ga] - gx, py[ga] - gy);
+      rew = i == 0 ? d : rew + d;
+    }
+    o[(r++) * B + b] = rew;
+  }
+};
+
+// vmas_tpu/scenarios/mpe/simple_speaker_listener.py
+// SpeakerListenerOutputs.emit, row for row: the listener's [vel, each
+// landmark's pos - its own], then the shared reward: minus the listener's
+// distance to the goal landmark (the goal_idx scratch row) times the
+// number of agents.
+struct SpeakerListenerEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const SpeakerListenerParams& p = ep.speaker_listener;
+    const int li = p.listener;
+    const float gx = one_hot_sel(scratch[0], px, p.l0, p.n_lm);
+    const float gy = one_hot_sel(scratch[0], py, p.l0, p.n_lm);
+    int r = 0;
+    o[(r++) * B + b] = vx[li];
+    o[(r++) * B + b] = vy[li];
+    landmark_rels(px, py, p.l0, p.n_lm, li, o, B, b, r);
+    o[(r++) * B + b] = -nrm(px[li] - gx, py[li] - gy) * (float)p.n_agents;
+  }
+};
+
+// vmas_tpu/scenarios/mpe/simple_world_comm.py SimpleWorldCommOutputs.emit,
+// row for row: per agent [vel, pos, each landmark's pos - the agent's, and
+// for the leader each other agent's pos - its own, then each other good
+// agent's vel] (unpack repeats the leader's once per forest), then per
+// agent the reward: an adversary's 5 per touching (good agent, adversary)
+// pair, summed over the good agents, then the adversaries; a good agent's
+// -5 per adversary it touches, +2 per food item it touches, minus 0.05 x
+// its nearest food item's distance.
+struct SimpleWorldCommEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float*, float* o, int B, int b) {
+    const SimpleWorldCommParams& p = ep.simple_world_comm;
+    const int A = p.n_agents, a0 = p.a0;
+    int r = 0;
+    for (int i = 0; i < A; ++i) {
+      const int ai = a0 + i;
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      landmark_rels(px, py, p.l0, p.n_lm, ai, o, B, b, r);
+      if (p.leader[i]) {
+        other_rels(px, py, a0, A, i, o, B, b, r);
+        for (int j = 0; j < A; ++j) {
+          if (j == i || p.adversary[j]) continue;
+          o[(r++) * B + b] = vx[a0 + j];
+          o[(r++) * B + b] = vy[a0 + j];
+        }
+      }
+    }
+    float adv_rew = 0.f;
+    bool any = false;
+    for (int g = 0; g < A; ++g) {
+      if (p.adversary[g]) continue;
+      for (int j = 0; j < A; ++j) {
+        if (!p.adversary[j]) continue;
+        const float t = 5.f * hit(px, py, a0 + g, a0 + j, p.hit_r[p.rcls[g] * MAX_RC + p.rcls[j]]);
+        adv_rew = any ? adv_rew + t : t;
+        any = true;
+      }
+    }
+    for (int i = 0; i < A; ++i) {
+      const int ai = a0 + i;
+      if (p.adversary[i]) {
+        o[(r++) * B + b] = p.collide[i] ? adv_rew : 0.f;
+        continue;
+      }
+      float rew = 0.f;
+      if (p.collide[i]) {
+        for (int j = 0; j < A; ++j) {
+          if (!p.adversary[j]) continue;
+          rew = rew - 5.f * hit(px, py, a0 + j, ai, p.hit_r[p.rcls[j] * MAX_RC + p.rcls[i]]);
+        }
+      }
+      for (int k = 0; k < p.n_food; ++k) rew = rew + 2.f * hit(px, py, ai, p.f0 + k, p.food_r[p.rcls[i]]);
+      float m = 0.f;
+      for (int k = 0; k < p.n_food; ++k) {
+        const float d = nrm(px[p.f0 + k] - px[ai], py[p.f0 + k] - py[ai]);
+        m = k == 0 ? d : fminf(m, d);
+      }
+      o[(r++) * B + b] = rew - 0.05f * m;
+    }
+  }
+};
+
 // ---------------------------------------------------------------------------
 // the kernel, in both forms
 // ---------------------------------------------------------------------------
@@ -1847,6 +2221,12 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     if (emit_kind == EMIT_MULTI_GIVE_WAY) return LAUNCH(true, MultiGiveWayEmit);
     if (emit_kind == EMIT_SIMPLE) return LAUNCH(true, SimpleEmit);
     if (emit_kind == EMIT_SIMPLE_SPREAD) return LAUNCH(true, SimpleSpreadEmit);
+    if (emit_kind == EMIT_SIMPLE_PUSH) return LAUNCH(true, SimplePushEmit);
+    if (emit_kind == EMIT_SIMPLE_ADVERSARY) return LAUNCH(true, SimpleAdversaryEmit);
+    if (emit_kind == EMIT_SIMPLE_TAG) return LAUNCH(true, SimpleTagEmit);
+    if (emit_kind == EMIT_SIMPLE_REFERENCE) return LAUNCH(true, SimpleReferenceEmit);
+    if (emit_kind == EMIT_SPEAKER_LISTENER) return LAUNCH(true, SpeakerListenerEmit);
+    if (emit_kind == EMIT_SIMPLE_WORLD_COMM) return LAUNCH(true, SimpleWorldCommEmit);
   } else {
     if (emit_kind == EMIT_NONE) return LAUNCH(false, NoEmit);
     if (emit_kind == EMIT_TRANSPORT) return LAUNCH(false, TransportEmit);
@@ -1857,6 +2237,12 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     if (emit_kind == EMIT_MULTI_GIVE_WAY) return LAUNCH(false, MultiGiveWayEmit);
     if (emit_kind == EMIT_SIMPLE) return LAUNCH(false, SimpleEmit);
     if (emit_kind == EMIT_SIMPLE_SPREAD) return LAUNCH(false, SimpleSpreadEmit);
+    if (emit_kind == EMIT_SIMPLE_PUSH) return LAUNCH(false, SimplePushEmit);
+    if (emit_kind == EMIT_SIMPLE_ADVERSARY) return LAUNCH(false, SimpleAdversaryEmit);
+    if (emit_kind == EMIT_SIMPLE_TAG) return LAUNCH(false, SimpleTagEmit);
+    if (emit_kind == EMIT_SIMPLE_REFERENCE) return LAUNCH(false, SimpleReferenceEmit);
+    if (emit_kind == EMIT_SPEAKER_LISTENER) return LAUNCH(false, SpeakerListenerEmit);
+    if (emit_kind == EMIT_SIMPLE_WORLD_COMM) return LAUNCH(false, SimpleWorldCommEmit);
   }
 #undef LAUNCH
   return cudaErrorInvalidValue;

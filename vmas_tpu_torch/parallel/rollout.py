@@ -16,9 +16,13 @@ rollouts split their key, so the policy's draws do not depend on what the
 steps draw. ``rollout_fn`` and the rows rollouts therefore give the same
 trajectory for the same generator seed, with random actions or a policy.
 
-Not ported yet: the rows paths of outputs with ``unpack_reads`` (the noisy
-configs; they run through ``rollout_fn``), ``post_rewards_rollout_safe``
-and ``step_count_keys`` (no ported scenario declares them).
+Comm worlds (the MPE worlds with speaking agents) take the rows paths:
+the comm actions are decoded with the physical ones, and where the outputs'
+``unpack`` reads the comm state (``unpack_reads = ("c",)``) it is given the
+per-step ``c`` the step pipeline would hold. Not ported yet: the rows paths
+of the other ``unpack_reads`` and of noisy actions (they run through
+``rollout_fn``), ``post_rewards_rollout_safe`` and ``step_count_keys`` (no
+ported scenario declares them).
 """
 
 from __future__ import annotations
@@ -174,31 +178,37 @@ def rows_rollout_supported(env) -> bool:
     override is allowed where its outputs declare it a no-op for this
     config (``process_action_noop``) or realize it in the kernel's rows
     (``process_act_rows``: the PID velocity controller of give_way,
-    multi_give_way and joint_passage with ``use_controller=True``). Not
-    eligible yet, and run through ``rollout_fn`` (the fused step, K1, per
-    ``env.step``) instead: outputs whose unpack reads per-step state
-    (``unpack_reads``: the noisy configs)."""
+    multi_give_way and joint_passage with ``use_controller=True``).
+    Speaking agents are allowed: their comm actions are decoded with the
+    physical ones, and an ``unpack`` that reads the comm state
+    (``unpack_reads = ("c",)``, where some policy agent speaks) gets the
+    per-step ``c``. Not eligible yet, and run through ``rollout_fn`` (the
+    fused step, K1, per ``env.step``) instead: actions or comm with noise
+    (``u_noise > 0``, ``c_noise > 0``) and outputs whose unpack reads any
+    other per-step state (``unpack_reads``: the noisy configs'
+    ``"obs_key"``)."""
     from vmas_tpu_torch.core import fused as F
     from vmas_tpu_torch.scenario import BaseScenario
 
     sc = type(env.scenario)
     fo = env._fused_outputs
+    reads = set(getattr(fo, "unpack_reads", ()))
+    speaks = [a for a in env.agents if env.world.dim_c > 0 and not a.silent]
     return (
         env.world.fused
         and fo is not None
         and not env.grad_enabled
         and not (env.continuous_actions and env.clamp_action)
-        and not any(
-            (a.u_noise_array > 0).any() or (env.world.dim_c > 0 and not a.silent)
-            for a in env.agents
-        )
+        and not any((a.u_noise_array > 0).any() for a in env.agents)
+        and not any(a.c_noise > 0 for a in speaks)
         and sc.post_rewards is BaseScenario.post_rewards
         and (
             sc.process_action is BaseScenario.process_action
             or getattr(fo, "process_action_noop", False)
             or getattr(fo, "process_act_rows", None) is not None
         )
-        and not getattr(fo, "unpack_reads", ())
+        and reads <= {"c"}
+        and ("c" not in reads or bool(speaks))
         and sc.pre_step is BaseScenario.pre_step
         and sc.post_step is BaseScenario.post_step
         and F.rows_step_supported(env.world, fo, env.agents)
@@ -206,26 +216,32 @@ def rows_rollout_supported(env) -> bool:
 
 
 def _decoder(env, agent):
-    """``Environment._decode_action``'s u math over any leading axes (same
+    """``Environment._decode_action``'s math over any leading axes (same
     ops per element, so bitwise the per-step decode), as a function ``raw
-    -> u [..., B, action_size]`` with its constants on the env's device.
-    Noise-free unclamped actions, no comm."""
+    -> (u [..., B, action_size], uc)`` with its constants on the env's
+    device; ``uc`` is the comm action [..., B, dim_c] of a speaking agent in
+    a comm world (continuous, or the one-hot of its discrete comm index),
+    else None. Noise-free unclamped actions."""
     dev = env.device
+    dim_c = env.world.dim_c
+    has_comm = dim_c > 0 and not agent.silent
     u_range = torch.as_tensor(agent.u_range_array, device=dev)
     u_mult = torch.as_tensor(agent.u_multiplier_array, device=dev)
     nvec = list(agent.discrete_action_nvec)
+    radix = nvec + ([dim_c] if has_comm else [])
 
     def decode(raw):
         if env.continuous_actions:
-            return raw.detach().to(torch.float32)[..., : agent.action_size] * u_mult
+            raw = raw.detach().to(torch.float32)
+            return raw[..., : agent.action_size] * u_mult, raw[..., agent.action_size:] if has_comm else None
         action = raw
         if action.ndim == 2:  # flat Discrete: [T, B]
             action = action[..., None]
         if not env.multidiscrete_actions:
-            flat = torch.clamp(action[..., 0].to(torch.int64), 0, math.prod(nvec) - 1)
+            flat = torch.clamp(action[..., 0].to(torch.int64), 0, math.prod(radix) - 1)
             cols = []
-            for i in range(len(nvec)):
-                n = math.prod(nvec[i + 1:])
+            for i in range(len(radix)):
+                n = math.prod(radix[i + 1:])
                 cols.append(flat // n)
                 flat = flat % n
             action = torch.stack(cols, dim=-1)
@@ -239,9 +255,25 @@ def _decoder(env, agent):
                 a = torch.where(stay, n // 2, torch.where(decrement, a - 1, a))
             u_max = u_range[j]
             us.append((a.to(torch.float32) / (n - 1)) * (2 * u_max) - u_max)
-        return torch.stack(us, dim=-1) * u_mult
+        uc = None
+        if has_comm:
+            uc = torch.nn.functional.one_hot(action[..., len(nvec)], dim_c).to(torch.float32)
+        return torch.stack(us, dim=-1) * u_mult, uc
 
     return decode
+
+
+def _comm_state(state, agents, ucs):
+    """The comm state ``c`` after steps whose comm actions are ``ucs`` (per
+    agent of ``agents``, [..., B, dim_c] or None): physics copies a
+    speaking agent's ``uc`` into ``c``, and a silent agent's ``c`` keeps its
+    value. With a leading T axis on the ``ucs``, [T, B, A, dim_c]."""
+    lead = next(uc.shape[:-2] for uc in ucs if uc is not None)
+    c = state.c.expand(lead + state.c.shape).clone()
+    for a, uc in zip(agents, ucs):
+        if uc is not None:
+            c[..., a.slot, :] = uc
+    return c
 
 
 def _apply_ctrl_finish(world, fo, state_out, carry, state0):
@@ -268,16 +300,18 @@ def _last_us(fo, us_last, extras):
     return [torch.stack([extras[-1, ix], extras[-1, iy]], dim=-1) for ix, iy in idx]
 
 
-def _finish_rows_rollout(env, state, steps, carry, extras, us_last, horizon):
-    """The rows rollouts' finale: one ``unpack`` over all the output rows,
-    the truncation flags, and a final state that mirrors the step
+def _finish_rows_rollout(env, state, steps, carry, extras, us_last, horizon, ucs_last=(), c_t=None):
+    """The rows rollouts' finale: one ``unpack`` over all the output rows
+    (given the per-step comm state ``c_t`` [T, B, A, dim_c] where it reads
+    ``c``), the truncation flags, and a final state that mirrors the step
     pipeline's (the last step's u, or the controller's output where the
-    kernel ran one, its scratch updates and the controller's memory)."""
+    kernel ran one, the last comm action in ``uc`` and ``c`` of each
+    speaking agent, its scratch updates and the controller's memory)."""
     from vmas_tpu_torch.core import fused as F
 
     world, fo = env.world, env._fused_outputs
     state_out = F.unpack_carry(world, carry, state)
-    obs, rews, terminated, updates = fo.unpack(extras, state)
+    obs, rews, terminated, updates = fo.unpack(extras, state if c_t is None else state.replace(c=c_t))
     if env.max_steps is not None:
         steps_t = steps[None] + 1 + torch.arange(horizon, device=env.device)[:, None]
         truncated = steps_t >= env.max_steps
@@ -285,6 +319,13 @@ def _finish_rows_rollout(env, state, steps, carry, extras, us_last, horizon):
         truncated = torch.zeros_like(terminated)
     for a, u in zip(env.agents, _last_us(fo, us_last, extras)):
         state_out = a.set_u(state_out, u)
+    if any(uc is not None for uc in ucs_last):
+        uc, c = state_out.uc.clone(), state_out.c.clone()
+        for a, v in zip(env.agents, ucs_last):
+            if v is not None:
+                uc[:, a.slot] = v
+                c[:, a.slot] = v
+        state_out = state_out.replace(uc=uc, c=c)
     state_out = state_out.replace(
         scenario={**state_out.scenario, **{k: v[-1] for k, v in updates.items()}}
     )
@@ -325,9 +366,9 @@ def _chunked_reset_rollout(env, run_chunk, horizon, reset_every):
 
 _NOT_ELIGIBLE = (
     "not eligible -- needs fused_physics=True, a fused-outputs scenario declaring carry_extra_idx, "
-    "holonomic noise-free agents (continuous unclamped or discrete), no scripted agents, no "
-    "post_rewards override, no process_action override unless declared a no-op or realized in the "
-    "kernel, no unpack_reads; use rollout_fn"
+    "holonomic noise-free agents (continuous unclamped or discrete, comm without noise), no scripted "
+    "agents, no post_rewards override, no process_action override unless declared a no-op or realized "
+    "in the kernel, no unpack_reads but the comm state; use rollout_fn"
 )
 
 
@@ -350,11 +391,12 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
     step = F.make_rows_step(world, fo, act_slots, k_steps=K)
     B, n_tot = env.num_envs, int(fo.n_out) + int(fo.n_ctrl_out)
     A2 = 2 * len(agents)
+    reads_c = "c" in getattr(fo, "unpack_reads", ())
 
     def run(state, steps, generator):
         g_act, _ = _fork(generator, 2)
         acts = _random_actions_for_horizon(env, g_act, horizon)
-        us = [_decoder(env, a)(acts[i]) for i, a in enumerate(agents)]
+        us, ucs = zip(*(_decoder(env, a)(acts[i]) for i, a in enumerate(agents)))
         ax = torch.stack([u[..., 0] for u in us], dim=1)  # [T, A, B]
         ay = torch.stack([u[..., 1] for u in us], dim=1)
         act_rows = torch.cat([ax, ay], dim=1).contiguous()  # [T, 2A, B]
@@ -364,7 +406,10 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
         # K steps' rows are contiguous in both buffers: views, no copies
         for t in range(0, horizon, K):
             carry, _ = step(carry, act_rows[t:t + K].view(K * A2, B), extras[t:t + K].view(K * n_tot, B))
-        return _finish_rows_rollout(env, state, steps, carry, extras, [u[-1] for u in us], horizon)
+        # the per-step comm state, where unpack reads it
+        c_t = _comm_state(state, agents, ucs) if reads_c else None
+        return _finish_rows_rollout(env, state, steps, carry, extras, [u[-1] for u in us], horizon,
+                                    [None if uc is None else uc[-1] for uc in ucs], c_t)
 
     return run
 
@@ -396,11 +441,12 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
     step = F.make_rows_step(world, fo, [a.index for a in agents])
     n_tot = int(fo.n_out) + int(fo.n_ctrl_out)
     decoders = [_decoder(env, a) for a in agents]
+    reads_c = "c" in getattr(fo, "unpack_reads", ())
 
     def run(state, steps, generator):
         g_pol, _ = _fork(generator, 2)
         extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
-        auxs = []
+        auxs, c_ts = [], []
         with torch.no_grad():
             obs = obs0 = env._observations(state)
             carry = F.pack_carry(world, state, fo)
@@ -410,12 +456,20 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
                     auxs.append(aux)
                 else:
                     actions = policy(obs, g_pol)
-                u = torch.stack([d(a[None])[0] for d, a in zip(decoders, actions)])  # [A, B, 2]
+                dec = [d(a[None]) for d, a in zip(decoders, actions)]
+                u = torch.stack([du[0] for du, _ in dec])  # [A, B, 2]
+                ucs = [None if uc is None else uc[0] for _, uc in dec]
                 # the action rows: x of every agent, then y
                 carry, _ = step(carry, u.permute(2, 0, 1).reshape(2 * A, B), extras[t])
-                # the policy at t+1 acts on the observations this step emitted
-                obs = fo.unpack(extras[t], state)[0]
-            out = _finish_rows_rollout(env, state, steps, carry, extras, list(u), horizon)
+                # the policy at t+1 acts on the observations this step
+                # emitted, with this step's comm state where unpack reads it
+                state_t = state
+                if reads_c:
+                    c_ts.append(_comm_state(state, agents, ucs))
+                    state_t = state.replace(c=c_ts[-1])
+                obs = fo.unpack(extras[t], state_t)[0]
+            out = _finish_rows_rollout(env, state, steps, carry, extras, list(u), horizon, ucs,
+                                       torch.stack(c_ts) if reads_c else None)
         if policy_aux:
             out[2]["policy_aux"] = _stack_tree(auxs)
             out[2]["obs0"] = obs0

@@ -1,8 +1,10 @@
 """Scenario registry. ``balance``, ``give_way``, ``joint_passage``,
 ``multi_give_way``, ``road_traffic``, ``transport``, ``wind_flocking``, the
-MPE scenarios ``simple`` and ``simple_spread`` and the debug scenario
-``waterfall`` are ported so far; every other scenario of the JAX package
-raises ``ValueError`` when loaded."""
+MPE family (``simple``, ``simple_adversary``, ``simple_crypto``,
+``simple_push``, ``simple_reference``, ``simple_speaker_listener``,
+``simple_spread``, ``simple_tag``, ``simple_world_comm``) and the debug
+scenario ``waterfall`` are ported so far; every other scenario of the JAX
+package raises ``ValueError`` when loaded."""
 
 from __future__ import annotations
 
@@ -15,7 +17,14 @@ _PORTED = {
     "multi_give_way": "vmas_tpu_torch.scenarios.multi_give_way",
     "road_traffic": "vmas_tpu_torch.scenarios.road_traffic",
     "simple": "vmas_tpu_torch.scenarios.mpe.simple",
+    "simple_adversary": "vmas_tpu_torch.scenarios.mpe.simple_adversary",
+    "simple_crypto": "vmas_tpu_torch.scenarios.mpe.simple_crypto",
+    "simple_push": "vmas_tpu_torch.scenarios.mpe.simple_push",
+    "simple_reference": "vmas_tpu_torch.scenarios.mpe.simple_reference",
+    "simple_speaker_listener": "vmas_tpu_torch.scenarios.mpe.simple_speaker_listener",
     "simple_spread": "vmas_tpu_torch.scenarios.mpe.simple_spread",
+    "simple_tag": "vmas_tpu_torch.scenarios.mpe.simple_tag",
+    "simple_world_comm": "vmas_tpu_torch.scenarios.mpe.simple_world_comm",
     "transport": "vmas_tpu_torch.scenarios.transport",
     "waterfall": "vmas_tpu_torch.scenarios.debug.waterfall",
     "wind_flocking": "vmas_tpu_torch.scenarios.wind_flocking",

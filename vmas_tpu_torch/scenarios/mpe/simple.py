@@ -8,6 +8,7 @@ has no contact pair and no joint.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from vmas_tpu_torch import _kernels as K
@@ -33,6 +34,30 @@ def index_run(idx, what):
     if not idx or idx != list(range(idx[0], idx[0] + len(idx))):
         raise NotImplementedError(f"the fused kernel's MPE emits take {what} of consecutive entity indices, got {idx}")
     return idx[0], len(idx)
+
+
+def hit_distance(ra: float, rb: float) -> float:
+    """The distance below which two spheres of radii ``ra`` and ``rb``
+    touch, as the MPE emits compare it: the sum in double precision, rounded
+    once to f32 (a Python float the JAX package compares an f32 row
+    against)."""
+    return float(np.float32(ra + rb))
+
+
+def radius_classes(radii):
+    """``(class of each radius, the distinct radii)``: the kernel's MPE
+    emits read collision distances by pair of radius classes (at most
+    ``MAX_RC`` of them)."""
+    distinct = list(dict.fromkeys(float(r) for r in radii))
+    if len(distinct) > K.MAX_RC:
+        raise NotImplementedError(f"the fused kernel's MPE emits take at most {K.MAX_RC} distinct agent radii")
+    return [distinct.index(float(r)) for r in radii], distinct
+
+
+def along(x, like):
+    """``x [B, w]`` expanded over the leading axes of ``like [..., B, v]``
+    (a rollout's T): the constant blocks of an MPE observation."""
+    return x.expand(like.shape[:-1] + x.shape[-1:])
 
 
 class Scenario(BaseScenario):

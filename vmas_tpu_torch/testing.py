@@ -13,7 +13,8 @@ corridor walls and into each other and their velocity controllers'
 memory set, actions that drive every branch of the in-kernel PID, and
 the count of lanes each branch acted in; a transport state with the
 agents pressed against the package, a wind_flocking state with the big
-agent's wind rescaled, and an MPE state with agents overlapping.
+agent's wind rescaled, an MPE state with agents overlapping, and a state
+of the other MPE worlds with catches, contacts, food eaten and comm set.
 The states are numpy dicts made from a seeded generator, so that both
 packages can load the same one. For road_traffic's path sweeps: lanes on
 centre-line vertices and padded tails, and on left-boundary vertices.
@@ -673,6 +674,57 @@ def mpe_state(env, rng):
         pos[near, ag[1]] = pos[near, ag[0]] + rng.uniform(-0.07, 0.07, (int(near.sum()), 2))
     return _np_state(st, pos, np.zeros((B, E)), rng.normal(0, 0.3, (B, E, 2)), np.zeros((B, E)),
                      rng.normal(0, 0.5, (B, E, 2)))
+
+
+def mpe_family_state(env, rng):
+    """A numpy state dict of an MPE world with teams, landmarks and comm
+    (simple_push, simple_adversary, simple_tag, simple_reference,
+    simple_speaker_listener, simple_world_comm, simple_crypto): entities
+    uniform in [-1, 1]^2; in every other env each good agent at half to all
+    of its catch distance from an adversary (simple_tag's and
+    simple_world_comm's catches, the push's contact) and each landmark at
+    half to all of its contact distance from an agent, the last agent first
+    (simple_tag's obstacles, simple_world_comm's food eaten by the good
+    agents); random velocities and forces; in a comm world the comm state
+    and comm actions of every agent drawn in [0, 1) (silent agents keep
+    their comm state through a step)."""
+    st = env.state
+    B, E = st.pos.shape[:2]
+    pos = rng.uniform(-1.0, 1.0, (B, E, 2))
+    near = np.arange(B) % 2 == 0
+    n = int(near.sum())
+    agents = env.world.agents
+    advs = [a for a in agents if a.adversary]
+    goods = [a for a in agents if not a.adversary]
+
+    def put(e, ref):
+        ang = rng.uniform(0.0, 2 * np.pi, n)
+        d = rng.uniform(0.5, 1.0, n) * (e.shape.radius + ref.shape.radius)
+        pos[near, e.index] = pos[near, ref.index] + np.stack([np.cos(ang), np.sin(ang)], -1) * d[:, None]
+
+    if advs:
+        for k, g in enumerate(goods):
+            put(g, advs[k % len(advs)])
+    for k, lm in enumerate(env.world.landmarks):
+        put(lm, agents[-1 - k % len(agents)])
+    out = _np_state(st, pos, np.zeros((B, E)), rng.normal(0, 0.3, (B, E, 2)), np.zeros((B, E)),
+                    rng.normal(0, 0.5, (B, E, 2)))
+    if env.world.dim_c:
+        out["c"] = rng.uniform(0.0, 1.0, out["c"].shape).astype(np.float32)
+        out["uc"] = rng.uniform(0.0, 1.0, out["uc"].shape).astype(np.float32)
+    return out
+
+
+def mpe_actions(env, rng):
+    """Per-agent continuous actions of an MPE env: the physical ones in
+    [-1, 1], then the comm ones of a speaking agent in [0, 1)."""
+    B = env.num_envs
+    acts = []
+    for a in env.agents:
+        u = rng.uniform(-1.0, 1.0, (B, a.action_size))
+        w = env.get_agent_action_size(a) - a.action_size
+        acts.append(np.concatenate([u, rng.uniform(0.0, 1.0, (B, w))], -1).astype(np.float32))
+    return acts
 
 
 def rt_vertex_lanes(tables, B, A, device, seed=5):
