@@ -91,12 +91,33 @@
    4, once to warm up and 3 timed calls, env-steps/s and the device idle
    share; and simple_crypto's (unfused: rollout_fn, 100 steps, no kernel
    launch).
-12. The op-cost probe: its kernel against its plain version at [54, 4096]
+12. The other holonomic worlds at 4096 envs (reverse_transport, wheel,
+   passage, dispersion, dropout and het_mass at their defaults): each
+   world's rows step (but het_mass's: it has none) and fused step against
+   their plain versions, bitwise, over 5 re-synced steps from
+   testing.holonomic_state, with the contacts and events counted (and
+   required: box-sphere contacts, line-sphere contacts, passage's wall and
+   agent hits, food and goal eaten), at the rule's lanes and at the other
+   form, and a launch of 4 steps against 4 launches of one and the plain
+   version's 4 steps; dispersion's and dropout's rows rollouts (post_rewards
+   once at the end; each step's u read by unpack) and wheel's rows policy
+   rollout with its HeuristicPolicy against their env.step rollouts over 20
+   steps, bitwise; then each world's main path with the counts zeroed:
+   make_env, reset, 5 env.step calls, rows_rollout_fn (horizon 1000 for
+   passage and reverse_transport, 100 for the others) at k_steps 1 and 4,
+   once to warm up and 3 timed calls, env-steps/s and the device idle
+   share (het_mass: rollout_fn, K1 per step). Then the lifted caps:
+   simple_spread with 30 agents (60 entities), balance with 17 agents and
+   simple_tag with 6 good agents and 12 adversaries, each rows step and
+   fused step bitwise its plain version over 3 re-synced steps and timed,
+   and each world's main path (5 env.step calls, rows_rollout_fn at 50
+   steps); the caps and the by-value parameters' size.
+13. The op-cost probe: its kernel against its plain version at [54, 4096]
    with 0, 100 and 1200 operations (the ALU chain bitwise, the
    transcendental chain within atol 1e-6 rtol 1e-5), then its path with
    the count zeroed (tools/time_opcost.py's op sweep: 0 to 1200 operations),
    the slope per operation and the intercept.
-13. PPO at transport@4096, 4 agents (bench.py's training half): the rows
+14. PPO at transport@4096, 4 agents (bench.py's training half): the rows
    policy rollout (K2 per step) against the env.step policy rollout (K1 per
    step) with policy_aux over 20 steps from one state and one seed, bitwise
    in rewards, dones, observations, raw samples, log-densities and the
@@ -109,7 +130,7 @@
    update), env-steps/s, the idle share of one update, the loss and the
    parameters finite and moved; 2 updates with collect="step" (128 K1
    launches an update).
-14. Prints one JSON line describing each kernel, then the result line.
+15. Prints one JSON line describing each kernel, then the result line.
 
 Any failure raises and exits non-zero. It imports nothing of JAX.
 """
@@ -166,6 +187,25 @@ MPEF_LONG = ("simple_tag", "simple_world_comm")
 MPEF_CMP_STEPS = 5
 MPEF_ROLLOUT_STEPS = 20
 MPEF_SHORT_HORIZON = 100
+# the other holonomic worlds: steps compared from a state with their
+# contacts and events, steps of the rollouts compared, and the main paths'
+# horizons (the two worlds of many contact pairs and substeps at the bench's
+# 1000, the others at 100)
+HOL_WORLDS = ("reverse_transport", "wheel", "passage", "dispersion", "dropout", "het_mass")
+HOL_LONG = ("passage", "reverse_transport")
+HOL_CMP_STEPS = 5
+HOL_ROLLOUT_STEPS = 20
+HOL_SHORT_HORIZON = 100
+# the caps: worlds beyond the old caps of 32 entities and 16 agents
+CAPS_WORLDS = {
+    "simple_spread,30": ("simple_spread", {"n_agents": 30}, "mpe_state"),
+    "balance,17": ("balance", {"n_agents": 17}, "balance_contact_state"),
+    "simple_tag,6+12": ("simple_tag", {"num_good_agents": 6, "num_adversaries": 12}, "mpe_family_state"),
+}
+CAPS_CMP_STEPS = 3
+# the caps worlds' main-path horizon (simple_spread with 30 agents emits
+# 3661 rows a step: 60 MB at 4096 envs)
+CAPS_HORIZON = 50
 # the op-cost probe: op counts held to the plain version
 OPCOST_CHECK_OPS = (0, 100, 1200)
 # PPO (bench.py's training half): steps of the bitwise rollout check and of
@@ -308,9 +348,10 @@ def kernel_entry(name, source, replaces, launches, err, t, nbytes, flops):
     }
 
 
-# instantiations of the fused kernel per lane count: the fused form with
-# no emit and with each of 14, the rows form with each of 14
-FUSED_FORMS = 29
+# instantiations of the fused kernel per lane count the package builds
+# (fused.LANES_BUILT): the fused form with no emit and with each of 20, the
+# rows form with each of 19 (het_mass has none)
+FUSED_FORMS = 40
 
 # the worlds K1/K2 run here: (make_env name and kwargs) by the name their
 # entries of the kernels line carry between brackets
@@ -321,6 +362,7 @@ LANE_WORLDS = {
     "wind_flocking": ("wind_flocking", {}), "simple": ("simple", {"continuous_actions": False}),
     "simple_spread": ("simple_spread", {"continuous_actions": False}),
     **{name: (name, {}) for name in MPEF_WORLDS},
+    **{name: (name, {}) for name in HOL_WORLDS},
 }
 
 
@@ -355,9 +397,11 @@ def lane_report(dev):
     from vmas_tpu_torch.testing import all_pairs_world
 
     rows = ptxas_table(_kernels.build_log("fused_step"))
-    if sorted({r[2] for r in rows}) != list(F.LANES) or len(rows) != FUSED_FORMS * len(F.LANES):
+    if sorted({r[2] for r in rows}) != list(F.LANES_BUILT) or len(rows) != FUSED_FORMS * len(F.LANES_BUILT):
         raise AssertionError(f"the build log lists {len(rows)} instantiations of the fused kernel, not "
-                             f"{FUSED_FORMS} for each of the lane counts {F.LANES}")
+                             f"{FUSED_FORMS} for each of the lane counts {F.LANES_BUILT}")
+    print(f"fused_step build: {len(rows)} instantiations ({FUSED_FORMS} forms at each of the lane counts "
+          f"{F.LANES_BUILT})", flush=True)
     for form, emit, lanes, regs, stack, sst, sld in rows:
         print(f"ptxas fused_step_kernel<{form}, {emit}, L={lanes}>: {regs} registers, {stack} B stack, "
               f"spill stores {sst} B, loads {sld} B", flush=True)
@@ -522,7 +566,44 @@ def emit_ops(fo):
         return 7 * A * L + L + 2 + 9 * A * (A - 1) + A * (2 * L + 2 * (A - 1) * fo.obs_others)
     if kind in MPEF_EMITS:
         return mpe_family_ops(fo)
+    if kind in HOL_EMITS:
+        return holonomic_ops(fo)
     return 200 * fo.n_pkgs
+
+
+HOL_EMITS = ("ReverseTransportOutputs", "WheelOutputs", "PassageOutputs", "DispersionOutputs", "DropoutOutputs",
+             "HetMassOutputs")
+# a closest point on a box (4 edges: a closest point on a segment 15, its
+# distance 7, a first-minimum update 7) and the overlap test's 3 distances
+# and 3 compares
+BOX_OVERLAP_OPS = 4 * 29 + 3 * 7 + 3
+
+
+def holonomic_ops(fo):
+    """Operations of the holonomic worlds' emits per env, besides writing
+    their rows, read off csrc/fused_step.cu: 7 per distance, 2 per relative
+    position, BOX_OVERLAP_OPS and a cos and a sin per box-sphere overlap
+    test; reverse_transport's one test and shaping; wheel's line ends, its
+    speed terms and fmod; passage's goal distances and shapings, 10 per
+    ordered pair of agents (a distance, its test and the penalty term) and
+    per (agent, wall) an overlap test and its term; dispersion's 11 per
+    (agent, food) reach test and 14 per reward term, 6 per food; dropout's
+    13 per agent; het_mass's 8 per agent (a speed and its maximum)."""
+    kind = type(fo).__name__
+    A = fo.n_agents
+    if kind == "ReverseTransportOutputs":
+        return 2 * TRIG_OPS + BOX_OVERLAP_OPS + 7 + 4 + 6 * A
+    if kind == "WheelOutputs":
+        return 3 * TRIG_OPS + 10 + 10 * A
+    if kind == "PassageOutputs":
+        walls = len(fo.wall_i)
+        return (A * (13 + 2 * len(fo.open_i)) + 10 * A * (A - 1)
+                + A * walls * (2 * TRIG_OPS + BOX_OVERLAP_OPS + 2))
+    if kind == "DispersionOutputs":
+        return A * fo.n_food * (11 + 14) + 6 * fo.n_food + 2 * A
+    if kind == "DropoutOutputs":
+        return 13 * A + 5
+    return 8 * A
 
 
 MPEF_EMITS = ("SimplePushOutputs", "SimpleAdversaryOutputs", "SimpleTagOutputs", "SimpleReferenceOutputs",
@@ -1494,7 +1575,7 @@ def rollouts_bitwise(tag, ta, tb, sa, sb, card):
 
     pairs = [("rewards", ta["rewards"], tb["rewards"]), ("dones", ta["dones"], tb["dones"])]
     pairs += [(f"obs[{i}]", a, b) for i, (a, b) in enumerate(zip(ta["obs"], tb["obs"]))]
-    pairs += [(f"final {f}", getattr(sa, f), getattr(sb, f)) for f in ("pos", "vel", "force", "c", "uc")]
+    pairs += [(f"final {f}", getattr(sa, f), getattr(sb, f)) for f in ("pos", "vel", "force", "c", "uc", "rendering")]
     pairs += [(f"final u[{i}]", a, b) for i, (a, b) in enumerate(zip(sa.u, sb.u))]
     pairs += [(f"final scenario[{k}]", sa.scenario[k], sb.scenario[k]) for k in sa.scenario]
     differ = [name for name, a, b in pairs if not torch.equal(a, b)]
@@ -1664,6 +1745,289 @@ def mpe_family_phase(card, dev):
             if "other" in times[key]:
                 e["other_lanes"], e["other_us"] = times[key]["other"][0], times[key]["other"][1] * 1e3
             entries.append(e)
+    return entries
+
+
+# -- the other holonomic worlds -------------------------------------------------------
+
+# the counts a comparison must see above zero, per world
+HOL_REQUIRED = {
+    "reverse_transport": ("bs",), "wheel": ("ls",), "passage": ("bs", "agent_hits", "wall_hits"),
+    "dispersion": ("food_eaten",), "dropout": ("goal_eaten",), "het_mass": (),
+}
+
+
+def holonomic_phase(card, dev):
+    """reverse_transport, wheel, passage, dispersion, dropout and het_mass at
+    4096 envs: each world's K2 (but het_mass's, which has none) and K1
+    bitwise their plain versions over HOL_CMP_STEPS re-synced steps from
+    testing.holonomic_state, at the rule's lanes and at the other form, with
+    the contacts and events counted (box-sphere contacts, line-sphere
+    contacts, passage's wall and agent hits, food and goal eaten), and a
+    4-step launch bitwise 4 launches of one; dispersion's and dropout's rows
+    rollouts (post_rewards once at the end; each step's u read by unpack)
+    and wheel's rows policy rollout with its HeuristicPolicy bitwise their
+    env.step rollouts over HOL_ROLLOUT_STEPS steps; then each world's main
+    path (rows_rollout_fn at k_steps 1 and 4, horizon 1000 for passage and
+    reverse_transport and 100 for the others; het_mass: 5 env.step and
+    rollout_fn, 100 steps); the phase's entries of the kernels line."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.heuristic_policy import rollout_policy
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_policy_rollout_fn, rows_rollout_fn
+    from vmas_tpu_torch.scenarios.wheel import HeuristicPolicy as WheelPolicy
+
+    times, work, errs = {}, {}, {}
+    B = NUM_ENVS
+    # -- (a) K2 and K1 against plain, bitwise, at both forms; k_steps ---------------
+    for name in HOL_WORLDS:
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True)
+        world, fo = env.world, env._fused_outputs
+        slots = [a.index for a in env.agents]
+        ks = F._kernel_spec(world)
+        E, A = ks.E, len(slots)
+        rows = F.rows_step_supported(world, fo, env.agents)
+        st = state_from_numpy(world, testing.holonomic_state(env, np.random.default_rng(80)))
+        carry = F.pack_carry(world, st, fo)
+        x0 = torch.cat([F.state_rows(st), st.joint_fixed_rot.T, fo.scratch_rows(st)]).contiguous()
+        step = F.make_rows_step(world, fo, slots) if rows else None
+        gen = torch.Generator(device=dev).manual_seed(81)
+        acts = lambda: (torch.rand((2 * A, B), generator=gen, device=dev) * 2 - 1).contiguous()
+        k2, k1 = ErrTracker(), ErrTracker()
+        counts = {}
+        x = x0
+        for t in range(HOL_CMP_STEPS):
+            act = acts()
+            if rows:
+                c_k, e_k = step(carry, act)
+                c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+                compare_rows(k2, c_k, c_p, e_k, e_p, f"{name} rows_step")
+                carry = c_k
+            for k, v in F.contact_counts(world, x).items():
+                counts[k] = counts.get(k, 0) + v
+            y_k, y_p = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+            compare_rows(k1, y_k[:9 * E], y_p[:9 * E], y_k[9 * E:], y_p[9 * E:], f"{name} fused_step")
+            for k, v in testing.holonomic_events(env, y_p[:9 * E], y_p[9 * E:]).items():
+                counts[k] = counts.get(k, 0) + v
+            # the next step from the kernel's state, with this step's
+            # scratch as env.step's unpack would leave it
+            x = with_actions(torch.cat([y_k[:9 * E], x[9 * E:]]), act, slots, E).contiguous()
+        torch.cuda.synchronize()
+        shown = {k: v for k, v in counts.items() if v or k in HOL_REQUIRED[name]}
+        print(f"{name}@{B}: {'rows_step and ' if rows else ''}fused_step bitwise their plain versions over "
+              f"{HOL_CMP_STEPS} re-synced steps at {ks.lanes} lane{'s' if ks.lanes > 1 else ''} per env (E {E}, "
+              f"pairs {dict((t, len(getattr(ks, t))) for t in F.PAIR_TYPES if getattr(ks, t))}; contacts and "
+              f"events {shown}) on {card}", flush=True)
+        missing = [k for k in HOL_REQUIRED[name] if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"the {name} comparison saw none of {missing}: {counts}")
+        errs[f"fused_step[{name}]"] = k1.max()
+        act = acts()
+        x = with_actions(x0, act, slots, E).contiguous()
+        pairs = [(lambda: F.fused_step(world, x, fo), lambda: F.fused_step_plain(world, x, fo))]
+        if rows:
+            errs[f"rows_step[{name}]"] = k2.max()
+            pairs.append((lambda: step(carry, act), lambda: F.rows_step_plain(world, fo, slots, carry, act)))
+        other_form_bitwise(ks, pairs, f"{name}@{B}")
+        if rows:
+            act_k = torch.cat([acts() for _ in range(K_STEPS)]).contiguous()
+
+            def compare(tr, k, c_k, c_p, e_k, e_p, mid, name=name):
+                tr.close(f"{name} k{K_STEPS} step {k} emit rows", e_k, e_p)
+                if k == K_STEPS - 1:
+                    tr.close(f"{name} k{K_STEPS} carry", c_k, c_p)
+
+            k_steps_check(world, fo, slots, carry, act_k, f"{name}@{B}", compare)
+            extra = torch.empty((fo.n_out, B), device=dev)
+            key = f"rows_step[{name}]"
+            times[key] = kernel_times(key, lambda: step(carry, act, extra),
+                                      lambda: F.rows_step_plain(world, fo, slots, carry, act), "fused_step_kernel")
+            work[key] = ((2 * carry.shape[0] + 2 * A + fo.n_out) * B * 4, kernel_ops(ks, carry, fo, rows_form=True))
+        key = f"fused_step[{name}]"
+        times[key] = kernel_times(key, lambda: F.fused_step(world, x, fo), lambda: F.fused_step_plain(world, x, fo),
+                                  "fused_step_kernel")
+        work[key] = ((x.shape[0] + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo))
+        # the rule's form against the other one, for the rule's check
+        other = 8 if ks.lanes == 1 else 1
+        form = (f"rows_step[{name}]", lambda: step(carry, act, extra)) if rows else (key, lambda: F.fused_step(
+            world, x, fo))
+        other_ms = at_lanes(ks, other, lambda: device_ms(form[1], 200, "fused_step_kernel")[0])
+        times[form[0]]["other"] = (other, other_ms)
+        print(f"{form[0]} at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the device "
+              f"(the rule's {ks.lanes}: {times[form[0]]['ms'] * 1e3:.3f} us)", flush=True)
+        del env, carry, x, x0
+
+    # -- (b) the rows rollouts against the env.step rollouts, bitwise --------------
+    for name in ("dispersion", "dropout"):
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True)
+        s0 = state_from_numpy(env.world, testing.holonomic_state(env, np.random.default_rng(82)))
+        st0 = env.steps
+        sa, _, ta = rollout_fn(env, horizon=HOL_ROLLOUT_STEPS)(s0, st0, torch.Generator(device=dev).manual_seed(7))
+        sb, _, tb = rows_rollout_fn(env, horizon=HOL_ROLLOUT_STEPS)(s0, st0,
+                                                                    torch.Generator(device=dev).manual_seed(7))
+        what = "post_rewards once at the end" if name == "dispersion" else "each step's u read by unpack"
+        rollouts_bitwise(f"{name}@{B} env.step rollout vs rows rollout ({what}) over {HOL_ROLLOUT_STEPS} steps",
+                         ta, tb, sa, sb, card)
+        del env
+    env = make_env("wheel", B, device=dev, seed=0, fused_physics=True)
+    policy = rollout_policy(env, WheelPolicy(True))
+    s0, st0 = env.state, env.steps
+    sa, _, ta = rollout_fn(env, policy, HOL_ROLLOUT_STEPS)(s0, st0, torch.Generator(device=dev).manual_seed(23))
+    sb, _, tb = rows_policy_rollout_fn(env, policy, HOL_ROLLOUT_STEPS)(s0, st0,
+                                                                       torch.Generator(device=dev).manual_seed(23))
+    rollouts_bitwise(f"wheel@{B} env.step policy rollout vs rows policy rollout (its HeuristicPolicy) over "
+                     f"{HOL_ROLLOUT_STEPS} steps", ta, tb, sa, sb, card)
+    del env
+
+    # -- (c) the main paths: each world's rows rollout at k_steps 1 and 4 -------------
+    launches = {}
+    for name in HOL_WORLDS:
+        horizon = HORIZON if name in HOL_LONG else HOL_SHORT_HORIZON
+        for k in ((1, K_STEPS) if name != "het_mass" else (1,)):
+            F.fused_step_launches = 0
+            F.rows_step_launches = 0
+            env = make_env(name, num_envs=B, fused_physics=True)
+            assert env.device.type == "cuda"
+            obs = env.reset()
+            for _ in range(5):
+                obs, rews, dones, infos = env.step(env.get_random_actions())
+            rgen = torch.Generator(device=dev).manual_seed(0)
+            run = rows_rollout_fn(env, horizon=horizon, k_steps=k) if name != "het_mass" else rollout_fn(
+                env, horizon=horizon)
+            state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
+            n = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+            want = ({"fused_step": 5, "rows_step": horizon * (1 + TIMED_CALLS) // k} if name != "het_mass" else
+                    {"fused_step": 5 + horizon * (1 + TIMED_CALLS), "rows_step": 0})
+            assert n == want, (name, n, want)
+            widths = [o.shape[-1] for o in obs]
+            assert traj["rewards"].shape == (horizon, B, env.n_agents) and bool(torch.isfinite(traj["rewards"]).all())
+            assert all(o.shape == (horizon, B, w) and bool(torch.isfinite(o).all()) for o, w in zip(traj["obs"], widths))
+            assert bool(torch.isfinite(state.pos).all())
+            path = f"rows_rollout_fn k_steps {k}" if name != "het_mass" else "rollout_fn (env.step: K1)"
+            print(f"main path: {name} {B} envs x {env.n_agents} agents x {horizon} steps, {path}; launches {n}",
+                  flush=True)
+            rollout_report(f"{name}@{B} {path}", run, state, steps, rgen, call_ms, warm_s, B, card, horizon=horizon)
+            launches[(name, k)] = n
+            del env, state, traj
+
+    entries = []
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    for name in HOL_WORLDS:
+        n = launches[(name, 1)]
+        for form, site in (("rows_step", "1603"), ("fused_step", "1425")):
+            key = f"{form}[{name}]"
+            if key not in times:
+                continue
+            e = kernel_entry(key, src, f"vmas_tpu/core/fused.py:{site}", n[form], errs[key], times[key], *work[key])
+            e["launches_on"] = (f"{name}'s main path at {NUM_ENVS} envs, "
+                                + ("k_steps 1" if name != "het_mass" else "rollout_fn"))
+            if "other" in times[key]:
+                e["other_lanes"], e["other_us"] = times[key]["other"][0], times[key]["other"][1] * 1e3
+            entries.append(e)
+    return entries
+
+
+def caps_phase(card, dev):
+    """The worlds beyond the old caps (32 entities, 16 agents in an emit):
+    simple_spread with 30 agents (60 entities, one thread per env: a block
+    of 8 lanes would not hold its 3661 emit rows) through K2 and K1, and
+    balance with 17 agents and simple_tag with 6 good agents and 12
+    adversaries through their emits, each bitwise its plain version over
+    CAPS_CMP_STEPS re-synced steps at 4096 envs, then timed; each world's
+    main path (5 env.step calls and rows_rollout_fn, CAPS_HORIZON steps,
+    k_steps 1); the caps and the kernel's by-value parameters; the phase's entries
+    of the kernels line."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import _kernels, make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rows_rollout_fn
+
+    B = NUM_ENVS
+    entries = []
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    by_value = ctypes.sizeof(_kernels.FusedSpec) + ctypes.sizeof(_kernels.EmitParams) + ctypes.sizeof(
+        _kernels.ActParams)
+    print(f"caps: MAX_E {_kernels.MAX_E}, MAX_A {_kernels.MAX_A}, MAX_K {_kernels.MAX_K}; by-value parameters "
+          f"{by_value} B (FusedSpec {ctypes.sizeof(_kernels.FusedSpec)}, EmitParams "
+          f"{ctypes.sizeof(_kernels.EmitParams)}, ActParams {ctypes.sizeof(_kernels.ActParams)}) of 4096", flush=True)
+    for tag, (name, kw, build) in CAPS_WORLDS.items():
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True, **kw)
+        world, fo = env.world, env._fused_outputs
+        slots = [a.index for a in env.agents]
+        ks = F._kernel_spec(world)
+        E, A = ks.E, len(slots)
+        carry = F.pack_carry(world, state_from_numpy(world, getattr(testing, build)(env, np.random.default_rng(90))),
+                             fo)
+        step = F.make_rows_step(world, fo, slots)
+        gen = torch.Generator(device=dev).manual_seed(91)
+        tr, contacts = ErrTracker(), 0
+        for t in range(CAPS_CMP_STEPS):
+            act = (torch.rand((2 * A, B), generator=gen, device=dev) * 2 - 1).contiguous()
+            x = with_actions(carry, act, slots, E)
+            contacts += sum(F.contact_counts(world, x).values())
+            c_k, e_k = step(carry, act)
+            c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+            compare_rows(tr, c_k, c_p, e_k, e_p, f"{tag} rows_step")
+            y_k, y_p = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+            compare_rows(tr, y_k[:9 * E], y_p[:9 * E], y_k[9 * E:], y_p[9 * E:], f"{tag} fused_step")
+            carry = c_k
+        torch.cuda.synchronize()
+        smem = F.group_smem_bytes(ks, True, fo.n_scratch_in, fo.n_ctrl, fo.n_out + fo.n_ctrl_out, A, 8)
+        print(f"{tag}@{B}: rows_step and fused_step bitwise their plain versions over {CAPS_CMP_STEPS} re-synced "
+              f"steps (E {E}, {A} agents, {fo.n_out} emit rows, {len(ks.ss)} sphere-sphere pairs, {contacts} "
+              f"contacts) at {ks.lanes} lane{'s' if ks.lanes > 1 else ''} per env (a block of 8 lanes: {smem} B of "
+              f"shared memory, the card's opt-in {F.SMEM_OPTIN}) on {card}", flush=True)
+        if contacts == 0:
+            raise AssertionError(f"the {tag} comparison saw no contact")
+        act = (torch.rand((2 * A, B), generator=gen, device=dev) * 2 - 1).contiguous()
+        x = with_actions(carry, act, slots, E)
+        extra = torch.empty((fo.n_out, B), device=dev)
+        times = {
+            f"rows_step[{tag}]": kernel_times(f"rows_step[{tag}]", lambda: step(carry, act, extra),
+                                              lambda: F.rows_step_plain(world, fo, slots, carry, act),
+                                              "fused_step_kernel", plain_calls=3),
+            f"fused_step[{tag}]": kernel_times(f"fused_step[{tag}]", lambda: F.fused_step(world, x, fo),
+                                               lambda: F.fused_step_plain(world, x, fo), "fused_step_kernel",
+                                               plain_calls=3),
+        }
+        work = {
+            f"rows_step[{tag}]": ((2 * carry.shape[0] + 2 * A + fo.n_out) * B * 4,
+                                  kernel_ops(ks, carry, fo, rows_form=True)),
+            f"fused_step[{tag}]": ((x.shape[0] + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo)),
+        }
+        del env, carry, x
+        # the main path: 5 env.step calls, then the rows rollout
+        F.fused_step_launches = 0
+        F.rows_step_launches = 0
+        env = make_env(name, num_envs=B, fused_physics=True, **kw)
+        assert env.device.type == "cuda"
+        env.reset()
+        for _ in range(5):
+            env.step(env.get_random_actions())
+        rgen = torch.Generator(device=dev).manual_seed(0)
+        run = rows_rollout_fn(env, horizon=CAPS_HORIZON)
+        state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
+        n = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+        assert n == {"fused_step": 5, "rows_step": CAPS_HORIZON * (1 + TIMED_CALLS)}, n
+        assert bool(torch.isfinite(traj["rewards"]).all()) and bool(torch.isfinite(state.pos).all())
+        print(f"main path: {tag} {B} envs x {A} agents x {CAPS_HORIZON} steps, rows_rollout_fn; launches {n}",
+              flush=True)
+        rollout_report(f"{tag}@{B} rows_rollout_fn", run, state, steps, rgen, call_ms, warm_s, B, card,
+                       horizon=CAPS_HORIZON)
+        for form, site in (("rows_step", "1603"), ("fused_step", "1425")):
+            key = f"{form}[{tag}]"
+            e = kernel_entry(key, src, f"vmas_tpu/core/fused.py:{site}", n[form], tr.max(), times[key], *work[key])
+            e["launches_on"] = f"{tag}'s main path at {NUM_ENVS} envs, {CAPS_HORIZON}-step calls"
+            e["lanes"] = ks.lanes
+            entries.append(e)
+        del env, state, traj
     return entries
 
 
@@ -2256,7 +2620,8 @@ def main():
 
     # -- 2. build -----------------------------------------------------------
     print(f"build: {_kernels.build_all():.1f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)}; the three sources in "
-          f"parallel, fused_step the longest; 101-135 s before the MPE family's six emits)", flush=True)
+          f"parallel, fused_step the longest: {FUSED_FORMS} instantiations at each of the lane counts "
+          f"{F.LANES_BUILT}; 163.3 s for 145 at every lane count before the six holonomic emits)", flush=True)
     picked = lane_report(torch.device("cuda"))
 
     # -- 3. kernel against plain, at full width ------------------------------
@@ -2386,13 +2751,17 @@ def main():
     # -- 11. the rest of the MPE family -------------------------------------------
     mpef_kernels = mpe_family_phase(card, dev)
 
-    # -- 12. the op-cost probe -------------------------------------------------
+    # -- 12. the other holonomic worlds, then the lifted caps -------------------
+    hol_kernels = holonomic_phase(card, dev)
+    caps_kernels = caps_phase(card, dev)
+
+    # -- 13. the op-cost probe -------------------------------------------------
     opcost_kernels = opcost_phase(card, dev)
 
-    # -- 13. PPO at transport@4096 ----------------------------------------------
+    # -- 14. PPO at transport@4096 ----------------------------------------------
     ppo_k2, ppo_k1, ppo_times, ppo_carry, ppo_launches = ppo_phase(card, dev)
 
-    # -- 14. the kernels line ------------------------------------------------
+    # -- 15. the kernels line ------------------------------------------------
     flops = kernel_ops(ks, carry, fo)
     ppo_flops = kernel_ops(ks, ppo_carry, fo)
     rows_bytes = (R_in + 2 * A + R_in + fo.n_out) * B * 4
@@ -2410,8 +2779,9 @@ def main():
         kernel_entry("fused_step[transport,ppo]", src, "vmas_tpu/core/fused.py:1425", ppo_launches["fused_step"],
                      ppo_k1.max(), ppo_times["fused_step"], fused_bytes, ppo_flops),
     ] + (balance_kernels + joint_kernels + give_way_kernels + rt_kernels + wfl_kernels + mpe_kernels + mpef_kernels
-         + opcost_kernels)
+         + hol_kernels + opcost_kernels)
     entry_lanes(kernels, picked)
+    kernels += caps_kernels  # each with its own lanes
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -252,16 +252,35 @@ def _scenario(shape_fn, joint=False, dynamic_gravity=False, n_walls=1):
 
 @pytest.mark.parametrize("kind", ["dynamic_gravity", "entities"])
 def test_unported_worlds_raise(kind):
-    """The worlds the fused kernel once refused: one of more than 32
-    entities still raises; one with dynamic gravity is ported, and its fused
-    step (the dynamic-gravity rows after the state rows) matches the plain
-    physics."""
+    """The worlds the fused kernel once refused. A world beyond the entity
+    cap (``MAX_E`` + 1 entities, one the JAX package fuses) raises when its
+    Environment is built; a 33-entity world, refused while the cap was 32,
+    runs fused and its fused step matches the plain physics. A world with
+    dynamic gravity is ported, and its fused step (the dynamic-gravity rows
+    after the state rows) matches the plain physics."""
+    from vmas_tpu_torch import _kernels as K
     from vmas_tpu_torch.core import Sphere
+    from vmas_tpu_torch.core import fused as F
     from vmas_tpu_torch.environment import Environment
 
     if kind == "entities":
-        with pytest.raises(NotImplementedError, match="at most 32"):
-            Environment(_scenario(Sphere, n_walls=32), num_envs=2, device="cpu", fused_physics=True)
+        beyond = _scenario(Sphere, n_walls=K.MAX_E)
+        with pytest.raises(NotImplementedError, match=f"at most {K.MAX_E} entities"):
+            Environment(beyond, num_envs=2, device="cpu", fused_physics=True)
+        assert F.supports(beyond.world) and len(beyond.world.entities) == K.MAX_E + 1
+        envs = [Environment(_scenario(Sphere, n_walls=32), num_envs=2, device="cpu", fused_physics=f)
+                for f in (True, False)]
+        assert envs[0].world.fused and len(envs[0].world.entities) == 33 and F.supports(envs[0].world)
+        for env in envs:
+            # the agent 2 cm into the first wall's contact range
+            pos = torch.zeros((2, 33, 2))
+            pos[:, 1:, 0] = torch.arange(32) * 0.5 + 0.08
+            env.state = env.state.replace(pos=pos)
+            env.step([torch.tensor([[0.5, 0.0], [0.0, -0.5]])])
+        for field in ("pos", "vel"):
+            torch.testing.assert_close(getattr(envs[0].state, field), getattr(envs[1].state, field), atol=1e-5,
+                                       rtol=1e-5)
+        assert bool((envs[0].state.vel[:, 0, 0] < 0.5 * 0.1).all())  # the wall pushed back
         return
     envs = [Environment(_scenario(Sphere, dynamic_gravity=True), num_envs=2, device="cpu", fused_physics=f)
             for f in (True, False)]

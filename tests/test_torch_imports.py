@@ -55,4 +55,21 @@ def test_scenarios_import_without_jax():
             + repr(BANNED) + "))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
     n, banned = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 17 and banned == "[]", out.stdout
+    assert int(n) >= 23 and banned == "[]", out.stdout
+
+
+def test_holonomic_worlds_and_heuristics_import_without_jax():
+    """The other holonomic worlds (reverse_transport, wheel, passage,
+    dispersion, dropout, het_mass), the heuristic policies of transport,
+    balance and wheel and ``heuristic_policy`` load in a fresh interpreter
+    without bringing in JAX or the JAX package."""
+    mods = ["vmas_tpu_torch.scenarios." + n for n in ("reverse_transport", "wheel", "passage", "dispersion",
+                                                       "dropout", "debug.het_mass", "transport", "balance")]
+    code = ("import importlib, sys; mods = [importlib.import_module(m) for m in " + repr(mods) + "]; "
+            "import vmas_tpu_torch.heuristic_policy as h; "
+            "assert all(issubclass(m.HeuristicPolicy, h.BaseHeuristicPolicy) for m in mods if hasattr(m, "
+            "'HeuristicPolicy')); "
+            "print(sum(hasattr(m, 'HeuristicPolicy') for m in mods), sorted(m for m in sys.modules if "
+            "m.split('.')[0] in " + repr(BANNED) + "))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
+    assert out.stdout.strip() == "3 []", out.stdout

@@ -23,7 +23,10 @@ bitwise; wind_flocking's fused step with dynamic gravity and the MPE emits
 (simple, simple_spread, simple_push, simple_adversary, simple_tag,
 simple_reference, simple_speaker_listener, simple_world_comm) in both
 forms bitwise, and simple_world_comm's rows rollout bitwise its env.step
-rollout; the op-cost probe's ALU chain
+rollout; the emits of reverse_transport, wheel, passage, dispersion,
+dropout and het_mass in both forms bitwise, dropout's rows rollout
+bitwise its env.step rollout, simple_spread with 17 and 30 agents
+bitwise; the op-cost probe's ALU chain
 bitwise, its transcendental chain atol 1e-6 rtol 1e-5. The balance,
 all-pairs, joint_passage, waterfall, give_way, multi_give_way,
 wind_flocking and MPE states come from vmas_tpu_torch/testing.py, as
@@ -669,20 +672,38 @@ _LANE_WORLDS = {
 }
 
 
+_ALL_LANES = {}
+
+
+def _all_lanes_library():
+    """The fused kernel built at every lane count of ``F.LANES``
+    (``-DVMAS_FUSED_ALL_LANES``, as tools/time_fused_step.py builds it; the
+    package's build holds ``F.LANES_BUILT`` only), built once per session."""
+    from vmas_tpu_torch import _kernels as K
+
+    if "lib" not in _ALL_LANES:
+        _ALL_LANES["lib"] = K.library("fused_step", K.build_variant("fused_step", ["VMAS_FUSED_ALL_LANES"]))
+    return _ALL_LANES["lib"]
+
+
 @pytest.mark.parametrize("width", [301, 4096 + 3])
 @pytest.mark.parametrize("lanes", F.LANES)
 @pytest.mark.parametrize("name", list(_LANE_WORLDS))
-def test_lane_kernels_bitwise_plain(name, lanes, width):
+def test_lane_kernels_bitwise_plain(name, lanes, width, monkeypatch):
     """K2 (one and two env steps per launch) and K1 at every lane count the
-    rule can pick, bitwise their plain versions, at widths that leave the
+    source takes, bitwise their plain versions, at widths that leave the
     last block ragged for every group count (301 is a multiple of none of
-    4, 8, 16, 32; 4099 of none)."""
+    4, 8, 16, 32; 4099 of none). The lane counts the package's build does
+    not hold run on the all-lanes build (tools/time_fused_step.py's)."""
     import numpy as np
 
+    from vmas_tpu_torch import _kernels as K
     from vmas_tpu_torch import testing
     from vmas_tpu_torch.interop import state_from_numpy
 
     _cuda()
+    if lanes not in F.LANES_BUILT:
+        monkeypatch.setitem(K._LIBS, "fused_step", _all_lanes_library())
     kw, build = _LANE_WORLDS[name]
     e = make_env(name, width, device="cuda", seed=0, fused_physics=True, **kw)
     world, fo = e.world, e._fused_outputs
@@ -721,8 +742,9 @@ def with_actions_rows(carry, act, slots, E):
 
 
 def test_launcher_rejects_bad_lanes_and_shared_memory(env):
-    """A lane count the kernel is not built for and a block beyond the
-    device's shared memory raise; neither falls back."""
+    """A lane count the kernel does not take, one the package's build does
+    not hold (4: the all-lanes build's only), and a block beyond the
+    device's shared memory raise; none falls back."""
     from vmas_tpu_torch import _kernels as K
 
     world, fo = env.world, env._fused_outputs
@@ -731,15 +753,126 @@ def test_launcher_rejects_bad_lanes_and_shared_memory(env):
     out = torch.empty((9 * ks.E + fo.n_out, B), device="cuda")
     rule = ks.lanes
     try:
-        ks.lanes = 3
-        with pytest.raises(RuntimeError, match="launch failed"):
-            F.fused_step(world, x, fo)
+        for lanes in (3, 4):
+            ks.lanes = lanes
+            with pytest.raises(RuntimeError, match="launch failed"):
+                F.fused_step(world, x, fo)
     finally:
         ks.lanes = rule
     with pytest.raises(ValueError, match="shared memory"):
         F._launch(ks, ks.to_ctypes(int(fo.n_scratch_in)), fo, x, None, out, None, rows_mode=False, n_tot=100000)
     lib = K.library("fused_step")
     assert lib.vmas_fused_smem(ks.to_ctypes(int(fo.n_scratch_in)), rule, 0, 0, 100000) > lib.vmas_max_smem()
+
+
+# -- the other holonomic worlds, and the lifted caps -----------------------------
+
+HOLONOMIC = ["reverse_transport", "wheel", "passage", "dispersion", "dropout", "het_mass"]
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("name", HOLONOMIC)
+def test_holonomic_kernels_bitwise_plain(name, lanes):
+    """K2 (one and 4 env steps per launch; het_mass has no rows form) and K1
+    with each of the six emits bitwise their plain versions at 4099 envs,
+    one thread per env and 8 lanes per env, from a state with its contacts
+    and events (testing.holonomic_state)."""
+    import numpy as np
+
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.testing import holonomic_state
+
+    _cuda()
+    width = 4096 + 3
+    e = make_env(name, width, device="cuda", seed=0, fused_physics=True)
+    world, fo = e.world, e._fused_outputs
+    ks = F._kernel_spec(world)
+    slots, A2 = [a.index for a in e.agents], 2 * len(e.agents)
+    st = state_from_numpy(world, holonomic_state(e, np.random.default_rng(31)))
+    g = torch.Generator(device="cuda").manual_seed(32)
+    act = ((torch.rand((4 * A2, width), generator=g, device="cuda") * 2 - 1)).contiguous()
+    rule, ks.lanes = ks.lanes, lanes
+    try:
+        if F.rows_step_supported(world, fo, e.agents):
+            carry = F.pack_carry(world, st, fo)
+            for k in (1, 4):
+                ck, ek = F.make_rows_step(world, fo, slots, k_steps=k)(carry, act[:k * A2].contiguous())
+                cp, ep = F.rows_step_plain(world, fo, slots, carry, act[:k * A2], k)
+                assert torch.equal(ck, cp) and torch.equal(ek, ep), k
+        x = torch.cat([F.state_rows(st), st.joint_fixed_rot.T, fo.scratch_rows(st)]).contiguous()
+        assert torch.equal(F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo))
+        torch.cuda.synchronize()
+    finally:
+        ks.lanes = rule
+
+
+def test_dropout_rows_rollout_on_the_card_equals_step_rollout():
+    """dropout's rows rollout (K2, each step's decoded u handed to unpack for
+    the energy term, post_rewards once at the end) against its env.step
+    rollout (K1) at 4099 envs, bitwise."""
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_rollout_fn
+
+    _cuda()
+    e = make_env("dropout", 4096 + 3, device="cuda", seed=0, fused_physics=True)
+    s0, st0 = e.state, e.steps
+    sa, _, ta = rollout_fn(e, horizon=6)(s0, st0, torch.Generator(device="cuda").manual_seed(9))
+    sb, _, tb = rows_rollout_fn(e, horizon=6)(s0, st0, torch.Generator(device="cuda").manual_seed(9))
+    assert torch.equal(ta["rewards"], tb["rewards"]) and torch.equal(ta["dones"], tb["dones"])
+    assert all(torch.equal(a, b) for a, b in zip(ta["obs"], tb["obs"]))
+    for field in ("pos", "vel", "rendering"):
+        assert torch.equal(getattr(sa, field), getattr(sb, field)), field
+    assert all(torch.equal(sa.scenario[k], sb.scenario[k]) for k in sa.scenario)
+
+
+@pytest.mark.parametrize("n", [17, 30])
+def test_wide_simple_spread_kernels_bitwise_plain(n):
+    """simple_spread with 17 and 30 agents (34 and 60 entities, beyond the
+    old 32-entity cap) through K2 and K1 at the lanes the rule picks (8, and
+    one thread per env where a block of 8 lanes would not fit its 3661 emit
+    rows), bitwise their plain versions at 4099 envs."""
+    import numpy as np
+
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.testing import mpe_state
+
+    _cuda()
+    width = 4096 + 3
+    e = make_env("simple_spread", width, device="cuda", seed=0, fused_physics=True, n_agents=n)
+    world, fo = e.world, e._fused_outputs
+    assert F._kernel_spec(world).lanes == (8 if n == 17 else 1)
+    slots, A2 = [a.index for a in e.agents], 2 * n
+    carry = F.pack_carry(world, state_from_numpy(world, mpe_state(e, np.random.default_rng(33))), fo)
+    g = torch.Generator(device="cuda").manual_seed(34)
+    act = ((torch.rand((A2, width), generator=g, device="cuda") * 2 - 1)).contiguous()
+    ck, ek = F.make_rows_step(world, fo, slots)(carry, act)
+    cp, ep = F.rows_step_plain(world, fo, slots, carry, act)
+    assert torch.equal(ck, cp) and torch.equal(ek, ep)
+    x = with_actions_rows(carry, act, slots, len(world.entities))
+    assert torch.equal(F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name,kw", [("passage", {}), ("give_way", {}), ("simple_spread", {"n_agents": 17}),
+                                     ("wind_flocking", {}), ("waterfall", {})])
+def test_group_smem_bytes_match_the_launcher(name, kw):
+    """core.fused.group_smem_bytes, the host's count behind the lane rule's
+    shared-memory fit, equals the launcher's vmas_fused_smem in both forms
+    at every lane count of the group form."""
+    from vmas_tpu_torch import _kernels as K
+
+    _cuda()
+    e = make_env(name, 8, device="cuda", seed=0, fused_physics=True, **kw)
+    ks, fo = F._kernel_spec(e.world), e._fused_outputs
+    lib = K.library("fused_step")
+    k_in, n_out = (int(fo.n_scratch_in), int(fo.n_out)) if fo is not None else (0, 0)
+    slots = [a.index for a in e.agents]
+    for lanes in (4, 8, 16, 32):
+        assert lib.vmas_fused_smem(ks.to_ctypes(k_in), lanes, 0, 0, n_out) == F.group_smem_bytes(
+            ks, False, k_in, 0, n_out, 0, lanes)
+        if fo is not None and not ks.dyn_gravity:
+            n_ctrl, n_tot = int(fo.n_ctrl), n_out + int(fo.n_ctrl_out)
+            assert lib.vmas_fused_smem(ks.to_ctypes(k_in, slots), lanes, 1, n_ctrl, n_tot) == F.group_smem_bytes(
+                ks, True, k_in, n_ctrl, n_tot, len(slots), lanes)
 
 
 # -- the PPO path: policy rollouts and an update on the card -------------------

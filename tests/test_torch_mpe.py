@@ -83,9 +83,10 @@ def _compare_emit(fo, t_extra, j_extra, what):
 @pytest.mark.parametrize("name", NAMES)
 def test_pair_buckets_and_supports(name, cases):
     """The same entities and contact pairs as the JAX package: simple none
-    (the kernel's table holds no pair record, only the lane lists: 8 words
-    per entity and no entry), simple_spread three sphere-sphere pairs (each
-    agent's list holds its two); both fuse, as in the JAX package."""
+    (the kernel's table holds no pair record, only the lane lists, 8 words
+    per entity and no entry, and the per-entity constants, 16 words per
+    entity), simple_spread three sphere-sphere pairs (each agent's list
+    holds its two); both fuse, as in the JAX package."""
     env = cases[name][0]
     jw = vmas_tpu.make_env(name, 2, seed=0).world
     assert [e.name for e in env.world.entities] == [e.name for e in jw.entities]
@@ -97,7 +98,8 @@ def test_pair_buckets_and_supports(name, cases):
     table = ks.pair_table("cpu")
     n_entries = {"simple": 0, "simple_spread": 6}[name]
     assert ks.table_offsets[-1] == 3 * n_ss
-    assert table.numel() == 3 * n_ss + 8 * ks.E + n_entries and table.dtype == torch.int32
+    assert ks.ent_offset == 3 * n_ss + 8 * ks.E + n_entries
+    assert table.numel() == 3 * n_ss + 8 * ks.E + n_entries + 16 * ks.E and table.dtype == torch.int32
 
 
 @pytest.mark.parametrize("name", NAMES)

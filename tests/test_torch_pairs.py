@@ -154,7 +154,9 @@ def test_more_pairs_than_the_old_caps():
     for name in FIELDS:
         torch.testing.assert_close(getattr(a, name), getattr(b, name), **STATE_TOL)
     # the pair records, then the lane lists: 8 words per entity and each
-    # agent's 11 sphere-sphere and 2 box-sphere entries (the boxes are fixed)
+    # agent's 11 sphere-sphere and 2 box-sphere entries (the boxes are
+    # fixed), then the per-entity constants: 16 words per entity
     ks = TF.KernelSpec(w)
     assert ks.table_offsets[-1] == 3 * 66 + 6 * 24
-    assert len(ks.table) == 3 * 66 + 6 * 24 + 8 * 14 + 12 * 13
+    assert ks.ent_offset == 3 * 66 + 6 * 24 + 8 * 14 + 12 * 13
+    assert len(ks.table) == 3 * 66 + 6 * 24 + 8 * 14 + 12 * 13 + 16 * 14

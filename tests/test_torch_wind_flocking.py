@@ -138,7 +138,12 @@ def test_dynamic_gravity_replaces_static_gravity():
     ks, kd = TF._kernel_spec(ws), TF._kernel_spec(wd)
     assert ks.gravity == [(2.0 * 0.25, 2.0 * -1.5)] and kd.dyn_g == [(2.0, 0.25, -1.5)]
     cs, cd = ks.to_ctypes(0), kd.to_ctypes(0)
-    assert (cs.dyn_g, cd.dyn_g) == (0, 1) and (cd.gsx[0], cd.gsy[0], cd.mass[0]) == (0.25, -1.5, 2.0)
+    # the per-entity constants, in the table the kernel reads (one block of
+    # E words per field)
+    from vmas_tpu_torch import _kernels as K
+
+    ent = lambda f: float(kd.table[kd.ent_offset + K.ENT_FIELDS.index(f) * kd.E:][:1].view(np.float32)[0])
+    assert (cs.dyn_g, cd.dyn_g) == (0, 1) and (ent("gsx"), ent("gsy"), ent("mass")) == (0.25, -1.5, 2.0)
     rng = np.random.default_rng(0)
     st = ws.spawn_state().replace(vel=torch.as_tensor(rng.normal(0, 1, (4, 1, 2)), dtype=torch.float32))
     dg = torch.as_tensor(rng.normal(0, 1, (4, 1, 2)), dtype=torch.float32)

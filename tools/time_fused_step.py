@@ -3,12 +3,17 @@
 
     git archive HEAD~1 vmas_tpu_torch | tar -x -C _archive/parent  # the parent
     python3 tools/time_fused_step.py parent=_archive/parent change=.
+    python3 tools/time_fused_step.py --worlds simple,dropout --lanes 1,8 parent=_archive/parent change=.
 
 Each argument names a tree holding a ``vmas_tpu_torch`` package: ``label=path``
 (relative to the repository root), or ``label=path:variant`` for a copy of
 that tree (under ``_archive/variants/``) whose ``csrc/fused_step.cu`` is
 changed: ``minbN`` (N a number) asks the compiler for N resident blocks of the
-group kernel per SM (``__launch_bounds__(NT, N)``), which caps its registers. The
+group kernel per SM (``__launch_bounds__(NT, N)``), which caps its registers;
+``maxeN`` sizes the one-thread form's per-thread arrays (and the emits'
+tables of MAX_E) for N entities (``#define MAX_E N``; time worlds of at most
+N entities only: the host still packs the emits' parameters for the
+package's MAX_E, which a smaller union reads only in part). The
 trees run in the order given and then in reverse (A B C C B A), each in a
 process of its own that imports its tree's package, builds its kernels and
 reports the kernel's device time per launch (torch.profiler, 200 launches;
@@ -27,14 +32,23 @@ reports the kernel's device time per launch (torch.profiler, 200 launches;
 * simple_tag, simple_world_comm, simple_push, simple_adversary,
   simple_reference and simple_speaker_listener at their defaults, 4096
   envs (both forms), from ``testing.mpe_family_state``;
+* reverse_transport, wheel, passage, dispersion and dropout (both forms)
+  and het_mass (the fused step) at their defaults, 4096 envs, from
+  ``testing.holonomic_state``;
 * the all-pairs world, 4096 envs: the fused step from its packed state.
 
 In a tree whose kernel runs an env on a group of lanes (``fused.LANES``; 1 is
 one thread per env) each form is timed at every lane count, and the count the
-world's rule picks is marked; a tree of one thread per env only (before the
-lane kernel) is timed once per form, as ``thread``. Prints the card's name and
+world's rule picks is marked; a tree whose package builds only the counts
+the rule picks (``fused.LANES_BUILT``) is timed on its all-lanes build
+(``_kernels.build_variant("fused_step", ["VMAS_FUSED_ALL_LANES"])``, into
+the tree's ``_build/variants/``); a tree of one thread per env only (before
+the lane kernel) is timed once per form, as ``thread``. Prints the card's name and
 power limit, one JSON line per run, and a table of each tree's mean, minimum
-and maximum per form and lane count. Needs one GPU.
+and maximum per form and lane count. ``--worlds a,b`` times those worlds
+only (the labels below; ``all_pairs`` too), and ``--lanes 1,8`` those lane
+counts only (a tree whose package builds them all is then timed without its
+all-lanes build). Needs one GPU.
 """
 
 import json
@@ -43,6 +57,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -95,10 +110,13 @@ WORLDS = {
     **{name: (name, {}, B, "mpe_family_state", ("rows", "fused")) for name in (
         "simple_tag", "simple_world_comm", "simple_push", "simple_adversary", "simple_reference",
         "simple_speaker_listener")},
+    **{name: (name, {}, B, "holonomic_state", ("rows", "fused")) for name in (
+        "reverse_transport", "wheel", "passage", "dispersion", "dropout")},
+    "het_mass": ("het_mass", {}, B, "holonomic_state", ("fused",)),
 }
 
 
-def child(label):
+def child(label, worlds=None, only_lanes=None):
     import numpy as np
     import torch
 
@@ -109,10 +127,19 @@ def child(label):
     from vmas_tpu_torch.interop import state_from_numpy
 
     build_s = _kernels.build_all()
+    if hasattr(F, "LANES_BUILT") and not set(only_lanes or F.LANES) <= set(F.LANES_BUILT):
+        # the package builds only the lane counts the rule picks: time every
+        # count on the all-lanes build
+        t0 = time.perf_counter()
+        path = _kernels.build_variant("fused_step", ["VMAS_FUSED_ALL_LANES"])
+        _kernels._LIBS["fused_step"] = _kernels.library("fused_step", path)
+        build_s = {"package": build_s, "all_lanes": time.perf_counter() - t0}
     dev = torch.device("cuda")
     out = {"label": label, "package": str(Path(vmas_tpu_torch.__file__).parent), "build_s": build_s,
            "us": {}, "rule": {}}
     lanes = getattr(F, "LANES", None)
+    if lanes is not None and only_lanes:
+        lanes = tuple(L for L in lanes if L in only_lanes)
 
     def timed(key, ks, fn):
         if lanes is None:
@@ -130,6 +157,8 @@ def child(label):
             ks.lanes = rule
 
     for world, (name, kw, n, build, forms) in WORLDS.items():
+        if worlds and world not in worlds:
+            continue
         try:
             env = make_env(name, n, device=dev, seed=0, fused_physics=True, **kw)
         except ValueError:
@@ -163,9 +192,10 @@ def child(label):
             x = torch.cat(parts).contiguous()
             timed(f"fused_step[{world}]", ks, lambda: F.fused_step(wd, x, fo))
         del env, state
-    aw = testing.all_pairs_world(TC, B, dev)
-    xa = F.state_rows(state_from_numpy(aw, testing.all_pairs_state(np.random.default_rng(4), B))).contiguous()
-    timed("fused_step[all_pairs]", F._kernel_spec(aw), lambda: F.fused_step(aw, xa))
+    if not worlds or "all_pairs" in worlds:
+        aw = testing.all_pairs_world(TC, B, dev)
+        xa = F.state_rows(state_from_numpy(aw, testing.all_pairs_state(np.random.default_rng(4), B))).contiguous()
+        timed("fused_step[all_pairs]", F._kernel_spec(aw), lambda: F.fused_step(aw, xa))
     print(json.dumps(out), flush=True)
 
 
@@ -177,6 +207,13 @@ def _minblocks(src, n):
     return src
 
 
+def _max_entities(src, n):
+    src, k = re.subn(r"#define MAX_E \d+\n", f"#define MAX_E {n}\n", src)
+    if k != 1:
+        raise SystemExit("no #define MAX_E in fused_step.cu")
+    return src
+
+
 def tree_of(spec):
     """(label, tree path) of ``label=path[:variant]``, making the variant."""
     label, _, rest = spec.partition("=")
@@ -184,7 +221,7 @@ def tree_of(spec):
     tree = (ROOT / path).resolve()
     if not variant:
         return label, tree
-    m = re.fullmatch(r"minb(\d+)", variant)
+    m = re.fullmatch(r"(minb|maxe)(\d+)", variant)
     if not m:
         raise SystemExit(f"unknown variant {variant!r}")
     dst = ROOT / "_archive" / "variants" / label
@@ -192,13 +229,29 @@ def tree_of(spec):
     shutil.copytree(tree / "vmas_tpu_torch", dst / "vmas_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     cu = dst / "vmas_tpu_torch" / "csrc" / "fused_step.cu"
-    cu.write_text(_minblocks(cu.read_text(), int(m.group(1))))
+    edit = _minblocks if m.group(1) == "minb" else _max_entities
+    cu.write_text(edit(cu.read_text(), int(m.group(2))))
     return label, dst
 
 
+def _option(args, name):
+    """The comma-separated values of ``--name v1,v2`` in ``args`` (removed
+    from them), or None."""
+    if name not in args:
+        return None
+    i = args.index(name)
+    values = args[i + 1].split(",")
+    del args[i:i + 2]
+    return values
+
+
 def main():
-    if "--child" in sys.argv:
-        return child(sys.argv[sys.argv.index("--child") + 1])
+    args = sys.argv[1:]
+    worlds = _option(args, "--worlds")
+    lanes = _option(args, "--lanes")
+    only_lanes = [int(v) for v in lanes] if lanes else None
+    if "--child" in args:
+        return child(args[args.index("--child") + 1], worlds, only_lanes)
     import torch
 
     if not torch.cuda.is_available():
@@ -207,11 +260,12 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    trees = [tree_of(a) for a in sys.argv[1:]]
+    trees = [tree_of(a) for a in args]
+    extra = (["--worlds", ",".join(worlds)] if worlds else []) + (["--lanes", ",".join(lanes)] if lanes else [])
     runs = []
     for label, tree in trees + trees[::-1]:
         env = dict(os.environ, PYTHONPATH=str(tree))
-        res = subprocess.run([sys.executable, __file__, "--child", label], cwd=tree, env=env,
+        res = subprocess.run([sys.executable, __file__, "--child", label, *extra], cwd=tree, env=env,
                              capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)

@@ -32,16 +32,26 @@ NVCC_FLAGS = [
 # kernel name -> its source; one nvcc process per source
 SOURCES = {"fused_step": "fused_step.cu", "road_traffic": "road_traffic.cu", "opcost": "opcost.cu"}
 
-# capacities of the kernel's by-value spec (csrc/fused_step.cu); the joint
-# and pair tables are a device buffer of any length
-MAX_E = 32
-MAX_A = 16
-MAX_K = 8
+# capacities of the fused kernel (csrc/fused_step.cu): entities (the
+# one-thread form's per-thread arrays), policy agents (action slots and the
+# emits' per-agent tables), scratch rows, transport's packages; the joint
+# and pair tables, the lane lists and the per-entity constants are a device
+# buffer of any length. core.fused.check_fusable holds a world to them when
+# its Environment is built.
+MAX_E = 64
+MAX_A = 32
+MAX_K = 16
 MAX_P = 4
 MAX_PID = 8  # PID-controlled agents (ActParams)
 MAX_RC = 4  # distinct agent radii of an MPE emit's collision tests
 
-# per-entity flag bits (FusedSpec.flags)
+# the per-entity constants in the table buffer, one block of E words per
+# field from FusedSpec.o_ent, in this order (csrc/fused_step.cu P_*); the
+# flags an int, the others floats stored by their bits
+ENT_FIELDS = ("flags", "inv_mass", "inv_moi", "drag_fac", "max_f", "f_range", "max_t", "t_range", "max_speed",
+              "v_range", "lfm", "mass", "afm", "moi", "gsx", "gsy")
+
+# per-entity flag bits (the flags field)
 F_MOVABLE = 1
 F_ROTATABLE = 2
 F_MAX_F = 4
@@ -72,6 +82,12 @@ EMIT_SIMPLE_TAG = 11
 EMIT_SIMPLE_REFERENCE = 12
 EMIT_SPEAKER_LISTENER = 13
 EMIT_SIMPLE_WORLD_COMM = 14
+EMIT_REVERSE_TRANSPORT = 15
+EMIT_WHEEL = 16
+EMIT_PASSAGE = 17
+EMIT_DISPERSION = 18
+EMIT_DROPOUT = 19
+EMIT_HET_MASS = 20
 
 _i, _f = ctypes.c_int, ctypes.c_float
 
@@ -81,17 +97,10 @@ class FusedSpec(ctypes.Structure):
         ("E", _i), ("J", _i), ("K_in", _i), ("substeps", _i),
         ("n_ss", _i), ("n_ls", _i), ("n_ll", _i), ("n_bs", _i), ("n_bl", _i), ("n_bb", _i),
         ("o_j", _i), ("o_ss", _i), ("o_ls", _i), ("o_ll", _i), ("o_bs", _i), ("o_bl", _i), ("o_bb", _i),
-        ("o_lst", _i), ("n_tab", _i),
+        ("o_lst", _i), ("o_ent", _i), ("n_tab", _i),
         ("n_act", _i), ("has_x", _i), ("has_y", _i), ("dyn_g", _i),
         ("sub_dt", _f), ("cm", _f), ("cf", _f), ("x_semidim", _f), ("y_semidim", _f),
         ("jf", _f), ("tcf", _f),
-        ("flags", _i * MAX_E),
-        ("inv_mass", _f * MAX_E), ("inv_moi", _f * MAX_E), ("drag_fac", _f * MAX_E),
-        ("max_f", _f * MAX_E), ("f_range", _f * MAX_E),
-        ("max_t", _f * MAX_E), ("t_range", _f * MAX_E),
-        ("max_speed", _f * MAX_E), ("v_range", _f * MAX_E),
-        ("lfm", _f * MAX_E), ("mass", _f * MAX_E), ("afm", _f * MAX_E), ("moi", _f * MAX_E),
-        ("gsx", _f * MAX_E), ("gsy", _f * MAX_E),
         ("act_slot", _i * MAX_A),
     ]
 
@@ -198,6 +207,44 @@ class SimpleWorldCommParams(ctypes.Structure):
     ]
 
 
+class ReverseTransportParams(ctypes.Structure):
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A), ("goal", _i), ("pkg", _i),
+        ("hw", _f), ("hl", _f), ("og_dmin", _f), ("factor", _f),
+    ]
+
+
+class WheelParams(ctypes.Structure):
+    _fields_ = [("n_agents", _i), ("agent", _i * MAX_A), ("line", _i), ("half", _f), ("v_des", _f)]
+
+
+class PassageParams(ctypes.Structure):
+    """Each agent, its goal and whether it collides; the open passages and
+    the walls in world order; the thresholds rounded once from the double
+    sums the JAX package compares against."""
+
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A), ("goal", _i * MAX_A), ("collide", _i * MAX_A),
+        ("n_open", _i), ("n_walls", _i), ("open", _i * MAX_E), ("wall", _i * MAX_E),
+        ("hw", _f), ("hl", _f), ("two_r", _f), ("wall_dmin", _f), ("half_r", _f), ("factor", _f),
+    ]
+
+
+class DispersionParams(ctypes.Structure):
+    _fields_ = [
+        ("n_agents", _i), ("n_food", _i), ("agent", _i * MAX_A), ("food", _i * MAX_K),
+        ("eat_r", _f * MAX_A), ("share", _i), ("by_time", _i),
+    ]
+
+
+class DropoutParams(ctypes.Structure):
+    _fields_ = [("n_agents", _i), ("goal", _i), ("agent", _i * MAX_A), ("eat_r", _f * MAX_A)]
+
+
+class HetMassParams(ctypes.Structure):
+    _fields_ = [("n_agents", _i), ("agent", _i * MAX_A)]
+
+
 class _EmitUnion(ctypes.Union):
     _fields_ = [
         ("transport", TransportParams),
@@ -214,6 +261,12 @@ class _EmitUnion(ctypes.Union):
         ("simple_reference", SimpleParams),
         ("speaker_listener", SpeakerListenerParams),
         ("simple_world_comm", SimpleWorldCommParams),
+        ("reverse_transport", ReverseTransportParams),
+        ("wheel", WheelParams),
+        ("passage", PassageParams),
+        ("dispersion", DispersionParams),
+        ("dropout", DropoutParams),
+        ("het_mass", HetMassParams),
     ]
 
 
@@ -247,13 +300,34 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, defines=()) -> Path:
     src = _CSRC / SOURCES[name]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + [f"-D{d}" for d in defines]).encode())
     for f in sorted(_CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
+    if defines:
+        return _BUILD / "variants" / f"lib{src.stem}_{'_'.join(defines).lower()}_{h.hexdigest()[:16]}.so"
     return _BUILD / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_variant(name: str, defines) -> Path:
+    """Build kernel ``name``'s source with the preprocessor ``defines`` (e.g.
+    ``VMAS_FUSED_ALL_LANES``: the fused kernel at every lane count of
+    ``core.fused.LANES``) into ``_build/variants/``, unless built already,
+    keeping nvcc's output beside it; returns the library's path, which
+    ``library(name, path)`` loads."""
+    out = _lib_path(name, tuple(defines))
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp), str(_CSRC / SOURCES[name])]
+        p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {out.name}:\n{p.stdout.decode(errors='replace')}")
+        out.with_suffix(".log").write_bytes(p.stdout)
+        os.replace(tmp, out)
+    return out
 
 
 def build_all() -> float:

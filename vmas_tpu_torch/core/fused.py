@@ -31,12 +31,15 @@ that order), action clamps, friction, static gravity, per-env dynamic
 gravity (the fused form only, as in the JAX package), drag, speed clamps,
 semidim clamps, any substeps, the PID velocity controller in the rows form,
 several env steps per rows launch, and the emits of transport, balance,
-joint_passage, waterfall, give_way, multi_give_way and the MPE worlds
-simple, simple_spread, simple_push, simple_adversary, simple_tag,
-simple_reference, simple_speaker_listener and simple_world_comm. The
-world's joint and pair tables live in one device buffer
-(``KernelSpec.pair_table``), so a world may have any number of joints and
-pairs. Forward only: ``Environment`` refuses ``grad_enabled`` with
+joint_passage, waterfall, give_way, multi_give_way, the MPE worlds simple,
+simple_spread, simple_push, simple_adversary, simple_tag, simple_reference,
+simple_speaker_listener and simple_world_comm, and the holonomic worlds
+reverse_transport, wheel, passage, dispersion, dropout and het_mass (the
+fused form only). The world's joint and pair tables, lane lists and
+per-entity constants live in one device buffer (``KernelSpec.pair_table``),
+so a world may have any number of joints and pairs; ``check_fusable``
+holds it to the kernel's caps on entities, agents and scratch rows.
+Forward only: ``Environment`` refuses ``grad_enabled`` with
 ``fused_physics``.
 
 The kernel adds each item's contributions to an entity in the plain
@@ -84,6 +87,19 @@ def _div(num, den: float):
 def _rdiv(num: float, den):
     """``num / den`` for a Python float ``num`` as one IEEE division."""
     return den.new_tensor(num) / den
+
+
+# pi rounded once to f32, as jnp.mod(x, jnp.pi) takes it and the kernel's
+# PI_F holds it
+PI_F = float(np.float32(math.pi))
+
+
+def _mod_pi(x):
+    """``jnp.mod(x, jnp.pi)`` as the JAX package computes it and the kernel's
+    ``mod_pi``: C ``fmod`` (exact), then the divisor's sign where the
+    remainder is non-zero and of the other sign."""
+    r = torch.fmod(x, PI_F)
+    return torch.where((r != 0.0) & (r < 0.0), r + PI_F, r)
 
 
 def _one_hot_select(idx_row, rows):
@@ -278,12 +294,31 @@ def supports(world) -> bool:
     return cost <= _MAX_UNROLL
 
 
-def check_fusable(world) -> None:
+def check_fusable(world, outputs=None) -> None:
     """Raise ``NotImplementedError`` for a world the port's kernel cannot
-    step: more than ``MAX_E`` entities."""
-    spec = world.spec
-    if len(spec.mass) > K.MAX_E:
-        raise NotImplementedError(f"the fused kernel takes at most {K.MAX_E} entities, this world has {len(spec.mass)}")
+    step although the JAX package fuses it (``supports``): more than
+    ``MAX_E`` entities; with fused ``outputs``, more than ``MAX_K`` scratch
+    rows or ``MAX_A`` policy agents (the rows form's action slots), or an
+    emit or in-kernel process_action beyond its own caps (``kernel_emit``,
+    ``kernel_params``: ``MAX_A``, ``MAX_P``, ``MAX_RC``, ``MAX_PID``).
+    ``Environment`` calls it when it is built, so that no cap first shows
+    at a launch on the card."""
+    E = len(world.spec.mass)
+    if E > K.MAX_E:
+        raise NotImplementedError(f"the fused kernel takes at most {K.MAX_E} entities (MAX_E), this world has {E}")
+    if outputs is None:
+        return
+    if int(outputs.n_scratch_in) > K.MAX_K:
+        raise NotImplementedError(f"the fused kernel takes at most {K.MAX_K} scratch rows (MAX_K), these outputs "
+                                  f"have {int(outputs.n_scratch_in)}")
+    A = len(world.policy_agents)
+    if A > K.MAX_A:
+        raise NotImplementedError(f"the fused kernel takes at most {K.MAX_A} policy agents (MAX_A), this world has "
+                                  f"{A}")
+    outputs.kernel_emit()
+    if int(outputs.n_ctrl):
+        outputs.process_act_rows.kernel_params()
+    fit_lanes(world, outputs, A)
 
 
 class FusedOutputs:
@@ -341,6 +376,11 @@ class FusedOutputs:
     n_ctrl = 0
     n_ctrl_out = 0
 
+    @staticmethod
+    def scratch_rows(state):
+        """Default: no scratch rows (override with n_scratch_in)."""
+        return torch.zeros((0, state.batch_dim), dtype=torch.float32, device=state.device)
+
     def attach_pid(self, pid: "PidActRows"):
         """Run ``pid`` as this config's in-kernel process_action: its carry
         rows, hook and output rows (after the ``n_out`` emit rows)."""
@@ -368,14 +408,55 @@ ITEM_SIDES = {
     "bb": (0, 1, True, True),
 }
 
-# the lane counts the kernel is built for: 1, one thread per env; 4 to 32,
-# a group of lanes per env
+# the lane counts the kernel's source takes: 1, one thread per env; 4 to
+# 32, a group of lanes per env. The package's build holds the two the rule
+# picks (LANES_BUILT); the others are built with
+# _kernels.build_variant("fused_step", ["VMAS_FUSED_ALL_LANES"]), as
+# tools/time_fused_step.py builds them
 LANES = (1, 4, 8, 16, 32)
+LANES_BUILT = (1, 8)
 
 
 # the most items of one type (joints or a pair type) a world may have and
 # still run one thread per env
 FEW_ITEMS = 3
+
+
+# the shared memory one block may opt in to on an NVIDIA H100 (and H200):
+# cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB
+SMEM_OPTIN = 232448
+
+
+def group_smem_bytes(ks, rows_mode, k_in, n_ctrl, n_rows_out, n_act, lanes) -> int:
+    """The dynamic shared memory of one block of the group form at ``lanes``
+    lanes per env, as ``smem_layout`` in csrc/fused_step.cu lays it out: the
+    groups' item buffers, their env records (input rows, then 5E), the
+    output rows, the rows form's action rows, and the table."""
+    G = 128 // lanes
+    n_max = max(len(getattr(ks, t)) for t in ITEM_TYPES)
+    R_x = 9 * ks.E + ks.J + (k_in + n_ctrl if rows_mode else 2 * ks.E * ks.dyn_gravity + k_in)
+    rec = R_x + 5 * ks.E
+    stride = rec + ((lanes - rec % 32) % 32 + 32) % 32
+    words = 4 * G * n_max + G * stride + n_rows_out * G + (2 * n_act * G if rows_mode else 0) + ks.table.size
+    return 4 * words
+
+
+def fit_lanes(world, outputs, n_act) -> None:
+    """Where a block of the group form would need more shared memory than
+    ``SMEM_OPTIN`` in either form (a world of many emit rows: simple_spread
+    with 30 agents emits 3661), mark the world to run one thread per env
+    (``world.fused_lanes``, which ``KernelSpec`` takes), which keeps an
+    env's rows in per-thread memory. The spec is built here and not kept:
+    the world's kernel spec is built at its first step."""
+    ks = KernelSpec(world)
+    if ks.lanes == 1 or outputs is None:
+        return
+    k_in, n_out = int(outputs.n_scratch_in), int(outputs.n_out)
+    n_ctrl, n_ctrl_out = int(outputs.n_ctrl), int(outputs.n_ctrl_out)
+    need = max(group_smem_bytes(ks, False, k_in, 0, n_out, 0, ks.lanes),
+               group_smem_bytes(ks, True, k_in, n_ctrl, n_out + n_ctrl_out, n_act, ks.lanes))
+    if need > SMEM_OPTIN:
+        world.fused_lanes = 1
 
 
 def lanes_for(ks) -> int:
@@ -391,6 +472,8 @@ def lanes_for(ks) -> int:
     a few items spends its step in the serial emit, which a group runs on
     one of its lanes: one thread per env was 2.1-8.8x faster than any group
     at 30000 envs (simple_spread) and as fast at 4096 (wind_flocking).
+    (``fit_lanes`` then takes one thread per env where a group's block
+    would not fit the card's shared memory.)
     """
     n = max(len(getattr(ks, t)) for t in ITEM_TYPES)
     return 1 if n <= FEW_ITEMS else 8
@@ -516,8 +599,8 @@ class KernelSpec:
             | {e for t in (self.bl, self.bb) for r in t for e in r[:2]}
         )
         self.lists = self._lane_lists()
-        self.table, self.table_offsets = self._pair_table()
-        self.lanes = lanes_for(self)
+        self.table, self.table_offsets, self.ent_offset = self._table()
+        self.lanes = world.fused_lanes or lanes_for(self)
         self._dev_tables = {}
 
     def _lane_lists(self):
@@ -539,18 +622,43 @@ class KernelSpec:
                         lists[e].append((t, k, side))
         return lists
 
-    def _pair_table(self):
-        """The joint table, all pair tables and the lane lists as one int32
-        array (floats stored by their bits, rounded once to f32), in kernel
-        order joints, ss, ls, ll, bs, bl, bb, then the lists; and each
-        part's offset into it. One record per joint: (a, b, anchor_a x, y,
+    def _entity_fields(self, e):
+        """Entity ``e``'s constants in ``K.ENT_FIELDS`` order: its flags,
+        then the floats (0 where a term does not apply)."""
+        flags = 0
+        for bit, on in (
+            (K.F_MOVABLE, self.movable[e]), (K.F_ROTATABLE, self.rotatable[e]),
+            (K.F_MAX_F, self.max_f[e] is not None), (K.F_F_RANGE, self.f_range[e] is not None),
+            (K.F_MAX_T, self.max_t[e] is not None), (K.F_T_RANGE, self.t_range[e] is not None),
+            (K.F_LIN_FRIC, self.lin_fric[e] is not None), (K.F_ANG_FRIC, self.ang_fric[e] is not None),
+            (K.F_GRAVITY, self.gravity[e] is not None), (K.F_DRAG, self.drag_fac[e] is not None),
+            (K.F_MAX_SPEED, self.max_speed[e] is not None), (K.F_V_RANGE, self.v_range[e] is not None),
+            (K.F_TRIG, e in self.trig),
+        ):
+            flags |= bit if on else 0
+        afm, moi = self.ang_fric[e] or (0.0, 0.0)
+        # with dynamic gravity gsx/gsy hold the unscaled eg, which the
+        # kernel adds to dg before it multiplies by the mass
+        gsx, gsy = self.dyn_g[e][1:] if self.dyn_g[e] else self.gravity[e] or (0.0, 0.0)
+        return (flags, self.inv_mass[e], self.inv_moi[e], self.drag_fac[e] or 0.0,
+                self.max_f[e] or 0.0, self.f_range[e] or 0.0, self.max_t[e] or 0.0, self.t_range[e] or 0.0,
+                self.max_speed[e] or 0.0, self.v_range[e] or 0.0, (self.lin_fric[e] or (0.0,))[0], self.mass[e],
+                afm, moi, gsx, gsy)
+
+    def _table(self):
+        """The joint table, all pair tables, the lane lists and the
+        per-entity constants as one int32 array (floats stored by their
+        bits, rounded once to f32), in kernel order joints, ss, ls, ll, bs,
+        bl, bb, the lists, the constants; the offsets of the joint table,
+        the pair tables and the lists, and the constants' offset. One record per joint: (a, b, anchor_a x, y,
         anchor_b x, y, dist, rotate); per pair: ss (a, b, dmin), ls (line,
         sphere, half, dmin), ll (a, b, half_a, half_b), bs (box, sphere,
         half_w, half_l, dmin0, not_hollow), bl (box, line, half_w, half_l,
         line_half, not_hollow), bb (a, b, half_wa, half_la, half_wb,
         half_lb, not_hollow_a, not_hollow_b). The lists: 8 words per entity,
         the offsets in the array of its entries of each of the seven types
-        and of their end, then the entries, ``item << 1 | side``."""
+        and of their end, then the entries, ``item << 1 | side``. The
+        constants: one block of E words per field of ``K.ENT_FIELDS``."""
         words, offsets = [], []
         f = lambda v: int(np.float32(v).view(np.int32))
         for pairs, kinds in (
@@ -570,7 +678,12 @@ class KernelSpec:
                 seg.append(at + len(entries))
                 entries += [k << 1 | side for tt, k, side in lst if tt == t]
             seg.append(at + len(entries))
-        return np.asarray(words + seg + entries, np.int32), offsets
+        words += seg + entries
+        o_ent = len(words)
+        fields = [self._entity_fields(e) for e in range(self.E)]
+        for k in range(len(K.ENT_FIELDS)):
+            words += [int(fields[e][k]) if k == 0 else f(fields[e][k]) for e in range(self.E)]
+        return np.asarray(words, np.int32), offsets, o_ent
 
     def pair_table(self, device) -> torch.Tensor:
         """The pair table on ``device``: uploaded once per device, then the
@@ -592,7 +705,7 @@ class KernelSpec:
 
     def _build_ctypes(self, k_in: int, act_slots) -> K.FusedSpec:
         if len(act_slots) > K.MAX_A:
-            raise NotImplementedError(f"the rows kernel takes at most {K.MAX_A} action slots")
+            raise NotImplementedError(f"the rows kernel takes at most {K.MAX_A} action slots (MAX_A)")
         s = K.FusedSpec()
         s.E, s.J, s.K_in, s.substeps = self.E, self.J, k_in, self.substeps
         s.n_act = len(act_slots)
@@ -601,35 +714,12 @@ class KernelSpec:
         for name, off in zip(PAIR_TYPES, self.table_offsets[1:]):
             setattr(s, f"n_{name}", len(getattr(self, name)))
             setattr(s, f"o_{name}", off)
-        s.o_lst, s.n_tab = self.table_offsets[-1], self.table.size
+        s.o_lst, s.o_ent, s.n_tab = self.table_offsets[-1], self.ent_offset, self.table.size
         s.has_x, s.has_y = self.x_semidim is not None, self.y_semidim is not None
         s.sub_dt, s.cm, s.cf = self.sub_dt, self.cm, self.cf
         s.jf, s.tcf = self.jf, self.tcf
         s.x_semidim = self.x_semidim or 0.0
         s.y_semidim = self.y_semidim or 0.0
-        for e in range(self.E):
-            flags = 0
-            for bit, on in (
-                (K.F_MOVABLE, self.movable[e]), (K.F_ROTATABLE, self.rotatable[e]),
-                (K.F_MAX_F, self.max_f[e] is not None), (K.F_F_RANGE, self.f_range[e] is not None),
-                (K.F_MAX_T, self.max_t[e] is not None), (K.F_T_RANGE, self.t_range[e] is not None),
-                (K.F_LIN_FRIC, self.lin_fric[e] is not None), (K.F_ANG_FRIC, self.ang_fric[e] is not None),
-                (K.F_GRAVITY, self.gravity[e] is not None), (K.F_DRAG, self.drag_fac[e] is not None),
-                (K.F_MAX_SPEED, self.max_speed[e] is not None), (K.F_V_RANGE, self.v_range[e] is not None),
-                (K.F_TRIG, e in self.trig),
-            ):
-                flags |= bit if on else 0
-            s.flags[e] = flags
-            s.inv_mass[e], s.inv_moi[e] = self.inv_mass[e], self.inv_moi[e]
-            s.drag_fac[e] = self.drag_fac[e] or 0.0
-            s.max_f[e], s.f_range[e] = self.max_f[e] or 0.0, self.f_range[e] or 0.0
-            s.max_t[e], s.t_range[e] = self.max_t[e] or 0.0, self.t_range[e] or 0.0
-            s.max_speed[e], s.v_range[e] = self.max_speed[e] or 0.0, self.v_range[e] or 0.0
-            s.lfm[e], s.mass[e] = (self.lin_fric[e] or (0.0,))[0], self.mass[e]
-            s.afm[e], s.moi[e] = self.ang_fric[e] or (0.0, 0.0)
-            # with dynamic gravity gsx/gsy hold the unscaled eg, which the
-            # kernel adds to dg before it multiplies by the mass
-            s.gsx[e], s.gsy[e] = self.dyn_g[e][1:] if self.dyn_g[e] else self.gravity[e] or (0.0, 0.0)
         for i, e in enumerate(act_slots):
             s.act_slot[i] = e
         return s

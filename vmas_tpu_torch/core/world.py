@@ -389,6 +389,9 @@ class World:
         # set True to run each step through the hand-written fused kernel
         # (core/fused.py); Environment(fused_physics=True) does this
         self.fused = False
+        # the fused kernel's lanes per env where the rule's would not fit
+        # (fused.fit_lanes sets 1), else None
+        self.fused_lanes = None
         self._agents: List[Agent] = []
         self._landmarks: List[Landmark] = []
         self._joint_objects: List = []

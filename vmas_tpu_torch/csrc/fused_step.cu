@@ -20,7 +20,9 @@
 //
 // Design: each env on a group of L lanes (L = 4, 8, 16 or 32, a template
 // parameter), G = 128 / L envs per block of 128 threads, grid ceil(B / G);
-// KernelSpec.lanes (core/fused.py lanes_for) picks L from the world's spec.
+// KernelSpec.lanes (core/fused.py lanes_for) picks L from the world's spec:
+// 1 or 8, the two forms the package's build holds (L = 4, 16 and 32 are
+// built only with -DVMAS_FUSED_ALL_LANES, tools/time_fused_step.py's build).
 //   * Each block copies the world's table (pair records and lane lists) to
 //     shared memory, and its G envs' input rows, row by row over neighbouring
 //     envs; the env's state stays in shared memory for every substep and, in
@@ -43,15 +45,16 @@
 //     __syncthreads the block's loads and stores. Every thread runs every
 //     phase: a group beyond B computes on zero rows and stores nothing.
 // L = 1 is the one-thread form: one thread per env, blocks of 128, the
-// env's state in per-thread arrays and the table read from device memory.
+// env's state in per-thread arrays, the pair tables read from device memory
+// and the per-entity constants from a copy in shared memory.
 // A world of a few items spends its step in the serial emit, which a group
 // runs on one lane of L: there one thread per env does less work per env
 // (PERF.md §6).
 //
-// The world's structure is data, not generated code: the per-entity
-// constants come by value (FusedSpec), the joint table, the pair tables of
-// all six contact types and the lane lists as one int32 device buffer
-// (floats stored by their bits). The arithmetic repeats
+// The world's structure is data, not generated code: the world's scalars
+// come by value (FusedSpec), the joint table, the pair tables of all six
+// contact types, the lane lists and the per-entity constants as one int32
+// device buffer (floats stored by their bits). The arithmetic repeats
 // vmas_tpu_torch/core/fused.py's plain version op for op, in its order, so
 // it is built with --fmad=false and without fast math (IEEE division and
 // square root: the line-line intersection's boundary tests depend on them).
@@ -73,9 +76,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define MAX_E 32
-#define MAX_A 16
-#define MAX_K 8
+// entities, policy agents (action slots and an emit's per-agent tables) and
+// scratch rows; the one-thread form keeps an env's rows in per-thread arrays
+// of MAX_E
+#define MAX_E 64
+#define MAX_A 32
+#define MAX_K 16
 #define MAX_P 4
 // PID-controlled agents; the kernel's by-value parameters (FusedSpec,
 // EmitParams, ActParams) stay within the 4 KB that every CUDA 12 toolkit
@@ -96,8 +102,22 @@ enum {
   EMIT_NONE = 0, EMIT_TRANSPORT = 1, EMIT_BALANCE = 2, EMIT_JOINT_PASSAGE = 3, EMIT_WATERFALL = 4,
   EMIT_GIVE_WAY = 5, EMIT_MULTI_GIVE_WAY = 6, EMIT_SIMPLE = 7, EMIT_SIMPLE_SPREAD = 8,
   EMIT_SIMPLE_PUSH = 9, EMIT_SIMPLE_ADVERSARY = 10, EMIT_SIMPLE_TAG = 11, EMIT_SIMPLE_REFERENCE = 12,
-  EMIT_SPEAKER_LISTENER = 13, EMIT_SIMPLE_WORLD_COMM = 14,
+  EMIT_SPEAKER_LISTENER = 13, EMIT_SIMPLE_WORLD_COMM = 14, EMIT_REVERSE_TRANSPORT = 15, EMIT_WHEEL = 16,
+  EMIT_PASSAGE = 17, EMIT_DISPERSION = 18, EMIT_DROPOUT = 19, EMIT_HET_MASS = 20,
 };
+
+// The per-entity constants, one block of E words per field in the table
+// buffer from FusedSpec.o_ent: field f of entity e at o_ent + f * E + e (the
+// lanes of a group read neighbouring words). The flags are an int, the
+// other fields floats stored by their bits. Both forms read them from a copy
+// of the block in the block's shared memory, `ent` (every thread of a warp
+// reads one word at a time: a broadcast).
+enum {
+  P_FLAGS, P_INV_MASS, P_INV_MOI, P_DRAG, P_MAX_F, P_F_RANGE, P_MAX_T, P_T_RANGE, P_MAX_SPEED, P_V_RANGE,
+  P_LFM, P_MASS, P_AFM, P_MOI, P_GSX, P_GSY, N_ENT_FIELDS,
+};
+#define EI(f, e) (ent[(f) * E + (e)])
+#define EF(f, e) __int_as_float(ent[(f) * E + (e)])
 
 // vmas_tpu/core/utils.py LINE_MIN_DIST, rounded once to f32
 #define LMD_F ((float)(4.0 / 600.0))
@@ -111,8 +131,9 @@ struct FusedSpec {
   int n_ss, n_ls, n_ll, n_bs, n_bl, n_bb;
   int o_j, o_ss, o_ls, o_ll, o_bs, o_bl, o_bb;
   // the lane lists (KernelSpec's): entity e's segment offsets of the seven
-  // item types at o_lst + 8e; n_tab: the table's length in words
-  int o_lst, n_tab;
+  // item types at o_lst + 8e; o_ent: the per-entity constants (P_*);
+  // n_tab: the table's length in words
+  int o_lst, o_ent, n_tab;
   int n_act, has_x, has_y;
   // dynamic gravity (the fused form only): its 2E rows follow the joint
   // rows, and every movable entity takes mass * (dg + (gsx, gsy)), gsx/gsy
@@ -121,13 +142,6 @@ struct FusedSpec {
   int dyn_g;
   float sub_dt, cm, cf, x_semidim, y_semidim;
   float jf, tcf;  // joint force, torque constraint force
-  int flags[MAX_E];
-  float inv_mass[MAX_E], inv_moi[MAX_E], drag_fac[MAX_E];
-  float max_f[MAX_E], f_range[MAX_E];
-  float max_t[MAX_E], t_range[MAX_E];
-  float max_speed[MAX_E], v_range[MAX_E];
-  float lfm[MAX_E], mass[MAX_E], afm[MAX_E], moi[MAX_E];
-  float gsx[MAX_E], gsy[MAX_E];
   int act_slot[MAX_A];
 };
 
@@ -234,6 +248,56 @@ struct SimpleWorldCommParams {
   float food_r[MAX_RC];
 };
 
+struct ReverseTransportParams {
+  int n_agents;
+  int agent[MAX_A];
+  int goal, pkg;
+  float hw, hl;   // the package's half width and half length
+  float og_dmin;  // goal radius + LINE_MIN_DIST, rounded once
+  float factor;
+};
+
+struct WheelParams {
+  int n_agents;
+  int agent[MAX_A];
+  int line;
+  float half, v_des;  // the line's half length, the desired angular speed
+};
+
+// passage: each agent, its goal and whether it collides; the open passages
+// and the walls (the passages that collide), each in world order; the
+// thresholds rounded once from the double expressions the JAX package
+// compares against
+struct PassageParams {
+  int n_agents;
+  int agent[MAX_A], goal[MAX_A], collide[MAX_A];
+  int n_open, n_walls;
+  int open[MAX_E], wall[MAX_E];
+  float hw, hl;     // a wall's half width and half length
+  float two_r;      // 2 * agent radius
+  float wall_dmin;  // agent radius + LINE_MIN_DIST
+  float half_r;     // agent radius / 2, the goal's reach
+  float factor;
+};
+
+struct DispersionParams {
+  int n_agents, n_food;
+  int agent[MAX_A], food[MAX_K];
+  float eat_r[MAX_A];  // each agent's radius + the food's, rounded once
+  int share, by_time;  // share_reward, penalise_by_time
+};
+
+struct DropoutParams {
+  int n_agents, goal;
+  int agent[MAX_A];
+  float eat_r[MAX_A];  // each agent's radius + the goal's, rounded once
+};
+
+struct HetMassParams {
+  int n_agents;
+  int agent[MAX_A];
+};
+
 // A launch runs one emit and reads only its parameters: a union, each
 // scenario's kernel_emit() filling its own member.
 struct EmitParams {
@@ -253,6 +317,12 @@ struct EmitParams {
     SimpleParams simple_reference;
     SpeakerListenerParams speaker_listener;
     SimpleWorldCommParams simple_world_comm;
+    ReverseTransportParams reverse_transport;
+    WheelParams wheel;
+    PassageParams passage;
+    DispersionParams dispersion;
+    DropoutParams dropout;
+    HetMassParams het_mass;
   };
 };
 
@@ -542,10 +612,12 @@ __device__ __forceinline__ void pid_act(const ActParams& ap, float* fx, float* f
 #define TI(i) __ldg(tab + (i))
 #define TF(i) __int_as_float(__ldg(tab + (i)))
 
-// The one-thread form: jfr, the joints' fixed-rotation rows ([J, B], this
-// env at column b); dg, with sp.dyn_g, the dynamic-gravity rows ([2E, B]:
-// each entity's x, then y); the env's state in per-thread arrays.
+// The one-thread form: ent, the block's copy of the per-entity constants;
+// jfr, the joints' fixed-rotation rows ([J, B], this env at column b); dg,
+// with sp.dyn_g, the dynamic-gravity rows ([2E, B]: each entity's x, then
+// y); the env's state in per-thread arrays.
 __device__ __forceinline__ void physics_thread(const FusedSpec& sp, const int* __restrict__ tab,
+                        const int* __restrict__ ent,
                         const float* __restrict__ jfr, const float* __restrict__ dg, int B, int b,
                         float* px, float* py, float* vx, float* vy,
                         float* rot, float* w, float* fx, float* fy, float* tq) {
@@ -555,9 +627,9 @@ __device__ __forceinline__ void physics_thread(const FusedSpec& sp, const int* _
   for (int substep = 0; substep < sp.substeps; ++substep) {
     // action clamps, re-applied every substep on the persistent rows
     for (int e = 0; e < E; ++e) {
-      const int fl = sp.flags[e];
+      const int fl = EI(P_FLAGS, e);
       if (fl & F_MAX_F) {
-        float mf = sp.max_f[e];
+        float mf = EF(P_MAX_F, e);
         float n = sqrtf(fx[e] * fx[e] + fy[e] * fy[e]);
         if (n > mf) {
           fx[e] = fx[e] / n * mf;
@@ -565,22 +637,22 @@ __device__ __forceinline__ void physics_thread(const FusedSpec& sp, const int* _
         }
       }
       if (fl & F_F_RANGE) {
-        float fr = sp.f_range[e];
+        float fr = EF(P_F_RANGE, e);
         fx[e] = fminf(fmaxf(fx[e], -fr), fr);
         fy[e] = fminf(fmaxf(fy[e], -fr), fr);
       }
-      if (fl & F_MAX_T) tq[e] = fminf(fmaxf(tq[e], -sp.max_t[e]), sp.max_t[e]);
-      if (fl & F_T_RANGE) tq[e] = fminf(fmaxf(tq[e], -sp.t_range[e]), sp.t_range[e]);
+      if (fl & F_MAX_T) tq[e] = fminf(fmaxf(tq[e], -EF(P_MAX_T, e)), EF(P_MAX_T, e));
+      if (fl & F_T_RANGE) tq[e] = fminf(fmaxf(tq[e], -EF(P_T_RANGE, e)), EF(P_T_RANGE, e));
     }
 
     // action forces open the accumulators, then friction and gravity
     for (int e = 0; e < E; ++e) {
-      const int fl = sp.flags[e];
+      const int fl = EI(P_FLAGS, e);
       Fx[e] = fx[e];
       Fy[e] = fy[e];
       Tq[e] = tq[e];
       if (fl & F_LIN_FRIC) {
-        float m = sp.mass[e], lfm = sp.lfm[e];
+        float m = EF(P_MASS, e), lfm = EF(P_LFM, e);
         float speed = nrm(vx[e], vy[e]);
         bool zero = speed == 0.f;
         float den = zero ? 1.f : speed;
@@ -590,7 +662,7 @@ __device__ __forceinline__ void physics_thread(const FusedSpec& sp, const int* _
         Fy[e] = Fy[e] + (zero ? 0.f : -(vy[e] / den) * fcy);
       }
       if (fl & F_ANG_FRIC) {
-        float moi = sp.moi[e], afm = sp.afm[e];
+        float moi = EF(P_MOI, e), afm = EF(P_AFM, e);
         float s = fabsf(w[e]);
         float den = s == 0.f ? 1.f : s;
         float fc = fminf(s / sub_dt * moi, afm);
@@ -599,19 +671,19 @@ __device__ __forceinline__ void physics_thread(const FusedSpec& sp, const int* _
       if (sp.dyn_g) {
         // per-env gravity, in place of the static term: m * (dg + eg)
         if (fl & F_MOVABLE) {
-          Fx[e] = Fx[e] + sp.mass[e] * (__ldg(dg + (size_t)e * B + b) + sp.gsx[e]);
-          Fy[e] = Fy[e] + sp.mass[e] * (__ldg(dg + (size_t)(E + e) * B + b) + sp.gsy[e]);
+          Fx[e] = Fx[e] + EF(P_MASS, e) * (__ldg(dg + (size_t)e * B + b) + EF(P_GSX, e));
+          Fy[e] = Fy[e] + EF(P_MASS, e) * (__ldg(dg + (size_t)(E + e) * B + b) + EF(P_GSY, e));
         }
       } else if (fl & F_GRAVITY) {
-        Fx[e] = Fx[e] + sp.gsx[e];
-        Fy[e] = Fy[e] + sp.gsy[e];
+        Fx[e] = Fx[e] + EF(P_GSX, e);
+        Fy[e] = Fy[e] + EF(P_GSY, e);
       }
     }
 
     // cos and sin of each rotation a pair reads, once per substep (the
     // plain version's cs())
     for (int e = 0; e < E; ++e) {
-      if (sp.flags[e] & F_TRIG) {
+      if (EI(P_FLAGS, e) & F_TRIG) {
         C[e] = cosf(rot[e]);
         S[e] = sinf(rot[e]);
       }
@@ -771,25 +843,25 @@ __device__ __forceinline__ void physics_thread(const FusedSpec& sp, const int* _
     // Accumulators of entities that are not movable (rotatable) are never
     // read, so the pair loops above need no masks.
     for (int e = 0; e < E; ++e) {
-      const int fl = sp.flags[e];
+      const int fl = EI(P_FLAGS, e);
       const bool drag = substep == 0 && (fl & F_DRAG);
       if (fl & F_MOVABLE) {
         if (drag) {
-          vx[e] = vx[e] * sp.drag_fac[e];
-          vy[e] = vy[e] * sp.drag_fac[e];
+          vx[e] = vx[e] * EF(P_DRAG, e);
+          vy[e] = vy[e] * EF(P_DRAG, e);
         }
-        float inv_m = sp.inv_mass[e];
+        float inv_m = EF(P_INV_MASS, e);
         vx[e] = vx[e] + Fx[e] * inv_m * sub_dt;
         vy[e] = vy[e] + Fy[e] * inv_m * sub_dt;
         if (fl & F_MAX_SPEED) {
-          float ms = sp.max_speed[e];
+          float ms = EF(P_MAX_SPEED, e);
           float n = sqrtf(vx[e] * vx[e] + vy[e] * vy[e]);
           float sc = n > ms ? ms / n : 1.f;
           vx[e] = vx[e] * sc;
           vy[e] = vy[e] * sc;
         }
         if (fl & F_V_RANGE) {
-          float vr = sp.v_range[e];
+          float vr = EF(P_V_RANGE, e);
           vx[e] = fminf(fmaxf(vx[e], -vr), vr);
           vy[e] = fminf(fmaxf(vy[e], -vr), vr);
         }
@@ -799,8 +871,8 @@ __device__ __forceinline__ void physics_thread(const FusedSpec& sp, const int* _
         if (sp.has_y) py[e] = fminf(fmaxf(py[e], -sp.y_semidim), sp.y_semidim);
       }
       if (fl & F_ROTATABLE) {
-        if (drag) w[e] = w[e] * sp.drag_fac[e];
-        w[e] = w[e] + Tq[e] * sp.inv_moi[e] * sub_dt;
+        if (drag) w[e] = w[e] * EF(P_DRAG, e);
+        w[e] = w[e] + Tq[e] * EF(P_INV_MOI, e) * sub_dt;
         rot[e] = rot[e] + w[e] * sub_dt;
       }
     }
@@ -885,6 +957,7 @@ template <int L>
 __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restrict__ tab, Lanes ln, float4* buf,
                                         EnvRows& s) {
   const int E = sp.E;
+  const int* ent = tab + sp.o_ent;
   const float cm = sp.cm, cf = sp.cf, sub_dt = sp.sub_dt;
   const int lane = ln.lane;
   float *px = s.px, *py = s.py, *vx = s.vx, *vy = s.vy, *rot = s.rot, *w = s.w;
@@ -897,10 +970,10 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restri
     // rotation a pair reads (the plain version's cs())
 #pragma unroll 1
     for (int e = lane; e < E; e += L) {
-      const int fl = sp.flags[e];
+      const int fl = EI(P_FLAGS, e);
       float fxe = s.fx[e], fye = s.fy[e], tqe = s.tq[e];
       if (fl & F_MAX_F) {
-        float mf = sp.max_f[e];
+        float mf = EF(P_MAX_F, e);
         float n = sqrtf(fxe * fxe + fye * fye);
         if (n > mf) {
           fxe = fxe / n * mf;
@@ -908,12 +981,12 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restri
         }
       }
       if (fl & F_F_RANGE) {
-        float fr = sp.f_range[e];
+        float fr = EF(P_F_RANGE, e);
         fxe = fminf(fmaxf(fxe, -fr), fr);
         fye = fminf(fmaxf(fye, -fr), fr);
       }
-      if (fl & F_MAX_T) tqe = fminf(fmaxf(tqe, -sp.max_t[e]), sp.max_t[e]);
-      if (fl & F_T_RANGE) tqe = fminf(fmaxf(tqe, -sp.t_range[e]), sp.t_range[e]);
+      if (fl & F_MAX_T) tqe = fminf(fmaxf(tqe, -EF(P_MAX_T, e)), EF(P_MAX_T, e));
+      if (fl & F_T_RANGE) tqe = fminf(fmaxf(tqe, -EF(P_T_RANGE, e)), EF(P_T_RANGE, e));
       s.fx[e] = fxe;
       s.fy[e] = fye;
       s.tq[e] = tqe;
@@ -921,7 +994,7 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restri
       float ax = fxe, ay = fye, at = tqe;
       const float vxe = vx[e], vye = vy[e];
       if (fl & F_LIN_FRIC) {
-        float m = sp.mass[e], lfm = sp.lfm[e];
+        float m = EF(P_MASS, e), lfm = EF(P_LFM, e);
         float speed = nrm(vxe, vye);
         bool zero = speed == 0.f;
         float den = zero ? 1.f : speed;
@@ -931,7 +1004,7 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restri
         ay = ay + (zero ? 0.f : -(vye / den) * fcy);
       }
       if (fl & F_ANG_FRIC) {
-        float moi = sp.moi[e], afm = sp.afm[e];
+        float moi = EF(P_MOI, e), afm = EF(P_AFM, e);
         float sw = fabsf(w[e]);
         float den = sw == 0.f ? 1.f : sw;
         float fc = fminf(sw / sub_dt * moi, afm);
@@ -940,12 +1013,12 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restri
       if (sp.dyn_g) {
         // per-env gravity, in place of the static term: m * (dg + eg)
         if (fl & F_MOVABLE) {
-          ax = ax + sp.mass[e] * (s.dg[e] + sp.gsx[e]);
-          ay = ay + sp.mass[e] * (s.dg[E + e] + sp.gsy[e]);
+          ax = ax + EF(P_MASS, e) * (s.dg[e] + EF(P_GSX, e));
+          ay = ay + EF(P_MASS, e) * (s.dg[E + e] + EF(P_GSY, e));
         }
       } else if (fl & F_GRAVITY) {
-        ax = ax + sp.gsx[e];
-        ay = ay + sp.gsy[e];
+        ax = ax + EF(P_GSX, e);
+        ay = ay + EF(P_GSY, e);
       }
       Fx[e] = ax;
       Fy[e] = ay;
@@ -1119,26 +1192,26 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restri
     // movable (rotatable) are never read, so they need no masks.
 #pragma unroll 1
     for (int e = lane; e < E; e += L) {
-      const int fl = sp.flags[e];
+      const int fl = EI(P_FLAGS, e);
       const bool drag = substep == 0 && (fl & F_DRAG);
       if (fl & F_MOVABLE) {
         float vxe = vx[e], vye = vy[e];
         if (drag) {
-          vxe = vxe * sp.drag_fac[e];
-          vye = vye * sp.drag_fac[e];
+          vxe = vxe * EF(P_DRAG, e);
+          vye = vye * EF(P_DRAG, e);
         }
-        float inv_m = sp.inv_mass[e];
+        float inv_m = EF(P_INV_MASS, e);
         vxe = vxe + Fx[e] * inv_m * sub_dt;
         vye = vye + Fy[e] * inv_m * sub_dt;
         if (fl & F_MAX_SPEED) {
-          float ms = sp.max_speed[e];
+          float ms = EF(P_MAX_SPEED, e);
           float n = sqrtf(vxe * vxe + vye * vye);
           float sc = n > ms ? ms / n : 1.f;
           vxe = vxe * sc;
           vye = vye * sc;
         }
         if (fl & F_V_RANGE) {
-          float vr = sp.v_range[e];
+          float vr = EF(P_V_RANGE, e);
           vxe = fminf(fmaxf(vxe, -vr), vr);
           vye = fminf(fmaxf(vye, -vr), vr);
         }
@@ -1153,8 +1226,8 @@ __device__ __forceinline__ void physics(const FusedSpec& sp, const int* __restri
       }
       if (fl & F_ROTATABLE) {
         float we = w[e];
-        if (drag) we = we * sp.drag_fac[e];
-        we = we + Tq[e] * sp.inv_moi[e] * sub_dt;
+        if (drag) we = we * EF(P_DRAG, e);
+        we = we + Tq[e] * EF(P_INV_MOI, e) * sub_dt;
         w[e] = we;
         rot[e] = rot[e] + we * sub_dt;
       }
@@ -1886,6 +1959,268 @@ struct SimpleWorldCommEmit {
   }
 };
 
+
+// vmas_tpu/scenarios/reverse_transport.py ReverseTransportOutputs.emit, row
+// for row: per agent [pos, vel, package vel, package - agent, package -
+// goal], then the reward, on_goal (the goal sphere overlapping the hollow
+// package: the box-sphere overlap test) and the new shaping. Scratch in: the
+// previous shaping.
+struct ReverseTransportEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float* rot, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const ReverseTransportParams& p = ep.reverse_transport;
+    const int pi = p.pkg;
+    const float gx = px[p.goal], gy = py[p.goal];
+    const float dx = px[pi] - gx, dy = py[pi] - gy;
+    const float dist = nrm(dx, dy);
+    float cx, cy;
+    closest_point_box(px[pi], py[pi], cosf(rot[pi]), sinf(rot[pi]), p.hw, p.hl, gx, gy, cx, cy);
+    const float d_sphere_closest = nrm(gx - cx, gy - cy);
+    const float d_closest_box = nrm(px[pi] - cx, py[pi] - cy);
+    const bool on_goal = (dist < d_closest_box) || (d_sphere_closest < p.og_dmin);
+    const float shaping = dist * p.factor;
+    const float rew = on_goal ? 0.f : scratch[0] - shaping;
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = vx[pi];
+      o[(r++) * B + b] = vy[pi];
+      o[(r++) * B + b] = px[pi] - px[ai];
+      o[(r++) * B + b] = py[pi] - py[ai];
+      o[(r++) * B + b] = dx;
+      o[(r++) * B + b] = dy;
+    }
+    o[(r++) * B + b] = rew;
+    o[(r++) * B + b] = on_goal ? 1.f : 0.f;
+    o[(r++) * B + b] = shaping;
+  }
+};
+
+// vmas_tpu/scenarios/wheel.py WheelOutputs.emit, row for row: per agent
+// [pos, vel, line - agent, each line end - agent, the line's rotation mod
+// pi, its angular speed, the reward term], then the reward term |speed -
+// v_des|.
+struct WheelEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float* rot, const float* w,
+                              const float*, float* o, int B, int b) {
+    const WheelParams& p = ep.wheel;
+    const int li = p.line;
+    const float rl = rot[li];
+    const float lx = px[li], ly = py[li];
+    const float e1x = p.half * cosf(rl), e1y = p.half * sinf(rl);
+    const float ang_abs = fabsf(w[li]);
+    const float rew = fabsf(ang_abs - p.v_des);
+    const float rmod = mod_pi(rl);
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = lx - px[ai];
+      o[(r++) * B + b] = ly - py[ai];
+      o[(r++) * B + b] = e1x - px[ai];
+      o[(r++) * B + b] = e1y - py[ai];
+      o[(r++) * B + b] = -e1x - px[ai];
+      o[(r++) * B + b] = -e1y - py[ai];
+      o[(r++) * B + b] = rmod;
+      o[(r++) * B + b] = ang_abs;
+      o[(r++) * B + b] = rew;
+    }
+    o[(r++) * B + b] = rew;
+  }
+};
+
+// vmas_tpu/scenarios/passage.py PassageOutputs.emit, row for row: per agent
+// [pos, vel, goal - agent, each open passage - agent], then per agent the
+// shaping reward, then per agent the collision penalty (-10 per other agent
+// it overlaps, then -10 per wall it overlaps: the box-sphere overlap test;
+// the terms in that order, the first one -10 x hit), then per agent the new
+// shaping, then done (every agent within half its radius of its goal).
+// Scratch in: the previous shapings.
+struct PassageEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float* rot, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const PassageParams& p = ep.passage;
+    const int A = p.n_agents;
+    const int base = A * (6 + 2 * p.n_open);
+    bool done = true;
+    int r = 0;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.agent[i];
+      const float gx = px[p.goal[i]] - px[ai], gy = py[p.goal[i]] - py[ai];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = gx;
+      o[(r++) * B + b] = gy;
+      for (int k = 0; k < p.n_open; ++k) {
+        o[(r++) * B + b] = px[p.open[k]] - px[ai];
+        o[(r++) * B + b] = py[p.open[k]] - py[ai];
+      }
+      const float dist = nrm(gx, gy);
+      const float shaping = dist * p.factor;
+      o[(base + i) * B + b] = scratch[i] - shaping;
+      o[(base + 2 * A + i) * B + b] = shaping;
+      done = done && (dist <= p.half_r);
+    }
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.agent[i];
+      float pen = 0.f;
+      if (p.collide[i]) {
+        bool first = true;
+        for (int j = 0; j < A; ++j) {
+          if (j == i) continue;
+          // the pair's one test, its lower agent first
+          const int lo = p.agent[i < j ? i : j], hi = p.agent[i < j ? j : i];
+          const float hit = nrm(px[lo] - px[hi], py[lo] - py[hi]) - p.two_r < 0.f ? 1.f : 0.f;
+          pen = first ? -10.f * hit : pen - 10.f * hit;
+          first = false;
+        }
+        for (int k = 0; k < p.n_walls; ++k) {
+          const int wi = p.wall[k];
+          float cx, cy;
+          closest_point_box(px[wi], py[wi], cosf(rot[wi]), sinf(rot[wi]), p.hw, p.hl, px[ai], py[ai], cx, cy);
+          const float d_sc = nrm(px[ai] - cx, py[ai] - cy);
+          const float d_sb = nrm(px[ai] - px[wi], py[ai] - py[wi]);
+          const float d_cb = nrm(px[wi] - cx, py[wi] - cy);
+          const float hit = ((d_sb < d_cb) || (d_sc < p.wall_dmin)) ? 1.f : 0.f;
+          pen = first ? -10.f * hit : pen - 10.f * hit;
+          first = false;
+        }
+      }
+      o[(base + A + i) * B + b] = pen;
+    }
+    o[(base + 3 * A) * B + b] = done ? 1.f : 0.f;
+  }
+};
+
+// vmas_tpu/scenarios/dispersion.py DispersionOutputs.emit, row for row: per
+// agent [pos, vel], then per agent each food item's pos - the agent's, then
+// per food item just_eaten, eaten (merged) and how many agents are within
+// eating range, then per agent the reward (the shared count of food just
+// eaten, or each food item's share 1 / how_many where the agent is on it,
+// -0.01 for none with penalise_by_time), then done (all food eaten).
+// Scratch in: eaten, then just_eaten (zero at every step's entry).
+struct DispersionEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const DispersionParams& p = ep.dispersion;
+    const int A = p.n_agents, F = p.n_food;
+    const int o_just = 4 * A + 2 * A * F, o_eaten = o_just + F, o_hm = o_eaten + F, o_rew = o_hm + F;
+    int r = 0;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+    }
+    float hm[MAX_K];
+    bool eaten[MAX_K], just[MAX_K];
+    for (int k = 0; k < F; ++k) hm[k] = 0.f;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.agent[i];
+      for (int k = 0; k < F; ++k) {
+        const float rx = px[p.food[k]] - px[ai], ry = py[p.food[k]] - py[ai];
+        o[(r++) * B + b] = rx;
+        o[(r++) * B + b] = ry;
+        hm[k] = hm[k] + (nrm(rx, ry) < p.eat_r[i] ? 1.f : 0.f);
+      }
+    }
+    bool done = true;
+    for (int k = 0; k < F; ++k) {
+      eaten[k] = scratch[k] > 0.5f;
+      just[k] = (scratch[F + k] > 0.5f) || (hm[k] > 0.f);
+      const bool merged = eaten[k] || just[k];
+      done = done && merged;
+      o[(o_just + k) * B + b] = just[k] ? 1.f : 0.f;
+      o[(o_eaten + k) * B + b] = merged ? 1.f : 0.f;
+      o[(o_hm + k) * B + b] = hm[k];
+    }
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.agent[i];
+      float rw = 0.f;
+      for (int k = 0; k < F; ++k) {
+        if (p.share) {
+          rw = rw + (just[k] && !eaten[k] ? 1.f : 0.f);
+        } else {
+          const float eat = hm[k] > 0.f ? 1.f / (hm[k] > 0.f ? hm[k] : 1.f) : 0.f;
+          const bool on = nrm(px[p.food[k]] - px[ai], py[p.food[k]] - py[ai]) < p.eat_r[i];
+          const float term = on && !eaten[k] ? eat : 0.f;
+          rw = k == 0 ? term : rw + term;
+        }
+      }
+      if (p.by_time && rw == 0.f) rw = -0.01f;
+      o[(o_rew + i) * B + b] = rw;
+    }
+    o[(o_rew + A) * B + b] = done ? 1.f : 0.f;
+  }
+};
+
+// vmas_tpu/scenarios/dropout.py DropoutOutputs.emit, row for row: per agent
+// [pos, vel, goal - agent], then eaten (merged), any_eaten (some agent
+// within eating range of the goal) and the goal reward (1 where the goal is
+// eaten for the first time). Scratch in: eaten.
+struct DropoutEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const DropoutParams& p = ep.dropout;
+    const float gx = px[p.goal], gy = py[p.goal];
+    const bool eaten_prev = scratch[0] > 0.5f;
+    bool any = false;
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      const bool hit = nrm(px[ai] - gx, py[ai] - gy) < p.eat_r[i];
+      any = any || hit;
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = gx - px[ai];
+      o[(r++) * B + b] = gy - py[ai];
+    }
+    o[(r++) * B + b] = eaten_prev || any ? 1.f : 0.f;
+    o[(r++) * B + b] = any ? 1.f : 0.f;
+    o[(r++) * B + b] = any && !eaten_prev ? 1.f : 0.f;
+  }
+};
+
+// vmas_tpu/scenarios/debug/het_mass.py HetMassOutputs.emit, row for row: per
+// agent [pos, vel], then the largest agent speed. (The fused form only:
+// het_mass zeroes u's y outside the kernel, so it has no rows form.)
+struct HetMassEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float*, float* o, int B, int b) {
+    const HetMassParams& p = ep.het_mass;
+    float ms = 0.f;
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      const float sp = nrm(vx[ai], vy[ai]);
+      ms = i == 0 ? sp : fmaxf(ms, sp);
+    }
+    o[(r++) * B + b] = ms;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // the kernel, in both forms
 // ---------------------------------------------------------------------------
@@ -2039,13 +2374,20 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, c
 }
 
 // The one-thread form (L = 1): one thread per env, blocks of NT, the env's
-// state in per-thread arrays, the table read from device memory.
+// state in per-thread arrays, the pair tables read from device memory and
+// the per-entity constants from the block's copy in shared memory (the
+// launch gives it 16E words).
 template <bool ROWS, class Emit>
 __global__ void __launch_bounds__(NT)
 fused_step_kernel_thread(const FusedSpec sp, const EmitParams ep, const ActParams ap, const int* __restrict__ tab,
                   const float* __restrict__ x,
                   const float* __restrict__ act, float* __restrict__ out,
                   float* __restrict__ extra, int B, int k_steps, int n_tot) {
+  // the per-entity constants, once per block, into dynamic shared memory
+  extern __shared__ float4 smem4[];
+  int* ent = reinterpret_cast<int*>(smem4);
+  for (int i = threadIdx.x; i < N_ENT_FIELDS * sp.E; i += NT) ent[i] = __ldg(tab + sp.o_ent + i);
+  __syncthreads();
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int E = sp.E;
@@ -2090,8 +2432,8 @@ fused_step_kernel_thread(const FusedSpec sp, const EmitParams ep, const ActParam
       if (ap.n_pid) pid_act(ap, fx, fy, vx, vy, ctrl, blk + (size_t)(n_tot - 2 * ap.n_pid) * B, B, b);
     }
 
-    physics_thread(sp, tab, x + (size_t)9 * E * B, x + (size_t)(9 * E + sp.J) * B, B, b, px, py, vx, vy, rot, w, fx,
-            fy, tq);
+    physics_thread(sp, tab, ent, x + (size_t)9 * E * B, x + (size_t)(9 * E + sp.J) * B, B, b, px, py, vx, vy, rot,
+                   w, fx, fy, tq);
 
     // the emit rows follow the state rows (fused step) or open this step's
     // block (rows step)
@@ -2151,15 +2493,17 @@ static int launch_lanes(int lanes, const FusedSpec& sp, const EmitParams& ep, co
                         const float* x, const float* act, float* out, float* extra, int B, int k_steps,
                         int n_rows_out, size_t smem, cudaStream_t s) {
   if (lanes == 1) {
-    fused_step_kernel_thread<ROWS, Emit><<<(B + NT - 1) / NT, NT, 0, s>>>(sp, ep, ap, tab, x, act, out, extra, B,
-                                                                         k_steps, n_rows_out);
+    fused_step_kernel_thread<ROWS, Emit><<<(B + NT - 1) / NT, NT, smem, s>>>(sp, ep, ap, tab, x, act, out, extra, B,
+                                                                            k_steps, n_rows_out);
     return static_cast<int>(cudaGetLastError());
   }
 #define LANES(L) launch<ROWS, Emit, L>(sp, ep, ap, tab, x, act, out, extra, B, k_steps, n_rows_out, smem, s)
-  if (lanes == 4) return LANES(4);
   if (lanes == 8) return LANES(8);
+#ifdef VMAS_FUSED_ALL_LANES
+  if (lanes == 4) return LANES(4);
   if (lanes == 16) return LANES(16);
   if (lanes == 32) return LANES(32);
+#endif
 #undef LANES
   return cudaErrorInvalidValue;
 }
@@ -2179,9 +2523,12 @@ extern "C" {
 
 // The dynamic shared memory, in bytes, of one block of the kernel with
 // `lanes` lanes per env (rows_mode, n_ctrl controller rows and n_rows_out
-// output rows as vmas_fused_step takes them).
+// output rows as vmas_fused_step takes them); 16E words in the one-thread
+// form.
 long long vmas_fused_smem(const FusedSpec* spec, int lanes, int rows_mode, int n_ctrl, int n_rows_out) {
-  return lanes == 1 ? 0 : 4LL * smem_layout(*spec, rows_mode != 0, n_ctrl, n_rows_out, lanes).words;
+  // the one-thread form holds the per-entity constants there
+  return lanes == 1 ? 4LL * N_ENT_FIELDS * spec->E
+                    : 4LL * smem_layout(*spec, rows_mode != 0, n_ctrl, n_rows_out, lanes).words;
 }
 
 // The largest dynamic shared memory a block may opt in to on the current
@@ -2189,7 +2536,8 @@ long long vmas_fused_smem(const FusedSpec* spec, int lanes, int rows_mode, int n
 int vmas_max_smem() { return max_smem_optin(); }
 
 // Launch one fused step on `stream`, `lanes` lanes per env: 1, the one-thread
-// form; 4, 8, 16 or 32, the group form.
+// form; 8 (and 4, 16 or 32 in a build with VMAS_FUSED_ALL_LANES), the group
+// form.
 // tab: the world's joint and pair tables and lane lists (int32 words,
 // FusedSpec's offsets, spec->n_tab of them). rows_mode = 0: x [9E + J (+ 2E
 // with spec->dyn_g) + K_in, B] -> out [9E + n_tot, B] (n_tot: the emit's
@@ -2206,6 +2554,9 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
   if (!rows_mode && (k_steps != 1 || ap->n_pid != 0)) return cudaErrorInvalidValue;
   if (rows_mode && (n_tot < 2 * ap->n_pid || spec->dyn_g)) return cudaErrorInvalidValue;
   if (lanes != 1 && lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) return cudaErrorInvalidValue;
+#ifndef VMAS_FUSED_ALL_LANES
+  if (lanes != 1 && lanes != 8) return cudaErrorInvalidValue;
+#endif
   const size_t smem = (size_t)vmas_fused_smem(spec, lanes, rows_mode, rows_mode ? 4 * ap->n_pid : 0, n_tot);
   if (smem > (size_t)max_smem_optin()) return cudaErrorInvalidValue;
   if (B <= 0) return 0;
@@ -2227,6 +2578,11 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     if (emit_kind == EMIT_SIMPLE_REFERENCE) return LAUNCH(true, SimpleReferenceEmit);
     if (emit_kind == EMIT_SPEAKER_LISTENER) return LAUNCH(true, SpeakerListenerEmit);
     if (emit_kind == EMIT_SIMPLE_WORLD_COMM) return LAUNCH(true, SimpleWorldCommEmit);
+    if (emit_kind == EMIT_REVERSE_TRANSPORT) return LAUNCH(true, ReverseTransportEmit);
+    if (emit_kind == EMIT_WHEEL) return LAUNCH(true, WheelEmit);
+    if (emit_kind == EMIT_PASSAGE) return LAUNCH(true, PassageEmit);
+    if (emit_kind == EMIT_DISPERSION) return LAUNCH(true, DispersionEmit);
+    if (emit_kind == EMIT_DROPOUT) return LAUNCH(true, DropoutEmit);
   } else {
     if (emit_kind == EMIT_NONE) return LAUNCH(false, NoEmit);
     if (emit_kind == EMIT_TRANSPORT) return LAUNCH(false, TransportEmit);
@@ -2243,6 +2599,12 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     if (emit_kind == EMIT_SIMPLE_REFERENCE) return LAUNCH(false, SimpleReferenceEmit);
     if (emit_kind == EMIT_SPEAKER_LISTENER) return LAUNCH(false, SpeakerListenerEmit);
     if (emit_kind == EMIT_SIMPLE_WORLD_COMM) return LAUNCH(false, SimpleWorldCommEmit);
+    if (emit_kind == EMIT_REVERSE_TRANSPORT) return LAUNCH(false, ReverseTransportEmit);
+    if (emit_kind == EMIT_WHEEL) return LAUNCH(false, WheelEmit);
+    if (emit_kind == EMIT_PASSAGE) return LAUNCH(false, PassageEmit);
+    if (emit_kind == EMIT_DISPERSION) return LAUNCH(false, DispersionEmit);
+    if (emit_kind == EMIT_DROPOUT) return LAUNCH(false, DropoutEmit);
+    if (emit_kind == EMIT_HET_MASS) return LAUNCH(false, HetMassEmit);
   }
 #undef LAUNCH
   return cudaErrorInvalidValue;

@@ -81,11 +81,15 @@ class Environment:
                     setattr(scenario, flag, False)
         self._fused_outputs = None
         if fused_physics:
-            _fused.check_fusable(self.world)
+            # as in the JAX package, a world runs fused where supports()
+            # admits it and on the plain physics otherwise (World.step);
+            # a fused world beyond a cap of the port's kernel raises here
             self.world.fused = True
-            mk = getattr(scenario, "make_fused_outputs", None)
-            if mk is not None and _fused.supports(self.world):
-                self._fused_outputs = mk(self.world)
+            if _fused.supports(self.world):
+                mk = getattr(scenario, "make_fused_outputs", None)
+                if mk is not None:
+                    self._fused_outputs = mk(self.world)
+                _fused.check_fusable(self.world, self._fused_outputs)
         self.agents = self.world.policy_agents
         self.n_agents = len(self.agents)
         self.max_steps = max_steps

@@ -19,10 +19,14 @@ trajectory for the same generator seed, with random actions or a policy.
 Comm worlds (the MPE worlds with speaking agents) take the rows paths:
 the comm actions are decoded with the physical ones, and where the outputs'
 ``unpack`` reads the comm state (``unpack_reads = ("c",)``) it is given the
-per-step ``c`` the step pipeline would hold. Not ported yet: the rows paths
-of the other ``unpack_reads`` and of noisy actions (they run through
-``rollout_fn``), ``post_rewards_rollout_safe`` and ``step_count_keys`` (no
-ported scenario declares them).
+per-step ``c`` the step pipeline would hold; where it reads the actions
+(``"u"``: dropout's energy term) it is given the per-step decoded actions
+the paths hold. A scenario whose ``post_rewards`` only re-merges scratch
+that ``unpack`` already merged and touches nothing a step reads
+(``post_rewards_rollout_safe``: dispersion, dropout) has it applied once,
+to the final state. Not ported yet: the rows paths of the other
+``unpack_reads`` and of noisy actions (they run through ``rollout_fn``),
+and ``step_count_keys`` (no ported scenario declares them).
 """
 
 from __future__ import annotations
@@ -178,15 +182,17 @@ def rows_rollout_supported(env) -> bool:
     override is allowed where its outputs declare it a no-op for this
     config (``process_action_noop``) or realize it in the kernel's rows
     (``process_act_rows``: the PID velocity controller of give_way,
-    multi_give_way and joint_passage with ``use_controller=True``).
-    Speaking agents are allowed: their comm actions are decoded with the
-    physical ones, and an ``unpack`` that reads the comm state
-    (``unpack_reads = ("c",)``, where some policy agent speaks) gets the
-    per-step ``c``. Not eligible yet, and run through ``rollout_fn`` (the
-    fused step, K1, per ``env.step``) instead: actions or comm with noise
-    (``u_noise > 0``, ``c_noise > 0``) and outputs whose unpack reads any
-    other per-step state (``unpack_reads``: the noisy configs'
-    ``"obs_key"``)."""
+    multi_give_way and joint_passage with ``use_controller=True``), and a
+    post_rewards override where they declare it ``post_rewards_rollout_safe``
+    (applied once to the final state). Speaking agents are allowed: their
+    comm actions are decoded with the physical ones, and an ``unpack`` that
+    reads the comm state (``unpack_reads = ("c",)``, where some policy agent
+    speaks) gets the per-step ``c``; one that reads the actions (``"u"``)
+    gets the per-step decoded u. Not eligible yet, and run through
+    ``rollout_fn`` (the fused step, K1, per ``env.step``) instead: actions
+    or comm with noise (``u_noise > 0``, ``c_noise > 0``) and outputs whose
+    unpack reads any other per-step state (``unpack_reads``: the noisy
+    configs' ``"obs_key"``)."""
     from vmas_tpu_torch.core import fused as F
     from vmas_tpu_torch.scenario import BaseScenario
 
@@ -201,13 +207,13 @@ def rows_rollout_supported(env) -> bool:
         and not (env.continuous_actions and env.clamp_action)
         and not any((a.u_noise_array > 0).any() for a in env.agents)
         and not any(a.c_noise > 0 for a in speaks)
-        and sc.post_rewards is BaseScenario.post_rewards
+        and (sc.post_rewards is BaseScenario.post_rewards or getattr(fo, "post_rewards_rollout_safe", False))
         and (
             sc.process_action is BaseScenario.process_action
             or getattr(fo, "process_action_noop", False)
             or getattr(fo, "process_act_rows", None) is not None
         )
-        and reads <= {"c"}
+        and reads <= {"c", "u"}
         and ("c" not in reads or bool(speaks))
         and sc.pre_step is BaseScenario.pre_step
         and sc.post_step is BaseScenario.post_step
@@ -276,6 +282,20 @@ def _comm_state(state, agents, ucs):
     return c
 
 
+def _unpack_state(env, state, us=None, c=None):
+    """The state ``unpack`` reads: ``state`` with the per-step comm state
+    ``c`` where it reads ``"c"``, and each policy agent's per-step decoded
+    actions ``us`` (a leading T axis or none) as its u where it reads
+    ``"u"``, as the step pipeline holds them after each step."""
+    reads = getattr(env._fused_outputs, "unpack_reads", ())
+    if "c" in reads:
+        state = state.replace(c=c)
+    if "u" in reads:
+        for a, u in zip(env.agents, us):
+            state = a.set_u(state, u)
+    return state
+
+
 def _apply_ctrl_finish(world, fo, state_out, carry, state0):
     """The final carry's controller rows (the in-kernel process_action's
     memory, e.g. the PID integrator) -> scenario scratch, via the
@@ -300,18 +320,21 @@ def _last_us(fo, us_last, extras):
     return [torch.stack([extras[-1, ix], extras[-1, iy]], dim=-1) for ix, iy in idx]
 
 
-def _finish_rows_rollout(env, state, steps, carry, extras, us_last, horizon, ucs_last=(), c_t=None):
+def _finish_rows_rollout(env, state, steps, carry, extras, us_t, horizon, ucs_last=(), c_t=None):
     """The rows rollouts' finale: one ``unpack`` over all the output rows
     (given the per-step comm state ``c_t`` [T, B, A, dim_c] where it reads
-    ``c``), the truncation flags, and a final state that mirrors the step
-    pipeline's (the last step's u, or the controller's output where the
-    kernel ran one, the last comm action in ``uc`` and ``c`` of each
-    speaking agent, its scratch updates and the controller's memory)."""
+    ``c``, and the per-step decoded actions ``us_t``, per agent [T, B, 2],
+    where it reads ``u``), the truncation flags, and a final state that
+    mirrors the step pipeline's (the last step's u, or the controller's
+    output where the kernel ran one, the last comm action in ``uc`` and
+    ``c`` of each speaking agent, its scratch updates and the controller's
+    memory, then the scenario's post_rewards, once)."""
     from vmas_tpu_torch.core import fused as F
 
     world, fo = env.world, env._fused_outputs
     state_out = F.unpack_carry(world, carry, state)
-    obs, rews, terminated, updates = fo.unpack(extras, state if c_t is None else state.replace(c=c_t))
+    obs, rews, terminated, updates = fo.unpack(extras, _unpack_state(env, state, us_t, c_t))
+    us_last = [u[-1] for u in us_t]
     if env.max_steps is not None:
         steps_t = steps[None] + 1 + torch.arange(horizon, device=env.device)[:, None]
         truncated = steps_t >= env.max_steps
@@ -330,6 +353,8 @@ def _finish_rows_rollout(env, state, steps, carry, extras, us_last, horizon, ucs
         scenario={**state_out.scenario, **{k: v[-1] for k, v in updates.items()}}
     )
     state_out = _apply_ctrl_finish(world, fo, state_out, carry, state)
+    # identity, or declared safe to apply once (post_rewards_rollout_safe)
+    state_out = env.scenario.post_rewards(state_out)
     traj = {"rewards": torch.stack(rews, dim=-1), "dones": terminated | truncated, "obs": obs}
     return state_out, steps + horizon, traj
 
@@ -367,8 +392,9 @@ def _chunked_reset_rollout(env, run_chunk, horizon, reset_every):
 _NOT_ELIGIBLE = (
     "not eligible -- needs fused_physics=True, a fused-outputs scenario declaring carry_extra_idx, "
     "holonomic noise-free agents (continuous unclamped or discrete, comm without noise), no scripted "
-    "agents, no post_rewards override, no process_action override unless declared a no-op or realized "
-    "in the kernel, no unpack_reads but the comm state; use rollout_fn"
+    "agents, no post_rewards override unless declared post_rewards_rollout_safe, no process_action "
+    "override unless declared a no-op or realized in the kernel, no unpack_reads but the comm state and "
+    "the actions; use rollout_fn"
 )
 
 
@@ -408,7 +434,7 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
             carry, _ = step(carry, act_rows[t:t + K].view(K * A2, B), extras[t:t + K].view(K * n_tot, B))
         # the per-step comm state, where unpack reads it
         c_t = _comm_state(state, agents, ucs) if reads_c else None
-        return _finish_rows_rollout(env, state, steps, carry, extras, [u[-1] for u in us], horizon,
+        return _finish_rows_rollout(env, state, steps, carry, extras, us, horizon,
                                     [None if uc is None else uc[-1] for uc in ucs], c_t)
 
     return run
@@ -442,11 +468,12 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
     n_tot = int(fo.n_out) + int(fo.n_ctrl_out)
     decoders = [_decoder(env, a) for a in agents]
     reads_c = "c" in getattr(fo, "unpack_reads", ())
+    reads_u = "u" in getattr(fo, "unpack_reads", ())
 
     def run(state, steps, generator):
         g_pol, _ = _fork(generator, 2)
         extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
-        auxs, c_ts = [], []
+        auxs, c_ts, u_ts = [], [], []
         with torch.no_grad():
             obs = obs0 = env._observations(state)
             carry = F.pack_carry(world, state, fo)
@@ -462,13 +489,17 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
                 # the action rows: x of every agent, then y
                 carry, _ = step(carry, u.permute(2, 0, 1).reshape(2 * A, B), extras[t])
                 # the policy at t+1 acts on the observations this step
-                # emitted, with this step's comm state where unpack reads it
-                state_t = state
+                # emitted, with this step's comm state and actions where
+                # unpack reads them
+                if reads_u:
+                    u_ts.append(u)
                 if reads_c:
                     c_ts.append(_comm_state(state, agents, ucs))
-                    state_t = state.replace(c=c_ts[-1])
-                obs = fo.unpack(extras[t], state_t)[0]
-            out = _finish_rows_rollout(env, state, steps, carry, extras, list(u), horizon, ucs,
+                obs = fo.unpack(extras[t], _unpack_state(env, state, list(u), c_ts[-1] if reads_c else None))[0]
+            # each agent's decoded actions [T, B, 2] where unpack reads
+            # them, else its last step's as a T axis of one
+            u_t = torch.stack(u_ts, dim=1) if reads_u else u[:, None]
+            out = _finish_rows_rollout(env, state, steps, carry, extras, list(u_t), horizon, ucs,
                                        torch.stack(c_ts) if reads_c else None)
         if policy_aux:
             out[2]["policy_aux"] = _stack_tree(auxs)

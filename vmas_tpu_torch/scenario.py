@@ -114,3 +114,27 @@ class BaseScenario(ABC):
 
 # odd 64-bit constant that spreads consecutive agent indices over the seed space
 _GOLDEN64 = 0x9E3779B97F4A7C15
+
+
+class BaseHeuristicPolicy(ABC):
+    """A scripted policy of one agent: ``compute_action(observation [B,
+    obs_dim], u_range) -> action [B, action_size]`` (the JAX package's
+    BaseHeuristicPolicy)."""
+
+    def __init__(self, continuous_action: bool):
+        self.continuous_actions = continuous_action
+
+    @abstractmethod
+    def compute_action(self, observation: torch.Tensor, u_range) -> torch.Tensor: ...
+
+
+class RandomPolicy(BaseHeuristicPolicy):
+    """Uniform actions in [-u_range, u_range]^2, drawn from a generator
+    seeded by the observations (the JAX package keys its draw on them the
+    same way; the draws differ, as torch's and JAX's streams do)."""
+
+    def compute_action(self, observation, u_range):
+        seed = int(torch.sum(observation * 1e3)) & 0x7FFFFFFF
+        g = torch.Generator(device=observation.device).manual_seed(seed)
+        u = torch.rand((observation.shape[0], 2), generator=g, device=observation.device)
+        return u * (2 * u_range) - u_range

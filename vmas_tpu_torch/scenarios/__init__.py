@@ -1,10 +1,12 @@
-"""Scenario registry. ``balance``, ``give_way``, ``joint_passage``,
-``multi_give_way``, ``road_traffic``, ``transport``, ``wind_flocking``, the
-MPE family (``simple``, ``simple_adversary``, ``simple_crypto``,
-``simple_push``, ``simple_reference``, ``simple_speaker_listener``,
-``simple_spread``, ``simple_tag``, ``simple_world_comm``) and the debug
-scenario ``waterfall`` are ported so far; every other scenario of the JAX
-package raises ``ValueError`` when loaded."""
+"""Scenario registry. ``balance``, ``dispersion``, ``dropout``,
+``give_way``, ``joint_passage``, ``multi_give_way``, ``passage``,
+``reverse_transport``, ``road_traffic``, ``transport``, ``wheel``,
+``wind_flocking``, the MPE family (``simple``, ``simple_adversary``,
+``simple_crypto``, ``simple_push``, ``simple_reference``,
+``simple_speaker_listener``, ``simple_spread``, ``simple_tag``,
+``simple_world_comm``) and the debug scenarios ``het_mass`` and
+``waterfall`` are ported so far; every other scenario of the JAX package
+raises ``ValueError`` when loaded."""
 
 from __future__ import annotations
 
@@ -12,9 +14,14 @@ import importlib
 
 _PORTED = {
     "balance": "vmas_tpu_torch.scenarios.balance",
+    "dispersion": "vmas_tpu_torch.scenarios.dispersion",
+    "dropout": "vmas_tpu_torch.scenarios.dropout",
     "give_way": "vmas_tpu_torch.scenarios.give_way",
+    "het_mass": "vmas_tpu_torch.scenarios.debug.het_mass",
     "joint_passage": "vmas_tpu_torch.scenarios.joint_passage",
     "multi_give_way": "vmas_tpu_torch.scenarios.multi_give_way",
+    "passage": "vmas_tpu_torch.scenarios.passage",
+    "reverse_transport": "vmas_tpu_torch.scenarios.reverse_transport",
     "road_traffic": "vmas_tpu_torch.scenarios.road_traffic",
     "simple": "vmas_tpu_torch.scenarios.mpe.simple",
     "simple_adversary": "vmas_tpu_torch.scenarios.mpe.simple_adversary",
@@ -27,6 +34,7 @@ _PORTED = {
     "simple_world_comm": "vmas_tpu_torch.scenarios.mpe.simple_world_comm",
     "transport": "vmas_tpu_torch.scenarios.transport",
     "waterfall": "vmas_tpu_torch.scenarios.debug.waterfall",
+    "wheel": "vmas_tpu_torch.scenarios.wheel",
     "wind_flocking": "vmas_tpu_torch.scenarios.wind_flocking",
 }
 

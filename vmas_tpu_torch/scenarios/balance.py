@@ -2,10 +2,11 @@
 against gravity, toward a goal; the line or the package touching the floor
 ends the episode with a penalty.
 
-Counterpart of vmas_tpu/scenarios/balance.py (the heuristic policy is not
-ported yet). Its world drives the line-sphere, box-sphere, box-line and
-sphere-sphere contacts and static world gravity; its outputs come out of
-the fused step as rows (``BalanceOutputs``).
+Counterpart of vmas_tpu/scenarios/balance.py. Its world drives the
+line-sphere, box-sphere, box-line and sphere-sphere contacts and static
+world gravity; its outputs come out of the fused step as rows
+(``BalanceOutputs``). ``HeuristicPolicy`` is the JAX package's scripted
+policy.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import torch
 from vmas_tpu_torch import _kernels as K
 from vmas_tpu_torch.core import Agent, Box, Color, Landmark, Line, Sphere, World
 from vmas_tpu_torch.core import fused as F
-from vmas_tpu_torch.core.utils import LINE_MIN_DIST, safe_norm
-from vmas_tpu_torch.scenario import BaseScenario
+from vmas_tpu_torch.core.utils import LINE_MIN_DIST, Y, safe_norm
+from vmas_tpu_torch.scenario import BaseHeuristicPolicy, BaseScenario
 from vmas_tpu_torch.utils import ScenarioUtils
 
 
@@ -269,3 +270,21 @@ class BalanceOutputs(F.FusedOutputs):
             p.factor, p.fall_rew = self.factor, self.fall_rew
             self._kernel_emit = (K.EMIT_BALANCE, ep)
         return self._kernel_emit
+
+
+class HeuristicPolicy(BaseHeuristicPolicy):
+    """The JAX package's balance policy: push up while the package is below
+    the goal, else hold."""
+
+    def compute_action(self, observation, u_range):
+        B = observation.shape[0]
+        dist_package_goal = observation[:, 8:10]
+        y_ge_0 = dist_package_goal[:, Y] >= 0
+        if self.continuous_actions:
+            action = torch.clamp(
+                torch.stack([torch.zeros(B, device=observation.device), -dist_package_goal[:, Y]], dim=1),
+                -u_range, u_range,
+            )
+            action[:, Y] = torch.where(y_ge_0, 0.0, action[:, Y])
+            return action
+        return torch.where(y_ge_0, 0, 4)

@@ -114,10 +114,6 @@ class WaterfallOutputs(F.FusedOutputs):
         self.n_out = self.base + A
         self._kernel_emit = None
 
-    @staticmethod
-    def scratch_rows(state):
-        return torch.zeros((0, state.batch_dim), dtype=torch.float32, device=state.device)
-
     def emit(self, ctx):
         px, py = ctx["px"], ctx["py"]
         vx, vy = ctx["vx"], ctx["vy"]

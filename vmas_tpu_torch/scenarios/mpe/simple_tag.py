@@ -203,10 +203,6 @@ class SimpleTagOutputs(F.FusedOutputs):
                 vel_p.append(j)
         return pos_p, vel_p
 
-    @staticmethod
-    def scratch_rows(state):
-        return torch.zeros((0, state.batch_dim), dtype=torch.float32, device=state.device)
-
     def emit(self, ctx):
         px, py = ctx["px"], ctx["py"]
         vx, vy = ctx["vx"], ctx["vy"]

@@ -1,10 +1,10 @@
 """Transport: N agents push heavy box packages onto a goal; dense shaping
 reward.
 
-Counterpart of vmas_tpu/scenarios/transport.py (the heuristic policy is
-not ported yet). The per-package attributes (on_goal, global_shaping) are
-``[B, P]`` scratch tensors and the reward bookkeeping is the pre_rewards
-hook.
+Counterpart of vmas_tpu/scenarios/transport.py. The per-package
+attributes (on_goal, global_shaping) are ``[B, P]`` scratch tensors and the
+reward bookkeeping is the pre_rewards hook. ``HeuristicPolicy`` is the JAX
+package's Hermite-spline dribbling policy.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from vmas_tpu_torch import _kernels as K
 from vmas_tpu_torch.core import Agent, Box, Color, Landmark, Sphere, World
 from vmas_tpu_torch.core import fused as F
 from vmas_tpu_torch.core.utils import LINE_MIN_DIST, safe_norm
-from vmas_tpu_torch.scenario import BaseScenario
+from vmas_tpu_torch.scenario import BaseHeuristicPolicy, BaseScenario
 from vmas_tpu_torch.utils import ScenarioUtils
 
 
@@ -223,3 +223,60 @@ class TransportOutputs(F.FusedOutputs):
             p.factor = self.factor
             self._kernel_emit = (K.EMIT_TRANSPORT, ep)
         return self._kernel_emit
+
+
+class HeuristicPolicy(BaseHeuristicPolicy):
+    """The JAX package's transport policy: each agent heads for the point
+    behind the package on the line to the goal, along a Hermite spline
+    (its value and slope at the agent's end)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.lookahead = 0.0
+        self.start_vel_dist_from_target_ratio = 0.5
+        self.start_vel_behind_ratio = 0.5
+        self.start_vel_mag = 1.0
+        self.hit_vel_mag = 1.0
+        self.package_radius = 0.15 / 2
+        self.agent_radius = -0.02
+        self.dribble_slowdown_dist = 0.0
+        self.speed = 0.95
+
+    def compute_action(self, observation, u_range):
+        agent_pos = observation[:, :2]
+        package_pos = observation[:, 6:8] + agent_pos
+        goal_pos = -observation[:, 4:6] + package_pos
+        control = self.dribble(agent_pos, package_pos, goal_pos)
+        control = control * (self.speed * u_range)
+        return torch.clamp(control, -u_range, u_range)
+
+    @staticmethod
+    def _unit(v):
+        n = safe_norm(v)[:, None]
+        return torch.where(n == 0, 0.0, v / torch.where(n == 0, 1.0, n))
+
+    def dribble(self, agent_pos, package_pos, goal_pos):
+        direction = self._unit(goal_pos - package_pos)
+        hit_pos = package_pos - direction * (self.package_radius + self.agent_radius)
+        hit_vel = direction * self.hit_vel_mag
+        start_vel = self.get_start_vel(hit_pos, hit_vel, agent_pos, self.start_vel_mag * 2)
+        return self.get_action(target_pos=hit_pos, target_vel=hit_vel, curr_pos=agent_pos, start_vel=start_vel)
+
+    def get_start_vel(self, pos, vel, start_pos, start_vel_mag):
+        goal_disp = pos - start_pos
+        goal_dist = safe_norm(goal_disp)
+        vel_dir = self._unit(vel)
+        goal_dir = self._unit(goal_disp)
+        vel_dir_normal = torch.stack([-vel_dir[:, 1], vel_dir[:, 0]], dim=1)
+        dot_prod = torch.sum(goal_dir * vel_dir_normal, dim=1)
+        vel_dir_normal = torch.where((dot_prod > 0)[:, None], -vel_dir_normal, vel_dir_normal)
+        dist_behind = self.start_vel_dist_from_target_ratio * goal_dist
+        point_dir = -vel_dir * self.start_vel_behind_ratio + vel_dir_normal * (1 - self.start_vel_behind_ratio)
+        target_pos = pos + point_dir * dist_behind[:, None]
+        return self._unit(target_pos - start_pos) * start_vel_mag
+
+    def get_action(self, target_pos, target_vel, curr_pos, start_vel):
+        # the Hermite spline at u = 0: its position is the agent's, its
+        # velocity start_vel
+        des_curr_pos, des_curr_vel = curr_pos, start_vel
+        return 0.5 * (des_curr_pos - curr_pos) + 0.5 * (des_curr_vel - 0.0)

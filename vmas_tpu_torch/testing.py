@@ -13,8 +13,11 @@ corridor walls and into each other and their velocity controllers'
 memory set, actions that drive every branch of the in-kernel PID, and
 the count of lanes each branch acted in; a transport state with the
 agents pressed against the package, a wind_flocking state with the big
-agent's wind rescaled, an MPE state with agents overlapping, and a state
-of the other MPE worlds with catches, contacts, food eaten and comm set.
+agent's wind rescaled, an MPE state with agents overlapping, a state
+of the other MPE worlds with catches, contacts, food eaten and comm set,
+and a state of each of the other holonomic worlds (reverse_transport,
+wheel, passage, dispersion, dropout, het_mass) with its contacts and
+events, and the count of those events in a step's rows.
 The states are numpy dicts made from a seeded generator, so that both
 packages can load the same one. For road_traffic's path sweeps: lanes on
 centre-line vertices and padded tails, and on left-boundary vertices.
@@ -743,3 +746,149 @@ def rt_vertex_lanes(tables, B, A, device, seed=5):
     rot = torch.rand((B, A), generator=g, device=device) * 6.283185307179586
     on_l = (u * tables.meta[pid, 1].long()).long()
     return pid, tables.center[pid, on].contiguous(), tables.left[pid, on_l].contiguous(), rot
+
+
+def holonomic_state(env, rng):
+    """A numpy state dict of one of the other holonomic worlds in which its
+    contacts and events occur, in every other env where not said otherwise;
+    random velocities, forces and (for rotating entities) angular
+    velocities:
+
+    * reverse_transport: the package anywhere and turned at random, each
+      agent inside it, 0.4-0.9 of its contact distance (radius +
+      LINE_MIN_DIST) from a random inner wall (box-sphere contacts); the
+      goal inside the package, so that it is on the goal;
+    * wheel: the line turned at random, each agent beside it at 0.3-0.9 of
+      its contact distance (line-sphere contacts), agents 0 and 1 in
+      contact with each other;
+    * passage: the walls as the env's reset placed them, agent 0 on a wall's
+      face at 0.3-0.9 of its contact distance and agent 1 0.5-0.9 of a
+      diameter from agent 0 (wall and agent hits), in every fourth env each
+      agent at rest and its goal within a tenth of a radius (done);
+    * dispersion: the food anywhere, each agent within 0.2-0.9 of its eating
+      range of a food item, a random share of the food already eaten (the
+      scratch ``just_eaten`` zero, as every step leaves it);
+    * dropout: agent 0 within 0.2-0.9 of its eating range of the goal, the
+      goal already eaten in every fourth env;
+    * het_mass: the agents anywhere."""
+    sc, st = env.scenario, env.state
+    B, E = st.pos.shape[:2]
+    name = type(sc).__module__.rsplit(".", 1)[-1]
+    near = np.arange(B) % 2 == 0
+    n = int(near.sum())
+    agents = env.world.agents
+    pos = rng.uniform(-0.8, 0.8, (B, E, 2))
+    rot = np.zeros((B, E))
+    ang_vel = np.zeros((B, E))
+    unit = lambda a: np.stack([np.cos(a), np.sin(a)], -1)
+    scr = {}
+
+    if name == "reverse_transport":
+        pi, gi = sc.package.index, sc.goal.index
+        rot[:, pi] = rng.uniform(-np.pi, np.pi, B)
+        ang_vel[:, pi] = rng.normal(0, 0.2, B)
+        c, s = np.cos(rot[:, pi]), np.sin(rot[:, pi])
+        hl, hw = sc.package_length / 2, sc.package_width / 2
+        for a in agents:
+            dmin = a.shape.radius + LINE_MIN_DIST
+            # a point on a random inner wall, in the package's frame, then
+            # moved inwards by 0.4-0.9 of the contact distance
+            side = rng.integers(0, 4, B)
+            t = rng.uniform(-0.8, 0.8, B)
+            d = dmin * rng.uniform(0.4, 0.9, B)
+            lx = np.where(side < 2, np.where(side == 0, hl - d, -hl + d), t * hl)
+            ly = np.where(side < 2, t * hw, np.where(side == 2, hw - d, -hw + d))
+            rel = np.stack([c * lx - s * ly, s * lx + c * ly], -1)
+            pos[:, a.index] = np.where(near[:, None], pos[:, pi] + rel, pos[:, a.index])
+        pos[near, gi] = pos[near, pi] + rng.uniform(-0.1, 0.1, (n, 2))
+    elif name == "wheel":
+        li = sc.line.index
+        pos[:, li] = 0.0
+        pos[:, [e.index for e in env.world.landmarks]] = 0.0
+        rot[:, li] = rng.uniform(-np.pi, np.pi, B)
+        ang_vel[:, li] = rng.normal(0, 0.1, B)
+        for a in agents:
+            dmin = a.shape.radius + LINE_MIN_DIST
+            along = rng.uniform(-0.9, 0.9, B) * sc.line_length / 2
+            off = dmin * rng.uniform(0.3, 0.9, B) * rng.choice([-1.0, 1.0], B)
+            p = unit(rot[:, li]) * along[:, None] + unit(rot[:, li] + np.pi / 2) * off[:, None]
+            pos[:, a.index] = np.where(near[:, None], p, pos[:, a.index])
+        a0, a1 = agents[0].index, agents[1].index
+        pos[near, a1] = pos[near, a0] + unit(rng.uniform(0, 2 * np.pi, n)) * (
+            rng.uniform(0.5, 0.9, n) * 2 * agents[0].shape.radius)[:, None]
+    elif name == "passage":
+        reset = st.pos.detach().cpu().numpy()
+        for p in sc.passages:
+            pos[:, p.index] = reset[:, p.index]
+        walls = [p for p in sc.passages if p.collide]
+        r = agents[0].shape.radius
+        w = [walls[k].index for k in rng.integers(0, len(walls), B)]
+        wx = reset[np.arange(B), w, 0]
+        face = rng.choice([-1.0, 1.0], B)
+        y = face * (sc.passage_width / 2 + (r + LINE_MIN_DIST) * rng.uniform(0.3, 0.9, B))
+        x = np.clip(wx + rng.uniform(-0.4, 0.4, B) * sc.passage_length, -0.95, 0.95)
+        a0, a1 = agents[0].index, agents[1].index
+        pos[near, a0] = np.stack([x, y], -1)[near]
+        pos[near, a1] = pos[near, a0] + unit(rng.uniform(0, 2 * np.pi, n)) * (
+            rng.uniform(0.5, 0.9, n) * 2 * r)[:, None]
+        on_goal = np.arange(B) % 4 == 1
+        for a in agents:
+            pos[on_goal, a.goal.index] = pos[on_goal, a.index] + rng.uniform(-0.1, 0.1, (int(on_goal.sum()), 2)) * r
+        pos = np.clip(pos, -0.99, 0.99)
+        scr["global_shaping"] = np.abs(rng.normal(50.0, 20.0, (B, len(agents)))).astype(np.float32)
+    elif name == "dispersion":
+        foods = env.world.landmarks
+        F_ = len(foods)
+        for a in agents:
+            f = foods[rng.integers(0, F_)]
+            reach = a.shape.radius + sc.food_radius
+            pos[near, a.index] = pos[near, f.index] + unit(rng.uniform(0, 2 * np.pi, n)) * (
+                rng.uniform(0.2, 0.9, n) * reach)[:, None]
+        scr["eaten"] = rng.uniform(0, 1, (B, F_)) < 0.3
+        scr["just_eaten"] = np.zeros((B, F_), bool)
+    elif name == "dropout":
+        gi, a0 = sc.goal.index, agents[0]
+        reach = a0.shape.radius + sc.goal.shape.radius
+        pos[near, a0.index] = pos[near, gi] + unit(rng.uniform(0, 2 * np.pi, n)) * (
+            rng.uniform(0.2, 0.9, n) * reach)[:, None]
+        scr["eaten"] = np.arange(B) % 4 == 2
+    vel = rng.normal(0, 0.3, (B, E, 2))
+    if name == "passage":
+        # the agents at rest where their goals are within reach
+        vel[np.ix_(np.arange(B) % 4 == 1, [a.index for a in agents])] = 0.0
+    out = _np_state(st, pos, rot, vel, ang_vel, rng.normal(0, 0.5, (B, E, 2)))
+    if name == "reverse_transport":
+        d = np.linalg.norm(pos[:, sc.package.index] - pos[:, sc.goal.index], axis=-1)
+        scr["global_shaping"] = (d * sc.shaping_factor + rng.normal(0, 1.0, B)).astype(np.float32)
+    out["scenario"].update(scr)
+    return out
+
+
+def holonomic_events(env, y, extra):
+    """The events one step of a holonomic world shows, from its output state
+    rows ``y`` [9E, B] and emit rows ``extra`` [n_out, B] (the plain
+    version's): reverse_transport's envs on the goal; passage's agent hits
+    (ordered pairs closer than a diameter), wall hits (-pen / 10 less the
+    agent hits) and envs done; dispersion's food items eaten this step;
+    dropout's envs with the goal eaten."""
+    fo = env._fused_outputs
+    name = type(env.scenario).__module__.rsplit(".", 1)[-1]
+    if name == "reverse_transport":
+        return {"on_goal": int((extra[fo.base + 1] > 0.5).sum())}
+    if name == "passage":
+        E, A, ag = len(env.world.entities), fo.n_agents, fo.agent_i
+        px, py = y[:E], y[E:2 * E]
+        hits = 0
+        for i in range(A):
+            for j in range(A):
+                if i != j:
+                    d = F._norm(px[ag[min(i, j)]] - px[ag[max(i, j)]], py[ag[min(i, j)]] - py[ag[max(i, j)]])
+                    hits += int(((d - fo.two_r) < 0).sum())
+        pen = extra[fo.base + A:fo.base + 2 * A]
+        walls = int(torch.round(-pen.sum() / 10)) - hits
+        return {"agent_hits": hits, "wall_hits": walls, "done": int((extra[fo.base + 3 * A] > 0.5).sum())}
+    if name == "dispersion":
+        return {"food_eaten": int((extra[fo.o_hm:fo.o_hm + fo.n_food] > 0).sum())}
+    if name == "dropout":
+        return {"goal_eaten": int((extra[fo.base + 1] > 0.5).sum())}
+    return {}
