@@ -112,6 +112,28 @@
    fused step bitwise its plain version over 3 re-synced steps and timed,
    and each world's main path (5 env.step calls, rows_rollout_fn at 50
    steps); the caps and the by-value parameters' size.
+12b. The joint worlds at 4096 envs (buzz_wire, ball_trajectory,
+   ball_passage and joint_passage_size at their defaults, and
+   joint_passage_size with its velocity controller): each world's rows
+   step (the PID in the kernel for the controller config) and fused step
+   against their plain versions, bitwise, over 5 re-synced steps from
+   testing.joint_worlds_state, with the contacts, joint-force lanes, line
+   and box hits, just_passed and done counted (and required), at the
+   rule's lanes and at the other form, and a launch of 4 steps against 4
+   launches of one and the plain version's 4 steps; asym_joint's fused
+   step with no emit bitwise its plain version on the rows of 5 env.step
+   calls; each world's rows rollout against its env.step rollout over 20
+   steps, bitwise (joint_passage_size's t clock at its start value plus
+   the horizon); the noisy configs (give_way's observation noise,
+   joint_passage's and joint_passage_size's joint-angle and observation
+   noise, simple_spread with action noise, simple_reference with action
+   and comm noise) on both rows paths against rollout_fn, bitwise, at
+   k_steps 1 and 4, with resets every 10 steps and with a linear policy;
+   then each world's main path with the counts zeroed: make_env, reset, 5
+   env.step calls, rows_rollout_fn (horizon 1000) at k_steps 1 and 4
+   (joint_passage_size with its controller at 1), once to warm up and 3
+   timed calls, env-steps/s and the device idle share; asym_joint through
+   rollout_fn (100 steps, K1 with no emit per step).
 13. The op-cost probe: its kernel against its plain version at [54, 4096]
    with 0, 100 and 1200 operations (the ALU chain bitwise, the
    transcendental chain within atol 1e-6 rtol 1e-5), then its path with
@@ -196,6 +218,26 @@ HOL_LONG = ("passage", "reverse_transport")
 HOL_CMP_STEPS = 5
 HOL_ROLLOUT_STEPS = 20
 HOL_SHORT_HORIZON = 100
+# the joint worlds: steps compared from a state with their contacts and
+# events, steps of the rollouts compared (the noisy ones too), and the main
+# paths' horizons (the four fused worlds at the bench's 1000; asym_joint,
+# which runs its hooks around the fused step, at 100)
+JW_WORLDS = ("buzz_wire", "ball_trajectory", "ball_passage", "joint_passage_size")
+JW_CMP_STEPS = 5
+JW_ROLLOUT_STEPS = 20
+JW_SHORT_HORIZON = 100
+# timed calls of a noisy config at HORIZON on the rows path and on rollout_fn
+NOISY_CALLS = 2
+# the noisy configs held bitwise on both rows paths: (make_env name, kwargs,
+# the agents' noise: "u" action noise, "uc" action and comm noise)
+NOISY = {
+    "give_way,obs_noise": ("give_way", {"obs_noise": 0.1}, None),
+    "joint_passage,joint_angle": ("joint_passage", {"observe_joint_angle": True, "joint_angle_obs_noise": 0.1}, None),
+    "joint_passage_size,noise": ("joint_passage_size", {"observe_joint_angle": True, "joint_angle_obs_noise": 0.2,
+                                                        "obs_noise": 0.1}, None),
+    "simple_spread,u_noise": ("simple_spread", {}, "u"),
+    "simple_reference,c_noise": ("simple_reference", {}, "uc"),
+}
 # the caps: worlds beyond the old caps of 32 entities and 16 agents
 CAPS_WORLDS = {
     "simple_spread,30": ("simple_spread", {"n_agents": 30}, "mpe_state"),
@@ -349,9 +391,9 @@ def kernel_entry(name, source, replaces, launches, err, t, nbytes, flops):
 
 
 # instantiations of the fused kernel per lane count the package builds
-# (fused.LANES_BUILT): the fused form with no emit and with each of 20, the
-# rows form with each of 19 (het_mass has none)
-FUSED_FORMS = 40
+# (fused.LANES_BUILT): the fused form with no emit and with each of 24, the
+# rows form with each of 23 (het_mass has none)
+FUSED_FORMS = 48
 
 # the worlds K1/K2 run here: (make_env name and kwargs) by the name their
 # entries of the kernels line carry between brackets
@@ -363,6 +405,9 @@ LANE_WORLDS = {
     "simple_spread": ("simple_spread", {"continuous_actions": False}),
     **{name: (name, {}) for name in MPEF_WORLDS},
     **{name: (name, {}) for name in HOL_WORLDS},
+    **{name: (name, {}) for name in JW_WORLDS},
+    "joint_passage_size+pid": ("joint_passage_size", {"use_vel_controller": True}),
+    "asym_joint": ("asym_joint", {}),
 }
 
 
@@ -568,6 +613,8 @@ def emit_ops(fo):
         return mpe_family_ops(fo)
     if kind in HOL_EMITS:
         return holonomic_ops(fo)
+    if kind in JW_EMITS:
+        return joint_worlds_ops(fo)
     return 200 * fo.n_pkgs
 
 
@@ -604,6 +651,35 @@ def holonomic_ops(fo):
     if kind == "DropoutOutputs":
         return 13 * A + 5
     return 8 * A
+
+
+JW_EMITS = ("BuzzWireOutputs", "BallTrajectoryOutputs", "BallPassageOutputs", "JointPassageSizeOutputs")
+
+
+def joint_worlds_ops(fo):
+    """Operations of the joint worlds' emits per env, besides writing their
+    rows, read off csrc/fused_step.cu: 7 per distance, 2 per relative
+    position; buzz_wire's cos and sin per line and its line test (a
+    closest point on a segment 15, its distance 7, two subtractions, a
+    compare, the penalty term 2) per (collidable, line); ball_trajectory's
+    closest point on the circle 12, a square root, the speed term 10 and 8
+    per agent distance; ball_passage's 8 per open passage, a cos and a sin
+    per wall, BOX_OVERLAP_OPS and the term 2 per (collidable, wall), its
+    done 9; joint_passage_size's
+    middle-angle term (an angle distance: 2 fmod and 10, or two cos and sin
+    and 4), done's angle distance, the goal's cos and sin."""
+    kind = type(fo).__name__
+    A = fo.n_agents
+    if kind == "BuzzWireOutputs":
+        return 12 + len(fo.lines) * 2 * TRIG_OPS + len(fo.coll) * len(fo.lines) * 27 + 2 * A
+    if kind == "BallTrajectoryOutputs":
+        return 12 + 7 + 1 + 2 + 10 + 8 * A + 3 + 4 * A
+    if kind == "BallPassageOutputs":
+        walls = len(fo.wall_i)
+        return (8 * len(fo.open_i) + 20 + walls * 2 * TRIG_OPS + len(fo.coll) * walls * (BOX_OVERLAP_OPS + 2) + 9
+                + A * (4 + 2 * len(fo.open_i)))
+    mid = 2 * TRIG_OPS + 10 if fo.mid_180 else 4 * TRIG_OPS + 4
+    return A + 18 + mid + 2 * TRIG_OPS + 14 + 2 * TRIG_OPS + 8 * A + 10
 
 
 MPEF_EMITS = ("SimplePushOutputs", "SimpleAdversaryOutputs", "SimpleTagOutputs", "SimpleReferenceOutputs",
@@ -1577,7 +1653,11 @@ def rollouts_bitwise(tag, ta, tb, sa, sb, card):
     pairs += [(f"obs[{i}]", a, b) for i, (a, b) in enumerate(zip(ta["obs"], tb["obs"]))]
     pairs += [(f"final {f}", getattr(sa, f), getattr(sb, f)) for f in ("pos", "vel", "force", "c", "uc", "rendering")]
     pairs += [(f"final u[{i}]", a, b) for i, (a, b) in enumerate(zip(sa.u, sb.u))]
-    pairs += [(f"final scenario[{k}]", sa.scenario[k], sb.scenario[k]) for k in sa.scenario]
+    for k, v in sa.scenario.items():
+        # a controller's memory is a dict of rows
+        items = v.items() if isinstance(v, dict) else [(None, v)]
+        pairs += [(f"final scenario[{k}]" + (f"[{k2}]" if k2 else ""), a,
+                   sb.scenario[k] if k2 is None else sb.scenario[k][k2]) for k2, a in items]
     differ = [name for name, a, b in pairs if not torch.equal(a, b)]
     print(f"{tag} on {card}: {len(pairs)} outputs, bitwise equal {not differ}", flush=True)
     if differ:
@@ -1926,6 +2006,291 @@ def holonomic_phase(card, dev):
                                 + ("k_steps 1" if name != "het_mass" else "rollout_fn"))
             if "other" in times[key]:
                 e["other_lanes"], e["other_us"] = times[key]["other"][0], times[key]["other"][1] * 1e3
+            entries.append(e)
+    return entries
+
+
+# -- the joint worlds ------------------------------------------------------------------
+
+# the counts a comparison must see above zero, per world
+JW_REQUIRED = {
+    "buzz_wire": ("ls", "joints", "line_hits", "line_band", "done"),
+    "ball_trajectory": ("ss", "joints"),
+    "ball_passage": ("ss", "bs", "box_hits", "done"),
+    "joint_passage_size": ("ls", "bs", "joints", "just_passed", "done"),
+}
+
+
+def noisy_env(config, B, dev):
+    """An env of a NOISY config on ``dev``, its agents' noise set."""
+    import numpy as np
+    from vmas_tpu_torch import make_env
+
+    name, kw, noise = NOISY[config]
+    env = make_env(name, B, device=dev, seed=0, fused_physics=True, **kw)
+    for a in env.agents:
+        if noise is not None:
+            a.u_noise_array = np.full_like(a.u_noise_array, 0.1)
+        if noise == "uc" and not a.silent:
+            a.c_noise = 0.2
+    return env
+
+
+def joint_worlds_phase(card, dev):
+    """buzz_wire, ball_trajectory, ball_passage and joint_passage_size at
+    4096 envs (and joint_passage_size with its velocity controller, its PID
+    in K2): each world's K2 and K1 bitwise their plain versions over
+    JW_CMP_STEPS re-synced steps from testing.joint_worlds_state, at the
+    rule's lanes and at the other form, with the contacts, joint-force
+    lanes, line and box hits, just_passed and done counted (and required),
+    and a 4-step launch bitwise 4 launches of one; asym_joint's K1 (no emit)
+    bitwise its plain version along env.step calls; each world's env.step
+    rollout bitwise its rows rollout over JW_ROLLOUT_STEPS steps
+    (joint_passage_size's ``t`` finale and PID memory included); the noisy
+    configs (NOISY) on both rows paths bitwise rollout_fn at k_steps 1 and
+    4, with resets every 10 steps and with a policy; then each world's main
+    path (rows_rollout_fn at k_steps 1 and 4, horizon 1000;
+    joint_passage_size+pid at k_steps 1; asym_joint: 5 env.step and
+    rollout_fn, 100 steps); a noisy config's rows rollout and its
+    rollout_fn at horizon 1000, timed; the phase's entries of the kernels
+    line."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import (
+        _chunked_reset_rollout,
+        rollout_fn,
+        rows_policy_rollout_fn,
+        rows_rollout_fn,
+    )
+
+    times, work, errs = {}, {}, {}
+    B = NUM_ENVS
+    configs = [(name, name, {}) for name in JW_WORLDS]
+    configs.append(("joint_passage_size+pid", "joint_passage_size", {"use_vel_controller": True}))
+    # -- (a) K2 and K1 against plain, bitwise, at both forms; k_steps ---------------
+    for key, name, kw in configs:
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True, **kw)
+        world, fo = env.world, env._fused_outputs
+        slots = [a.index for a in env.agents]
+        ks = F._kernel_spec(world)
+        E, A = ks.E, len(slots)
+        pid = bool(fo.n_ctrl)
+        st = state_from_numpy(world, testing.joint_worlds_state(env, np.random.default_rng(90)))
+        carry = F.pack_carry(world, st, fo)
+        x0 = torch.cat([F.state_rows(st), st.joint_fixed_rot.T, fo.scratch_rows(st)]).contiguous()
+        step = F.make_rows_step(world, fo, slots)
+        gen = torch.Generator(device=dev).manual_seed(91)
+        acts = lambda: (torch.rand((2 * A, B), generator=gen, device=dev) * 2 - 1).contiguous()
+        k2, k1 = ErrTracker(), ErrTracker()
+        counts = {}
+
+        def count(d):
+            for k, v in d.items():
+                counts[k] = counts.get(k, 0) + v
+
+        x = x0
+        for t in range(JW_CMP_STEPS):
+            act = acts()
+            xs = with_actions(carry, act, slots, E)
+            count(F.contact_counts(world, xs))
+            count({"joints": F.joint_counts(world, xs)["force"]})
+            c_k, e_k = step(carry, act)
+            c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+            compare_rows(k2, c_k, c_p, e_k, e_p, f"{key} rows_step")
+            count(testing.joint_worlds_events(env, e_p[:fo.n_out], c_p[:9 * E]))
+            carry = c_k
+            if not pid:
+                y_k, y_p = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+                compare_rows(k1, y_k[:9 * E], y_p[:9 * E], y_k[9 * E:], y_p[9 * E:], f"{key} fused_step")
+                x = with_actions(torch.cat([y_k[:9 * E], x[9 * E:]]), act, slots, E).contiguous()
+        torch.cuda.synchronize()
+        required = JW_REQUIRED[name]
+        shown = {k: v for k, v in counts.items() if v or k in required}
+        print(f"{key}@{B}: rows_step{'' if pid else ' and fused_step'} bitwise their plain versions over "
+              f"{JW_CMP_STEPS} re-synced steps at {ks.lanes} lane{'s' if ks.lanes > 1 else ''} per env (E {E}, "
+              f"joints {ks.J}, pairs {dict((t, len(getattr(ks, t))) for t in F.PAIR_TYPES if getattr(ks, t))}; "
+              f"contacts, joint-force lanes and events {shown}) on {card}", flush=True)
+        missing = [k for k in required if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"the {key} comparison saw none of {missing}: {counts}")
+        errs[f"rows_step[{key}]"] = k2.max()
+        act = acts()
+        x = with_actions(x0, act, slots, E).contiguous()
+        pairs = [(lambda: step(carry, act), lambda: F.rows_step_plain(world, fo, slots, carry, act))]
+        if not pid:
+            errs[f"fused_step[{key}]"] = k1.max()
+            pairs.append((lambda: F.fused_step(world, x, fo), lambda: F.fused_step_plain(world, x, fo)))
+        other_form_bitwise(ks, pairs, f"{key}@{B}")
+        act_k = torch.cat([acts() for _ in range(K_STEPS)]).contiguous()
+
+        def compare(tr, k, c_k, c_p, e_k, e_p, mid, key=key):
+            tr.close(f"{key} k{K_STEPS} step {k} output rows", e_k, e_p)
+            if k == K_STEPS - 1:
+                tr.close(f"{key} k{K_STEPS} carry", c_k, c_p)
+
+        k_steps_check(world, fo, slots, carry, act_k, f"{key}@{B}", compare)
+        extra = torch.empty((fo.n_out + fo.n_ctrl_out, B), device=dev)
+        rkey = f"rows_step[{key}]"
+        times[rkey] = kernel_times(rkey, lambda: step(carry, act, extra),
+                                   lambda: F.rows_step_plain(world, fo, slots, carry, act), "fused_step_kernel")
+        work[rkey] = ((2 * carry.shape[0] + 2 * A + fo.n_out + fo.n_ctrl_out) * B * 4,
+                      kernel_ops(ks, carry, fo, rows_form=True))
+        if not pid:
+            fkey = f"fused_step[{key}]"
+            times[fkey] = kernel_times(fkey, lambda: F.fused_step(world, x, fo),
+                                       lambda: F.fused_step_plain(world, x, fo), "fused_step_kernel")
+            work[fkey] = ((x.shape[0] + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo))
+        # the rows step at the form the rule does not pick, for the rule's check
+        other = 8 if ks.lanes == 1 else 1
+        other_ms = at_lanes(ks, other, lambda: device_ms(lambda: step(carry, act, extra), 200,
+                                                         "fused_step_kernel")[0])
+        times[rkey]["other"] = (other, other_ms)
+        print(f"{rkey} at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the device "
+              f"(the rule's {ks.lanes}: {times[rkey]['ms'] * 1e3:.3f} us)", flush=True)
+        del env, carry, x, x0
+
+    # asym_joint: K1 with no emit on the rows of env.step calls (its hooks
+    # run around it)
+    env = make_env("asym_joint", B, device=dev, seed=0, fused_physics=True)
+    world = env.world
+    ks = F._kernel_spec(world)
+    E = ks.E
+    assert env._fused_outputs is None and world.fused
+    k1 = ErrTracker()
+    joint_lanes = 0
+    for t in range(JW_CMP_STEPS):
+        env.step(env.get_random_actions())
+        x = torch.cat([F.state_rows(env.state), env.state.joint_fixed_rot.T]).contiguous()
+        joint_lanes += F.joint_counts(world, x)["force"]
+        k1.close("asym_joint fused_step state rows", F.fused_step(world, x), F.fused_step_plain(world, x))
+    print(f"asym_joint@{B}: fused_step (no emit) bitwise its plain version on the rows of {JW_CMP_STEPS} env.step "
+          f"calls at {ks.lanes} lane{'s' if ks.lanes > 1 else ''} per env (E {E}, joints {ks.J}; joint-force lanes "
+          f"{joint_lanes}) on {card}", flush=True)
+    if not joint_lanes:
+        raise AssertionError("the asym_joint comparison saw no joint force")
+    key = "fused_step[asym_joint]"
+    errs[key] = k1.max()
+    other_form_bitwise(ks, [(lambda: F.fused_step(world, x), lambda: F.fused_step_plain(world, x))], f"asym_joint@{B}")
+    times[key] = kernel_times(key, lambda: F.fused_step(world, x), lambda: F.fused_step_plain(world, x),
+                              "fused_step_kernel")
+    work[key] = ((x.shape[0] + 9 * E) * B * 4, kernel_ops(ks, x))
+    other = 8 if ks.lanes == 1 else 1
+    other_ms = at_lanes(ks, other, lambda: device_ms(lambda: F.fused_step(world, x), 200, "fused_step_kernel")[0])
+    times[key]["other"] = (other, other_ms)
+    print(f"{key} at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the device (the "
+          f"rule's {ks.lanes}: {times[key]['ms'] * 1e3:.3f} us)", flush=True)
+    del env
+
+    # -- (b) the rows rollouts against the env.step rollouts, bitwise --------------
+    for key, name, kw in configs:
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True, **kw)
+        s0 = state_from_numpy(env.world, testing.joint_worlds_state(env, np.random.default_rng(92)))
+        st0 = env.steps
+        sa, _, ta = rollout_fn(env, horizon=JW_ROLLOUT_STEPS)(s0, st0, torch.Generator(device=dev).manual_seed(7))
+        sb, _, tb = rows_rollout_fn(env, horizon=JW_ROLLOUT_STEPS)(s0, st0,
+                                                                   torch.Generator(device=dev).manual_seed(7))
+        rollouts_bitwise(f"{key}@{B} env.step rollout vs rows rollout over {JW_ROLLOUT_STEPS} steps", ta, tb, sa, sb,
+                         card)
+        if name == "joint_passage_size" and not torch.equal(sb.scenario["t"], s0.scenario["t"] + JW_ROLLOUT_STEPS):
+            raise AssertionError("joint_passage_size's t clock is not its start value plus the horizon")
+        del env
+
+    # -- (c) the noisy configs on both rows paths, bitwise rollout_fn --------------
+    H = JW_ROLLOUT_STEPS
+    for config in NOISY:
+        env = noisy_env(config, B, dev)
+        s0, st0 = env.state, env.steps
+
+        def both(ref, rows, seed):
+            out = []
+            for run in (ref, rows):
+                env.scenario.obs_seed = 3
+                out.append(run(s0, st0, torch.Generator(device=dev).manual_seed(seed)) + (env.scenario.obs_seed,))
+            (sa, _, ta, oa), (sb, _, tb, ob) = out
+            if oa != ob:
+                raise AssertionError(f"{config}: the rollouts leave different observation seeds")
+            return ta, tb, sa, sb
+
+        for k in (1, K_STEPS):
+            rollouts_bitwise(f"{config}@{B} rollout_fn vs rows_rollout_fn k_steps {k} over {H} steps",
+                             *both(rollout_fn(env, horizon=H), rows_rollout_fn(env, horizon=H, k_steps=k), 11), card)
+        rollouts_bitwise(f"{config}@{B} rollout_fn vs rows_rollout_fn with resets every 10 steps",
+                         *both(_chunked_reset_rollout(env, rollout_fn(env, horizon=10), H, 10),
+                               rows_rollout_fn(env, horizon=H, k_steps=2, reset_every=10), 12), card)
+        policy = linear_comm_policy(env, 5)
+        rollouts_bitwise(f"{config}@{B} rollout_fn vs rows_policy_rollout_fn (a linear policy) over {H} steps",
+                         *both(rollout_fn(env, policy, H), rows_policy_rollout_fn(env, policy, H), 13), card)
+        del env
+
+    # -- (d) the main paths: each world's rows rollout at k_steps 1 and 4 -------------
+    launches = {}
+    runs = [(key, name, kw, k) for key, name, kw in configs for k in ((1, K_STEPS) if key in JW_WORLDS else (1,))]
+    runs.append(("asym_joint", "asym_joint", {}, 1))
+    for key, name, kw, k in runs:
+        horizon = HORIZON if name != "asym_joint" else JW_SHORT_HORIZON
+        F.fused_step_launches = 0
+        F.rows_step_launches = 0
+        env = make_env(name, num_envs=B, fused_physics=True, **kw)
+        assert env.device.type == "cuda"
+        obs = env.reset()
+        for _ in range(5):
+            obs, rews, dones, infos = env.step(env.get_random_actions())
+        rgen = torch.Generator(device=dev).manual_seed(0)
+        rows = name != "asym_joint"
+        run = rows_rollout_fn(env, horizon=horizon, k_steps=k) if rows else rollout_fn(env, horizon=horizon)
+        state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
+        n = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+        want = ({"fused_step": 5, "rows_step": horizon * (1 + TIMED_CALLS) // k} if rows else
+                {"fused_step": 5 + horizon * (1 + TIMED_CALLS), "rows_step": 0})
+        assert n == want, (key, n, want)
+        widths = [o.shape[-1] for o in obs]
+        assert traj["rewards"].shape == (horizon, B, env.n_agents) and bool(torch.isfinite(traj["rewards"]).all())
+        assert all(o.shape == (horizon, B, w) and bool(torch.isfinite(o).all()) for o, w in zip(traj["obs"], widths))
+        assert bool(torch.isfinite(state.pos).all())
+        path = f"rows_rollout_fn k_steps {k}" if rows else "rollout_fn (env.step: K1 with no emit)"
+        print(f"main path: {key} {B} envs x {env.n_agents} agents x {horizon} steps, {path}; launches {n}",
+              flush=True)
+        rollout_report(f"{key}@{B} {path}", run, state, steps, rgen, call_ms, warm_s, B, card, horizon=horizon)
+        launches[(key, k)] = n
+        del env, state, traj
+
+    # -- (e) a noisy config at the main path's horizon on the rows path that
+    # rollout() now takes (its unpack once a step) and on rollout_fn
+    config = "joint_passage_size,noise"
+    for path in ("rows_rollout_fn k_steps 1", "rollout_fn"):
+        F.fused_step_launches = 0
+        F.rows_step_launches = 0
+        env = noisy_env(config, B, dev)
+        run = rows_rollout_fn(env, horizon=HORIZON) if path != "rollout_fn" else rollout_fn(env, horizon=HORIZON)
+        rgen = torch.Generator(device=dev).manual_seed(0)
+        state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen, calls=NOISY_CALLS)
+        n = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+        calls = HORIZON * (1 + NOISY_CALLS)
+        want = {"fused_step": 0, "rows_step": calls} if path != "rollout_fn" else {"fused_step": calls, "rows_step": 0}
+        assert n == want, (config, path, n, want)
+        assert bool(torch.isfinite(traj["rewards"]).all()) and all(bool(torch.isfinite(o).all()) for o in traj["obs"])
+        print(f"noisy main path: {config}@{B} x {HORIZON} steps, {path}: calls {[round(c, 3) for c in call_ms]} ms "
+              f"(warm-up {warm_s:.3f} s), best {B * HORIZON / (min(call_ms) / 1e3):.1f} env-steps/s on {card}; "
+              f"launches {n}", flush=True)
+        del env, state, traj
+
+    entries = []
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    for key in [c[0] for c in configs] + ["asym_joint"]:
+        n = launches[(key, 1)]
+        for form, site in (("rows_step", "1603"), ("fused_step", "1425")):
+            name = f"{form}[{key}]"
+            if name not in times:
+                continue
+            e = kernel_entry(name, src, f"vmas_tpu/core/fused.py:{site}", n[form], errs[name], times[name],
+                             *work[name])
+            e["launches_on"] = (f"{key}'s main path at {NUM_ENVS} envs, "
+                                + ("k_steps 1" if key != "asym_joint" else "rollout_fn"))
+            if "other" in times[name]:
+                e["other_lanes"], e["other_us"] = times[name]["other"][0], times[name]["other"][1] * 1e3
             entries.append(e)
     return entries
 
@@ -2621,7 +2986,7 @@ def main():
     # -- 2. build -----------------------------------------------------------
     print(f"build: {_kernels.build_all():.1f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)}; the three sources in "
           f"parallel, fused_step the longest: {FUSED_FORMS} instantiations at each of the lane counts "
-          f"{F.LANES_BUILT}; 163.3 s for 145 at every lane count before the six holonomic emits)", flush=True)
+          f"{F.LANES_BUILT}; 99.3 s for 80 before the four joint-world emits)", flush=True)
     picked = lane_report(torch.device("cuda"))
 
     # -- 3. kernel against plain, at full width ------------------------------
@@ -2755,6 +3120,9 @@ def main():
     hol_kernels = holonomic_phase(card, dev)
     caps_kernels = caps_phase(card, dev)
 
+    # -- 12b. the joint worlds, and the rows rollouts' noise streams -------------
+    jw_kernels = joint_worlds_phase(card, dev)
+
     # -- 13. the op-cost probe -------------------------------------------------
     opcost_kernels = opcost_phase(card, dev)
 
@@ -2779,7 +3147,7 @@ def main():
         kernel_entry("fused_step[transport,ppo]", src, "vmas_tpu/core/fused.py:1425", ppo_launches["fused_step"],
                      ppo_k1.max(), ppo_times["fused_step"], fused_bytes, ppo_flops),
     ] + (balance_kernels + joint_kernels + give_way_kernels + rt_kernels + wfl_kernels + mpe_kernels + mpef_kernels
-         + hol_kernels + opcost_kernels)
+         + hol_kernels + jw_kernels + opcost_kernels)
     entry_lanes(kernels, picked)
     kernels += caps_kernels  # each with its own lanes
     print(json.dumps({"kernels": kernels, "card": card}))

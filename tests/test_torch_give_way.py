@@ -42,6 +42,7 @@ import torch
 import vmas_tpu
 from vmas_tpu.core import fused as JF
 from vmas_tpu_torch import make_env as torch_make_env
+from vmas_tpu_torch import testing
 from vmas_tpu_torch.core import fused as TF
 from vmas_tpu_torch.interop import state_from_numpy, state_to_numpy
 from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_rollout_fn, rows_rollout_supported
@@ -326,18 +327,24 @@ def test_rows_rollout_k_steps(name, k_steps):
     ("give_way", {}, True),
     ("give_way", {"use_velocity_controller": False}, True),
     ("give_way", {"dt_delay": 2}, False),
-    ("give_way", {"obs_noise": 0.1}, False),
+    # (the case keeps its name from when the noisy config was not eligible)
+    pytest.param("give_way", {"obs_noise": 0.1}, True, id="give_way-kwargs3-False"),
     ("give_way", {"agent_collision_penalty": -1}, False),
     ("multi_give_way", {}, True),
     ("multi_give_way", {"box_agents": True}, False),
 ])
 def test_rows_rollout_supported(name, kwargs, eligible):
     """The default configs run the PID in the rows step; with the
-    controller off process_action is a declared no-op; the action delay's
-    queue and the per-step noise stay on env.step, and a penalty (or box
-    agents) has no fused outputs."""
+    controller off process_action is a declared no-op; the observation
+    noise rides the rows path (each step's noise streams reach unpack), and
+    ``rollout()`` takes it with rollout_fn's trajectory; the action delay's
+    queue stays on env.step, and a penalty (or box agents) has no fused
+    outputs."""
     env = torch_make_env(name, 2, device="cpu", fused_physics=True, **kwargs)
     assert rows_rollout_supported(env) is eligible
+    if "obs_noise" in kwargs:
+        paths, traj, want = testing.rollout_path_and_reference(env, 3, 2)
+        assert paths == ["rows_rollout_fn"] and testing.same_trajectory(traj, want)
     fo = env._fused_outputs
     assert (fo is None) == ("agent_collision_penalty" in kwargs or "box_agents" in kwargs)
     if fo is not None:

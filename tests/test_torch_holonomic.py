@@ -59,6 +59,7 @@ from vmas_tpu_torch.parallel.rollout import (
     rows_rollout_fn,
     rows_rollout_supported,
 )
+from vmas_tpu_torch import testing
 from vmas_tpu_torch.testing import holonomic_events, holonomic_state
 
 torch.set_num_threads(1)
@@ -381,16 +382,17 @@ def test_rows_rollout_equals_step_rollout(config):
 def test_rows_rollout_supported(name, kw, eligible, monkeypatch):
     """The five worlds with a scratch carry are rows-eligible (dispersion's
     and dropout's post_rewards declared safe, dropout's u read); het_mass is
-    not (its process_action runs outside the kernel); noisy actions are not
-    either; ``rollout()`` takes the rows path where eligible and
-    ``rollout_fn`` elsewhere, with the same trajectory."""
+    not (its process_action runs outside the kernel); noisy actions are
+    eligible too (the rows paths draw the steps' noise streams as env.step
+    does); ``rollout()`` takes the rows path where eligible, with noisy
+    actions, and ``rollout_fn`` elsewhere, with the same trajectory."""
     env = torch_make_env(name, 8, device="cpu", seed=0, fused_physics=True, **kw)
     assert rows_rollout_supported(env) is eligible
     if eligible:
-        quiet = env.agents[-1].u_noise_array
-        env.agents[-1].u_noise_array = np.full_like(quiet, 0.1)
-        assert not rows_rollout_supported(env)
-        env.agents[-1].u_noise_array = quiet
+        env.agents[-1].u_noise_array = np.full_like(env.agents[-1].u_noise_array, 0.1)
+        assert rows_rollout_supported(env)
+        paths, traj, want = testing.rollout_path_and_reference(env, 3, 2)
+        assert paths == ["rows_rollout_fn"] and testing.same_trajectory(traj, want)
     else:
         with pytest.raises(AssertionError, match="post_rewards_rollout_safe"):
             rows_rollout_fn(env, horizon=2)

@@ -46,6 +46,7 @@ import torch
 import vmas_tpu
 from vmas_tpu.core import fused as JF
 from vmas_tpu_torch import make_env as torch_make_env
+from vmas_tpu_torch import testing
 from vmas_tpu_torch.core import fused as TF
 from vmas_tpu_torch.interop import state_from_numpy, state_to_numpy
 from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_rollout_fn, rows_rollout_supported
@@ -223,17 +224,22 @@ def test_rows_rollout_equals_step_rollout(arrays):
 @pytest.mark.parametrize("kwargs,eligible", [
     ({}, True),
     ({"use_controller": True}, True),
-    ({"obs_noise": 0.1}, False),
-    ({"observe_joint_angle": True, "joint_angle_obs_noise": 0.1}, False),
+    # (the noisy cases keep their names from when they were not eligible)
+    pytest.param({"obs_noise": 0.1}, True, id="kwargs2-False"),
+    pytest.param({"observe_joint_angle": True, "joint_angle_obs_noise": 0.1}, True, id="kwargs3-False"),
     ({"collision_reward": -1}, False),
 ])
 def test_rows_rollout_supported(kwargs, eligible):
-    """The rows rollout runs the default config and the controller config
-    (its PID in the rows step); the noisy ones need the per-step noise in
-    unpack, and a collision reward has no fused outputs: they run through
-    rollout_fn."""
+    """The rows rollout runs the default config, the controller config
+    (its PID in the rows step) and the noisy ones (each step's noise
+    streams reach unpack; ``rollout()`` takes the rows path with
+    rollout_fn's trajectory); a collision reward has no fused outputs and
+    runs through rollout_fn."""
     env = torch_make_env("joint_passage", 2, device="cpu", fused_physics=True, **kwargs)
     assert rows_rollout_supported(env) is eligible
+    if "obs_noise" in kwargs or "joint_angle_obs_noise" in kwargs:
+        paths, traj, want = testing.rollout_path_and_reference(env, 3, 2)
+        assert paths == ["rows_rollout_fn"] and testing.same_trajectory(traj, want)
     assert (env._fused_outputs is None) == ("collision_reward" in kwargs)
 
 

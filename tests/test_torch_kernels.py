@@ -26,7 +26,10 @@ forms bitwise, and simple_world_comm's rows rollout bitwise its env.step
 rollout; the emits of reverse_transport, wheel, passage, dispersion,
 dropout and het_mass in both forms bitwise, dropout's rows rollout
 bitwise its env.step rollout, simple_spread with 17 and 30 agents
-bitwise; the op-cost probe's ALU chain
+bitwise; the emits of buzz_wire, ball_trajectory, ball_passage and
+joint_passage_size (with its PID in K2) in both forms bitwise, asym_joint's
+K1 with no emit, and joint_passage_size's rows rollouts, noisy or not,
+bitwise rollout_fn; the op-cost probe's ALU chain
 bitwise, its transcendental chain atol 1e-6 rtol 1e-5. The balance,
 all-pairs, joint_passage, waterfall, give_way, multi_give_way,
 wind_flocking and MPE states come from vmas_tpu_torch/testing.py, as
@@ -822,6 +825,94 @@ def test_dropout_rows_rollout_on_the_card_equals_step_rollout():
     for field in ("pos", "vel", "rendering"):
         assert torch.equal(getattr(sa, field), getattr(sb, field)), field
     assert all(torch.equal(sa.scenario[k], sb.scenario[k]) for k in sa.scenario)
+
+
+# -- the joint worlds, and the rows rollouts' noise streams ----------------------
+
+JOINT_WORLDS = {
+    "buzz_wire": ("buzz_wire", {}), "ball_trajectory": ("ball_trajectory", {}), "ball_passage": ("ball_passage", {}),
+    "joint_passage_size": ("joint_passage_size", {}),
+    "joint_passage_size+pid": ("joint_passage_size", {"use_vel_controller": True, "asym_package": True,
+                                                      "observe_joint_angle": True, "middle_angle_180": True}),
+}
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("config", sorted(JOINT_WORLDS))
+def test_joint_worlds_kernels_bitwise_plain(config, lanes):
+    """K2 (one and 4 env steps per launch; joint_passage_size+pid with its
+    PID) and K1 with each of the four joint worlds' emits bitwise their
+    plain versions at 4099 envs, one thread per env and 8 lanes per env,
+    from a state with their contacts and events (testing.joint_worlds_state);
+    asym_joint's K1 with no emit likewise."""
+    import numpy as np
+
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.testing import joint_worlds_state
+
+    _cuda()
+    width = 4096 + 3
+    name, kw = JOINT_WORLDS[config]
+    e = make_env(name, width, device="cuda", seed=0, fused_physics=True, **kw)
+    world, fo = e.world, e._fused_outputs
+    ks = F._kernel_spec(world)
+    slots, A2 = [a.index for a in e.agents], 2 * len(e.agents)
+    st = state_from_numpy(world, joint_worlds_state(e, np.random.default_rng(33)))
+    g = torch.Generator(device="cuda").manual_seed(34)
+    act = ((torch.rand((4 * A2, width), generator=g, device="cuda") * 2 - 1)).contiguous()
+    rule, ks.lanes = ks.lanes, lanes
+    try:
+        carry = F.pack_carry(world, st, fo)
+        for k in (1, 4):
+            ck, ek = F.make_rows_step(world, fo, slots, k_steps=k)(carry, act[:k * A2].contiguous())
+            cp, ep = F.rows_step_plain(world, fo, slots, carry, act[:k * A2], k)
+            assert torch.equal(ck, cp) and torch.equal(ek, ep), k
+        if not fo.n_ctrl:
+            x = torch.cat([F.state_rows(st), st.joint_fixed_rot.T, fo.scratch_rows(st)]).contiguous()
+            assert torch.equal(F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo))
+        torch.cuda.synchronize()
+    finally:
+        ks.lanes = rule
+    a = make_env("asym_joint", width, device="cuda", seed=0, fused_physics=True)
+    a.step(a.get_random_actions())
+    aks = F._kernel_spec(a.world)
+    rule, aks.lanes = aks.lanes, lanes
+    try:
+        x = torch.cat([F.state_rows(a.state), a.state.joint_fixed_rot.T]).contiguous()
+        assert torch.equal(F.fused_step(a.world, x), F.fused_step_plain(a.world, x))
+    finally:
+        aks.lanes = rule
+
+
+@pytest.mark.parametrize("config", ["joint_passage_size", "joint_passage_size+pid"])
+def test_joint_passage_size_rows_rollouts_on_the_card(config):
+    """joint_passage_size's rows rollout (K2; the ``t`` clock set to its
+    start value plus the horizon; with its PID in the kernel) and, with its
+    observation noise, both rows paths against rollout_fn (K1) at 4099
+    envs, bitwise."""
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_policy_rollout_fn, rows_rollout_fn
+
+    _cuda()
+    name, kw = JOINT_WORLDS[config]
+    for noise in ({}, {"observe_joint_angle": True, "joint_angle_obs_noise": 0.2, "obs_noise": 0.1}):
+        e = make_env(name, 4096 + 3, device="cuda", seed=0, fused_physics=True, **{**kw, **noise})
+        s0, st0 = e.state, e.steps
+
+        def policy(obs, generator):
+            return tuple(torch.tanh(o[:, :2] * 3) for o in obs)
+
+        for rows, ref in ((rows_rollout_fn(e, horizon=6, k_steps=2), rollout_fn(e, horizon=6)),
+                          (rows_policy_rollout_fn(e, policy, 6), rollout_fn(e, policy, 6))):
+            out = []
+            for run in (ref, rows):
+                e.scenario.obs_seed = 3
+                out.append(run(s0, st0, torch.Generator(device="cuda").manual_seed(9)))
+            (sa, _, ta), (sb, _, tb) = out
+            assert torch.equal(ta["rewards"], tb["rewards"]) and torch.equal(ta["dones"], tb["dones"])
+            assert all(torch.equal(x, y) for x, y in zip(ta["obs"], tb["obs"]))
+            for field in ("pos", "vel", "rot", "ang_vel"):
+                assert torch.equal(getattr(sa, field), getattr(sb, field)), field
+            assert torch.equal(sb.scenario["t"], s0.scenario["t"] + 6)
 
 
 @pytest.mark.parametrize("n", [17, 30])

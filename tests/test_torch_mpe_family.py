@@ -48,6 +48,7 @@ import vmas_tpu
 from vmas_tpu.core import fused as JF
 from vmas_tpu_torch import _kernels as K
 from vmas_tpu_torch import make_env as torch_make_env
+from vmas_tpu_torch import testing
 from vmas_tpu_torch.core import fused as TF
 from vmas_tpu_torch.interop import state_from_numpy
 from vmas_tpu_torch.parallel.rollout import (
@@ -429,22 +430,25 @@ def test_rows_policy_rollout_comm():
     ("simple_crypto", {}, False),
 ])
 def test_rows_rollout_supported(name, kw, eligible, monkeypatch):
-    """Comm worlds are rows-eligible; a noisy comm channel (c_noise > 0)
-    or noisy actions are not, nor simple_tag's respawn config (no fused
-    outputs) or simple_crypto (unfused); ``rollout()`` takes the rows path
-    where eligible and ``rollout_fn`` elsewhere, with the same
-    trajectory."""
+    """Comm worlds are rows-eligible, and so are a noisy comm channel
+    (c_noise > 0) and noisy actions (the rows paths draw the steps' noise
+    streams as env.step does), but not simple_tag's respawn config (no
+    fused outputs) or simple_crypto (unfused); ``rollout()`` takes the rows
+    path where eligible, noisy or not, and ``rollout_fn`` elsewhere, with
+    the same trajectory."""
     env = torch_make_env(name, 8, device="cpu", seed=0, fused_physics=True, **kw)
     assert rows_rollout_supported(env) is eligible
     if eligible:
+        quiet = env.agents[-1].u_noise_array
         for a in env.agents if env.world.dim_c else ():
             if not a.silent:
                 a.c_noise = 0.1
-                assert not rows_rollout_supported(env)
-                a.c_noise = 0.0
-        quiet = env.agents[-1].u_noise_array
         env.agents[-1].u_noise_array = np.full_like(quiet, 0.1)
-        assert not rows_rollout_supported(env)
+        assert rows_rollout_supported(env)
+        paths, traj, want = testing.rollout_path_and_reference(env, 3, 2)
+        assert paths == ["rows_rollout_fn"] and testing.same_trajectory(traj, want)
+        for a in env.agents:
+            a.c_noise = 0.0
         env.agents[-1].u_noise_array = quiet
         assert rows_rollout_supported(env)
     R = sys.modules[rollout_fn.__module__]

@@ -35,6 +35,10 @@ reports the kernel's device time per launch (torch.profiler, 200 launches;
 * reverse_transport, wheel, passage, dispersion and dropout (both forms)
   and het_mass (the fused step) at their defaults, 4096 envs, from
   ``testing.holonomic_state``;
+* buzz_wire, ball_trajectory, ball_passage and joint_passage_size (both
+  forms; with its PID, the rows step) and asym_joint (the fused step, no
+  emit) at their defaults, 4096 envs, from ``testing.joint_worlds_state``
+  and ``testing.asym_joint_state``;
 * the all-pairs world, 4096 envs: the fused step from its packed state.
 
 In a tree whose kernel runs an env on a group of lanes (``fused.LANES``; 1 is
@@ -113,6 +117,11 @@ WORLDS = {
     **{name: (name, {}, B, "holonomic_state", ("rows", "fused")) for name in (
         "reverse_transport", "wheel", "passage", "dispersion", "dropout")},
     "het_mass": ("het_mass", {}, B, "holonomic_state", ("fused",)),
+    **{name: (name, {}, B, "joint_worlds_state", ("rows", "fused")) for name in (
+        "buzz_wire", "ball_trajectory", "ball_passage", "joint_passage_size")},
+    "joint_passage_size+pid": ("joint_passage_size", {"use_vel_controller": True}, B, "joint_worlds_state",
+                               ("rows",)),
+    "asym_joint": ("asym_joint", {}, B, "asym_joint_state", ("fused",)),
 }
 
 

@@ -88,6 +88,10 @@ EMIT_PASSAGE = 17
 EMIT_DISPERSION = 18
 EMIT_DROPOUT = 19
 EMIT_HET_MASS = 20
+EMIT_BUZZ_WIRE = 21
+EMIT_BALL_TRAJECTORY = 22
+EMIT_BALL_PASSAGE = 23
+EMIT_JOINT_PASSAGE_SIZE = 24
 
 _i, _f = ctypes.c_int, ctypes.c_float
 
@@ -245,6 +249,46 @@ class HetMassParams(ctypes.Structure):
     _fields_ = [("n_agents", _i), ("agent", _i * MAX_A)]
 
 
+class BuzzWireParams(ctypes.Structure):
+    """The collidables (the agents, then the ball) with their radii and
+    the lines (the walls, then the floors) with their half lengths."""
+
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A), ("ball", _i), ("goal", _i),
+        ("n_coll", _i), ("coll", _i * (MAX_A + 1)), ("coll_r", _f * (MAX_A + 1)),
+        ("n_lines", _i), ("line", _i * MAX_E), ("half", _f * MAX_E),
+        ("factor", _f), ("coll_pen", _f),
+    ]
+
+
+class BallTrajectoryParams(ctypes.Structure):
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A), ("ball", _i),
+        ("R", _f), ("pos_f", _f), ("speed_f", _f), ("dist_f", _f), ("v_des", _f),
+    ]
+
+
+class BallPassageParams(ctypes.Structure):
+    """The collidables (the agents, then the ball) with their contact
+    distances, the open passages and the walls in world order; the
+    thresholds rounded once from the double sums the JAX package compares
+    against."""
+
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A), ("ball", _i), ("goal", _i),
+        ("n_coll", _i), ("coll", _i * (MAX_A + 1)), ("coll_dmin", _f * (MAX_A + 1)),
+        ("n_open", _i), ("n_walls", _i), ("open", _i * MAX_E), ("wall", _i * MAX_E),
+        ("hw", _f), ("hl", _f), ("factor", _f), ("coll_pen", _f), ("lo", _f), ("hi", _f),
+    ]
+
+
+class JointPassageSizeParams(ctypes.Structure):
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A), ("jl", _i), ("goal", _i),
+        ("pw_half", _f), ("pos_f", _f), ("rot_f", _f), ("mid_180", _i), ("obs_joint", _i),
+    ]
+
+
 class _EmitUnion(ctypes.Union):
     _fields_ = [
         ("transport", TransportParams),
@@ -267,6 +311,10 @@ class _EmitUnion(ctypes.Union):
         ("dispersion", DispersionParams),
         ("dropout", DropoutParams),
         ("het_mass", HetMassParams),
+        ("buzz_wire", BuzzWireParams),
+        ("ball_trajectory", BallTrajectoryParams),
+        ("ball_passage", BallPassageParams),
+        ("joint_passage_size", JointPassageSizeParams),
     ]
 
 

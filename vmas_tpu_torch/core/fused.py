@@ -33,9 +33,10 @@ semidim clamps, any substeps, the PID velocity controller in the rows form,
 several env steps per rows launch, and the emits of transport, balance,
 joint_passage, waterfall, give_way, multi_give_way, the MPE worlds simple,
 simple_spread, simple_push, simple_adversary, simple_tag, simple_reference,
-simple_speaker_listener and simple_world_comm, and the holonomic worlds
+simple_speaker_listener and simple_world_comm, the holonomic worlds
 reverse_transport, wheel, passage, dispersion, dropout and het_mass (the
-fused form only). The world's joint and pair tables, lane lists and
+fused form only), and the joint worlds buzz_wire, ball_trajectory,
+ball_passage and joint_passage_size. The world's joint and pair tables, lane lists and
 per-entity constants live in one device buffer (``KernelSpec.pair_table``),
 so a world may have any number of joints and pairs; ``check_fusable``
 holds it to the kernel's caps on entities, agents and scratch rows.
@@ -349,9 +350,13 @@ class FusedOutputs:
           (joint_passage with its velocity controller off), so the rows
           step may stand in for it.
       unpack_reads: step-varying inputs unpack reads besides the emit
-          rows (joint_passage's observation noise: ("obs_key",)); the
-          port's rows rollout does not substitute them yet and refuses a
-          config that declares any.
+          rows: the comm state ("c"), the decoded actions ("u"), the
+          observation-noise streams ("obs_key": the noisy configs); the
+          rows rollouts hand unpack each step's (parallel/rollout.py).
+      step_count_keys: scratch keys that are pure step counters, read by
+          nothing the kernel emits (joint_passage_size's "t"); unpack
+          adds one to the value it is given, and the rows rollouts set
+          them to their start value plus the horizon at their end.
       n_ctrl / n_ctrl_out / ctrl_rows(state) / ctrl_updates(rows, scratch)
       / process_act_rows(ctx) / ctrl_u_idx: an in-kernel realization of
           the scenario's process_action override for the rows path (the PID

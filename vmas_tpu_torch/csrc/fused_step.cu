@@ -103,7 +103,8 @@ enum {
   EMIT_GIVE_WAY = 5, EMIT_MULTI_GIVE_WAY = 6, EMIT_SIMPLE = 7, EMIT_SIMPLE_SPREAD = 8,
   EMIT_SIMPLE_PUSH = 9, EMIT_SIMPLE_ADVERSARY = 10, EMIT_SIMPLE_TAG = 11, EMIT_SIMPLE_REFERENCE = 12,
   EMIT_SPEAKER_LISTENER = 13, EMIT_SIMPLE_WORLD_COMM = 14, EMIT_REVERSE_TRANSPORT = 15, EMIT_WHEEL = 16,
-  EMIT_PASSAGE = 17, EMIT_DISPERSION = 18, EMIT_DROPOUT = 19, EMIT_HET_MASS = 20,
+  EMIT_PASSAGE = 17, EMIT_DISPERSION = 18, EMIT_DROPOUT = 19, EMIT_HET_MASS = 20, EMIT_BUZZ_WIRE = 21,
+  EMIT_BALL_TRAJECTORY = 22, EMIT_BALL_PASSAGE = 23, EMIT_JOINT_PASSAGE_SIZE = 24,
 };
 
 // The per-entity constants, one block of E words per field in the table
@@ -298,6 +299,54 @@ struct HetMassParams {
   int agent[MAX_A];
 };
 
+// buzz_wire: the collidables (the agents, then the ball) with their radii,
+// and the lines (the walls, then the floors) with their half lengths
+struct BuzzWireParams {
+  int n_agents;
+  int agent[MAX_A];
+  int ball, goal;
+  int n_coll;
+  int coll[MAX_A + 1];
+  float coll_r[MAX_A + 1];
+  int n_lines;
+  int line[MAX_E];
+  float half[MAX_E];
+  float factor, coll_pen;
+};
+
+struct BallTrajectoryParams {
+  int n_agents;
+  int agent[MAX_A];
+  int ball;
+  float R;  // the circle's radius
+  float pos_f, speed_f, dist_f, v_des;
+};
+
+// ball_passage: the collidables (the agents, then the ball) with their
+// contact distances (radius + LINE_MIN_DIST, rounded once), the open
+// passages and the walls, each in world order; lo and hi: the arena bounds
+// of done (-1 + ball radius, 1 - ball radius, rounded once)
+struct BallPassageParams {
+  int n_agents;
+  int agent[MAX_A];
+  int ball, goal;
+  int n_coll;
+  int coll[MAX_A + 1];
+  float coll_dmin[MAX_A + 1];
+  int n_open, n_walls;
+  int open[MAX_E], wall[MAX_E];
+  float hw, hl;  // a wall's half width and half length
+  float factor, coll_pen, lo, hi;
+};
+
+struct JointPassageSizeParams {
+  int n_agents;
+  int agent[MAX_A];
+  int jl, goal;
+  float pw_half, pos_f, rot_f;
+  int mid_180, obs_joint;
+};
+
 // A launch runs one emit and reads only its parameters: a union, each
 // scenario's kernel_emit() filling its own member.
 struct EmitParams {
@@ -323,6 +372,10 @@ struct EmitParams {
     DispersionParams dispersion;
     DropoutParams dropout;
     HetMassParams het_mass;
+    BuzzWireParams buzz_wire;
+    BallTrajectoryParams ball_trajectory;
+    BallPassageParams ball_passage;
+    JointPassageSizeParams joint_passage_size;
   };
 };
 
@@ -2221,6 +2274,236 @@ struct HetMassEmit {
   }
 };
 
+// vmas_tpu/scenarios/buzz_wire.py BuzzWireOutputs.emit, row for row: per
+// agent [pos, vel, pos - goal], then rew, pos_rew, the collision penalty,
+// the new shaping, collided and done. The penalty sums, over the
+// collidables and then the lines, the line-sphere overlap test
+// |p - closest| - LINE_MIN_DIST - r < 0 (two f32 subtractions, as the JAX
+// package computes it) times the penalty. Scratch in: the previous shaping.
+struct BuzzWireEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float* rot, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const BuzzWireParams& p = ep.buzz_wire;
+    const int bi = p.ball, gi = p.goal;
+    const float dist = nrm(px[bi] - px[gi], py[bi] - py[gi]);
+    const float shaping = dist * p.factor;
+    const float pos_rew = scratch[0] - shaping;
+    // each line's direction, once (the tests below reuse it per collidable)
+    float lc[MAX_E], ls[MAX_E];
+    for (int k = 0; k < p.n_lines; ++k) {
+      lc[k] = cosf(rot[p.line[k]]);
+      ls[k] = sinf(rot[p.line[k]]);
+    }
+    float coll = 0.f;
+    bool collided = false;
+    for (int i = 0; i < p.n_coll; ++i) {
+      const int ci = p.coll[i];
+      for (int k = 0; k < p.n_lines; ++k) {
+        const int li = p.line[k];
+        float cx, cy;
+        closest_point_line(px[li], py[li], lc[k], ls[k], p.half[k], px[ci], py[ci], cx, cy);
+        const bool over = nrm(px[ci] - cx, py[ci] - cy) - LMD_F - p.coll_r[i] < 0.f;
+        const float hit = (over ? 1.f : 0.f) * p.coll_pen;
+        coll = (i == 0 && k == 0) ? hit : coll + hit;
+        collided = collided || over;
+      }
+    }
+    const bool done = (dist <= 0.01f) || collided;
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = px[ai] - px[gi];
+      o[(r++) * B + b] = py[ai] - py[gi];
+    }
+    o[(r++) * B + b] = pos_rew + coll;
+    o[(r++) * B + b] = pos_rew;
+    o[(r++) * B + b] = coll;
+    o[(r++) * B + b] = shaping;
+    o[(r++) * B + b] = collided ? 1.f : 0.f;
+    o[(r++) * B + b] = done ? 1.f : 0.f;
+  }
+};
+
+// vmas_tpu/scenarios/ball_trajectory.py BallTrajectoryOutputs.emit, row for
+// row: per agent [pos, vel, pos - ball, pos], then the pos, speed and dist
+// rewards and the three new shapings. The ball's closest point on the
+// circle is unit(pos) * R (zero at the centre); the pos shaping is the
+// square root of its distance to it. Scratch in: the three shapings.
+struct BallTrajectoryEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const BallTrajectoryParams& p = ep.ball_trajectory;
+    const int bi = p.ball;
+    const float bx = px[bi], by = py[bi];
+    const float n = nrm(bx, by);
+    const float den = n == 0.f ? 1.f : n;
+    const float cx = (n == 0.f ? 0.f : bx / den) * p.R;
+    const float cy = (n == 0.f ? 0.f : by / den) * p.R;
+    const float pos_s = sqrtf(nrm(bx - cx, by - cy)) * p.pos_f;
+    const float speed_s = fabsf(p.v_des - nrm(vx[bi], vy[bi])) * p.speed_f;
+    float dist = 0.f;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      const float d = nrm(px[ai] - bx, py[ai] - by);
+      dist = i == 0 ? d : dist + d;
+    }
+    const float dist_s = dist * p.dist_f;
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = px[ai] - bx;
+      o[(r++) * B + b] = py[ai] - by;
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+    }
+    o[(r++) * B + b] = scratch[0] - pos_s;
+    o[(r++) * B + b] = scratch[1] - speed_s;
+    o[(r++) * B + b] = scratch[2] - dist_s;
+    o[(r++) * B + b] = pos_s;
+    o[(r++) * B + b] = speed_s;
+    o[(r++) * B + b] = dist_s;
+  }
+};
+
+// vmas_tpu/scenarios/ball_passage.py BallPassageOutputs.emit, row for row:
+// per agent [pos, vel, pos - goal, pos - ball, pos - each open passage],
+// then rew, pos_rew, the collision penalty, the two new shapings and done.
+// The shapings are taken on the ball's side of the wall; the penalty sums,
+// over the collidables and then the walls, the box-sphere overlap test
+// times the penalty; done: the ball on the goal or out of the arena.
+// Scratch in: pos_shaping_pre, pos_shaping_post.
+struct BallPassageEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float* rot, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const BallPassageParams& p = ep.ball_passage;
+    const int bi = p.ball, gi = p.goal;
+    const bool ball_passed = py[bi] > 0.f;
+    float dist_pass = 0.f;
+    for (int k = 0; k < p.n_open; ++k) {
+      const float d = nrm(px[bi] - px[p.open[k]], py[bi] - py[p.open[k]]);
+      dist_pass = k == 0 ? d : fminf(dist_pass, d);
+    }
+    const float pre = dist_pass * p.factor;
+    float pos_rew = !ball_passed ? scratch[0] - pre : 0.f;
+    const float dist_goal = nrm(px[bi] - px[gi], py[bi] - py[gi]);
+    const float post = dist_goal * p.factor;
+    pos_rew = pos_rew + (ball_passed ? scratch[1] - post : 0.f);
+    // each wall's direction, once (the tests below reuse it per collidable)
+    float wc[MAX_E], ws[MAX_E];
+    for (int k = 0; k < p.n_walls; ++k) {
+      wc[k] = cosf(rot[p.wall[k]]);
+      ws[k] = sinf(rot[p.wall[k]]);
+    }
+    float coll = 0.f;
+    for (int i = 0; i < p.n_coll; ++i) {
+      const int ci = p.coll[i];
+      for (int k = 0; k < p.n_walls; ++k) {
+        const int wi = p.wall[k];
+        float cx, cy;
+        closest_point_box(px[wi], py[wi], wc[k], ws[k], p.hw, p.hl, px[ci], py[ci], cx, cy);
+        const float d_sc = nrm(px[ci] - cx, py[ci] - cy);
+        const float d_sb = nrm(px[ci] - px[wi], py[ci] - py[wi]);
+        const float d_cb = nrm(px[wi] - cx, py[wi] - cy);
+        const float hit = ((d_sb < d_cb) || (d_sc < p.coll_dmin[i]) ? 1.f : 0.f) * p.coll_pen;
+        coll = (i == 0 && k == 0) ? hit : coll + hit;
+      }
+    }
+    const bool done = (dist_goal <= 0.01f) || (p.lo >= px[bi]) || (px[bi] >= p.hi) || (p.lo >= py[bi]) ||
+                      (py[bi] >= p.hi);
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = px[ai] - px[gi];
+      o[(r++) * B + b] = py[ai] - py[gi];
+      o[(r++) * B + b] = px[ai] - px[bi];
+      o[(r++) * B + b] = py[ai] - py[bi];
+      for (int k = 0; k < p.n_open; ++k) {
+        o[(r++) * B + b] = px[ai] - px[p.open[k]];
+        o[(r++) * B + b] = py[ai] - py[p.open[k]];
+      }
+    }
+    o[(r++) * B + b] = pos_rew + coll;
+    o[(r++) * B + b] = pos_rew;
+    o[(r++) * B + b] = coll;
+    o[(r++) * B + b] = pre;
+    o[(r++) * B + b] = post;
+    o[(r++) * B + b] = done ? 1.f : 0.f;
+  }
+};
+
+// vmas_tpu/scenarios/joint_passage_size.py JointPassageSizeOutputs.emit, row
+// for row: per agent [pos, vel, pos - goal, pos - the big passage, pos - the
+// small passage, the goal's direction (cos, sin), the joint's rotation if
+// observed], then rew, pos_rew, rot_rew, the three new shapings, passed,
+// just_passed and done. Scratch in: pos_shaping_pre, pos_shaping_post,
+// rot_shaping_pre, passed, the pass centre (x, y), the middle angle, the
+// big passage (x, y) and the small one (x, y).
+struct JointPassageSizeEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float* rot, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const JointPassageSizeParams& p = ep.joint_passage_size;
+    const int jl = p.jl, gi = p.goal;
+    const bool joint_passed = py[jl] > 0.f;
+    bool all_passed = true;
+    for (int i = 0; i < p.n_agents; ++i) all_passed = all_passed && (py[p.agent[i]] > p.pw_half);
+    const float dist_pass = nrm(px[jl] - scratch[4], py[jl] - scratch[5]) * p.pos_f;
+    float pos_rew = !joint_passed ? scratch[0] - dist_pass : 0.f;
+    const float dist_goal_raw = nrm(px[jl] - px[gi], py[jl] - py[gi]);
+    const float dist_goal = dist_goal_raw * p.pos_f;
+    pos_rew = pos_rew + (joint_passed ? scratch[1] - dist_goal : 0.f);
+    const float mid = scratch[6];
+    const float rot_shaping = p.mid_180 ? angle_dist(rot[jl], mid) * p.rot_f
+                                        : -(cosf(rot[jl]) * cosf(mid) + sinf(rot[jl]) * sinf(mid)) * p.rot_f;
+    const float rot_rew = scratch[2] - rot_shaping;
+    const bool just_passed = all_passed && (scratch[3] == 0.f);
+    const float passed = just_passed ? 100.f : scratch[3];
+    const bool done = (dist_goal_raw <= 0.01f) && (angle_dist(rot[jl], rot[gi]) <= 0.01f);
+    const float gc = cosf(rot[gi]), gs = sinf(rot[gi]);
+    int r = 0;
+    for (int i = 0; i < p.n_agents; ++i) {
+      const int ai = p.agent[i];
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      o[(r++) * B + b] = px[ai] - px[gi];
+      o[(r++) * B + b] = py[ai] - py[gi];
+      o[(r++) * B + b] = px[ai] - scratch[7];
+      o[(r++) * B + b] = py[ai] - scratch[8];
+      o[(r++) * B + b] = px[ai] - scratch[9];
+      o[(r++) * B + b] = py[ai] - scratch[10];
+      o[(r++) * B + b] = gc;
+      o[(r++) * B + b] = gs;
+      if (p.obs_joint) o[(r++) * B + b] = rot[jl];
+    }
+    o[(r++) * B + b] = pos_rew + rot_rew;
+    o[(r++) * B + b] = pos_rew;
+    o[(r++) * B + b] = rot_rew;
+    o[(r++) * B + b] = dist_pass;
+    o[(r++) * B + b] = dist_goal;
+    o[(r++) * B + b] = rot_shaping;
+    o[(r++) * B + b] = passed;
+    o[(r++) * B + b] = just_passed ? 1.f : 0.f;
+    o[(r++) * B + b] = done ? 1.f : 0.f;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // the kernel, in both forms
 // ---------------------------------------------------------------------------
@@ -2583,6 +2866,10 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     if (emit_kind == EMIT_PASSAGE) return LAUNCH(true, PassageEmit);
     if (emit_kind == EMIT_DISPERSION) return LAUNCH(true, DispersionEmit);
     if (emit_kind == EMIT_DROPOUT) return LAUNCH(true, DropoutEmit);
+    if (emit_kind == EMIT_BUZZ_WIRE) return LAUNCH(true, BuzzWireEmit);
+    if (emit_kind == EMIT_BALL_TRAJECTORY) return LAUNCH(true, BallTrajectoryEmit);
+    if (emit_kind == EMIT_BALL_PASSAGE) return LAUNCH(true, BallPassageEmit);
+    if (emit_kind == EMIT_JOINT_PASSAGE_SIZE) return LAUNCH(true, JointPassageSizeEmit);
   } else {
     if (emit_kind == EMIT_NONE) return LAUNCH(false, NoEmit);
     if (emit_kind == EMIT_TRANSPORT) return LAUNCH(false, TransportEmit);
@@ -2605,6 +2892,10 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     if (emit_kind == EMIT_DISPERSION) return LAUNCH(false, DispersionEmit);
     if (emit_kind == EMIT_DROPOUT) return LAUNCH(false, DropoutEmit);
     if (emit_kind == EMIT_HET_MASS) return LAUNCH(false, HetMassEmit);
+    if (emit_kind == EMIT_BUZZ_WIRE) return LAUNCH(false, BuzzWireEmit);
+    if (emit_kind == EMIT_BALL_TRAJECTORY) return LAUNCH(false, BallTrajectoryEmit);
+    if (emit_kind == EMIT_BALL_PASSAGE) return LAUNCH(false, BallPassageEmit);
+    if (emit_kind == EMIT_JOINT_PASSAGE_SIZE) return LAUNCH(false, JointPassageSizeEmit);
   }
 #undef LAUNCH
   return cudaErrorInvalidValue;

@@ -158,9 +158,9 @@ class Environment:
         """One env step on explicit state: (state, steps, actions,
         generator) -> (state, obs, rews, terminated, truncated, infos,
         steps)."""
-        obs_seed = _obs_seed(generator)
+        obs_seed, noise = self._step_draws(generator)
         for i, agent in enumerate(self.agents):
-            state = self._decode_action(state, agent, actions[i], generator)
+            state = self._decode_action(state, agent, actions[i], noise[i])
         for agent in self.world.agents:
             state = self.scenario.env_process_action(agent, state)
         state = self.scenario.pre_step(state)
@@ -177,7 +177,48 @@ class Environment:
     # ------------------------------------------------------------------
     # action decoding
     # ------------------------------------------------------------------
-    def _decode_action(self, state: WorldState, agent: Agent, action, generator) -> WorldState:
+    def _noise_shapes(self):
+        """Per policy agent, the shapes of the noise a step draws for it: its
+        action noise ``[B, action_size]`` where a ``u_noise`` is positive and
+        its comm noise ``[B, dim_c]`` where it speaks with ``c_noise > 0``
+        (None where it draws none)."""
+        B, dim_c = self.num_envs, self.world.dim_c
+        return [((B, a.action_size) if np.any(a.u_noise_array > 0) else None,
+                 (B, dim_c) if dim_c > 0 and not a.silent and a.c_noise > 0 else None) for a in self.agents]
+
+    def _step_draws(self, generator, horizon=None):
+        """What one env step draws from ``generator``, in this order: its
+        observation seed (``_obs_seed``), then per policy agent its action
+        noise and then its comm noise (``_noise_shapes``; None where it
+        draws none). Returns ``(seed, noise)``, ``noise`` per agent a pair
+        ``(u_noise, c_noise)``. With ``horizon``, the draws of that many
+        steps, step by step (one draw of ``[T, B, 2]`` is not T draws of
+        ``[B, 2]``): the seeds as a list and each noise stacked over a
+        leading T axis."""
+        shapes = self._noise_shapes()
+        draw = lambda shape: None if shape is None else torch.randn(shape, generator=generator, device=self.device)
+
+        def one():
+            seed = _obs_seed(generator)
+            return seed, [(draw(u_shape), draw(c_shape)) for u_shape, c_shape in shapes]
+
+        if horizon is None:
+            return one()
+        seeds, steps = zip(*(one() for _ in range(horizon)))
+        stack = lambda xs: None if xs[0] is None else torch.stack(xs)
+        return list(seeds), [tuple(stack(xs) for xs in zip(*per_agent)) for per_agent in zip(*steps)]
+
+    def _add_noise(self, agent: Agent, u, comm, noise):
+        """The decoded action ``u`` and comm action ``comm`` (any leading
+        axes) with the agent's drawn ``noise`` (``_step_draws``) added."""
+        u_noise, c_noise = noise
+        if u_noise is not None:
+            u = u + u_noise * torch.as_tensor(agent.u_noise_array, device=self.device)[None]
+        if c_noise is not None:
+            comm = comm + c_noise * agent.c_noise
+        return u, comm
+
+    def _decode_action(self, state: WorldState, agent: Agent, action, noise) -> WorldState:
         dim_c = self.world.dim_c
         has_comm = dim_c > 0 and not agent.silent
         dev = self.device
@@ -228,16 +269,10 @@ class Environment:
                 comm_idx = action[:, len(agent.discrete_action_nvec)]
                 comm_action = torch.nn.functional.one_hot(comm_idx, dim_c).to(torch.float32)
 
-        u = u * u_mult[None]
-        if np.any(agent.u_noise_array > 0):
-            noise = torch.randn(u.shape, generator=generator, device=dev)
-            u = u + noise * torch.as_tensor(agent.u_noise_array, device=dev)[None]
+        u, comm_action = self._add_noise(agent, u * u_mult[None], comm_action, noise)
         state = agent.set_u(state, u)
 
         if has_comm:
-            if agent.c_noise > 0:
-                noise = torch.randn(comm_action.shape, generator=generator, device=dev)
-                comm_action = comm_action + noise * agent.c_noise
             uc = state.uc.clone()
             uc[:, agent.slot] = comm_action
             state = state.replace(uc=uc)

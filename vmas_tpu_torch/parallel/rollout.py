@@ -24,9 +24,20 @@ per-step ``c`` the step pipeline would hold; where it reads the actions
 the paths hold. A scenario whose ``post_rewards`` only re-merges scratch
 that ``unpack`` already merged and touches nothing a step reads
 (``post_rewards_rollout_safe``: dispersion, dropout) has it applied once,
-to the final state. Not ported yet: the rows paths of the other
-``unpack_reads`` and of noisy actions (they run through ``rollout_fn``),
-and ``step_count_keys`` (no ported scenario declares them).
+to the final state; a pure step counter of the scratch
+(``step_count_keys``: joint_passage_size's ``t``) is set to its value at
+the start plus the horizon.
+
+Noise: where an agent's actions or comm are noisy (``u_noise``,
+``c_noise``) or ``unpack`` draws observation noise (``unpack_reads =
+("obs_key",)``), the rows paths draw from the steps' generator, before the
+launch loop, exactly what ``Environment._step_fn_raw`` draws from it at
+each step and in its order (``Environment._step_draws``: the step's
+observation seed, then per agent its action noise and its comm noise), add
+the noise to the decoded actions as the step adds it
+(``Environment._add_noise``), and hand each step's observation seed to
+``unpack`` (``BaseScenario.obs_seed``), which then runs once per step; so
+they give ``rollout_fn``'s trajectory bitwise for the same generator seed.
 """
 
 from __future__ import annotations
@@ -71,6 +82,15 @@ def _random_actions_for_horizon(env, generator, horizon):
             else:
                 xs.append(torch.randint(0, math.prod(nvec), (horizon, B), generator=generator, device=dev))
     return tuple(xs)
+
+
+def _noisy(env):
+    """Whether a step of ``env`` draws noise from its generator beyond the
+    observation seed (noisy actions or comm), or its fused outputs' unpack
+    reads the observation-noise streams."""
+    fo = env._fused_outputs
+    reads = getattr(fo, "unpack_reads", ()) if fo is not None else ()
+    return "obs_key" in reads or any(u is not None or c is not None for u, c in env._noise_shapes())
 
 
 def _stack_tree(xs):
@@ -188,11 +208,15 @@ def rows_rollout_supported(env) -> bool:
     comm actions are decoded with the physical ones, and an ``unpack`` that
     reads the comm state (``unpack_reads = ("c",)``, where some policy agent
     speaks) gets the per-step ``c``; one that reads the actions (``"u"``)
-    gets the per-step decoded u. Not eligible yet, and run through
-    ``rollout_fn`` (the fused step, K1, per ``env.step``) instead: actions
-    or comm with noise (``u_noise > 0``, ``c_noise > 0``) and outputs whose
-    unpack reads any other per-step state (``unpack_reads``: the noisy
-    configs' ``"obs_key"``)."""
+    gets the per-step decoded u. Noisy actions and comm (``u_noise > 0``,
+    ``c_noise > 0``) and outputs whose unpack draws observation noise
+    (``"obs_key"``: the noisy configs of give_way, multi_give_way,
+    joint_passage and joint_passage_size) are eligible: the rows paths draw
+    the steps' noise streams as ``env.step`` draws them
+    (``Environment._step_draws``). Not eligible, and run through ``rollout_fn`` (the
+    fused step, K1, per ``env.step``) instead: clamped actions, scripted
+    or non-holonomic agents, dynamic gravity, hooks the kernel does not
+    replace, and outputs whose unpack reads any other per-step state."""
     from vmas_tpu_torch.core import fused as F
     from vmas_tpu_torch.scenario import BaseScenario
 
@@ -205,15 +229,13 @@ def rows_rollout_supported(env) -> bool:
         and fo is not None
         and not env.grad_enabled
         and not (env.continuous_actions and env.clamp_action)
-        and not any((a.u_noise_array > 0).any() for a in env.agents)
-        and not any(a.c_noise > 0 for a in speaks)
         and (sc.post_rewards is BaseScenario.post_rewards or getattr(fo, "post_rewards_rollout_safe", False))
         and (
             sc.process_action is BaseScenario.process_action
             or getattr(fo, "process_action_noop", False)
             or getattr(fo, "process_act_rows", None) is not None
         )
-        and reads <= {"c", "u"}
+        and reads <= {"c", "u", "obs_key"}
         and ("c" not in reads or bool(speaks))
         and sc.pre_step is BaseScenario.pre_step
         and sc.post_step is BaseScenario.post_step
@@ -227,7 +249,8 @@ def _decoder(env, agent):
     -> (u [..., B, action_size], uc)`` with its constants on the env's
     device; ``uc`` is the comm action [..., B, dim_c] of a speaking agent in
     a comm world (continuous, or the one-hot of its discrete comm index),
-    else None. Noise-free unclamped actions."""
+    else None. Unclamped actions, before their noise
+    (``Environment._add_noise``)."""
     dev = env.device
     dim_c = env.world.dim_c
     has_comm = dim_c > 0 and not agent.silent
@@ -320,20 +343,36 @@ def _last_us(fo, us_last, extras):
     return [torch.stack([extras[-1, ix], extras[-1, iy]], dim=-1) for ix, iy in idx]
 
 
-def _finish_rows_rollout(env, state, steps, carry, extras, us_t, horizon, ucs_last=(), c_t=None):
+def _finish_rows_rollout(env, state, steps, carry, extras, us_t, horizon, ucs_last=(), c_t=None, seeds=None):
     """The rows rollouts' finale: one ``unpack`` over all the output rows
     (given the per-step comm state ``c_t`` [T, B, A, dim_c] where it reads
     ``c``, and the per-step decoded actions ``us_t``, per agent [T, B, 2],
     where it reads ``u``), the truncation flags, and a final state that
     mirrors the step pipeline's (the last step's u, or the controller's
     output where the kernel ran one, the last comm action in ``uc`` and
-    ``c`` of each speaking agent, its scratch updates and the controller's
-    memory, then the scenario's post_rewards, once)."""
+    ``c`` of each speaking agent, its scratch updates with each step
+    counter at its start value plus ``horizon``, and the controller's
+    memory, then the scenario's post_rewards, once). With ``seeds`` (each
+    step's observation seed, ``Environment._step_draws``) where ``unpack`` draws
+    observation noise, it runs once per step, after the scenario's
+    ``obs_seed`` is set to the step's seed, as ``env.step`` runs it; the
+    scenario is left with the last step's seed."""
     from vmas_tpu_torch.core import fused as F
 
     world, fo = env.world, env._fused_outputs
+    reads = getattr(fo, "unpack_reads", ())
     state_out = F.unpack_carry(world, carry, state)
-    obs, rews, terminated, updates = fo.unpack(extras, _unpack_state(env, state, us_t, c_t))
+    if seeds is not None and "obs_key" in reads:
+        outs = []
+        for t in range(horizon):
+            env.scenario.obs_seed = seeds[t]
+            u_step = [u[t] for u in us_t] if "u" in reads else None
+            outs.append(fo.unpack(extras[t], _unpack_state(env, state, u_step, None if c_t is None else c_t[t])))
+        obs, rews, terminated, updates = _stack_tree(outs)
+    else:
+        obs, rews, terminated, updates = fo.unpack(extras, _unpack_state(env, state, us_t, c_t))
+    if seeds is not None:
+        env.scenario.obs_seed = seeds[-1]
     us_last = [u[-1] for u in us_t]
     if env.max_steps is not None:
         steps_t = steps[None] + 1 + torch.arange(horizon, device=env.device)[:, None]
@@ -349,9 +388,12 @@ def _finish_rows_rollout(env, state, steps, carry, extras, us_t, horizon, ucs_la
                 uc[:, a.slot] = v
                 c[:, a.slot] = v
         state_out = state_out.replace(uc=uc, c=c)
-    state_out = state_out.replace(
-        scenario={**state_out.scenario, **{k: v[-1] for k, v in updates.items()}}
-    )
+    counters = getattr(fo, "step_count_keys", ())
+    last = {k: v[-1] for k, v in updates.items() if k not in counters}
+    # a pure step counter: each step's unpack added one to the value at the
+    # start; the step pipeline's unit increments are exact f32 integer adds
+    last.update({k: state_out.scenario[k] + float(horizon) for k in counters})
+    state_out = state_out.replace(scenario={**state_out.scenario, **last})
     state_out = _apply_ctrl_finish(world, fo, state_out, carry, state)
     # identity, or declared safe to apply once (post_rewards_rollout_safe)
     state_out = env.scenario.post_rewards(state_out)
@@ -391,10 +433,10 @@ def _chunked_reset_rollout(env, run_chunk, horizon, reset_every):
 
 _NOT_ELIGIBLE = (
     "not eligible -- needs fused_physics=True, a fused-outputs scenario declaring carry_extra_idx, "
-    "holonomic noise-free agents (continuous unclamped or discrete, comm without noise), no scripted "
-    "agents, no post_rewards override unless declared post_rewards_rollout_safe, no process_action "
-    "override unless declared a no-op or realized in the kernel, no unpack_reads but the comm state and "
-    "the actions; use rollout_fn"
+    "holonomic agents (continuous unclamped or discrete), no scripted agents, no post_rewards override "
+    "unless declared post_rewards_rollout_safe, no process_action override unless declared a no-op or "
+    "realized in the kernel, no unpack_reads but the comm state, the actions and the observation noise; "
+    "use rollout_fn"
 )
 
 
@@ -418,11 +460,16 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
     B, n_tot = env.num_envs, int(fo.n_out) + int(fo.n_ctrl_out)
     A2 = 2 * len(agents)
     reads_c = "c" in getattr(fo, "unpack_reads", ())
+    noisy = _noisy(env)
 
     def run(state, steps, generator):
-        g_act, _ = _fork(generator, 2)
+        g_act, g_step = _fork(generator, 2)
         acts = _random_actions_for_horizon(env, g_act, horizon)
         us, ucs = zip(*(_decoder(env, a)(acts[i]) for i, a in enumerate(agents)))
+        seeds = None
+        if noisy:
+            seeds, noise = env._step_draws(g_step, horizon)
+            us, ucs = zip(*(env._add_noise(a, u, uc, n) for a, u, uc, n in zip(agents, us, ucs, noise)))
         ax = torch.stack([u[..., 0] for u in us], dim=1)  # [T, A, B]
         ay = torch.stack([u[..., 1] for u in us], dim=1)
         act_rows = torch.cat([ax, ay], dim=1).contiguous()  # [T, 2A, B]
@@ -435,7 +482,7 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
         # the per-step comm state, where unpack reads it
         c_t = _comm_state(state, agents, ucs) if reads_c else None
         return _finish_rows_rollout(env, state, steps, carry, extras, us, horizon,
-                                    [None if uc is None else uc[-1] for uc in ucs], c_t)
+                                    [None if uc is None else uc[-1] for uc in ucs], c_t, seeds)
 
     return run
 
@@ -469,9 +516,13 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
     decoders = [_decoder(env, a) for a in agents]
     reads_c = "c" in getattr(fo, "unpack_reads", ())
     reads_u = "u" in getattr(fo, "unpack_reads", ())
+    noisy = _noisy(env)
 
     def run(state, steps, generator):
-        g_pol, _ = _fork(generator, 2)
+        g_pol, g_step = _fork(generator, 2)
+        seeds = None
+        if noisy:
+            seeds, noise = env._step_draws(g_step, horizon)
         extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
         auxs, c_ts, u_ts = [], [], []
         with torch.no_grad():
@@ -484,8 +535,14 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
                 else:
                     actions = policy(obs, g_pol)
                 dec = [d(a[None]) for d, a in zip(decoders, actions)]
-                u = torch.stack([du[0] for du, _ in dec])  # [A, B, 2]
+                us_t = [du[0] for du, _ in dec]
                 ucs = [None if uc is None else uc[0] for _, uc in dec]
+                if noisy:
+                    at_t = lambda x: None if x is None else x[t]
+                    us_t, ucs = zip(*(env._add_noise(a, u, uc, (at_t(nu), at_t(nc)))
+                                      for a, u, uc, (nu, nc) in zip(agents, us_t, ucs, noise)))
+                    env.scenario.obs_seed = seeds[t]
+                u = torch.stack(us_t)  # [A, B, 2]
                 # the action rows: x of every agent, then y
                 carry, _ = step(carry, u.permute(2, 0, 1).reshape(2 * A, B), extras[t])
                 # the policy at t+1 acts on the observations this step
@@ -500,7 +557,7 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
             # them, else its last step's as a T axis of one
             u_t = torch.stack(u_ts, dim=1) if reads_u else u[:, None]
             out = _finish_rows_rollout(env, state, steps, carry, extras, list(u_t), horizon, ucs,
-                                       torch.stack(c_ts) if reads_c else None)
+                                       torch.stack(c_ts) if reads_c else None, seeds)
         if policy_aux:
             out[2]["policy_aux"] = _stack_tree(auxs)
             out[2]["obs0"] = obs0

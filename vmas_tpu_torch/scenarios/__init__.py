@@ -1,24 +1,30 @@
-"""Scenario registry. ``balance``, ``dispersion``, ``dropout``,
-``give_way``, ``joint_passage``, ``multi_give_way``, ``passage``,
-``reverse_transport``, ``road_traffic``, ``transport``, ``wheel``,
-``wind_flocking``, the MPE family (``simple``, ``simple_adversary``,
-``simple_crypto``, ``simple_push``, ``simple_reference``,
-``simple_speaker_listener``, ``simple_spread``, ``simple_tag``,
-``simple_world_comm``) and the debug scenarios ``het_mass`` and
-``waterfall`` are ported so far; every other scenario of the JAX package
-raises ``ValueError`` when loaded."""
+"""Scenario registry. ``balance``, ``ball_passage``, ``ball_trajectory``,
+``buzz_wire``, ``dispersion``, ``dropout``, ``give_way``,
+``joint_passage``, ``joint_passage_size``, ``multi_give_way``,
+``passage``, ``reverse_transport``, ``road_traffic``, ``transport``,
+``wheel``, ``wind_flocking``, the MPE family (``simple``,
+``simple_adversary``, ``simple_crypto``, ``simple_push``,
+``simple_reference``, ``simple_speaker_listener``, ``simple_spread``,
+``simple_tag``, ``simple_world_comm``) and the debug scenarios
+``asym_joint``, ``het_mass`` and ``waterfall`` are ported so far; every
+other scenario of the JAX package raises ``ValueError`` when loaded."""
 
 from __future__ import annotations
 
 import importlib
 
 _PORTED = {
+    "asym_joint": "vmas_tpu_torch.scenarios.debug.asym_joint",
     "balance": "vmas_tpu_torch.scenarios.balance",
+    "ball_passage": "vmas_tpu_torch.scenarios.ball_passage",
+    "ball_trajectory": "vmas_tpu_torch.scenarios.ball_trajectory",
+    "buzz_wire": "vmas_tpu_torch.scenarios.buzz_wire",
     "dispersion": "vmas_tpu_torch.scenarios.dispersion",
     "dropout": "vmas_tpu_torch.scenarios.dropout",
     "give_way": "vmas_tpu_torch.scenarios.give_way",
     "het_mass": "vmas_tpu_torch.scenarios.debug.het_mass",
     "joint_passage": "vmas_tpu_torch.scenarios.joint_passage",
+    "joint_passage_size": "vmas_tpu_torch.scenarios.joint_passage_size",
     "multi_give_way": "vmas_tpu_torch.scenarios.multi_give_way",
     "passage": "vmas_tpu_torch.scenarios.passage",
     "reverse_transport": "vmas_tpu_torch.scenarios.reverse_transport",

@@ -892,3 +892,338 @@ def holonomic_events(env, y, extra):
     if name == "dropout":
         return {"goal_eaten": int((extra[fo.base + 1] > 0.5).sum())}
     return {}
+
+
+def rollout_path_and_reference(env, horizon, seed, obs_seed=0):
+    """``rollout()`` on the env's state beside ``rollout_fn`` from the same
+    state and generator seed, each started from the observation seed
+    ``obs_seed``: ``(paths, traj, want)``, ``paths`` the rollout functions
+    ``rollout()`` called (``["rows_rollout_fn"]`` where it took the rows
+    path), ``traj`` its trajectory and ``want`` rollout_fn's. The env's
+    state and step counts are left as they were."""
+    import importlib
+
+    # the module (the package exports a function of the same name)
+    R = importlib.import_module("vmas_tpu_torch.parallel.rollout")
+
+    paths = []
+    originals = {n: getattr(R, n) for n in ("rollout_fn", "rows_rollout_fn")}
+    for n, f in originals.items():
+        setattr(R, n, lambda *a, _f=f, _n=n, **k: paths.append(_n) or _f(*a, **k))
+    s0, st0 = env.state, env.steps
+    try:
+        env.scenario.obs_seed = obs_seed
+        traj = R.rollout(env, horizon=horizon, generator=torch.Generator(device=env.device).manual_seed(seed))
+    finally:
+        for n, f in originals.items():
+            setattr(R, n, f)
+    env.scenario.obs_seed = obs_seed
+    _, _, want = R.rollout_fn(env, horizon=horizon)(s0, st0, torch.Generator(device=env.device).manual_seed(seed))
+    env.state, env.steps = s0, st0
+    return paths, traj, want
+
+
+def same_trajectory(a, b) -> bool:
+    """Two rollouts' rewards, dones and observations, bitwise."""
+    return (torch.equal(a["rewards"], b["rewards"]) and torch.equal(a["dones"], b["dones"])
+            and all(torch.equal(x, y) for x, y in zip(a["obs"], b["obs"])))
+
+
+# the standard deviation of the agents' offsets from their joints' anchors
+# in the joint worlds' states (m)
+JOINT_JITTER = 0.0005
+
+
+def _bar_between(pos, rot, jl, a, b):
+    """Pose a joint's bar ``jl`` between the ends ``a`` and ``b`` (its
+    centre halfway, turned from a toward b), as ``Joint.sync`` does."""
+    d = pos[:, b] - pos[:, a]
+    pos[:, jl] = (pos[:, a] + pos[:, b]) / 2
+    rot[:, jl] = np.arctan2(d[:, 1], d[:, 0])
+
+
+def joint_worlds_state(env, rng):
+    """A numpy state dict of one of the joint worlds (buzz_wire,
+    ball_trajectory, ball_passage, joint_passage_size at any config) in
+    which its contacts and events occur, by env index mod 4 where not said
+    otherwise; each env's bodies moving together at a random small velocity,
+    random small forces on the agents:
+
+    * buzz_wire: the ball in the channel between the walls, (0) 0.1-0.5 of
+      its contact distance (radius + LINE_MIN_DIST) from a wall, (1) as
+      close to a floor (0.1-0.5 of it in both, the whole moving into the
+      line at 0.3 m/s), (2) the goal within 3 mm of the ball (done), (3)
+      0-3 cm off its contact distance from a wall and moving into it at
+      0.3 m/s (ending the step in, beyond or short of the band where
+      LINE_MIN_DIST decides a hit); the shaping scratch noisy;
+    * ball_trajectory: the ball anywhere within the circle's reach, the
+      agents at the joints' length from it, (0) turned about it until they
+      overlap by 0.1-0.5 mm; the shaping scratch noisy;
+    * ball_passage: the walls as the env's reset placed them, (0) agent 0
+      and (1) the ball 0.3-0.9 of its contact distance from a wall's face,
+      (2) the ball inside a wall (the overlap test's inner branch) or past
+      the wall with the goal within 3 mm (done), (3) the ball out of the
+      arena (done), agent 1 pushing the ball in both; the ball past the
+      wall (y > 0) in every other env;
+    * joint_passage_size: the map the reset chose, (0) the bar level
+      under and (2) over the row of passages, the big agent 0.1-1 mm into
+      its contact distance of the passages' faces, (1) the bar upright
+      beside a side wall, the big agent as close to it, (3) both agents past the
+      passages with ``passed`` 0 (just_passed) and the bar at rest on its
+      goal, its ends on their anchors (done); the shaping scratch noisy, ``passed`` 100 in half the
+      other envs.
+
+    The agents (and joint_passage_size's mass) sit ``JOINT_JITTER`` off
+    their anchors, so that the joints pull."""
+    sc, st = env.scenario, env.state
+    B, E = st.pos.shape[:2]
+    name = type(sc).__module__.rsplit(".", 1)[-1]
+    cpu = lambda t: t.detach().cpu().numpy().astype(np.float64)
+    pos, rot = cpu(st.pos), cpu(st.rot)
+    u = lambda lo, hi: rng.uniform(lo, hi, B)
+    sign = lambda: rng.choice([-1.0, 1.0], B)
+    unit = lambda a: np.stack([np.cos(a), np.sin(a)], -1)
+    mode = np.arange(B) % 4
+    agents = env.world.agents
+    f32 = lambda a: np.asarray(a, np.float32)
+    noise = lambda: rng.normal(0, 0.01, B)
+    scr = {}
+
+    if name in ("buzz_wire", "ball_trajectory"):
+        bi = sc.ball.index
+        r_b = sc.ball.shape.radius
+        if name == "buzz_wire":
+            wall_x = sc.agent_spacing / 4
+            ball = np.stack([u(-0.05, 0.05), u(-0.8, 0.8)], -1)
+            m = mode == 0
+            s = sign()
+            ball[m, 0] = (s * (wall_x - (r_b + LINE_MIN_DIST) * u(0.1, 0.5)))[m]
+            # (3) the ball 0-3 cm off its contact distance from a wall and
+            # moving into it at 0.3 m/s: it ends the step in, beyond or
+            # short of the band where LINE_MIN_DIST decides the hit test
+            m = mode == 3
+            ball[m, 0] = (s * (wall_x - r_b - LINE_MIN_DIST - u(0.0, 0.03)))[m]
+            th = u(-np.pi / 6, np.pi / 6)
+            half = sc.agent_spacing / 2
+        else:
+            ball = rng.uniform(-0.5, 0.5, (B, 2))
+            th = u(-np.pi, np.pi)
+            half = sc.agent_spacing / 2
+        if name == "buzz_wire":
+            # the ball at a floor, 0.3-0.9 of its contact distance off it
+            m = mode == 1
+            ball[m, 1] = (sign() * (1 - (r_b + LINE_MIN_DIST) * u(0.1, 0.5)))[m]
+        pos[:, bi] = ball
+        ends = [ball - unit(th) * half, ball + unit(th) * half]
+        if name == "ball_trajectory":
+            # agent 1 turned about the ball toward agent 0 until the two
+            # overlap by 0.5-3 mm, both joints at their length
+            m = mode == 0
+            gap = 2 * sc.agent_radius - u(0.0001, 0.0005)
+            delta = 2 * np.arcsin(gap / (2 * half))
+            ends[1][m] = (ball + unit(th + np.pi + delta) * half)[m]
+        for a, p in zip(agents, ends):
+            pos[:, a.index] = p
+        for j, a in zip(sc.world._joint_objects, agents):
+            _bar_between(pos, rot, j.landmark.index, a.index, bi)
+        # the agents off their anchors by a fraction of a mm, so that the
+        # joints pull (more makes the light bars spin fast, and their
+        # angular velocities ill-conditioned)
+        for a in agents:
+            pos[:, a.index] += rng.normal(0, JOINT_JITTER, (B, 2))
+        if name == "buzz_wire":
+            gi = sc.goal.index
+            pos[:, gi] = np.stack([u(-0.03, 0.03), u(-0.9, 0.9)], -1)
+            m = mode == 2
+            pos[m, gi] = ball[m] + rng.uniform(-0.003, 0.003, (int(m.sum()), 2))
+    elif name == "ball_passage":
+        reset = cpu(st.pos)
+        bi, gi = sc.ball.index, sc.goal.index
+        walls = [p for p in sc.passages if p.collide]
+        w = [walls[k].index for k in rng.integers(0, len(walls), B)]
+        wx = reset[np.arange(B), w, 0]
+        face = sign()
+        near = lambda r: face * (sc.passage_width / 2 + (r + LINE_MIN_DIST) * u(0.3, 0.9))
+        x = np.clip(wx + u(-0.4, 0.4) * sc.passage_length, -0.95, 0.95)
+        ball = rng.uniform(-0.8, 0.8, (B, 2))
+        ball[:, 1] = np.abs(ball[:, 1]) * np.where(np.arange(B) % 2 == 0, 1.0, -1.0)
+        m = mode == 1
+        ball[m] = np.stack([x, near(sc.ball_radius)], -1)[m]
+        m = (mode == 2) & (np.arange(B) % 8 == 2)
+        ball[m] = np.stack([wx, u(-0.03, 0.03)], -1)[m]
+        m = mode == 3
+        ball[m, 0] = (sign() * (1 - sc.ball_radius + u(0.0, 0.01)))[m]
+        pos[:, bi] = ball
+        th = u(-np.pi, np.pi)
+        half = sc.agent_spacing / 2
+        pos[:, agents[0].index] = ball - unit(th) * half
+        pos[:, agents[1].index] = ball + unit(th) * half
+        m = mode == 0
+        pos[m, agents[0].index] = np.stack([x, near(sc.agent_radius)], -1)[m]
+        # agent 1 pushing the ball, 0.1-0.5 mm into its contact distance
+        m = mode >= 2
+        touch = sc.agent_radius + sc.ball_radius - u(0.0001, 0.0005)
+        pos[m, agents[1].index] = (ball + unit(u(-np.pi, np.pi)) * touch[:, None])[m]
+        pos[:, gi] = rng.uniform(-0.8, 0.8, (B, 2))
+        m = (mode == 2) & (np.arange(B) % 8 == 6)
+        pos[m, gi] = ball[m] + rng.uniform(-0.003, 0.003, (int(m.sum()), 2))
+        pos = np.clip(pos, -1.0, 1.0)
+        for p in sc.passages:
+            pos[:, p.index] = reset[:, p.index]
+        d_open = np.min(np.stack([np.linalg.norm(pos[:, bi] - pos[:, p.index], axis=-1)
+                                  for p in sc.passages if not p.collide], -1), -1)
+        scr["pos_shaping_pre"] = f32(d_open + noise())
+        scr["pos_shaping_post"] = f32(np.linalg.norm(pos[:, bi] - pos[:, gi], axis=-1) + noise())
+    elif name == "joint_passage_size":
+        jl, gl = sc.joint.landmark.index, sc.goal.index
+        a0, a1 = agents[0].index, agents[1].index
+        r0, r1 = sc.agent_radius, sc.agent_radius_2
+        half = sc.joint_length / 2
+        cx, cy, th = u(-0.6, 0.6), u(-0.7, -0.3), u(-np.pi, np.pi)
+        s = sign()
+        # (0) level under the passages: the agents' tops in contact reach of
+        # the boxes' lower faces
+        m = mode == 0
+        th[m] = u(-0.01, 0.01)[m]
+        cy[m] = (-(sc.passage_width / 2 + r1 + LINE_MIN_DIST - u(0.0001, 0.001)))[m]
+        # (1) upright beside the wall on side s
+        m = mode == 1
+        cx[m] = (s * (1 + sc.agent_radius - r1 - LINE_MIN_DIST + u(0.0001, 0.001)))[m]
+        th[m] = (np.pi / 2 + u(-0.02, 0.02))[m]
+        # (2) level over the row of passages, the agents' bottoms in contact
+        # reach of the boxes' upper faces
+        m = mode == 2
+        th[m] = u(-0.01, 0.01)[m]
+        cy[m] = (sc.passage_width / 2 + r1 + LINE_MIN_DIST - u(0.0001, 0.001))[m]
+        # (3) both agents past the passages, on the goal
+        m = mode == 3
+        cy[m] = u(0.4, 0.6)[m]
+        th[m] = u(-0.3, 0.3)[m]
+        centre = np.stack([cx, cy], -1)
+        along = unit(th)
+        pos[:, a0] = centre - along * half
+        pos[:, a1] = centre + along * half
+        pos[:, jl], rot[:, jl] = centre, th
+        if sc.asym_package:
+            pos[:, sc.mass.index] = centre + along * (sc.mass_position * half)
+        pos0 = pos.copy()
+        pos[:, [a0, a1]] += rng.normal(0, JOINT_JITTER, (B, 2, 2))
+        if sc.asym_package:
+            pos[:, sc.mass.index] += rng.normal(0, JOINT_JITTER, (B, 2))
+        pos[:, gl] = np.stack([u(-0.7, 0.7), u(0.3, 0.9)], -1)
+        rot[:, gl] = u(-np.pi / 2, np.pi / 2)
+        m = mode == 3
+        pos[m, gl] = centre[m] + rng.uniform(-0.0005, 0.0005, (int(m.sum()), 2))
+        rot[m, gl] = th[m] + u(-0.001, 0.001)[m]
+        s0 = st.scenario
+        pc = cpu(s0["pass_center"])
+        d_pass = np.linalg.norm(pos[:, jl] - pc, axis=-1)
+        scr["pos_shaping_pre"] = f32(d_pass + noise())
+        scr["pos_shaping_post"] = f32(np.linalg.norm(pos[:, jl] - pos[:, gl], axis=-1) + noise())
+        scr["rot_shaping_pre"] = f32(rng.normal(0, 0.5, B))
+        scr["passed"] = f32(np.where(mode == 3, 0.0, rng.choice([0.0, 100.0], B)))
+        scr["t"] = f32(rng.integers(0, 50, B))
+        for a in agents:
+            scr[f"__vel_ctrl_{a.name}"] = {
+                "accum_errs": f32(rng.normal(0, 0.01, (B, 2))), "prev_err": f32(rng.normal(0, 0.1, (B, 2))),
+            }
+
+    # each env's bodies moving together (a joint's ends at one velocity, its
+    # bar not turning), with a little spread: a light bar between two stiff
+    # constraints turns fast from any difference
+    movable = [e.index for e in env.world.entities if e.movable]
+    vel = np.zeros((B, E, 2))
+    vel[:, movable] = rng.normal(0, 0.05, (B, 1, 2)) + rng.normal(0, 0.002, (B, len(movable), 2))
+    ang_vel = np.zeros((B, E))
+    ang_vel[:, [a.index for a in agents]] = rng.normal(0, 0.1, (B, len(agents)))
+    force = np.zeros((B, E, 2))
+    force[:, [a.index for a in agents]] = rng.normal(0, 0.3, (B, len(agents), 2))
+    if name == "buzz_wire":
+        # the assembly moving at 0.3 m/s into the line it touches, so that
+        # the ball still overlaps it after the step's push back
+        push = np.zeros((B, 2))
+        push[mode == 0, 0] = np.sign(pos[mode == 0, sc.ball.index, 0]) * 0.3
+        push[mode == 1, 1] = np.sign(pos[mode == 1, sc.ball.index, 1]) * 0.3
+        push[mode == 3, 0] = np.sign(pos[mode == 3, sc.ball.index, 0]) * 0.3
+        vel[:, movable] += push[:, None]
+    if name == "joint_passage_size":
+        # the bar at rest on its goal, its ends on their anchors, so that it
+        # stays done through a step
+        rest = mode == 3
+        vel[rest], ang_vel[rest], force[rest] = 0.0, 0.0, 0.0
+        ends = [a0, a1] + ([sc.mass.index] if sc.asym_package else [])
+        pos[np.ix_(rest, ends)] = pos0[np.ix_(rest, ends)]
+    out = _np_state(st, pos, rot, vel, ang_vel, force)
+    if name == "buzz_wire":
+        d = np.linalg.norm(pos[:, sc.ball.index] - pos[:, sc.goal.index], axis=-1)
+        scr["pos_shaping"] = f32(d + noise())
+    if name == "ball_trajectory":
+        for k in ("pos_shaping", "speed_shaping", "dist_shaping"):
+            scr[k] = f32(np.abs(rng.normal(0.5, 0.3, B)))
+    out["scenario"].update(scr)
+    return out
+
+
+def asym_joint_state(env, rng):
+    """A numpy state dict of an asym_joint env: the bar anywhere and turned
+    at random, its ends and the mass ``JOINT_JITTER`` off their anchors
+    (every joint pulls), random small velocities and forces."""
+    sc, st = env.scenario, env.state
+    B, E = st.pos.shape[:2]
+    pos = np.zeros((B, E, 2))
+    rot = np.zeros((B, E))
+    jl = sc.joint.landmark.index
+    th = rng.uniform(-np.pi, np.pi, B)
+    along = np.stack([np.cos(th), np.sin(th)], -1)
+    centre = rng.uniform(-0.5, 0.5, (B, 2))
+    half = sc.joint_length / 2
+    pos[:, jl], rot[:, jl] = centre, th
+    a0, a1 = (a.index for a in env.world.agents)
+    pos[:, a0] = centre - along * half
+    pos[:, a1] = centre + along * half
+    if sc.asym_package:
+        pos[:, sc.mass.index] = centre + along * (sc.mass_position * half)
+    movable = [e.index for e in env.world.entities if e.movable]
+    pos[:, movable] += rng.normal(0, JOINT_JITTER, (B, len(movable), 2))
+    vel = np.zeros((B, E, 2))
+    vel[:, movable] = rng.normal(0, 0.02, (B, len(movable), 2))
+    ang_vel = np.zeros((B, E))
+    ang_vel[:, movable] = rng.normal(0, 0.1, (B, len(movable)))
+    out = _np_state(st, pos, rot, vel, ang_vel, rng.normal(0, 0.3, (B, E, 2)))
+    out["scenario"]["rot_shaping_pre"] = np.asarray(rng.normal(0, 0.5, B), np.float32)
+    return out
+
+
+def joint_worlds_events(env, extra, y=None):
+    """The events one step of a joint world shows, from its emit rows
+    ``extra`` [n_out, B] (the plain version's) and, where given, its output
+    state rows ``y`` [9E, B]: buzz_wire's line hits (its penalty over -10),
+    envs done and (with ``y``) the (collidable, line) pairs that end the
+    step in the band between touching the line and its contact distance,
+    where LINE_MIN_DIST decides the hit test; ball_passage's box hits (its
+    penalty over -0.06) and envs done; joint_passage_size's just_passed
+    and done."""
+    fo = env._fused_outputs
+    name = type(env.scenario).__module__.rsplit(".", 1)[-1]
+    base = fo.base
+    if name == "buzz_wire":
+        out = {"line_hits": int(torch.round(extra[base + 2] / fo.coll_pen).sum()),
+               "done": int((extra[base + 5] > 0.5).sum())}
+        if y is not None:
+            E = len(env.world.entities)
+            px, py, rot = y[:E], y[E:2 * E], y[4 * E:5 * E]
+            band = 0
+            for ci, r in fo.coll:
+                for li, half in fo.lines:
+                    cx, cy = F._closest_point_line(px[li], py[li], torch.cos(rot[li]), torch.sin(rot[li]), half,
+                                                   px[ci], py[ci])
+                    d = F._norm(px[ci] - cx, py[ci] - cy)
+                    band += int(((d - r >= 0) & (d - LINE_MIN_DIST - r < 0)).sum())
+            out["line_band"] = band
+        return out
+    if name == "ball_passage":
+        return {"box_hits": int(torch.round(extra[base + 2] / fo.coll_pen).sum()),
+                "done": int((extra[base + 5] > 0.5).sum())}
+    if name == "joint_passage_size":
+        return {"just_passed": int((extra[base + 7] > 0.5).sum()), "done": int((extra[base + 8] > 0.5).sum())}
+    return {}
