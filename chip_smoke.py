@@ -134,6 +134,25 @@
    (joint_passage_size with its controller at 1), once to warm up and 3
    timed calls, env-steps/s and the device idle share; asym_joint through
    rollout_fn (100 steps, K1 with no emit per step).
+12c. The sensor worlds at 4096 envs (navigation, flocking, discovery at
+   their defaults and discovery with a shared reward, a collision penalty
+   and no respawn): each emit's fused step, and navigation's and
+   flocking's rows step (flocking's target on the action rows), against
+   their plain versions, bitwise, over 5 re-synced steps from
+   testing.sensor_state at one thread and at 8 lanes per env, with agents
+   on their goals, collision hits, covered targets and covering agents
+   counted (and required), and a launch of 4 steps against 4 launches of
+   one; the Lidar's rays on the card against the same plain code on the
+   CPU (atol 2e-5); navigation's rows rollout with its Lidar (each step's
+   state rebuilt from its carry rows) over 1000 steps, navigation without
+   its Lidar at k_steps 1 and 4, flocking's rows rollout and navigation's
+   HeuristicPolicy on the rows policy rollout, each bitwise its env.step
+   rollout; pollock at its defaults (45 entities, the plain physics)
+   through rollout_fn, 100 steps, its vectorized Lidar against its per-ray
+   loop; then the main paths with the counts zeroed: navigation and
+   flocking on rows_rollout_fn (horizon 1000, k_steps 1, with the Lidar
+   rebuild's share of a call), discovery's two configs on rollout_fn (100
+   steps), env-steps/s and the device idle share.
 13. The op-cost probe: its kernel against its plain version at [54, 4096]
    with 0, 100 and 1200 operations (the ALU chain bitwise, the
    transcendental chain within atol 1e-6 rtol 1e-5), then its path with
@@ -391,9 +410,9 @@ def kernel_entry(name, source, replaces, launches, err, t, nbytes, flops):
 
 
 # instantiations of the fused kernel per lane count the package builds
-# (fused.LANES_BUILT): the fused form with no emit and with each of 24, the
-# rows form with each of 23 (het_mass has none)
-FUSED_FORMS = 48
+# (fused.LANES_BUILT): the fused form with no emit and with each of 27, the
+# rows form with each of 25 (het_mass and discovery have none)
+FUSED_FORMS = 53
 
 # the worlds K1/K2 run here: (make_env name and kwargs) by the name their
 # entries of the kernels line carry between brackets
@@ -408,6 +427,9 @@ LANE_WORLDS = {
     **{name: (name, {}) for name in JW_WORLDS},
     "joint_passage_size+pid": ("joint_passage_size", {"use_vel_controller": True}),
     "asym_joint": ("asym_joint", {}),
+    "navigation": ("navigation", {}), "flocking": ("flocking", {}), "discovery": ("discovery", {}),
+    "discovery,penalty": ("discovery", {"shared_reward": True, "agent_collision_penalty": -1.0,
+                                        "targets_respawn": False}),
 }
 
 
@@ -461,8 +483,8 @@ def lane_report(dev):
         k_in = int(fo.n_scratch_in) if fo is not None else 0
         k_out = int(fo.n_out) if fo is not None else 0
         smem = {"fused": lib.vmas_fused_smem(ks.to_ctypes(k_in), ks.lanes, 0, 0, k_out)}
-        if fo is not None and not ks.dyn_gravity:
-            spec = ks.to_ctypes(k_in, [a.index for a in env.agents])
+        if fo is not None and not ks.dyn_gravity and getattr(fo, "carry_extra_idx", None) is not None:
+            spec = ks.to_ctypes(k_in, [a.index for a in env.agents] + list(getattr(fo, "script_slots", ())))
             smem["rows"] = lib.vmas_fused_smem(spec, ks.lanes, 1, int(fo.n_ctrl), k_out + int(fo.n_ctrl_out))
         items = {t: len(getattr(ks, t)) for t in F.ITEM_TYPES if getattr(ks, t)}
         print(f"lanes {key}: L = {ks.lanes} (items per type {items}, E {ks.E}); dynamic shared memory per block "
@@ -615,6 +637,8 @@ def emit_ops(fo):
         return holonomic_ops(fo)
     if kind in JW_EMITS:
         return joint_worlds_ops(fo)
+    if kind in ("NavigationOutputs", "FlockingOutputs", "DiscoveryOutputs"):
+        return sensor_ops(fo)
     return 200 * fo.n_pkgs
 
 
@@ -2295,6 +2319,304 @@ def joint_worlds_phase(card, dev):
     return entries
 
 
+# -- the sensor worlds -----------------------------------------------------------------
+
+# the sensor worlds' configs held to their plain versions: (make_env name,
+# kwargs, whether the rows step takes it), and the counts each comparison
+# must see above zero
+SW_CONFIGS = {
+    "navigation": ("navigation", {}, True),
+    "flocking": ("flocking", {}, True),
+    "discovery": ("discovery", {}, False),
+    "discovery,penalty": ("discovery", {"shared_reward": True, "agent_collision_penalty": -1.0,
+                                        "targets_respawn": False}, False),
+}
+SW_REQUIRED = {
+    "navigation": ("on_goal", "hits", "done"), "flocking": ("hits",), "discovery": ("covered", "covering"),
+    "discovery,penalty": ("covered", "covering", "hits"),
+}
+SW_CMP_STEPS = 5
+SW_ROLLOUT_STEPS = 20
+# the rollout_fn paths (discovery, pollock) and their horizon
+SW_SHORT_HORIZON = 100
+
+
+def sensor_ops(fo):
+    """Operations of the sensor worlds' emits per env, besides writing their
+    rows, read off csrc/fused_step.cu: 7 per distance, 2 per relative
+    position; navigation's goal terms 13 per agent and 13 per colliding
+    pair; flocking's 13 per pair of agents (the collision test and its
+    terms) and 10 per (policy agent, other agent) deviation, 3 per agent;
+    discovery's 9 per (agent, target) test, twice, 2 per agent and target,
+    and with a penalty 11 per ordered pair of agents."""
+    kind = type(fo).__name__
+    A = fo.n_agents
+    if kind == "NavigationOutputs":
+        return 13 * A + 13 * len(fo.pairs) + (2 * A * A if fo.all_goals else 0) + 3
+    if kind == "FlockingOutputs":
+        n = len(fo.all_i)
+        return 13 * n * (n - 1) // 2 + A * (10 * (n - 1) + 3 + 2) + 1
+    T = fo.n_targets
+    return 18 * A * T + 2 * (A + T) + 2 + (11 * A * (A - 1) + A if fo.coll_pen != 0 else 0)
+
+
+def sensor_worlds_phase(card, dev):
+    """navigation, flocking and discovery at 4096 envs: each emit's K1 (and
+    navigation's and flocking's K2, with flocking's target on the action
+    rows) bitwise its plain version over SW_CMP_STEPS re-synced steps from
+    testing.sensor_state at one thread and at 8 lanes per env, with the
+    events counted and required (agents on their goals, collision hits,
+    covered targets, covering agents), and a 4-step launch bitwise 4
+    launches of one; the Lidar's rays on the card against the same plain
+    code on the CPU; navigation's rows rollout with its Lidar (each step's
+    state rebuilt from its carry rows) at the main path's horizon,
+    navigation without it at k_steps 1 and 4, flocking's rows rollout and
+    navigation's HeuristicPolicy on the rows policy rollout, each bitwise
+    its env.step rollout; discovery (both configs) and pollock (its
+    vectorized Lidar against its per-ray loop) through rollout_fn; then the
+    main paths with the counts zeroed (navigation and flocking on
+    rows_rollout_fn at k_steps 1, horizon 1000, with the Lidar rebuild's
+    share of a call; discovery on rollout_fn, 100 steps); the phase's
+    entries of the kernels line."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.heuristic_policy import rollout_policy
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_policy_rollout_fn, rows_rollout_fn
+    from vmas_tpu_torch.scenarios.navigation import HeuristicPolicy as NavigationPolicy
+
+    R = sys.modules["vmas_tpu_torch.parallel.rollout"]
+    times, work, errs = {}, {}, {}
+    B = NUM_ENVS
+    # -- (a) K2 and K1 against plain, bitwise, at both forms; k_steps ---------------
+    for key, (name, kw, rows) in SW_CONFIGS.items():
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True, **kw)
+        world, fo = env.world, env._fused_outputs
+        slots = [a.index for a in env.agents] + list(getattr(fo, "script_slots", ()))
+        ks = F._kernel_spec(world)
+        E, A = ks.E, len(slots)
+        assert rows == F.rows_step_supported(world, fo, env.agents)
+        st = state_from_numpy(world, testing.sensor_state(env, np.random.default_rng(100)))
+        carry0 = F.pack_carry(world, st, fo)
+        x0 = torch.cat([F.state_rows(st), st.joint_fixed_rot.T, fo.scratch_rows(st)]).contiguous()
+        step = F.make_rows_step(world, fo, slots) if rows else None
+        gen = torch.Generator(device=dev).manual_seed(101)
+        acts = lambda: (torch.rand((2 * A, B), generator=gen, device=dev) * 2 - 1).contiguous()
+        counts = {}
+
+        def count(d):
+            for k, v in d.items():
+                counts[k] = counts.get(k, 0) + v
+
+        for lanes in (1, 8):
+            k2, k1 = ErrTracker(), ErrTracker()
+            carry, x = carry0, x0
+
+            def run_steps():
+                nonlocal carry, x
+                for t in range(SW_CMP_STEPS):
+                    act = acts()
+                    if rows:
+                        c_k, e_k = step(carry, act)
+                        c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+                        compare_rows(k2, c_k, c_p, e_k, e_p, f"{key} rows_step L{lanes}")
+                        count(testing.sensor_events(env, c_p[:9 * E], e_p))
+                        carry = c_k
+                    y_k, y_p = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+                    compare_rows(k1, y_k[:9 * E], y_p[:9 * E], y_k[9 * E:], y_p[9 * E:], f"{key} fused_step L{lanes}")
+                    count(testing.sensor_events(env, y_p[:9 * E], y_p[9 * E:]))
+                    x = with_actions(torch.cat([y_k[:9 * E], x[9 * E:]]), act, slots, E).contiguous()
+
+            at_lanes(ks, lanes, run_steps)
+            torch.cuda.synchronize()
+            if lanes == ks.lanes:
+                errs[f"fused_step[{key}]"] = k1.max()
+                if rows:
+                    errs[f"rows_step[{key}]"] = k2.max()
+        shown = {k: v for k, v in counts.items() if v or k in SW_REQUIRED[key]}
+        print(f"{key}@{B}: {'rows_step and ' if rows else ''}fused_step bitwise their plain versions over "
+              f"{SW_CMP_STEPS} re-synced steps at 1 and at 8 lanes per env (the rule's {ks.lanes}; E {E}, pairs "
+              f"{dict((t, len(getattr(ks, t))) for t in F.PAIR_TYPES if getattr(ks, t))}; events {shown}) on {card}",
+              flush=True)
+        missing = [k for k in SW_REQUIRED[key] if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"the {key} comparison saw none of {missing}: {counts}")
+        act = acts()
+        carry = carry0
+        x = with_actions(x0, act, slots, E).contiguous()
+        if rows:
+            act_k = torch.cat([acts() for _ in range(K_STEPS)]).contiguous()
+
+            def compare(tr, k, c_k, c_p, e_k, e_p, mid, key=key):
+                tr.close(f"{key} k{K_STEPS} step {k} emit rows", e_k, e_p)
+                if k == K_STEPS - 1:
+                    tr.close(f"{key} k{K_STEPS} carry", c_k, c_p)
+
+            k_steps_check(world, fo, slots, carry, act_k, f"{key}@{B}", compare)
+            extra = torch.empty((fo.n_out, B), device=dev)
+            rkey = f"rows_step[{key}]"
+            times[rkey] = kernel_times(rkey, lambda: step(carry, act, extra),
+                                       lambda: F.rows_step_plain(world, fo, slots, carry, act), "fused_step_kernel")
+            work[rkey] = ((2 * carry.shape[0] + 2 * A + fo.n_out) * B * 4,
+                          kernel_ops(ks, carry, fo, rows_form=True))
+        fkey = f"fused_step[{key}]"
+        times[fkey] = kernel_times(fkey, lambda: F.fused_step(world, x, fo), lambda: F.fused_step_plain(world, x, fo),
+                                   "fused_step_kernel")
+        work[fkey] = ((x.shape[0] + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo))
+        other = 8 if ks.lanes == 1 else 1
+        form = (f"rows_step[{key}]", lambda: step(carry, act, extra)) if rows else (fkey, lambda: F.fused_step(
+            world, x, fo))
+        other_ms = at_lanes(ks, other, lambda: device_ms(form[1], 200, "fused_step_kernel")[0])
+        times[form[0]]["other"] = (other, other_ms)
+        print(f"{form[0]} at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the device "
+              f"(the rule's {ks.lanes}: {times[form[0]]['ms'] * 1e3:.3f} us)", flush=True)
+        del env, carry, carry0, x, x0
+
+    # -- (b) the Lidar's rays on the card against the plain code on the CPU ---------
+    env = make_env("navigation", B, device=dev, seed=0)
+    cpu = make_env("navigation", B, device="cpu", seed=0)
+    st = state_from_numpy(env.world, testing.sensor_state(env, np.random.default_rng(102)))
+    st_cpu = state_from_numpy(cpu.world, testing.sensor_state(env, np.random.default_rng(102)))
+    worst, hits = 0.0, 0
+    for a, a_cpu in zip(env.world.agents, cpu.world.agents):
+        got, want = a.sensors[0].measure(st), a_cpu.sensors[0].measure(st_cpu)
+        worst = max(worst, float((got.cpu() - want).abs().max()))
+        hits += int((want < a.sensors[0].max_range).sum())
+    print(f"navigation@{B} Lidar on the card vs the same plain code on the CPU: max abs err {worst:.3e} over "
+          f"{hits} ray hits (atol 2e-5) on {card}", flush=True)
+    if worst > 2e-5 or not hits:
+        raise AssertionError(f"the Lidar on the card differs from the CPU's by {worst} ({hits} hits)")
+    del env, cpu
+
+    # -- (c) the rows rollouts against the env.step rollouts, bitwise --------------
+    def bitwise(tag, run_a, run_b, s0, st0, seed):
+        sa, _, ta = run_a(s0, st0, torch.Generator(device=dev).manual_seed(seed))
+        sb, _, tb = run_b(s0, st0, torch.Generator(device=dev).manual_seed(seed))
+        rollouts_bitwise(tag, ta, tb, sa, sb, card)
+
+    env = make_env("navigation", B, device=dev, seed=0, fused_physics=True)
+    s0 = state_from_numpy(env.world, testing.sensor_state(env, np.random.default_rng(103)))
+    bitwise(f"navigation@{B} env.step rollout vs rows rollout (its Lidar on each step's rebuilt state) over "
+            f"{HORIZON} steps", rollout_fn(env, horizon=HORIZON), rows_rollout_fn(env, horizon=HORIZON), s0,
+            env.steps, 7)
+    env = make_env("navigation", B, device=dev, seed=0, fused_physics=True, collisions=False)
+    for k in (1, K_STEPS):
+        bitwise(f"navigation,no_lidar@{B} env.step rollout vs rows rollout k_steps {k} over {SW_ROLLOUT_STEPS} steps",
+                rollout_fn(env, horizon=SW_ROLLOUT_STEPS), rows_rollout_fn(env, horizon=SW_ROLLOUT_STEPS, k_steps=k),
+                env.state, env.steps, 8)
+    policy = rollout_policy(env, NavigationPolicy(True))
+    bitwise(f"navigation,no_lidar@{B} env.step policy rollout vs rows policy rollout (its HeuristicPolicy) over "
+            f"{SW_ROLLOUT_STEPS} steps", rollout_fn(env, policy, SW_ROLLOUT_STEPS),
+            rows_policy_rollout_fn(env, policy, SW_ROLLOUT_STEPS), env.state, env.steps, 9)
+    env = make_env("flocking", B, device=dev, seed=0, fused_physics=True)
+    s0 = state_from_numpy(env.world, testing.sensor_state(env, np.random.default_rng(104)))
+    bitwise(f"flocking@{B} env.step rollout vs rows rollout (the target's script on the action rows) over "
+            f"{SW_ROLLOUT_STEPS} steps", rollout_fn(env, horizon=SW_ROLLOUT_STEPS),
+            rows_rollout_fn(env, horizon=SW_ROLLOUT_STEPS), s0, env.steps, 10)
+    del env
+
+    # -- (d) pollock through rollout_fn: its vectorized Lidar against the loop ---
+    F.fused_step_launches = 0
+    F.rows_step_launches = 0
+    env = make_env("pollock", B, device=dev, seed=0, fused_physics=True, lidar=True)
+    assert env._fused_outputs is None and not F.supports(env.world)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, steps, traj = rollout_fn(env, horizon=SW_SHORT_HORIZON)(env.state, env.steps,
+                                                                   torch.Generator(device=dev).manual_seed(0))
+    end.record()
+    end.synchronize()
+    call_ms = [start.elapsed_time(end)]
+    n = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+    assert n == {"fused_step": 0, "rows_step": 0}, n
+    assert all(bool(torch.isfinite(o).all()) for o in traj["obs"])
+    worst, hits = 0.0, 0
+    for a in env.world.agents:
+        v, loop = a.sensors[0].measure(state), a.sensors[0].measure(state, vectorized=False)
+        worst = max(worst, float((v - loop).abs().max()))
+        hits += int((v < a.sensors[0].max_range).sum())
+    print(f"pollock@{B} ({len(env.world.entities)} entities, the plain physics: supports() refuses it) through "
+          f"rollout_fn, {SW_SHORT_HORIZON} steps: {call_ms[0]:.3f} ms a call; its vectorized Lidar vs its per-ray "
+          f"loop: max abs err {worst:.3e} over {hits} ray hits (atol 1e-5); launches {n} on {card}", flush=True)
+    if worst > 1e-5 or not hits:
+        raise AssertionError(f"pollock's vectorized Lidar differs from its loop by {worst} ({hits} hits)")
+    del env, state, traj
+
+    # -- (e) the main paths ------------------------------------------------------
+    launches = {}
+    runs = [("navigation", "navigation", {}, "rows"), ("flocking", "flocking", {}, "rows"),
+            ("discovery", "discovery", {}, "step"),
+            ("discovery,penalty", "discovery", SW_CONFIGS["discovery,penalty"][1], "step")]
+    for key, name, kw, path in runs:
+        horizon = HORIZON if path == "rows" else SW_SHORT_HORIZON
+        F.fused_step_launches = 0
+        F.rows_step_launches = 0
+        env = make_env(name, num_envs=B, fused_physics=True, **kw)
+        assert env.device.type == "cuda"
+        obs = env.reset()
+        for _ in range(5):
+            obs, rews, dones, infos = env.step(env.get_random_actions())
+        rgen = torch.Generator(device=dev).manual_seed(0)
+        run = rows_rollout_fn(env, horizon=horizon) if path == "rows" else rollout_fn(env, horizon=horizon)
+        state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
+        n = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+        want = ({"fused_step": 5, "rows_step": horizon * (1 + TIMED_CALLS)} if path == "rows" else
+                {"fused_step": 5 + horizon * (1 + TIMED_CALLS), "rows_step": 0})
+        assert n == want, (key, n, want)
+        widths = [o.shape[-1] for o in obs]
+        assert traj["rewards"].shape == (horizon, B, env.n_agents) and bool(torch.isfinite(traj["rewards"]).all())
+        assert all(o.shape == (horizon, B, w) and bool(torch.isfinite(o).all()) for o, w in zip(traj["obs"], widths))
+        assert bool(torch.isfinite(state.pos).all())
+        tag = "rows_rollout_fn k_steps 1" if path == "rows" else "rollout_fn (env.step: K1)"
+        print(f"main path: {key} {B} envs x {env.n_agents} agents x {horizon} steps, {tag}; launches {n}", flush=True)
+        rollout_report(f"{key}@{B} {tag}", run, state, steps, rgen, call_ms, warm_s, B, card, horizon=horizon)
+        if path == "rows":
+            # the Lidar rebuild's share of one more call: the unpack over the
+            # rebuilt states, timed with CUDA events around it
+            spent = []
+            inner = R._unpack_over_states
+
+            def timed_unpack(*a, **k):
+                s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s_.record()
+                out = inner(*a, **k)
+                e_.record()
+                spent.append((s_, e_))
+                return out
+
+            R._unpack_over_states = timed_unpack
+            try:
+                # a warm-up call, then the timed one, whose rebuild is the last
+                call = timed_rollout(run, state, steps, rgen, calls=1)[3][0]
+            finally:
+                R._unpack_over_states = inner
+            rebuild = spent[-1][0].elapsed_time(spent[-1][1])
+            print(f"{key}@{B} rows_rollout_fn: the state rebuild and unpack (the Lidar over {horizon} x {B} "
+                  f"env-steps, chunks of {R._STATE_CHUNK // B} steps) {rebuild:.3f} ms of a {call:.3f} ms call "
+                  f"(share {rebuild / call:.3f}) on {card}", flush=True)
+        launches[key] = n
+        del env, state, traj
+
+    entries = []
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    for key in SW_CONFIGS:
+        n = launches[key]
+        for form, site in (("rows_step", "1603"), ("fused_step", "1425")):
+            name = f"{form}[{key}]"
+            if name not in times:
+                continue
+            e = kernel_entry(name, src, f"vmas_tpu/core/fused.py:{site}", n[form], errs[name], times[name],
+                             *work[name])
+            e["launches_on"] = (f"{key}'s main path at {NUM_ENVS} envs, "
+                                + ("rows_rollout_fn k_steps 1" if SW_CONFIGS[key][2] else "rollout_fn"))
+            if "other" in times[name]:
+                e["other_lanes"], e["other_us"] = times[name]["other"][0], times[name]["other"][1] * 1e3
+            entries.append(e)
+    return entries
+
+
 def caps_phase(card, dev):
     """The worlds beyond the old caps (32 entities, 16 agents in an emit):
     simple_spread with 30 agents (60 entities, one thread per env: a block
@@ -2986,7 +3308,7 @@ def main():
     # -- 2. build -----------------------------------------------------------
     print(f"build: {_kernels.build_all():.1f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)}; the three sources in "
           f"parallel, fused_step the longest: {FUSED_FORMS} instantiations at each of the lane counts "
-          f"{F.LANES_BUILT}; 99.3 s for 80 before the four joint-world emits)", flush=True)
+          f"{F.LANES_BUILT}; 120.9-178.0 s for 96 before the three sensor-world emits)", flush=True)
     picked = lane_report(torch.device("cuda"))
 
     # -- 3. kernel against plain, at full width ------------------------------
@@ -3123,6 +3445,11 @@ def main():
     # -- 12b. the joint worlds, and the rows rollouts' noise streams -------------
     jw_kernels = joint_worlds_phase(card, dev)
 
+    # -- 12c. the sensor worlds ---------------------------------------------------
+    t0 = time.perf_counter()
+    sw_kernels = sensor_worlds_phase(card, dev)
+    print(f"the sensor worlds' phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 13. the op-cost probe -------------------------------------------------
     opcost_kernels = opcost_phase(card, dev)
 
@@ -3147,7 +3474,7 @@ def main():
         kernel_entry("fused_step[transport,ppo]", src, "vmas_tpu/core/fused.py:1425", ppo_launches["fused_step"],
                      ppo_k1.max(), ppo_times["fused_step"], fused_bytes, ppo_flops),
     ] + (balance_kernels + joint_kernels + give_way_kernels + rt_kernels + wfl_kernels + mpe_kernels + mpef_kernels
-         + hol_kernels + jw_kernels + opcost_kernels)
+         + hol_kernels + jw_kernels + sw_kernels + opcost_kernels)
     entry_lanes(kernels, picked)
     kernels += caps_kernels  # each with its own lanes
     print(json.dumps({"kernels": kernels, "card": card}))

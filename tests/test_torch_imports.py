@@ -73,3 +73,16 @@ def test_holonomic_worlds_and_heuristics_import_without_jax():
             "m.split('.')[0] in " + repr(BANNED) + "))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
     assert out.stdout.strip() == "3 []", out.stdout
+
+
+def test_sensor_worlds_import_without_jax():
+    """Ray casting, the Lidar, the sensor worlds (navigation, flocking,
+    discovery, pollock) and their heuristic policies load in a fresh
+    interpreter without bringing in JAX or the JAX package."""
+    mods = ["vmas_tpu_torch.core.raycast", "vmas_tpu_torch.sensors"] + [
+        "vmas_tpu_torch.scenarios." + n for n in ("navigation", "flocking", "discovery", "debug.pollock")]
+    code = ("import importlib, sys; mods = [importlib.import_module(m) for m in " + repr(mods) + "]; "
+            "print(sum(hasattr(m, 'HeuristicPolicy') for m in mods), sorted(m for m in sys.modules if "
+            "m.split('.')[0] in " + repr(BANNED) + "))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
+    assert out.stdout.strip() == "3 []", out.stdout

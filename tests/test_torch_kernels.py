@@ -29,7 +29,9 @@ bitwise its env.step rollout, simple_spread with 17 and 30 agents
 bitwise; the emits of buzz_wire, ball_trajectory, ball_passage and
 joint_passage_size (with its PID in K2) in both forms bitwise, asym_joint's
 K1 with no emit, and joint_passage_size's rows rollouts, noisy or not,
-bitwise rollout_fn; the op-cost probe's ALU chain
+bitwise rollout_fn; the emits of navigation, flocking and discovery in
+both forms bitwise, and navigation's and flocking's rows rollouts bitwise
+rollout_fn; the op-cost probe's ALU chain
 bitwise, its transcendental chain atol 1e-6 rtol 1e-5. The balance,
 all-pairs, joint_passage, waterfall, give_way, multi_give_way,
 wind_flocking and MPE states come from vmas_tpu_torch/testing.py, as
@@ -913,6 +915,83 @@ def test_joint_passage_size_rows_rollouts_on_the_card(config):
             for field in ("pos", "vel", "rot", "ang_vel"):
                 assert torch.equal(getattr(sa, field), getattr(sb, field)), field
             assert torch.equal(sb.scenario["t"], s0.scenario["t"] + 6)
+
+
+# -- the sensor worlds -----------------------------------------------------------
+
+SENSOR_WORLDS = {
+    "navigation": ("navigation", {}), "navigation,all_goals": ("navigation", {"shared_rew": False,
+                                                                              "observe_all_goals": True}),
+    "flocking": ("flocking", {}), "discovery": ("discovery", {}),
+    "discovery,penalty": ("discovery", {"shared_reward": True, "agent_collision_penalty": -1.0,
+                                        "targets_respawn": False}),
+}
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("config", sorted(SENSOR_WORLDS))
+def test_sensor_worlds_kernels_bitwise_plain(config, lanes):
+    """K1 with each sensor world's emit, and K2 (one and 4 env steps per
+    launch; flocking's target on the action rows) with navigation's and
+    flocking's, bitwise their plain versions at 4099 envs, one thread per
+    env and 8 lanes per env, from a state with their events
+    (testing.sensor_state)."""
+    import numpy as np
+
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.testing import sensor_state
+
+    _cuda()
+    width = 4096 + 3
+    name, kw = SENSOR_WORLDS[config]
+    e = make_env(name, width, device="cuda", seed=0, fused_physics=True, **kw)
+    world, fo = e.world, e._fused_outputs
+    ks = F._kernel_spec(world)
+    slots = [a.index for a in e.agents] + list(getattr(fo, "script_slots", ()))
+    A2 = 2 * len(slots)
+    st = state_from_numpy(world, sensor_state(e, np.random.default_rng(35)))
+    g = torch.Generator(device="cuda").manual_seed(36)
+    act = ((torch.rand((4 * A2, width), generator=g, device="cuda") * 2 - 1)).contiguous()
+    rule, ks.lanes = ks.lanes, lanes
+    try:
+        if F.rows_step_supported(world, fo, e.agents):
+            carry = F.pack_carry(world, st, fo)
+            for k in (1, 4):
+                ck, ek = F.make_rows_step(world, fo, slots, k_steps=k)(carry, act[:k * A2].contiguous())
+                cp, ep = F.rows_step_plain(world, fo, slots, carry, act[:k * A2], k)
+                assert torch.equal(ck, cp) and torch.equal(ek, ep), k
+        x = torch.cat([F.state_rows(st), st.joint_fixed_rot.T, fo.scratch_rows(st)]).contiguous()
+        assert torch.equal(F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo))
+        torch.cuda.synchronize()
+    finally:
+        ks.lanes = rule
+
+
+@pytest.mark.parametrize("name", ["navigation", "flocking"])
+def test_sensor_worlds_rows_rollouts_on_the_card(name):
+    """navigation's rows rollout (K2, the Lidar on each step's state rebuilt
+    from its carry rows, in chunks of steps) and flocking's (the target's
+    script on the action rows) against rollout_fn (K1) at 4099 envs,
+    bitwise."""
+    import importlib
+
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_rollout_fn
+
+    _cuda()
+    R = importlib.import_module("vmas_tpu_torch.parallel.rollout")
+    e = make_env(name, 4096 + 3, device="cuda", seed=0, fused_physics=True)
+    s0, st0 = e.state, e.steps
+    sa, _, ta = rollout_fn(e, horizon=6)(s0, st0, torch.Generator(device="cuda").manual_seed(9))
+    chunk, R._STATE_CHUNK = R._STATE_CHUNK, 2 * (4096 + 3)
+    try:
+        sb, _, tb = rows_rollout_fn(e, horizon=6)(s0, st0, torch.Generator(device="cuda").manual_seed(9))
+    finally:
+        R._STATE_CHUNK = chunk
+    assert torch.equal(ta["rewards"], tb["rewards"]) and torch.equal(ta["dones"], tb["dones"])
+    assert all(torch.equal(x, y) for x, y in zip(ta["obs"], tb["obs"]))
+    for field in ("pos", "vel", "rot", "ang_vel"):
+        assert torch.equal(getattr(sa, field), getattr(sb, field)), field
+    assert all(torch.equal(x, y) for x, y in zip(sa.u, sb.u))
 
 
 @pytest.mark.parametrize("n", [17, 30])

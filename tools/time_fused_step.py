@@ -39,6 +39,9 @@ reports the kernel's device time per launch (torch.profiler, 200 launches;
   forms; with its PID, the rows step) and asym_joint (the fused step, no
   emit) at their defaults, 4096 envs, from ``testing.joint_worlds_state``
   and ``testing.asym_joint_state``;
+* navigation and flocking (both forms; flocking's target on the action
+  rows) and discovery (the fused step) at their defaults, 4096 envs, from
+  ``testing.sensor_state``;
 * the all-pairs world, 4096 envs: the fused step from its packed state.
 
 In a tree whose kernel runs an env on a group of lanes (``fused.LANES``; 1 is
@@ -122,6 +125,9 @@ WORLDS = {
     "joint_passage_size+pid": ("joint_passage_size", {"use_vel_controller": True}, B, "joint_worlds_state",
                                ("rows",)),
     "asym_joint": ("asym_joint", {}, B, "asym_joint_state", ("fused",)),
+    "navigation": ("navigation", {}, B, "sensor_state", ("rows", "fused")),
+    "flocking": ("flocking", {}, B, "sensor_state", ("rows", "fused")),
+    "discovery": ("discovery", {}, B, "sensor_state", ("fused",)),
 }
 
 
@@ -181,7 +187,9 @@ def child(label, worlds=None, only_lanes=None):
             state = state_from_numpy(env.world, getattr(testing, build)(env, np.random.default_rng(3)))
         wd, fo = env.world, env._fused_outputs
         ks = F._kernel_spec(wd)
-        slots = [a.index for a in env.agents]
+        # the policy agents, then the scripted agents whose actions ride the
+        # action rows (flocking's target)
+        slots = [a.index for a in env.agents] + list(getattr(fo, "script_slots", ()))
         gen = torch.Generator(device=dev).manual_seed(1)
         act = ((torch.rand((2 * len(slots), n), generator=gen, device=dev) * 2 - 1) * 0.6).contiguous()
         for k in (1, 4):

@@ -92,6 +92,9 @@ EMIT_BUZZ_WIRE = 21
 EMIT_BALL_TRAJECTORY = 22
 EMIT_BALL_PASSAGE = 23
 EMIT_JOINT_PASSAGE_SIZE = 24
+EMIT_NAVIGATION = 25
+EMIT_FLOCKING = 26
+EMIT_DISCOVERY = 27
 
 _i, _f = ctypes.c_int, ctypes.c_float
 
@@ -289,6 +292,39 @@ class JointPassageSizeParams(ctypes.Structure):
     ]
 
 
+class NavigationParams(ctypes.Structure):
+    """Each agent, its goal, its goal's radius and its own; ``pair_mask[i]``
+    has bit j set where agents i > j collide (the pairs of the collision
+    penalty)."""
+
+    _fields_ = [
+        ("n_agents", _i), ("agent", _i * MAX_A), ("goal", _i * MAX_A),
+        ("goal_r", _f * MAX_A), ("done_r", _f * MAX_A), ("pair_mask", ctypes.c_uint32 * MAX_A),
+        ("factor", _f), ("final", _f), ("coll_pen", _f), ("min_coll", _f), ("all_goals", _i),
+    ]
+
+
+class FlockingParams(ctypes.Structure):
+    """Every agent in world order (the target, then the policy agents) with
+    its radius and policy slot (-1: scripted), and each policy agent's
+    position in that order."""
+
+    _fields_ = [
+        ("n_agents", _i), ("n_all", _i), ("target", _i),
+        ("all", _i * (MAX_A + 1)), ("radius", _f * (MAX_A + 1)), ("slot", _i * (MAX_A + 1)),
+        ("policy", _i * MAX_A),
+        ("coll_rew", _f), ("min_coll", _f), ("desired", _f), ("factor", _f),
+    ]
+
+
+class DiscoveryParams(ctypes.Structure):
+    _fields_ = [
+        ("n_agents", _i), ("n_targets", _i), ("agent", _i * MAX_A), ("radius", _f * MAX_A),
+        ("target", _i * MAX_E),
+        ("cover_r", _f), ("per_target", _f), ("coeff", _f), ("coll_pen", _f), ("min_coll", _f), ("with_coll", _i),
+    ]
+
+
 class _EmitUnion(ctypes.Union):
     _fields_ = [
         ("transport", TransportParams),
@@ -315,6 +351,9 @@ class _EmitUnion(ctypes.Union):
         ("ball_trajectory", BallTrajectoryParams),
         ("ball_passage", BallPassageParams),
         ("joint_passage_size", JointPassageSizeParams),
+        ("navigation", NavigationParams),
+        ("flocking", FlockingParams),
+        ("discovery", DiscoveryParams),
     ]
 
 

@@ -35,11 +35,13 @@ joint_passage, waterfall, give_way, multi_give_way, the MPE worlds simple,
 simple_spread, simple_push, simple_adversary, simple_tag, simple_reference,
 simple_speaker_listener and simple_world_comm, the holonomic worlds
 reverse_transport, wheel, passage, dispersion, dropout and het_mass (the
-fused form only), and the joint worlds buzz_wire, ball_trajectory,
-ball_passage and joint_passage_size. The world's joint and pair tables, lane lists and
-per-entity constants live in one device buffer (``KernelSpec.pair_table``),
-so a world may have any number of joints and pairs; ``check_fusable``
-holds it to the kernel's caps on entities, agents and scratch rows.
+fused form only), the joint worlds buzz_wire, ball_trajectory,
+ball_passage and joint_passage_size, and the sensor worlds navigation,
+flocking and discovery (discovery's in the fused form only). The world's
+joint and pair tables, lane lists and per-entity constants live in one
+device buffer (``KernelSpec.pair_table``), so a world may have any number
+of joints and pairs; ``check_fusable`` holds it to the kernel's caps on
+entities, agents and scratch rows.
 Forward only: ``Environment`` refuses ``grad_enabled`` with
 ``fused_physics``.
 
@@ -319,7 +321,9 @@ def check_fusable(world, outputs=None) -> None:
     outputs.kernel_emit()
     if int(outputs.n_ctrl):
         outputs.process_act_rows.kernel_params()
-    fit_lanes(world, outputs, A)
+    # the rows form's action slots: the policy agents, then the scripted
+    # agents whose actions ride the action rows
+    fit_lanes(world, outputs, A + len(getattr(outputs, "script_slots", ())))
 
 
 class FusedOutputs:
@@ -351,8 +355,21 @@ class FusedOutputs:
           step may stand in for it.
       unpack_reads: step-varying inputs unpack reads besides the emit
           rows: the comm state ("c"), the decoded actions ("u"), the
-          observation-noise streams ("obs_key": the noisy configs); the
-          rows rollouts hand unpack each step's (parallel/rollout.py).
+          observation-noise streams ("obs_key": the noisy configs), the
+          entities' state ("state": a Lidar's rays); the rows rollouts hand
+          unpack each step's (parallel/rollout.py), the state rebuilt from
+          each step's carry rows by the random-action rows rollout only.
+      finish_obs(obs, state) -> obs: the observations completed after the
+          scratch updates are merged and post_rewards has run, as the hook
+          pipeline orders them (discovery's Lidar, which must see the
+          targets where post_rewards respawned them). Default: identity.
+          The rows rollouts refuse outputs that override it.
+      script_slots / script_us(state, horizon): scripted agents whose
+          actions the rows rollout can compute for the whole horizon up
+          front (flocking's circling target): ``script_slots`` their entity
+          indices, ``script_us`` one [T, B, 2] u per slot, the values the
+          agent's action_script would give at each step. They ride the
+          action rows after the policy agents'.
       step_count_keys: scratch keys that are pure step counters, read by
           nothing the kernel emits (joint_passage_size's "t"); unpack
           adds one to the value it is given, and the rows rollouts set
@@ -385,6 +402,10 @@ class FusedOutputs:
     def scratch_rows(state):
         """Default: no scratch rows (override with n_scratch_in)."""
         return torch.zeros((0, state.batch_dim), dtype=torch.float32, device=state.device)
+
+    @staticmethod
+    def finish_obs(obs, state):
+        return obs
 
     def attach_pid(self, pid: "PidActRows"):
         """Run ``pid`` as this config's in-kernel process_action: its carry
@@ -1333,7 +1354,14 @@ def rows_step_supported(world, outputs, agents) -> bool:
     """Static eligibility for the rows-carried rollout: a fused-outputs
     scenario declaring its scratch carry, no dynamic gravity, and pure
     holonomic agents with no action script (their process_action is
-    exactly "force = u", realized in the kernel by the action rows)."""
+    exactly "force = u", realized in the kernel by the action rows).
+    Scripted agents run their scripts outside the kernel at each step, so
+    a world with any is eligible only where the outputs declare every
+    script computable over the horizon up front (``script_slots`` and
+    ``script_us``: flocking's circling target, a function of its step
+    counter alone), for holonomic, noise-free scripted agents; their
+    actions then ride the action rows as the policy agents' do. Scripts
+    that run inside the kernel (``kernel_script_slots``) are not taken."""
     from vmas_tpu_torch.dynamics.holonomic import Holonomic
 
     if outputs is None or not supports(world):
@@ -1349,8 +1377,18 @@ def rows_step_supported(world, outputs, agents) -> bool:
             return False
         if a.action_size != 2:
             return False
-    # scripted agents would run outside the kernel each step
-    return not world.scripted_agents
+    scripted = world.scripted_agents
+    if scripted:
+        if getattr(outputs, "kernel_script_slots", ()):
+            return False
+        if {a.index for a in scripted} != set(getattr(outputs, "script_slots", ())):
+            return False
+        if not callable(getattr(outputs, "script_us", None)):
+            return False
+        for a in scripted:
+            if type(a.dynamics) is not Holonomic or np.any(a.u_noise_array > 0):
+                return False
+    return True
 
 
 def rows_layout(world, outputs):
@@ -1390,11 +1428,13 @@ def unpack_carry(world, carry, state):
 
 
 def make_rows_step(world, outputs, act_slots, k_steps=1):
-    """Build ``step(carry [R_in, B], act [K*2A, B], extra_out=None) ->
-    (carry', extra [K*n_tot, B])`` for K = ``k_steps`` whole env steps per
-    call, n_tot = n_out + n_ctrl_out: one kernel launch on the GPU, the plain
-    version on the CPU. ``extra_out`` (a contiguous [K*n_tot, B] slice, e.g.
-    a rollout's ``extras[t:t+K]``) receives the output rows in place."""
+    """Build ``step(carry [R_in, B], act [K*2A, B], extra_out=None,
+    carry_out=None) -> (carry', extra [K*n_tot, B])`` for K = ``k_steps``
+    whole env steps per call, n_tot = n_out + n_ctrl_out: one kernel launch
+    on the GPU, the plain version on the CPU. ``extra_out`` (a contiguous
+    [K*n_tot, B] slice, e.g. a rollout's ``extras[t:t+K]``) receives the
+    output rows in place, and ``carry_out`` (a contiguous [R_in, B] slice
+    apart from ``carry``) the new carry."""
     R_in = rows_layout(world, outputs)
     n_tot = int(outputs.n_out) + int(outputs.n_ctrl_out)
     A = len(act_slots)
@@ -1405,18 +1445,25 @@ def make_rows_step(world, outputs, act_slots, k_steps=1):
     spec_c = ks.to_ctypes(int(outputs.n_scratch_in), act_slots)
     act_params = outputs.process_act_rows.kernel_params() if outputs.n_ctrl else _NO_ACT
 
-    def step(carry, act, extra_out=None):
+    def step(carry, act, extra_out=None, carry_out=None):
         global rows_step_launches
         if carry.device.type == "cpu":
             new, extra = rows_step_plain(world, outputs, act_slots, carry, act, Ks)
             if extra_out is not None:
                 extra_out.copy_(extra)
                 extra = extra_out
+            if carry_out is not None:
+                carry_out.copy_(new)
+                new = carry_out
             return new, extra
         B = carry.shape[1]
         _check_rows("carry", carry, (R_in, B))
         _check_rows("act", act, (Ks * 2 * A, B))
-        out = torch.empty((R_in, B), dtype=torch.float32, device=carry.device)
+        if carry_out is None:
+            out = torch.empty((R_in, B), dtype=torch.float32, device=carry.device)
+        else:
+            _check_rows("carry_out", carry_out, (R_in, B))
+            out = carry_out
         if extra_out is None:
             extra_out = torch.empty((Ks * n_tot, B), dtype=torch.float32, device=carry.device)
         _check_rows("extra_out", extra_out, (Ks * n_tot, B))

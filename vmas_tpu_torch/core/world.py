@@ -4,9 +4,9 @@ Counterpart of vmas_tpu/core/world.py. Scenarios declare entities as in
 VMAS (``World(batch_dim, device, ...)``, ``world.add_agent(Agent(...))``);
 ``finalize()`` bakes the static structure into a spec, and the step
 functions are plain torch over a :class:`WorldState` of ``[B, E, ...]``
-tensors on ``world.device``.
-
-Not ported yet: ray casting (``cast_rays``).
+tensors on ``world.device``. An agent carries its sensors (``sensors.py``:
+the Lidar), which read the world through ``World.cast_rays``
+(``core/raycast.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from vmas_tpu_torch.core import physics as _physics
 from vmas_tpu_torch.core import queries as _queries
+from vmas_tpu_torch.core import raycast as _raycast
 from vmas_tpu_torch.core.shapes import Box, Line, Shape, Sphere
 from vmas_tpu_torch.core.state import WorldState
 from vmas_tpu_torch.core.utils import (
@@ -227,6 +228,7 @@ class Agent(Entity):
         u_range: Union[float, Sequence[float]] = 1.0,
         u_multiplier: Union[float, Sequence[float]] = 1.0,
         action_script: Callable = None,
+        sensors: List = None,
         c_noise: float = 0.0,
         silent: bool = True,
         adversary: bool = False,
@@ -245,6 +247,8 @@ class Agent(Entity):
             max_speed, color, False, drag, linear_friction, angular_friction,
             gravity, collision_filter,
         )
+        if obs_range == 0.0:
+            assert sensors is None, f"Blind agent cannot have sensors, got {sensors}"
         if action_size is not None and discrete_action_nvec is not None:
             if action_size != len(discrete_action_nvec):
                 raise ValueError(
@@ -262,6 +266,9 @@ class Agent(Entity):
         self.t_range = t_range
         self.max_t = max_t
         self.action_script = action_script
+        self.sensors = []
+        for sensor in sensors or ():
+            self.add_sensor(sensor)
         self.c_noise = c_noise
         self.silent = silent
         self.adversary = adversary
@@ -308,6 +315,10 @@ class Agent(Entity):
     def u_noise(self):
         a = self.u_noise_array
         return a if np.ptp(a) else float(a[0])
+
+    def add_sensor(self, sensor):
+        sensor.agent = self
+        self.sensors.append(sensor)
 
     # -- functional accessors ------------------------------------------
     def u(self, state: WorldState):
@@ -525,10 +536,10 @@ class World:
 
     # -- queries ---------------------------------------------------------
     def cast_rays(self, state, entity, angles, max_range, entity_filter=lambda _: False):
-        raise NotImplementedError("ray casting is not ported to vmas_tpu_torch yet")
+        return _raycast.cast_rays(self, state, entity, angles, max_range, entity_filter)
 
     def cast_ray(self, state, entity, angles, max_range, entity_filter=lambda _: False):
-        raise NotImplementedError("ray casting is not ported to vmas_tpu_torch yet")
+        return _raycast.cast_ray(self, state, entity, angles, max_range, entity_filter)
 
     def get_distance_from_point(self, state, entity, test_point_pos, env_index=None):
         r = _queries.get_distance_from_point(self, state, entity, test_point_pos)

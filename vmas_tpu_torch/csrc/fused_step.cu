@@ -104,7 +104,8 @@ enum {
   EMIT_SIMPLE_PUSH = 9, EMIT_SIMPLE_ADVERSARY = 10, EMIT_SIMPLE_TAG = 11, EMIT_SIMPLE_REFERENCE = 12,
   EMIT_SPEAKER_LISTENER = 13, EMIT_SIMPLE_WORLD_COMM = 14, EMIT_REVERSE_TRANSPORT = 15, EMIT_WHEEL = 16,
   EMIT_PASSAGE = 17, EMIT_DISPERSION = 18, EMIT_DROPOUT = 19, EMIT_HET_MASS = 20, EMIT_BUZZ_WIRE = 21,
-  EMIT_BALL_TRAJECTORY = 22, EMIT_BALL_PASSAGE = 23, EMIT_JOINT_PASSAGE_SIZE = 24,
+  EMIT_BALL_TRAJECTORY = 22, EMIT_BALL_PASSAGE = 23, EMIT_JOINT_PASSAGE_SIZE = 24, EMIT_NAVIGATION = 25,
+  EMIT_FLOCKING = 26, EMIT_DISCOVERY = 27,
 };
 
 // The per-entity constants, one block of E words per field in the table
@@ -347,6 +348,38 @@ struct JointPassageSizeParams {
   int mid_180, obs_joint;
 };
 
+// navigation: each agent, its goal, its goal's radius and its own;
+// pair_mask[i] has bit j set where agents i > j collide
+struct NavigationParams {
+  int n_agents;
+  int agent[MAX_A], goal[MAX_A];
+  float goal_r[MAX_A], done_r[MAX_A];
+  unsigned int pair_mask[MAX_A];
+  float factor, final, coll_pen, min_coll;
+  int all_goals;
+};
+
+// flocking: every agent in world order (the scripted target first) with its
+// radius and policy slot (-1: scripted), each policy agent's position in
+// that order
+struct FlockingParams {
+  int n_agents, n_all, target;
+  int all[MAX_A + 1];
+  float radius[MAX_A + 1];
+  int slot[MAX_A + 1];
+  int policy[MAX_A];
+  float coll_rew, min_coll, desired, factor;
+};
+
+struct DiscoveryParams {
+  int n_agents, n_targets;
+  int agent[MAX_A];
+  float radius[MAX_A];
+  int target[MAX_E];
+  float cover_r, per_target, coeff, coll_pen, min_coll;
+  int with_coll;
+};
+
 // A launch runs one emit and reads only its parameters: a union, each
 // scenario's kernel_emit() filling its own member.
 struct EmitParams {
@@ -376,6 +409,9 @@ struct EmitParams {
     BallTrajectoryParams ball_trajectory;
     BallPassageParams ball_passage;
     JointPassageSizeParams joint_passage_size;
+    NavigationParams navigation;
+    FlockingParams flocking;
+    DiscoveryParams discovery;
   };
 };
 
@@ -2504,6 +2540,186 @@ struct JointPassageSizeEmit {
   }
 };
 
+// vmas_tpu/scenarios/navigation.py NavigationOutputs.emit, row for row: per
+// agent [pos, vel, pos - goal (each agent's goal with all_goals)], then the
+// per-agent position rewards, the collision penalties (the pairs i > j in
+// order, each distance minus the two radii one at a time) and the new
+// shapings, then final_rew and done. Scratch in: the previous shapings.
+struct NavigationEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const NavigationParams& p = ep.navigation;
+    const int A = p.n_agents;
+    const int base = A * (4 + 2 * (p.all_goals ? A : 1));
+    bool all_reached = true, done = true;
+    int r = 0;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.agent[i];
+      const float gx = px[ai] - px[p.goal[i]], gy = py[ai] - py[p.goal[i]];
+      const float dist = nrm(gx, gy);
+      all_reached = all_reached && (dist < p.goal_r[i]);
+      done = done && (dist < p.done_r[i]);
+      const float shaping = dist * p.factor;
+      o[(base + i) * B + b] = scratch[i] - shaping;
+      o[(base + 2 * A + i) * B + b] = shaping;
+      o[(r++) * B + b] = px[ai];
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = vx[ai];
+      o[(r++) * B + b] = vy[ai];
+      if (p.all_goals) {
+        for (int k = 0; k < A; ++k) {
+          o[(r++) * B + b] = px[ai] - px[p.goal[k]];
+          o[(r++) * B + b] = py[ai] - py[p.goal[k]];
+        }
+      } else {
+        o[(r++) * B + b] = gx;
+        o[(r++) * B + b] = gy;
+      }
+    }
+    float coll[MAX_A];
+    for (int i = 0; i < A; ++i) coll[i] = 0.f;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.agent[i];
+      for (int j = 0; j < i; ++j) {
+        if (!((p.pair_mask[i] >> j) & 1u)) continue;
+        const int aj = p.agent[j];
+        const float d = nrm(px[ai] - px[aj], py[ai] - py[aj]) - p.done_r[i] - p.done_r[j];
+        const float hit = (d <= p.min_coll ? 1.f : 0.f) * p.coll_pen;
+        coll[i] = coll[i] + hit;
+        coll[j] = coll[j] + hit;
+      }
+    }
+    for (int i = 0; i < A; ++i) o[(base + A + i) * B + b] = coll[i];
+    o[(base + 3 * A) * B + b] = all_reached ? p.final : 0.f;
+    o[(base + 3 * A + 1) * B + b] = done ? 1.f : 0.f;
+  }
+};
+
+// flocking's pairwise distance of agents i < j (positions in world order)
+__device__ __forceinline__ float flock_dist(const FlockingParams& p, const float* px, const float* py, int i,
+                                            int j) {
+  const int a = p.all[i < j ? i : j], c = p.all[i < j ? j : i];
+  return nrm(px[a] - px[c], py[a] - py[c]);
+}
+
+// vmas_tpu/scenarios/flocking.py FlockingOutputs.emit, row for row: per
+// policy agent [pos, vel, pos - target], then the collision rewards (every
+// pair of agents, the target's share dropped; a slot no pair reaches is 0),
+// the distance rewards (the previous shaping minus the mean squared
+// deviation from the desired distance to every other agent, summed from 0
+// and divided by their count) and the new shapings, then the clock plus
+// one. Scratch in: the previous shapings, then the clock.
+struct FlockingEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float* scratch, float* o, int B, int b) {
+    const FlockingParams& p = ep.flocking;
+    const int A = p.n_agents, n = p.n_all;
+    const int base = 6 * A;
+    float coll[MAX_A];
+    bool has[MAX_A];
+    for (int s = 0; s < A; ++s) {
+      coll[s] = 0.f;
+      has[s] = false;
+    }
+    if (p.coll_rew != 0.f) {
+      for (int i = 0; i < n; ++i) {
+        for (int j = i + 1; j < n; ++j) {
+          const float d = flock_dist(p, px, py, i, j) - p.radius[i] - p.radius[j];
+          const float hit = (d <= p.min_coll ? 1.f : 0.f) * p.coll_rew;
+          const int ks[2] = {i, j};
+          for (int q = 0; q < 2; ++q) {
+            const int s = p.slot[ks[q]];
+            if (s < 0) continue;
+            coll[s] = has[s] ? coll[s] + hit : hit;
+            has[s] = true;
+          }
+        }
+      }
+    }
+    const int ti = p.target;
+    for (int s = 0; s < A; ++s) {
+      const int i = p.policy[s], ai = p.all[i];
+      float sum = 0.f;
+      for (int j = 0; j < n; ++j) {
+        if (j == i) continue;
+        const float dd = flock_dist(p, px, py, i, j) - p.desired;
+        sum = sum + dd * dd;
+      }
+      const float shaping = sum / (float)(n - 1) * p.factor;
+      o[(6 * s + 0) * B + b] = px[ai];
+      o[(6 * s + 1) * B + b] = py[ai];
+      o[(6 * s + 2) * B + b] = vx[ai];
+      o[(6 * s + 3) * B + b] = vy[ai];
+      o[(6 * s + 4) * B + b] = px[ai] - px[ti];
+      o[(6 * s + 5) * B + b] = py[ai] - py[ti];
+      o[(base + s) * B + b] = coll[s];
+      o[(base + A + s) * B + b] = scratch[s] - shaping;
+      o[(base + 2 * A + s) * B + b] = shaping;
+    }
+    o[(base + 3 * A) * B + b] = scratch[A] + 1.f;
+  }
+};
+
+// vmas_tpu/scenarios/discovery.py DiscoveryOutputs.emit, row for row: per
+// agent [pos, vel], then the covering rewards (per agent the covered targets
+// within its covering range, times coeff), the covered flags (at least
+// per_target agents in range), the shared reward (their sum, halved where
+// not 0) and, with a collision penalty, per agent the penalty times its
+// count of other agents whose distance minus the two radii is below
+// min_coll. Each count and sum runs from 0 in the plain version's order.
+struct DiscoveryEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                              const float* vx, const float* vy, const float*, const float*,
+                              const float*, float* o, int B, int b) {
+    const DiscoveryParams& p = ep.discovery;
+    const int A = p.n_agents, T = p.n_targets;
+    bool covered[MAX_E];
+    for (int k = 0; k < T; ++k) {
+      const int tk = p.target[k];
+      float cnt = 0.f;
+      for (int i = 0; i < A; ++i) {
+        const int ai = p.agent[i];
+        cnt = cnt + (nrm(px[ai] - px[tk], py[ai] - py[tk]) < p.cover_r ? 1.f : 0.f);
+      }
+      covered[k] = cnt >= p.per_target;
+      o[(5 * A + k) * B + b] = covered[k] ? 1.f : 0.f;
+    }
+    float shared = 0.f;
+    for (int i = 0; i < A; ++i) {
+      const int ai = p.agent[i];
+      o[(4 * i + 0) * B + b] = px[ai];
+      o[(4 * i + 1) * B + b] = py[ai];
+      o[(4 * i + 2) * B + b] = vx[ai];
+      o[(4 * i + 3) * B + b] = vy[ai];
+      float cnt = 0.f;
+      for (int k = 0; k < T; ++k) {
+        const int tk = p.target[k];
+        const bool in = nrm(px[ai] - px[tk], py[ai] - py[tk]) < p.cover_r;
+        cnt = cnt + (in && covered[k] ? 1.f : 0.f);
+      }
+      const float covering = cnt * p.coeff;
+      o[(4 * A + i) * B + b] = covering;
+      shared = shared + covering;
+    }
+    o[(5 * A + T) * B + b] = shared != 0.f ? shared / 2.f : shared;
+    if (p.with_coll) {
+      for (int i = 0; i < A; ++i) {
+        const int ai = p.agent[i];
+        float c = 0.f;
+        for (int j = 0; j < A; ++j) {
+          if (j == i) continue;
+          const int aj = p.agent[j];
+          const float d = nrm(px[ai] - px[aj], py[ai] - py[aj]) - p.radius[i] - p.radius[j];
+          c = c + (d < p.min_coll ? 1.f : 0.f);
+        }
+        o[(5 * A + T + 1 + i) * B + b] = c * p.coll_pen;
+      }
+    }
+  }
+};
+
 // ---------------------------------------------------------------------------
 // the kernel, in both forms
 // ---------------------------------------------------------------------------
@@ -2870,6 +3086,8 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     if (emit_kind == EMIT_BALL_TRAJECTORY) return LAUNCH(true, BallTrajectoryEmit);
     if (emit_kind == EMIT_BALL_PASSAGE) return LAUNCH(true, BallPassageEmit);
     if (emit_kind == EMIT_JOINT_PASSAGE_SIZE) return LAUNCH(true, JointPassageSizeEmit);
+    if (emit_kind == EMIT_NAVIGATION) return LAUNCH(true, NavigationEmit);
+    if (emit_kind == EMIT_FLOCKING) return LAUNCH(true, FlockingEmit);
   } else {
     if (emit_kind == EMIT_NONE) return LAUNCH(false, NoEmit);
     if (emit_kind == EMIT_TRANSPORT) return LAUNCH(false, TransportEmit);
@@ -2896,6 +3114,9 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     if (emit_kind == EMIT_BALL_TRAJECTORY) return LAUNCH(false, BallTrajectoryEmit);
     if (emit_kind == EMIT_BALL_PASSAGE) return LAUNCH(false, BallPassageEmit);
     if (emit_kind == EMIT_JOINT_PASSAGE_SIZE) return LAUNCH(false, JointPassageSizeEmit);
+    if (emit_kind == EMIT_NAVIGATION) return LAUNCH(false, NavigationEmit);
+    if (emit_kind == EMIT_FLOCKING) return LAUNCH(false, FlockingEmit);
+    if (emit_kind == EMIT_DISCOVERY) return LAUNCH(false, DiscoveryEmit);
   }
 #undef LAUNCH
   return cudaErrorInvalidValue;

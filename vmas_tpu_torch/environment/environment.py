@@ -120,6 +120,10 @@ class Environment:
             obs, rews, terminated, scratch_updates = self._fused_outputs.unpack(fused_extra, state)
             state = state.replace(scenario={**state.scenario, **scratch_updates})
             state = scenario.post_rewards(state)
+            # the observation parts that must see the state after
+            # post_rewards, as the hooks would (discovery's Lidar after its
+            # covered targets respawn)
+            obs = self._fused_outputs.finish_obs(obs, state)
         else:
             rews = None
             if with_rewards:

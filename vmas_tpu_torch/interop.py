@@ -8,7 +8,10 @@ agent), ``uc``, ``joint_fixed_rot``, ``rendering`` and, in a world with
 dynamic gravity, ``dyn_gravity``, and the ``scenario`` scratch dict, whose
 values are arrays or dicts of them (a velocity controller's memory,
 ``{"accum_errs", "prev_err"}``). This is how a state
-made elsewhere (another simulator, a recording, a test) is injected.
+made elsewhere (another simulator, a recording, a test) is injected. A
+scratch entry named in ``KEY_SCRATCH`` (the JAX package's PRNG key of
+discovery's respawn, ``rng``) is left behind: the port draws its respawn
+from the environment's generator at each step.
 
 ``actor_critic_from_numpy(params)`` builds the PPO actor-critic
 (``parallel.ppo.ActorCritic``) from the JAX package's ``init_actor_critic``
@@ -25,6 +28,8 @@ import torch
 from vmas_tpu_torch.core.state import WorldState
 
 FIELDS = ("pos", "vel", "rot", "ang_vel", "force", "torque", "c", "uc", "joint_fixed_rot", "rendering")
+# scratch entries that hold another package's random key, not state
+KEY_SCRATCH = ("rng",)
 
 
 def _tensor(a, device):
@@ -42,7 +47,7 @@ def state_from_numpy(world, arrays: dict) -> WorldState:
     kw = {f: _tensor(arrays[f], dev) if f in arrays else getattr(base, f) for f in FIELDS}
     u = arrays.get("u")
     kw["u"] = base.u if u is None else tuple(_tensor(x, dev) for x in u)
-    kw["scenario"] = _scratch_in(arrays.get("scenario", {}), dev)
+    kw["scenario"] = _scratch_in({k: v for k, v in arrays.get("scenario", {}).items() if k not in KEY_SCRATCH}, dev)
     if base.dyn_gravity is not None and "dyn_gravity" in arrays:
         kw["dyn_gravity"] = _tensor(arrays["dyn_gravity"], dev)
     return base.replace(**kw)

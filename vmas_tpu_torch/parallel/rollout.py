@@ -38,6 +38,17 @@ the noise to the decoded actions as the step adds it
 (``Environment._add_noise``), and hand each step's observation seed to
 ``unpack`` (``BaseScenario.obs_seed``), which then runs once per step; so
 they give ``rollout_fn``'s trajectory bitwise for the same generator seed.
+
+Sensors: where ``unpack`` reads the entities' state (``unpack_reads =
+("state",)``: navigation's and flocking's Lidar), ``rows_rollout_fn`` keeps
+each step's carry rows (``k_steps`` 1 only), rebuilds each step's state
+from them after the loop and runs ``unpack``, and so the Lidar, over all
+T x B env-steps at once, in chunks of steps (``_STATE_CHUNK`` env-steps a
+chunk); the policy rollout refuses such envs, as the JAX package's does.
+Scripted agents whose actions are a function of the step alone
+(``script_slots``/``script_us``: flocking's circling target) have them
+computed for the horizon up front and ride the action rows after the
+policy agents'.
 """
 
 from __future__ import annotations
@@ -183,7 +194,14 @@ def rollout(env, policy: Optional[Callable] = None, horizon: int = 100, generato
     outputs opt out with ``rows_auto = False``; other envs take
     ``rollout_fn``. ``generator`` defaults to the env's own."""
     generator = env.generator if generator is None else generator
-    rows_ok = rows_rollout_supported(env) and getattr(env._fused_outputs, "rows_auto", True)
+    fo = env._fused_outputs
+    rows_ok = (
+        rows_rollout_supported(env)
+        and getattr(fo, "rows_auto", True)
+        # the policy rows path refuses per-step state reads and scripts
+        and (policy is None or ("state" not in getattr(fo, "unpack_reads", ())
+                                and not getattr(fo, "script_slots", ())))
+    )
     if not rows_ok:
         build = rollout_fn(env, policy, horizon)
     elif policy is None:
@@ -213,10 +231,15 @@ def rows_rollout_supported(env) -> bool:
     (``"obs_key"``: the noisy configs of give_way, multi_give_way,
     joint_passage and joint_passage_size) are eligible: the rows paths draw
     the steps' noise streams as ``env.step`` draws them
-    (``Environment._step_draws``). Not eligible, and run through ``rollout_fn`` (the
-    fused step, K1, per ``env.step``) instead: clamped actions, scripted
-    or non-holonomic agents, dynamic gravity, hooks the kernel does not
-    replace, and outputs whose unpack reads any other per-step state."""
+    (``Environment._step_draws``). An unpack that reads the entities' state
+    (``"state"``: a Lidar) is eligible alone, the random-action path
+    rebuilding each step's state from its carry rows; so are scripted
+    agents whose outputs declare their actions computable up front
+    (``script_slots``, ``fused.rows_step_supported``). Not eligible, and run
+    through ``rollout_fn`` (the fused step, K1, per ``env.step``) instead:
+    clamped actions, other scripted or non-holonomic agents, dynamic
+    gravity, hooks the kernel does not replace (``finish_obs`` among them),
+    and outputs whose unpack reads any other per-step state."""
     from vmas_tpu_torch.core import fused as F
     from vmas_tpu_torch.scenario import BaseScenario
 
@@ -235,7 +258,9 @@ def rows_rollout_supported(env) -> bool:
             or getattr(fo, "process_action_noop", False)
             or getattr(fo, "process_act_rows", None) is not None
         )
-        and reads <= {"c", "u", "obs_key"}
+        and type(fo).finish_obs is F.FusedOutputs.finish_obs
+        and reads <= {"c", "u", "obs_key", "state"}
+        and ("state" not in reads or reads == {"state"})
         and ("c" not in reads or bool(speaks))
         and sc.pre_step is BaseScenario.pre_step
         and sc.post_step is BaseScenario.post_step
@@ -343,15 +368,53 @@ def _last_us(fo, us_last, extras):
     return [torch.stack([extras[-1, ix], extras[-1, iy]], dim=-1) for ix, iy in idx]
 
 
-def _finish_rows_rollout(env, state, steps, carry, extras, us_t, horizon, ucs_last=(), c_t=None, seeds=None):
+# env-steps per chunk of the rebuilt-state unpack: navigation's Lidar at
+# its defaults holds some 20 live [chunk, 3, 12, 2] f32 intermediates, each
+# 150 MB at this size
+_STATE_CHUNK = 1 << 19
+
+
+def _unpack_over_states(env, fo, extras, carries, state):
+    """``unpack`` of the output rows ``extras`` [T, n_out, B] against each
+    step's state, rebuilt from its carry rows ``carries`` [T, R_in, B]: the
+    T x B env-steps of a chunk of steps as one batch (the rows [n_out,
+    T_c * B], the state's entity fields [T_c * B, ...]), whose results are
+    laid out again over [T, B, ...]."""
+    from vmas_tpu_torch.core import fused as F
+
+    T, n_out, B = extras.shape
+    step_chunk = max(1, _STATE_CHUNK // B)
+    parts = []
+    for t0 in range(0, T, step_chunk):
+        e, c = extras[t0:t0 + step_chunk], carries[t0:t0 + step_chunk]
+        n = e.shape[0]
+        flat = lambda x: x.permute(1, 0, 2).reshape(x.shape[1], n * B)
+        out = fo.unpack(flat(e), F.unpack_carry(env.world, flat(c), state))
+        parts.append(_map_tree(lambda x: x.reshape((n, B) + x.shape[1:]), out))
+    return _cat_tree(parts)
+
+
+def _map_tree(fn, x):
+    """``fn`` on every tensor of a pytree of dicts, tuples and lists."""
+    if isinstance(x, dict):
+        return {k: _map_tree(fn, v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map_tree(fn, v) for v in x)
+    return fn(x)
+
+
+def _finish_rows_rollout(env, state, steps, carry, extras, us_t, horizon, ucs_last=(), c_t=None, seeds=None,
+                         carries=None, script_last=()):
     """The rows rollouts' finale: one ``unpack`` over all the output rows
     (given the per-step comm state ``c_t`` [T, B, A, dim_c] where it reads
-    ``c``, and the per-step decoded actions ``us_t``, per agent [T, B, 2],
-    where it reads ``u``), the truncation flags, and a final state that
-    mirrors the step pipeline's (the last step's u, or the controller's
-    output where the kernel ran one, the last comm action in ``uc`` and
-    ``c`` of each speaking agent, its scratch updates with each step
-    counter at its start value plus ``horizon``, and the controller's
+    ``c``, the per-step decoded actions ``us_t``, per agent [T, B, 2],
+    where it reads ``u``, and each step's state, rebuilt from its carry
+    rows ``carries``, where it reads ``state``), the truncation flags, and a
+    final state that mirrors the step pipeline's (the last step's u, or the
+    controller's output where the kernel ran one, and each scripted agent's
+    of ``script_last``, ``(agent, u)`` pairs, the last comm action in
+    ``uc`` and ``c`` of each speaking agent, its scratch updates with each
+    step counter at its start value plus ``horizon``, and the controller's
     memory, then the scenario's post_rewards, once). With ``seeds`` (each
     step's observation seed, ``Environment._step_draws``) where ``unpack`` draws
     observation noise, it runs once per step, after the scenario's
@@ -362,7 +425,9 @@ def _finish_rows_rollout(env, state, steps, carry, extras, us_t, horizon, ucs_la
     world, fo = env.world, env._fused_outputs
     reads = getattr(fo, "unpack_reads", ())
     state_out = F.unpack_carry(world, carry, state)
-    if seeds is not None and "obs_key" in reads:
+    if carries is not None:
+        obs, rews, terminated, updates = _unpack_over_states(env, fo, extras, carries, state)
+    elif seeds is not None and "obs_key" in reads:
         outs = []
         for t in range(horizon):
             env.scenario.obs_seed = seeds[t]
@@ -379,7 +444,7 @@ def _finish_rows_rollout(env, state, steps, carry, extras, us_t, horizon, ucs_la
         truncated = steps_t >= env.max_steps
     else:
         truncated = torch.zeros_like(terminated)
-    for a, u in zip(env.agents, _last_us(fo, us_last, extras)):
+    for a, u in list(zip(env.agents, _last_us(fo, us_last, extras))) + list(script_last):
         state_out = a.set_u(state_out, u)
     if any(uc is not None for uc in ucs_last):
         uc, c = state_out.uc.clone(), state_out.c.clone()
@@ -433,10 +498,10 @@ def _chunked_reset_rollout(env, run_chunk, horizon, reset_every):
 
 _NOT_ELIGIBLE = (
     "not eligible -- needs fused_physics=True, a fused-outputs scenario declaring carry_extra_idx, "
-    "holonomic agents (continuous unclamped or discrete), no scripted agents, no post_rewards override "
-    "unless declared post_rewards_rollout_safe, no process_action override unless declared a no-op or "
-    "realized in the kernel, no unpack_reads but the comm state, the actions and the observation noise; "
-    "use rollout_fn"
+    "holonomic agents (continuous unclamped or discrete), no scripted agents unless declared "
+    "precomputable (script_slots), no post_rewards override unless declared post_rewards_rollout_safe, "
+    "no process_action override unless declared a no-op or realized in the kernel, no finish_obs, no "
+    "unpack_reads but the comm state, the actions, the observation noise or the state alone; use rollout_fn"
 )
 
 
@@ -444,8 +509,9 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
     """Rows-carried rollout with random actions: same contract and the same
     trajectory as ``rollout_fn(env, horizon=...)``, with one fused-kernel
     launch per ``k_steps`` steps and nothing else between launches.
-    ``k_steps`` must divide ``horizon``. ``reset_every=N`` resets every env
-    every N steps (``_chunked_reset_rollout``)."""
+    ``k_steps`` must divide ``horizon``, and be 1 where ``unpack`` reads the
+    state (each step's carry rows are kept). ``reset_every=N`` resets every
+    env every N steps (``_chunked_reset_rollout``)."""
     from vmas_tpu_torch.core import fused as F
 
     if reset_every is not None:
@@ -455,10 +521,18 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
     K = int(k_steps)
     assert K >= 1 and horizon % K == 0, f"k_steps ({k_steps}) must divide horizon ({horizon})"
     world, fo, agents = env.world, env._fused_outputs, env.agents
-    act_slots = [a.index for a in agents]
+    reads_state = "state" in getattr(fo, "unpack_reads", ())
+    assert K == 1 or not reads_state, (
+        "k_steps>1 cannot record per-step carries (navigation's Lidar reconstruction needs them) -- use k_steps=1"
+    )
+    # the scripted agents computed up front ride the action rows after the
+    # policy agents'
+    script_slots = tuple(getattr(fo, "script_slots", ()))
+    script_agents = [a for e in script_slots for a in world.agents if a.index == e]
+    act_slots = [a.index for a in agents] + list(script_slots)
     step = F.make_rows_step(world, fo, act_slots, k_steps=K)
     B, n_tot = env.num_envs, int(fo.n_out) + int(fo.n_ctrl_out)
-    A2 = 2 * len(agents)
+    A2 = 2 * len(act_slots)
     reads_c = "c" in getattr(fo, "unpack_reads", ())
     noisy = _noisy(env)
 
@@ -470,19 +544,25 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
         if noisy:
             seeds, noise = env._step_draws(g_step, horizon)
             us, ucs = zip(*(env._add_noise(a, u, uc, n) for a, u, uc, n in zip(agents, us, ucs, noise)))
-        ax = torch.stack([u[..., 0] for u in us], dim=1)  # [T, A, B]
-        ay = torch.stack([u[..., 1] for u in us], dim=1)
+        script_us = list(fo.script_us(state, horizon)) if script_slots else []
+        all_us = list(us) + script_us
+        ax = torch.stack([u[..., 0] for u in all_us], dim=1)  # [T, A, B]
+        ay = torch.stack([u[..., 1] for u in all_us], dim=1)
         act_rows = torch.cat([ax, ay], dim=1).contiguous()  # [T, 2A, B]
 
         carry = F.pack_carry(world, state, fo)
         extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
+        # each step's carry rows, where unpack rebuilds each step's state
+        carries = torch.empty((horizon,) + tuple(carry.shape), device=env.device) if reads_state else None
         # K steps' rows are contiguous in both buffers: views, no copies
         for t in range(0, horizon, K):
-            carry, _ = step(carry, act_rows[t:t + K].view(K * A2, B), extras[t:t + K].view(K * n_tot, B))
+            carry, _ = step(carry, act_rows[t:t + K].view(K * A2, B), extras[t:t + K].view(K * n_tot, B),
+                            None if carries is None else carries[t])
         # the per-step comm state, where unpack reads it
         c_t = _comm_state(state, agents, ucs) if reads_c else None
         return _finish_rows_rollout(env, state, steps, carry, extras, us, horizon,
-                                    [None if uc is None else uc[-1] for uc in ucs], c_t, seeds)
+                                    [None if uc is None else uc[-1] for uc in ucs], c_t, seeds, carries,
+                                    [(a, u[-1]) for a, u in zip(script_agents, script_us)])
 
     return run
 
@@ -509,6 +589,15 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
         chunk = rows_policy_rollout_fn(env, policy, reset_every, policy_aux)
         return _chunked_reset_rollout(env, chunk, horizon, reset_every)
     assert rows_rollout_supported(env), "rows_policy_rollout_fn: env " + _NOT_ELIGIBLE
+    assert "state" not in getattr(env._fused_outputs, "unpack_reads", ()), (
+        "rows_policy_rollout_fn: the policy consumes per-step obs, and this scenario's obs need per-step state "
+        "reconstruction (Lidar) -- the relayout would run every step, defeating the rows structure; use "
+        "rollout_fn for policy rollouts here"
+    )
+    assert not getattr(env._fused_outputs, "script_slots", ()), (
+        "rows_policy_rollout_fn: precomputed scripted-agent actions are only wired into the random-action rows "
+        "path; use rollout_fn"
+    )
     world, fo, agents = env.world, env._fused_outputs, env.agents
     A, B = len(agents), env.num_envs
     step = F.make_rows_step(world, fo, [a.index for a in agents])

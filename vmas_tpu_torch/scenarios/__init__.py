@@ -1,13 +1,14 @@
 """Scenario registry. ``balance``, ``ball_passage``, ``ball_trajectory``,
-``buzz_wire``, ``dispersion``, ``dropout``, ``give_way``,
-``joint_passage``, ``joint_passage_size``, ``multi_give_way``,
-``passage``, ``reverse_transport``, ``road_traffic``, ``transport``,
-``wheel``, ``wind_flocking``, the MPE family (``simple``,
-``simple_adversary``, ``simple_crypto``, ``simple_push``,
-``simple_reference``, ``simple_speaker_listener``, ``simple_spread``,
-``simple_tag``, ``simple_world_comm``) and the debug scenarios
-``asym_joint``, ``het_mass`` and ``waterfall`` are ported so far; every
-other scenario of the JAX package raises ``ValueError`` when loaded."""
+``buzz_wire``, ``discovery``, ``dispersion``, ``dropout``, ``flocking``,
+``give_way``, ``joint_passage``, ``joint_passage_size``,
+``multi_give_way``, ``navigation``, ``passage``, ``reverse_transport``,
+``road_traffic``, ``transport``, ``wheel``, ``wind_flocking``, the MPE
+family (``simple``, ``simple_adversary``, ``simple_crypto``,
+``simple_push``, ``simple_reference``, ``simple_speaker_listener``,
+``simple_spread``, ``simple_tag``, ``simple_world_comm``) and the debug
+scenarios ``asym_joint``, ``het_mass``, ``pollock`` and ``waterfall`` are
+ported so far; every other scenario of the JAX package raises
+``ValueError`` when loaded."""
 
 from __future__ import annotations
 
@@ -19,14 +20,18 @@ _PORTED = {
     "ball_passage": "vmas_tpu_torch.scenarios.ball_passage",
     "ball_trajectory": "vmas_tpu_torch.scenarios.ball_trajectory",
     "buzz_wire": "vmas_tpu_torch.scenarios.buzz_wire",
+    "discovery": "vmas_tpu_torch.scenarios.discovery",
     "dispersion": "vmas_tpu_torch.scenarios.dispersion",
     "dropout": "vmas_tpu_torch.scenarios.dropout",
+    "flocking": "vmas_tpu_torch.scenarios.flocking",
     "give_way": "vmas_tpu_torch.scenarios.give_way",
     "het_mass": "vmas_tpu_torch.scenarios.debug.het_mass",
     "joint_passage": "vmas_tpu_torch.scenarios.joint_passage",
     "joint_passage_size": "vmas_tpu_torch.scenarios.joint_passage_size",
     "multi_give_way": "vmas_tpu_torch.scenarios.multi_give_way",
+    "navigation": "vmas_tpu_torch.scenarios.navigation",
     "passage": "vmas_tpu_torch.scenarios.passage",
+    "pollock": "vmas_tpu_torch.scenarios.debug.pollock",
     "reverse_transport": "vmas_tpu_torch.scenarios.reverse_transport",
     "road_traffic": "vmas_tpu_torch.scenarios.road_traffic",
     "simple": "vmas_tpu_torch.scenarios.mpe.simple",

@@ -15,9 +15,12 @@ the count of lanes each branch acted in; a transport state with the
 agents pressed against the package, a wind_flocking state with the big
 agent's wind rescaled, an MPE state with agents overlapping, a state
 of the other MPE worlds with catches, contacts, food eaten and comm set,
-and a state of each of the other holonomic worlds (reverse_transport,
+a state of each of the other holonomic worlds (reverse_transport,
 wheel, passage, dispersion, dropout, het_mass) with its contacts and
-events, and the count of those events in a step's rows.
+events, and the count of those events in a step's rows; a state of each
+sensor world (navigation, flocking, discovery) with its Lidar hits,
+collisions, goals reached and targets covered, and their count in a
+step's rows.
 The states are numpy dicts made from a seeded generator, so that both
 packages can load the same one. For road_traffic's path sweeps: lanes on
 centre-line vertices and padded tails, and on left-boundary vertices.
@@ -1227,3 +1230,95 @@ def joint_worlds_events(env, extra, y=None):
     if name == "joint_passage_size":
         return {"just_passed": int((extra[base + 7] > 0.5).sum()), "done": int((extra[base + 8] > 0.5).sum())}
     return {}
+
+
+def sensor_state(env, rng):
+    """A numpy state dict of a sensor world in which its events occur, in
+    every other env where not said otherwise; random velocities and forces:
+
+    * navigation: agent 1 0.5-3 mm clear of agent 0, moving and pushed with
+      it (collision penalties, each in the other's Lidar); in every fourth env
+      every agent at rest with its goal within 0.3 of the goal's radius (on
+      goal, all reached, done); the previous shapings random;
+    * flocking: agent 1 and the target 0.5-3 mm clear of agent 0, moving
+      and pushed with it (collisions, the target's share dropped), agent 2
+      0.05-0.15 from an obstacle's surface (its Lidar hits); the clock a
+      random whole number of steps, the previous shapings random;
+    * discovery: agents 0 and 1 0.12-0.2 from target 0 (covered, covering
+      agents, in their target Lidar's range), agent 3 0.5-3 mm clear of
+      agent 2, moving and pushed with it (collision penalties)."""
+    sc, st = env.scenario, env.state
+    B, E = st.pos.shape[:2]
+    name = type(sc).__module__.rsplit(".", 1)[-1]
+    near = np.arange(B) % 2 == 0
+    n = int(near.sum())
+    agents = env.world.agents
+    pos = rng.uniform(-0.8, 0.8, (B, E, 2))
+    vel = rng.normal(0, 0.3, (B, E, 2))
+    unit = lambda a: np.stack([np.cos(a), np.sin(a)], -1)
+    force = rng.normal(0, 0.5, (B, E, 2))
+    beside = lambda at, dist: pos[near, at] + unit(rng.uniform(0, 2 * np.pi, n)) * dist[:, None]
+
+    def touching(a, b):
+        # b just clear of a (within the collision distance), with a's
+        # velocity and force
+        pos[near, b.index] = beside(a.index, a.shape.radius + b.shape.radius + rng.uniform(5e-4, 3e-3, n))
+        vel[near, b.index], force[near, b.index] = vel[near, a.index], force[near, a.index]
+
+    scr = {}
+
+    if name == "navigation":
+        touching(agents[0], agents[1])
+        rest = np.arange(B) % 4 == 1
+        for a in agents:
+            g = a.goal.index
+            pos[rest, g] = pos[rest, a.index] + unit(rng.uniform(0, 2 * np.pi, int(rest.sum()))) * (
+                rng.uniform(0, 0.3, int(rest.sum())) * a.goal.shape.radius)[:, None]
+            vel[rest, a.index] = 0.0
+        scr["pos_shaping"] = rng.uniform(0.0, 2.0, (B, len(agents))).astype(np.float32)
+    elif name == "flocking":
+        policy, target = env.world.policy_agents, sc._target
+        r = policy[0].shape.radius
+        touching(policy[0], policy[1])
+        touching(policy[0], target)
+        ob = sc.obstacles[0]
+        pos[near, policy[2].index] = beside(ob.index, ob.shape.radius + r + rng.uniform(0.05, 0.15, n))
+        vel[:, [o.index for o in sc.obstacles]] = 0.0
+        scr["t"] = rng.integers(0, 500, B).astype(np.float32)
+        scr["distance_shaping"] = rng.uniform(0.0, 0.5, (B, len(policy))).astype(np.float32)
+    elif name == "discovery":
+        t0 = sc._targets[0]
+        for a in agents[:2]:
+            pos[near, a.index] = beside(t0.index, rng.uniform(0.12, 0.2, n))
+        touching(agents[2], agents[3])
+        vel[:, [t.index for t in sc._targets]] = 0.0
+    pos = np.clip(pos, -0.99, 0.99)
+    out = _np_state(st, pos, np.zeros((B, E)), vel, np.zeros((B, E)), force)
+    out["scenario"].update(scr)
+    return out
+
+
+def sensor_events(env, y, extra):
+    """The events of one step of a sensor world, from its output state rows
+    ``y`` [9E, B] and emit rows ``extra`` [n_out, B] (the plain version's):
+    navigation's agents on their goal, collision hits and envs done;
+    flocking's collision hits; discovery's covered targets, covering agents
+    and (with a penalty) collision hits."""
+    fo = env._fused_outputs
+    name = type(env.scenario).__module__.rsplit(".", 1)[-1]
+    E = len(env.world.entities)
+    px, py = y[:E], y[E:2 * E]
+    if name == "navigation":
+        A, base = fo.n_agents, fo.base
+        on_goal = sum(int((F._norm(px[a] - px[g], py[a] - py[g]) < r).sum())
+                      for a, g, r in zip(fo.agent_i, fo.goal_i, fo.goal_r))
+        return {"on_goal": on_goal, "hits": int((extra[base + A:base + 2 * A] != 0).sum()),
+                "done": int((extra[base + 3 * A + 1] > 0.5).sum())}
+    if name == "flocking":
+        A, base = fo.n_agents, fo.base
+        return {"hits": int((extra[base:base + A] != 0).sum())}
+    A, T = fo.n_agents, fo.n_targets
+    out = {"covered": int((extra[5 * A:5 * A + T] > 0.5).sum()), "covering": int((extra[4 * A:5 * A] > 0).sum())}
+    if fo.coll_pen != 0:
+        out["hits"] = int((extra[5 * A + T + 1:6 * A + T + 1] != 0).sum())
+    return out

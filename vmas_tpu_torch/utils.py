@@ -3,7 +3,11 @@
 Counterpart of vmas_tpu/utils.py (ScenarioUtils). The rejection-sampling
 spawn loop resamples only the envs that still overlap, and gives up after
 ``MAX_SPAWN_TRIES`` rounds, as the JAX package does. Its draws come from the
-caller's ``torch.Generator``.
+caller's ``torch.Generator``. ``find_random_pos_for_entity_vectorized``
+draws a batch of candidates at once and keeps the first clear one, with
+no loop (the form for per-step hooks); its draw and its pick are separate
+functions, so that the pick can be held to the JAX package's on the same
+candidates.
 """
 
 from __future__ import annotations
@@ -53,6 +57,53 @@ class ScenarioUtils:
             bad = overlapping(pos)
             tries += 1
         return pos
+
+    @staticmethod
+    def random_candidates(
+        batch_dim: int,
+        generator: torch.Generator,
+        x_bounds: Tuple[float, float],
+        y_bounds: Tuple[float, float],
+        n_candidates: int = 8,
+        device=None,
+    ):
+        """[B, K, 2] uniform positions within the bounds, K = ``n_candidates``."""
+        u = torch.rand((batch_dim, n_candidates, 2), generator=generator, device=device)
+        x = u[..., 0] * (x_bounds[1] - x_bounds[0]) + x_bounds[0]
+        y = u[..., 1] * (y_bounds[1] - y_bounds[0]) + y_bounds[0]
+        return torch.stack([x, y], dim=-1)
+
+    @staticmethod
+    def first_clear_candidate(occupied_positions: torch.Tensor, candidates: torch.Tensor,
+                              min_dist_between_entities: float):
+        """[B, 1, 2]: per env the first of the candidates [B, K, 2] at least
+        ``min_dist_between_entities`` from every occupied position [B, N,
+        2], or candidate 0 where none is (the JAX package's pick: an argmax
+        over an all-False mask gives 0)."""
+        if occupied_positions.shape[1] == 0:
+            return candidates[:, :1]
+        dist = torch.linalg.vector_norm(occupied_positions[:, None] - candidates[:, :, None], dim=-1)  # [B, K, N]
+        ok = torch.all(dist >= min_dist_between_entities, dim=-1)  # [B, K]
+        first = torch.argmax(ok.to(torch.int32), dim=-1)  # the first maximum
+        return torch.gather(candidates, 1, first[:, None, None].expand(-1, 1, 2))
+
+    @staticmethod
+    def find_random_pos_for_entity_vectorized(
+        occupied_positions: torch.Tensor,  # [B, N, 2]
+        generator: torch.Generator,
+        world,
+        min_dist_between_entities: float,
+        x_bounds: Tuple[float, float],
+        y_bounds: Tuple[float, float],
+        n_candidates: int = 8,
+    ):
+        """[B, 1, 2] like ``find_random_pos_for_entity``, from
+        ``n_candidates`` proposals drawn in one batch: the first clear one,
+        else the first (the loop-free form for per-step hooks, such as
+        discovery's covered-target respawn)."""
+        cands = ScenarioUtils.random_candidates(occupied_positions.shape[0], generator, x_bounds, y_bounds,
+                                                n_candidates, occupied_positions.device)
+        return ScenarioUtils.first_clear_candidate(occupied_positions, cands, min_dist_between_entities)
 
     @staticmethod
     def spawn_entities_randomly(
