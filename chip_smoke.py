@@ -153,6 +153,24 @@
    flocking on rows_rollout_fn (horizon 1000, k_steps 1, with the Lidar
    rebuild's share of a call), discovery's two configs on rollout_fn (100
    steps), env-steps/s and the device idle share.
+12d. Football at 4096 envs (the red AI's default, both teams as policies,
+   and both teams with shooting): its emit's fused step (both fused
+   configs) and, for both teams, its rows step with the ball's script in
+   the kernel, against their plain versions, bitwise, over 5 re-synced
+   steps from testing.football_state at one thread and at 8 lanes per env,
+   with goals of each team, live agent shaping, line-sphere contacts,
+   non-zero impulses and x impulses zeroed in the goal mouth counted (and
+   required), and a launch of 4 steps against 4 launches of one; the
+   shooting config's fused step (no emit, the torque rows of its
+   HolonomicWithRotation agents) against its plain version; both teams'
+   rows rollout at k_steps 1 and 4 and rows policy rollout (a linear
+   policy) against rollout_fn, bitwise, final state and the ball's u
+   included; then the main paths with the counts zeroed: both teams on
+   rows_rollout_fn (horizon 1000, k_steps 1 and 4, with the peak device
+   memory) and on rollout_fn (100 steps, the rows path's ratio to it), the
+   red AI's default and the shooting config on rollout_fn (50 steps, one
+   timed call), env-steps/s and the device idle share. Each phase prints
+   its seconds, and the script its total.
 13. The op-cost probe: its kernel against its plain version at [54, 4096]
    with 0, 100 and 1200 operations (the ALU chain bitwise, the
    transcendental chain within atol 1e-6 rtol 1e-5), then its path with
@@ -282,6 +300,14 @@ TRAIN_BLOCKS = 3
 STEP_UPDATES = 2
 
 
+def run_phase(name, fn, *args):
+    """``fn(*args)``, printing the seconds it took as the phase ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"the {name} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -305,27 +331,52 @@ def time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+PROFILE_TRIES = 4
+
+
 def device_ms(fn, n, kernel):
     """Device time per call over ``n`` calls of ``fn``, from torch.profiler:
     ``(ms of kernels whose name holds `kernel`, ms of all device work,
-    {kernel name: ms}, number of device operations)``."""
+    {kernel name: ms}, number of device operations)``; ``kernel`` "" takes
+    all device work (a busy-time trace). CUPTI now and then
+    hands a session back with no device record, so a session that saw no
+    device work, or none of ``kernel``, is taken again, up to
+    ``PROFILE_TRIES`` sessions in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    by_name, count = {}, 0
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
-            count += 1
-    mine = sum(v for k, v in by_name.items() if kernel in k)
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        by_name, count = {}, 0
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
+                count += 1
+        mine = sum(v for k, v in by_name.items() if kernel in k)
+        if count and mine > 0:
+            break
+        print(f"profiler session {attempt} of {PROFILE_TRIES} saw {count} device records, none of {kernel}"
+              if count else f"profiler session {attempt} of {PROFILE_TRIES} saw no device record", flush=True)
     return mine, sum(by_name.values()), by_name, count / n
+
+
+def launch_ms(fn, n, kernel, name):
+    """Device ms per launch of ``kernel`` over ``n`` calls of ``fn``
+    (profiler); where no profiler session saw it, the mean ms per call of
+    ``n`` back-to-back calls (CUDA events), said so on a line of its own."""
+    ms = device_ms(fn, n, kernel)[0]
+    if ms > 0:
+        return ms
+    ms = time_ms(fn, n)
+    print(f"{name}: the profiler saw no device time in {PROFILE_TRIES} sessions; its time is "
+          f"{ms * 1e3:.3f} us per back-to-back call from CUDA events", flush=True)
+    return ms
 
 
 class ErrTracker:
@@ -410,9 +461,9 @@ def kernel_entry(name, source, replaces, launches, err, t, nbytes, flops):
 
 
 # instantiations of the fused kernel per lane count the package builds
-# (fused.LANES_BUILT): the fused form with no emit and with each of 27, the
-# rows form with each of 25 (het_mass and discovery have none)
-FUSED_FORMS = 53
+# (fused.LANES_BUILT): the fused form with no emit and with each of 28, the
+# rows form with each of 26 (het_mass and discovery have none)
+FUSED_FORMS = 55
 
 # the worlds K1/K2 run here: (make_env name and kwargs) by the name their
 # entries of the kernels line carry between brackets
@@ -430,6 +481,7 @@ LANE_WORLDS = {
     "navigation": ("navigation", {}), "flocking": ("flocking", {}), "discovery": ("discovery", {}),
     "discovery,penalty": ("discovery", {"shared_reward": True, "agent_collision_penalty": -1.0,
                                         "targets_respawn": False}),
+    "football": ("football", {"ai_red_agents": False}),
 }
 
 
@@ -534,9 +586,7 @@ def other_form_bitwise(ks, pairs, tag):
 def kernel_times(name, kern, plain, kernel_name, plain_calls=20):
     """Device ms per launch (profiler), wall ms per back-to-back call (CUDA
     events) and the plain version's ms per call."""
-    dev_ms = device_ms(kern, 200, kernel_name)[0]
-    if dev_ms <= 0:
-        raise AssertionError(f"the profiler saw no device time for {name}")
+    dev_ms = launch_ms(kern, 200, kernel_name, name)
     t = {"ms": dev_ms, "wall_ms": time_ms(kern, 500), "plain_ms": time_ms(plain, plain_calls)}
     print(f"{name}: kernel {dev_ms * 1e3:.3f} us on the device, {t['wall_ms'] * 1e3:.3f} us per "
           f"back-to-back call, plain version {t['plain_ms'] * 1e3:.1f} us per call", flush=True)
@@ -639,6 +689,8 @@ def emit_ops(fo):
         return joint_worlds_ops(fo)
     if kind in ("NavigationOutputs", "FlockingOutputs", "DiscoveryOutputs"):
         return sensor_ops(fo)
+    if kind == "FootballOutputs":
+        return football_ops(fo)
     return 200 * fo.n_pkgs
 
 
@@ -753,6 +805,8 @@ def kernel_ops(ks, rows, fo=None, rows_form=False):
         per_env += emit_ops(fo) + fo.n_out
         if rows_form:
             per_env += PID_OPS * fo.n_ctrl // 4
+            if type(getattr(fo, "process_act_rows", None)).__name__ == "BallScriptActRows":
+                per_env += BALL_OPS
     n, crossing = line_line_tests(ks, rows[:9 * ks.E], fo)
     return per_env * B + ks.substeps * (crossing * LL_CROSS_OPS + (n - crossing) * LL_MISS_OPS)
 
@@ -875,7 +929,7 @@ def balance_phase(card, dev):
           f"mean {B * HORIZON * TIMED_CALLS / (sum(call_ms) / 1e3):.1f} env-steps/s on {card}; "
           f"launches {launches}; episodes ended in the last call "
           f"{int(traj['dones'].sum())} of {HORIZON * B} env-steps", flush=True)
-    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
+    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"device time of one balance rows_rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms wall "
           f"(idle share {1 - busy_ms / min(call_ms):.3f}); top: "
@@ -989,7 +1043,8 @@ def joints_phase(card, dev):
         "fused_step[joint_passage]": ((R_in + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo)),
     }
     errs = {"rows_step[joint_passage]": k2.max(), "fused_step[joint_passage]": k1.max()}
-    one = at_lanes(ks, 1, lambda: device_ms(lambda: step(carry, act, extra), 200, "fused_step_kernel")[0])
+    one = at_lanes(ks, 1, lambda: launch_ms(lambda: step(carry, act, extra), 200, "fused_step_kernel",
+                                            "the other form"))
     print(f"rows_step[joint_passage] in the same run: {times['rows_step[joint_passage]']['ms'] * 1e3:.3f} us at "
           f"L = {ks.lanes} (the rule's), {one * 1e3:.3f} us in the one-thread form (L = 1)", flush=True)
     del env, carry, x, s0
@@ -1063,7 +1118,7 @@ def joints_phase(card, dev):
           f"mean {B * HORIZON * TIMED_CALLS / (sum(call_ms) / 1e3):.1f} env-steps/s on {card}; "
           f"launches {launches}; episodes ended in the last call {int(traj['dones'].sum())} of {HORIZON * B} "
           f"env-steps", flush=True)
-    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
+    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"device time of one joint_passage rows_rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms "
           f"wall (idle share {1 - busy_ms / min(call_ms):.3f}); top: "
@@ -1131,7 +1186,7 @@ def rollout_report(tag, run, state, steps, rgen, call_ms, warm_s, B, card, horiz
     more call (profiler); returns (best env-steps/s, idle share)."""
     best = B * horizon / (min(call_ms) / 1e3)
     mean = B * horizon * len(call_ms) / (sum(call_ms) / 1e3)
-    _, busy_ms, by_name, n_ops = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
+    _, busy_ms, by_name, n_ops = device_ms(lambda: run(state, steps, rgen), 1, "")
     idle = 1 - busy_ms / min(call_ms)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     print(f"{tag}: calls {[round(c, 3) for c in call_ms]} ms (warm-up {warm_s:.3f} s), best {best:.1f} env-steps/s, "
@@ -1768,7 +1823,8 @@ def mpe_family_phase(card, dev):
         work[key] = ((x.shape[0] + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo))
         # the rows step at the form the rule does not pick, for the rule's check
         other = 8 if ks.lanes == 1 else 1
-        other_ms = at_lanes(ks, other, lambda: device_ms(lambda: step(carry, act, extra), 200, "fused_step_kernel")[0])
+        other_ms = at_lanes(ks, other, lambda: launch_ms(lambda: step(carry, act, extra), 200, "fused_step_kernel",
+                                                         "the other form"))
         times[f"rows_step[{name}]"]["other"] = (other, other_ms)
         print(f"rows_step[{name}] at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the "
               f"device (the rule's {ks.lanes}: {times[f'rows_step[{name}]']['ms'] * 1e3:.3f} us)", flush=True)
@@ -1958,7 +2014,7 @@ def holonomic_phase(card, dev):
         other = 8 if ks.lanes == 1 else 1
         form = (f"rows_step[{name}]", lambda: step(carry, act, extra)) if rows else (key, lambda: F.fused_step(
             world, x, fo))
-        other_ms = at_lanes(ks, other, lambda: device_ms(form[1], 200, "fused_step_kernel")[0])
+        other_ms = at_lanes(ks, other, lambda: launch_ms(form[1], 200, "fused_step_kernel", "the other form"))
         times[form[0]]["other"] = (other, other_ms)
         print(f"{form[0]} at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the device "
               f"(the rule's {ks.lanes}: {times[form[0]]['ms'] * 1e3:.3f} us)", flush=True)
@@ -2169,8 +2225,8 @@ def joint_worlds_phase(card, dev):
             work[fkey] = ((x.shape[0] + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo))
         # the rows step at the form the rule does not pick, for the rule's check
         other = 8 if ks.lanes == 1 else 1
-        other_ms = at_lanes(ks, other, lambda: device_ms(lambda: step(carry, act, extra), 200,
-                                                         "fused_step_kernel")[0])
+        other_ms = at_lanes(ks, other, lambda: launch_ms(lambda: step(carry, act, extra), 200,
+                                                         "fused_step_kernel", "the other form"))
         times[rkey]["other"] = (other, other_ms)
         print(f"{rkey} at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the device "
               f"(the rule's {ks.lanes}: {times[rkey]['ms'] * 1e3:.3f} us)", flush=True)
@@ -2202,7 +2258,8 @@ def joint_worlds_phase(card, dev):
                               "fused_step_kernel")
     work[key] = ((x.shape[0] + 9 * E) * B * 4, kernel_ops(ks, x))
     other = 8 if ks.lanes == 1 else 1
-    other_ms = at_lanes(ks, other, lambda: device_ms(lambda: F.fused_step(world, x), 200, "fused_step_kernel")[0])
+    other_ms = at_lanes(ks, other, lambda: launch_ms(lambda: F.fused_step(world, x), 200, "fused_step_kernel",
+                                                     "the other form"))
     times[key]["other"] = (other, other_ms)
     print(f"{key} at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the device (the "
           f"rule's {ks.lanes}: {times[key]['ms'] * 1e3:.3f} us)", flush=True)
@@ -2468,7 +2525,7 @@ def sensor_worlds_phase(card, dev):
         other = 8 if ks.lanes == 1 else 1
         form = (f"rows_step[{key}]", lambda: step(carry, act, extra)) if rows else (fkey, lambda: F.fused_step(
             world, x, fo))
-        other_ms = at_lanes(ks, other, lambda: device_ms(form[1], 200, "fused_step_kernel")[0])
+        other_ms = at_lanes(ks, other, lambda: launch_ms(form[1], 200, "fused_step_kernel", "the other form"))
         times[form[0]]["other"] = (other, other_ms)
         print(f"{form[0]} at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the device "
               f"(the rule's {ks.lanes}: {times[form[0]]['ms'] * 1e3:.3f} us)", flush=True)
@@ -2614,6 +2671,260 @@ def sensor_worlds_phase(card, dev):
             if "other" in times[name]:
                 e["other_lanes"], e["other_us"] = times[name]["other"][0], times[name]["other"][1] * 1e3
             entries.append(e)
+    return entries
+
+
+# -- football ---------------------------------------------------------------------
+
+# football's configs held to their plain versions: (make_env kwargs, whether
+# the rows step takes it), and the counts each comparison must see above zero
+FB_CONFIGS = {
+    "football": ({}, False),
+    "football,two_teams": ({"ai_red_agents": False}, True),
+}
+FB_REQUIRED = ("blue_scores", "red_scores", "agent_shaping", "ls")
+FB_ROWS_REQUIRED = ("impulse", "x_zeroed")
+FB_CMP_STEPS = 5
+FB_ROLLOUT_STEPS = 20
+# the rollout_fn paths' horizon (the hooks around K1 each step): both teams
+# at the VMAS protocol's 100 (the rows path's ratio to it); the red AI's and
+# the shooting config's, 600-1200 device operations a step on the host, at
+# 50 with one timed call
+FB_SHORT_HORIZON = 100
+FB_HOOK_HORIZON = 50
+# the ball's script per env, read off ball_act: 4 walls of a subtraction,
+# a minimum, a division and a subtraction, the vertical factor 4, the two
+# impulses 3 each, the goal-mouth test 3 and its select
+BALL_OPS = 30
+
+
+def football_ops(fo):
+    """Operations of football's emit per env, besides writing its rows, read
+    off csrc/fused_step.cu: the score's tests and terms 10; per dense team
+    the goal distance 8, its terms 2, 8 per team agent's distance and its
+    minimum, the agent terms 11; per policy agent 12 differences and
+    negations of its own rows and 6 per observed other agent."""
+    teams = int(fo.dense_blue) * len(fo.blue_i) + int(fo.dense_red) * len(fo.red_i)
+    dense = (int(fo.dense_blue) + int(fo.dense_red)) * 21 + 8 * teams
+    return 10 + dense + sum(12 + 6 * (w - 16) // 8 for w in fo.widths)
+
+
+def football_phase(card, dev):
+    """Football at 4096 envs: its emit's K1 (the red AI's config and both
+    teams') and, for both teams, its K2 with the ball's script in the
+    kernel, bitwise their plain versions over FB_CMP_STEPS re-synced steps
+    from testing.football_state at one thread and at 8 lanes per env, with
+    the events counted and required (each team's goals, live agent
+    shaping, line-sphere contacts; in K2 non-zero impulses and x impulses
+    zeroed in the goal mouth), and a 4-step launch bitwise 4 launches of
+    one; the shooting config's K1 with no emit against its plain version;
+    both teams' rows rollouts (k_steps 1 and 4) and rows policy rollout
+    bitwise rollout_fn; then the main paths with the counts zeroed; the
+    phase's entries of the kernels line."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_policy_rollout_fn, rows_rollout_fn
+
+    times, work, errs = {}, {}, {}
+    B = NUM_ENVS
+    t_phase = time.perf_counter()
+    # -- (a) K2 and K1 against plain, bitwise, at both forms; k_steps ---------------
+    for key, (kw, rows) in FB_CONFIGS.items():
+        env = make_env("football", B, device=dev, seed=0, fused_physics=True, **kw)
+        world, fo = env.world, env._fused_outputs
+        slots = [a.index for a in env.agents]
+        ks = F._kernel_spec(world)
+        E, A = ks.E, len(slots)
+        assert rows == F.rows_step_supported(world, fo, env.agents)
+        st = state_from_numpy(world, testing.football_state(env, np.random.default_rng(110)))
+        carry0 = F.pack_carry(world, st, fo)
+        x0 = torch.cat([F.state_rows(st), st.joint_fixed_rot.T, fo.scratch_rows(st)]).contiguous()
+        step = F.make_rows_step(world, fo, slots) if rows else None
+        gen = torch.Generator(device=dev).manual_seed(111)
+        acts = lambda: (torch.rand((2 * A, B), generator=gen, device=dev) * 2 - 1).contiguous()
+        counts = {}
+
+        def count(d):
+            for k, v in d.items():
+                counts[k] = counts.get(k, 0) + v
+
+        for lanes in (1, 8):
+            k2, k1 = ErrTracker(), ErrTracker()
+            carry, x = carry0, x0
+
+            def run_steps():
+                nonlocal carry, x
+                for t in range(FB_CMP_STEPS):
+                    act = acts()
+                    if rows:
+                        c_k, e_k = step(carry, act)
+                        c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+                        compare_rows(k2, c_k, c_p, e_k, e_p, f"{key} rows_step L{lanes}")
+                        count(testing.football_events(env, carry, e_p[:fo.n_out], e_p[fo.n_out:]))
+                        carry = c_k
+                    y_k, y_p = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+                    compare_rows(k1, y_k[:9 * E], y_p[:9 * E], y_k[9 * E:], y_p[9 * E:], f"{key} fused_step L{lanes}")
+                    count(testing.football_events(env, x, y_p[9 * E:]))
+                    x = with_actions(torch.cat([y_k[:9 * E], x[9 * E:]]), act, slots, E).contiguous()
+
+            at_lanes(ks, lanes, run_steps)
+            torch.cuda.synchronize()
+            if lanes == ks.lanes:
+                errs[f"fused_step[{key}]"] = k1.max()
+                if rows:
+                    errs[f"rows_step[{key}]"] = k2.max()
+        print(f"{key}@{B}: {'rows_step (the ball script in the kernel) and ' if rows else ''}fused_step bitwise "
+              f"their plain versions over {FB_CMP_STEPS} re-synced steps at 1 and at 8 lanes per env (the rule's "
+              f"{ks.lanes}; E {E}, pairs {dict((t, len(getattr(ks, t))) for t in F.PAIR_TYPES if getattr(ks, t))}, "
+              f"emit rows {fo.n_out}; events {counts}) on {card}", flush=True)
+        missing = [k for k in FB_REQUIRED + (FB_ROWS_REQUIRED if rows else ()) if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"the {key} comparison saw none of {missing}: {counts}")
+        act = acts()
+        carry = carry0
+        x = with_actions(x0, act, slots, E).contiguous()
+        if rows:
+            act_k = torch.cat([acts() for _ in range(K_STEPS)]).contiguous()
+
+            def compare(tr, k, c_k, c_p, e_k, e_p, mid, key=key):
+                tr.close(f"{key} k{K_STEPS} step {k} emit and hook rows", e_k, e_p)
+                if k == K_STEPS - 1:
+                    tr.close(f"{key} k{K_STEPS} carry", c_k, c_p)
+
+            k_steps_check(world, fo, slots, carry, act_k, f"{key}@{B}", compare)
+            n_tot = fo.n_out + fo.n_ctrl_out
+            extra = torch.empty((n_tot, B), device=dev)
+            rkey = f"rows_step[{key}]"
+            times[rkey] = kernel_times(rkey, lambda: step(carry, act, extra),
+                                       lambda: F.rows_step_plain(world, fo, slots, carry, act), "fused_step_kernel")
+            work[rkey] = ((2 * carry.shape[0] + 2 * A + n_tot) * B * 4, kernel_ops(ks, carry, fo, rows_form=True))
+        fkey = f"fused_step[{key}]"
+        times[fkey] = kernel_times(fkey, lambda: F.fused_step(world, x, fo), lambda: F.fused_step_plain(world, x, fo),
+                                   "fused_step_kernel")
+        work[fkey] = ((x.shape[0] + 9 * E + fo.n_out) * B * 4, kernel_ops(ks, x, fo))
+        other = 8 if ks.lanes == 1 else 1
+        for name, fn in ([(f"rows_step[{key}]", lambda: step(carry, act, extra))] if rows else []) + [
+                (fkey, lambda: F.fused_step(world, x, fo))]:
+            other_ms = at_lanes(ks, other, lambda: launch_ms(fn, 200, "fused_step_kernel", "the other form"))
+            times[name]["other"] = (other, other_ms)
+            print(f"{name} at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the device "
+                  f"(the rule's {ks.lanes}: {times[name]['ms'] * 1e3:.3f} us)", flush=True)
+        del env, carry, carry0, x, x0
+
+    # the shooting config: K1 with no emit (the hook pipeline around it), its
+    # agents' torque rows from HolonomicWithRotation, on the rows of env.step
+    # calls
+    skey = "fused_step[football,shooting]"
+    env = make_env("football", B, device=dev, seed=0, fused_physics=True, enable_shooting=True, ai_red_agents=False)
+    world = env.world
+    ks = F._kernel_spec(world)
+    E = ks.E
+    assert env._fused_outputs is None and world.fused
+    k1 = ErrTracker()
+    torque_lanes = 0
+    for t in range(FB_CMP_STEPS):
+        env.step(env.get_random_actions())
+        x = torch.cat([F.state_rows(env.state), env.state.joint_fixed_rot.T]).contiguous()
+        torque_lanes += int((x[8 * E:9 * E] != 0).sum())
+        k1.close("football,shooting fused_step state rows", F.fused_step(world, x), F.fused_step_plain(world, x))
+    print(f"football,shooting@{B}: fused_step (no emit) bitwise its plain version on the rows of {FB_CMP_STEPS} "
+          f"env.step calls at {ks.lanes} lanes per env (torque rows set in {torque_lanes} (env, agent) lanes) on "
+          f"{card}", flush=True)
+    if not torque_lanes:
+        raise AssertionError("the football shooting comparison saw no torque")
+    errs[skey] = k1.max()
+    other_form_bitwise(ks, [(lambda: F.fused_step(world, x), lambda: F.fused_step_plain(world, x))],
+                       f"football,shooting@{B}")
+    times[skey] = kernel_times(skey, lambda: F.fused_step(world, x), lambda: F.fused_step_plain(world, x),
+                               "fused_step_kernel")
+    work[skey] = ((x.shape[0] + 9 * E) * B * 4, kernel_ops(ks, x))
+    del env
+
+    # -- (b) the rows rollouts against the env.step rollouts, bitwise --------------
+    print(f"football: the kernels against plain, {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    def bitwise(tag, run_a, run_b, s0, st0, seed):
+        sa, _, ta = run_a(s0, st0, torch.Generator(device=dev).manual_seed(seed))
+        sb, _, tb = run_b(s0, st0, torch.Generator(device=dev).manual_seed(seed))
+        rollouts_bitwise(tag, ta, tb, sa, sb, card)
+
+    env = make_env("football", B, device=dev, seed=0, fused_physics=True, ai_red_agents=False)
+    s0 = state_from_numpy(env.world, testing.football_state(env, np.random.default_rng(112)))
+    for k in (1, K_STEPS):
+        bitwise(f"football,two_teams@{B} env.step rollout vs rows rollout k_steps {k} (the ball script in the kernel, "
+                f"the red mirror a decode transform) over {FB_ROLLOUT_STEPS} steps",
+                rollout_fn(env, horizon=FB_ROLLOUT_STEPS), rows_rollout_fn(env, horizon=FB_ROLLOUT_STEPS, k_steps=k),
+                s0, env.steps, 20 + k)
+    W = (torch.rand((56, 2), generator=torch.Generator(device=dev).manual_seed(5), device=dev) * 2 - 1) * 0.5
+    policy = lambda obs, g: tuple(torch.tanh(o @ W) for o in obs)
+    bitwise(f"football,two_teams@{B} env.step policy rollout vs rows policy rollout (a linear policy) over "
+            f"{FB_ROLLOUT_STEPS} steps", rollout_fn(env, policy, FB_ROLLOUT_STEPS),
+            rows_policy_rollout_fn(env, policy, FB_ROLLOUT_STEPS), s0, env.steps, 23)
+    del env
+
+    # -- (c) the main paths ------------------------------------------------------
+    print(f"football: the rollouts bitwise, {time.perf_counter() - t_phase:.1f} s", flush=True)
+    launches, rates = {}, {}
+    runs = [("football,two_teams", {"ai_red_agents": False}, "rows", 1),
+            ("football,two_teams", {"ai_red_agents": False}, "rows", K_STEPS),
+            ("football,two_teams", {"ai_red_agents": False}, "step", 1),
+            ("football", {}, "step", 1),
+            ("football,shooting", {"enable_shooting": True, "ai_red_agents": False}, "step", 1)]
+    for key, kw, path, k in runs:
+        hooks = key != "football,two_teams"
+        horizon = HORIZON if path == "rows" else FB_HOOK_HORIZON if hooks else FB_SHORT_HORIZON
+        calls = 1 if hooks else TIMED_CALLS
+        F.fused_step_launches = 0
+        F.rows_step_launches = 0
+        env = make_env("football", num_envs=B, fused_physics=True, **kw)
+        assert env.device.type == "cuda"
+        obs = env.reset()
+        for _ in range(5):
+            obs, rews, dones, infos = env.step(env.get_random_actions())
+        rgen = torch.Generator(device=dev).manual_seed(0)
+        run = rows_rollout_fn(env, horizon=horizon, k_steps=k) if path == "rows" else rollout_fn(env, horizon=horizon)
+        torch.cuda.reset_peak_memory_stats()
+        state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen, calls=calls)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n = {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches}
+        want = ({"fused_step": 5, "rows_step": horizon // k * (1 + calls)} if path == "rows" else
+                {"fused_step": 5 + horizon * (1 + calls), "rows_step": 0})
+        assert n == want, (key, n, want)
+        widths = [o.shape[-1] for o in obs]
+        assert traj["rewards"].shape == (horizon, B, env.n_agents) and bool(torch.isfinite(traj["rewards"]).all())
+        assert all(o.shape == (horizon, B, w) and bool(torch.isfinite(o).all()) for o, w in zip(traj["obs"], widths))
+        assert bool(torch.isfinite(state.pos).all())
+        tag = (f"rows_rollout_fn k_steps {k}" if path == "rows" else
+               "rollout_fn (env.step: K1" + (", the red AI in torch)" if key == "football" else ")"))
+        print(f"main path: {key} {B} envs x {env.n_agents} agents x {horizon} steps, {tag}; launches {n}; peak "
+              f"device memory {peak_gb:.2f} GB ({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
+        rates[(key, path, k)] = rollout_report(f"{key}@{B} {tag}", run, state, steps, rgen, call_ms, warm_s, B, card,
+                                               horizon=horizon)[0]
+        if path == "rows" and k == 1:
+            launches[(key, "rows_step")] = n["rows_step"]
+        if path == "step":
+            launches[(key, "fused_step")] = n["fused_step"]
+        del env, state, traj
+    ratio = rates[("football,two_teams", "rows", 1)] / rates[("football,two_teams", "step", 1)]
+    print(f"football,two_teams@{B}: the rows path (k_steps 1) at {ratio:.2f}x rollout_fn's env-steps/s on {card} "
+          f"(the JAX package's TPU measure of the same ratio, in its own terms: 0.91x)", flush=True)
+
+    entries = []
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    for name in times:
+        key = name[name.index("[") + 1:-1]
+        form = name[:name.index("[")]
+        n = launches[(key, form)]
+        e = kernel_entry(name, src, f"vmas_tpu/core/fused.py:{'1603' if form == 'rows_step' else '1425'}", n,
+                         errs[name], times[name], *work[name])
+        e["launches_on"] = (f"{key}'s main path at {NUM_ENVS} envs, "
+                            + ("rows_rollout_fn k_steps 1" if form == "rows_step" else "rollout_fn"))
+        if "other" in times[name]:
+            e["other_lanes"], e["other_us"] = times[name]["other"][0], times[name]["other"][1] * 1e3
+        entries.append(e)
     return entries
 
 
@@ -2893,10 +3204,7 @@ def rt_form_times(name, run, forms, kernel_of):
     Returns {form: mean ms}, and prints both readings."""
     got = {f: [] for f in forms}
     for f in [*forms, *reversed(forms)]:
-        got[f].append(device_ms(lambda: run(f), 200, kernel_of(f))[0])
-    for f, v in got.items():
-        if min(v) <= 0:
-            raise AssertionError(f"the profiler saw no device time for {name} form {f}")
+        got[f].append(launch_ms(lambda: run(f), 200, kernel_of(f), f"{name} form {f}"))
     print(f"{name} forms, us per launch in turns (forward, reverse): "
           + "; ".join(f"{f}: {v[0] * 1e3:.3f} / {v[1] * 1e3:.3f}" for f, v in got.items()), flush=True)
     return {f: sum(v) / len(v) for f, v in got.items()}
@@ -3028,7 +3336,7 @@ def road_traffic_phase(card, dev):
           f"launches {launches} ({n_steps} steps, 2 resets)", flush=True)
 
     # where one main-path call's device time goes (after the counts)
-    _, busy_ms, by_name, n_ops = device_ms(lambda: run(state, steps, rgen), 1, "rt_sweep")
+    _, busy_ms, by_name, n_ops = device_ms(lambda: run(state, steps, rgen), 1, "")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     rt_ms = sum(v for k, v in by_name.items() if "rt_sweep" in k or "rt_obs" in k)
     print(f"device time of one road_traffic rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms wall "
@@ -3173,7 +3481,7 @@ def ppo_train(env, card, dev, dtype, seed):
     rate = env.num_envs * TRAIN_HORIZON * TRAIN_UPDATES / (min(block_ms) / 1e3)
     mean = env.num_envs * TRAIN_HORIZON * TRAIN_UPDATES * TRAIN_BLOCKS / (sum(block_ms) / 1e3)
     one = lambda: update(model, opt, carry[0], carry[1], gen)
-    _, busy_ms, by_name, n_ops = device_ms(one, 1, "fused_step_kernel")
+    _, busy_ms, by_name, n_ops = device_ms(one, 1, "")
     upd_ms = min(block_ms) / TRAIN_UPDATES
     idle = 1 - busy_ms / upd_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
@@ -3208,7 +3516,7 @@ def ppo_split(env, model, opt, dtype, carry, gen, card, tag):
     out = []
     for name, fn in parts.items():
         wall = time_ms(fn, 2)
-        _, busy, _, n_ops = device_ms(fn, 1, "fused_step_kernel")
+        _, busy, _, n_ops = device_ms(fn, 1, "")
         out.append(f"{name} {wall:.3f} ms ({busy:.3f} busy, {n_ops:.0f} device operations)")
     print(f"{tag}, one update's parts on {card}: " + "; ".join(out), flush=True)
 
@@ -3302,13 +3610,14 @@ def main():
     from vmas_tpu_torch.core import fused as F
     from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_rollout_fn
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
 
     # -- 2. build -----------------------------------------------------------
     print(f"build: {_kernels.build_all():.1f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)}; the three sources in "
           f"parallel, fused_step the longest: {FUSED_FORMS} instantiations at each of the lane counts "
-          f"{F.LANES_BUILT}; 120.9-178.0 s for 96 before the three sensor-world emits)", flush=True)
+          f"{F.LANES_BUILT}; 121.2-156.3 s for 106 before football's emit)", flush=True)
     picked = lane_report(torch.device("cuda"))
 
     # -- 3. kernel against plain, at full width ------------------------------
@@ -3411,50 +3720,51 @@ def main():
 
     # where one main-path call's device time goes (read after the counts:
     # these launches are not the main path's)
-    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "fused_step_kernel")
+    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"device time of one rows_rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms wall "
           f"(idle share {1 - busy_ms / min(call_ms):.3f}); top: "
           + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
 
     # -- 5. balance and the all-pairs world ------------------------------------
-    balance_kernels = balance_phase(card, dev)
+    balance_kernels = run_phase("balance", balance_phase, card, dev)
 
     # -- 6. joints: joint_passage and waterfall --------------------------------
-    joint_kernels = joints_phase(card, dev)
+    joint_kernels = run_phase("joints", joints_phase, card, dev)
 
     # -- 7. give_way: the in-kernel PID and k_steps ------------------------------
-    give_way_kernels = give_way_phase(card, dev)
+    give_way_kernels = run_phase("give_way", give_way_phase, card, dev)
 
     # -- 8. road_traffic -------------------------------------------------------
-    rt_kernels = road_traffic_phase(card, dev)
+    rt_kernels = run_phase("road_traffic", road_traffic_phase, card, dev)
 
     # -- 9. wind_flocking: dynamic gravity -----------------------------------
-    wfl_kernels = wind_flocking_phase(card, dev)
+    wfl_kernels = run_phase("wind_flocking", wind_flocking_phase, card, dev)
 
     # -- 10. MPE simple and simple_spread --------------------------------------
-    mpe_kernels = mpe_phase(card, dev)
+    mpe_kernels = run_phase("MPE", mpe_phase, card, dev)
 
     # -- 11. the rest of the MPE family -------------------------------------------
-    mpef_kernels = mpe_family_phase(card, dev)
+    mpef_kernels = run_phase("MPE family", mpe_family_phase, card, dev)
 
     # -- 12. the other holonomic worlds, then the lifted caps -------------------
-    hol_kernels = holonomic_phase(card, dev)
-    caps_kernels = caps_phase(card, dev)
+    hol_kernels = run_phase("holonomic", holonomic_phase, card, dev)
+    caps_kernels = run_phase("caps", caps_phase, card, dev)
 
     # -- 12b. the joint worlds, and the rows rollouts' noise streams -------------
-    jw_kernels = joint_worlds_phase(card, dev)
+    jw_kernels = run_phase("joint worlds", joint_worlds_phase, card, dev)
 
     # -- 12c. the sensor worlds ---------------------------------------------------
-    t0 = time.perf_counter()
-    sw_kernels = sensor_worlds_phase(card, dev)
-    print(f"the sensor worlds' phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    sw_kernels = run_phase("sensor worlds", sensor_worlds_phase, card, dev)
+
+    # -- 12d. football ---------------------------------------------------------------
+    fb_kernels = run_phase("football", football_phase, card, dev)
 
     # -- 13. the op-cost probe -------------------------------------------------
-    opcost_kernels = opcost_phase(card, dev)
+    opcost_kernels = run_phase("op-cost", opcost_phase, card, dev)
 
     # -- 14. PPO at transport@4096 ----------------------------------------------
-    ppo_k2, ppo_k1, ppo_times, ppo_carry, ppo_launches = ppo_phase(card, dev)
+    ppo_k2, ppo_k1, ppo_times, ppo_carry, ppo_launches = run_phase("PPO", ppo_phase, card, dev)
 
     # -- 15. the kernels line ------------------------------------------------
     flops = kernel_ops(ks, carry, fo)
@@ -3474,9 +3784,10 @@ def main():
         kernel_entry("fused_step[transport,ppo]", src, "vmas_tpu/core/fused.py:1425", ppo_launches["fused_step"],
                      ppo_k1.max(), ppo_times["fused_step"], fused_bytes, ppo_flops),
     ] + (balance_kernels + joint_kernels + give_way_kernels + rt_kernels + wfl_kernels + mpe_kernels + mpef_kernels
-         + hol_kernels + jw_kernels + sw_kernels + opcost_kernels)
+         + hol_kernels + jw_kernels + sw_kernels + fb_kernels + opcost_kernels)
     entry_lanes(kernels, picked)
     kernels += caps_kernels  # each with its own lanes
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start, the build included", flush=True)
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -166,4 +166,4 @@ def test_default_device_needs_a_gpu(monkeypatch):
 
 def test_only_transport_is_registered():
     with pytest.raises(ValueError, match="not ported"):
-        torch_make_env("football", 4, device="cpu")
+        torch_make_env("sampling", 4, device="cpu")

@@ -55,7 +55,19 @@ def test_scenarios_import_without_jax():
             + repr(BANNED) + "))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
     n, banned = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 23 and banned == "[]", out.stdout
+    assert int(n) >= 33 and banned == "[]", out.stdout
+
+
+def test_football_modules_listed():
+    """Football's modules (the scenario with its team AI, and the
+    HolonomicWithRotation dynamics its shooting agents take) are among the
+    files held to importing no JAX, and load without it."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"vmas_tpu_torch/scenarios/football.py", "vmas_tpu_torch/dynamics/holonomic_with_rot.py"} <= names
+    code = ("import sys, vmas_tpu_torch.scenarios.football, vmas_tpu_torch.dynamics.holonomic_with_rot; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in " + repr(BANNED) + "))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_holonomic_worlds_and_heuristics_import_without_jax():

@@ -31,7 +31,8 @@ joint_passage_size (with its PID in K2) in both forms bitwise, asym_joint's
 K1 with no emit, and joint_passage_size's rows rollouts, noisy or not,
 bitwise rollout_fn; the emits of navigation, flocking and discovery in
 both forms bitwise, and navigation's and flocking's rows rollouts bitwise
-rollout_fn; the op-cost probe's ALU chain
+rollout_fn; football's emit in both forms and its ball script in K2
+bitwise, and its rows rollouts bitwise rollout_fn; the op-cost probe's ALU chain
 bitwise, its transcendental chain atol 1e-6 rtol 1e-5. The balance,
 all-pairs, joint_passage, waterfall, give_way, multi_give_way,
 wind_flocking and MPE states come from vmas_tpu_torch/testing.py, as
@@ -992,6 +993,76 @@ def test_sensor_worlds_rows_rollouts_on_the_card(name):
     for field in ("pos", "vel", "rot", "ang_vel"):
         assert torch.equal(getattr(sa, field), getattr(sb, field)), field
     assert all(torch.equal(x, y) for x, y in zip(sa.u, sb.u))
+
+
+# -- football -------------------------------------------------------------------
+
+FOOTBALL = {"ai_red": {}, "two_teams": {"ai_red_agents": False}}
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("config", sorted(FOOTBALL))
+def test_football_kernels_bitwise_plain(config, lanes):
+    """K1 with football's emit (both fused configs), and K2 (one and 4 env
+    steps per launch) with its emit and the ball's script in the kernel
+    (both teams policies), bitwise their plain versions at 4099 envs, one
+    thread per env and 8 lanes per env, from a state with goals, the ball
+    at rest, near the walls and in the goal mouth
+    (testing.football_state); the impulse rows non-zero in some envs."""
+    import numpy as np
+
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.testing import football_state
+
+    _cuda()
+    width = 4096 + 3
+    e = make_env("football", width, device="cuda", seed=0, fused_physics=True, **FOOTBALL[config])
+    world, fo = e.world, e._fused_outputs
+    ks = F._kernel_spec(world)
+    slots = [a.index for a in e.agents]
+    A2 = 2 * len(slots)
+    st = state_from_numpy(world, football_state(e, np.random.default_rng(37)))
+    g = torch.Generator(device="cuda").manual_seed(38)
+    act = ((torch.rand((4 * A2, width), generator=g, device="cuda") * 2 - 1)).contiguous()
+    rule, ks.lanes = ks.lanes, lanes
+    try:
+        if F.rows_step_supported(world, fo, e.agents):
+            carry = F.pack_carry(world, st, fo)
+            for k in (1, 4):
+                ck, ek = F.make_rows_step(world, fo, slots, k_steps=k)(carry, act[:k * A2].contiguous())
+                cp, ep = F.rows_step_plain(world, fo, slots, carry, act[:k * A2], k)
+                assert torch.equal(ck, cp) and torch.equal(ek, ep), k
+            assert bool((ek[fo.n_out:fo.n_out + 2] != 0).any())
+        x = torch.cat([F.state_rows(st), st.joint_fixed_rot.T, fo.scratch_rows(st)]).contiguous()
+        assert torch.equal(F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo))
+        torch.cuda.synchronize()
+    finally:
+        ks.lanes = rule
+
+
+def test_football_rows_rollouts_on_the_card():
+    """football with both teams as policies: rows_rollout_fn (K2 with the
+    ball's script, k_steps 1 and 4) and rows_policy_rollout_fn against
+    rollout_fn (K1, the script and the red mirror in the hooks) at 4099
+    envs, bitwise, the final state and u included."""
+    from vmas_tpu_torch.parallel.rollout import rollout_fn, rows_policy_rollout_fn, rows_rollout_fn
+
+    _cuda()
+    e = make_env("football", 4096 + 3, device="cuda", seed=0, fused_physics=True, ai_red_agents=False)
+    s0, st0 = e.state, e.steps
+    W = (torch.rand((56, 2), generator=torch.Generator(device="cuda").manual_seed(4), device="cuda") * 2 - 1) * 0.5
+    policy = lambda obs, gen: tuple(torch.tanh(o @ W) for o in obs)
+    runs = [(rollout_fn(e, horizon=8), rows_rollout_fn(e, horizon=8)),
+            (rollout_fn(e, horizon=8), rows_rollout_fn(e, horizon=8, k_steps=4)),
+            (rollout_fn(e, policy, 8), rows_policy_rollout_fn(e, policy, 8))]
+    for run_a, run_b in runs:
+        sa, _, ta = run_a(s0, st0, torch.Generator(device="cuda").manual_seed(9))
+        sb, _, tb = run_b(s0, st0, torch.Generator(device="cuda").manual_seed(9))
+        assert torch.equal(ta["rewards"], tb["rewards"]) and torch.equal(ta["dones"], tb["dones"])
+        assert all(torch.equal(x, y) for x, y in zip(ta["obs"], tb["obs"]))
+        for field in ("pos", "vel", "rot", "ang_vel", "force"):
+            assert torch.equal(getattr(sa, field), getattr(sb, field)), field
+        assert all(torch.equal(x, y) for x, y in zip(sa.u, sb.u))
 
 
 @pytest.mark.parametrize("n", [17, 30])

@@ -237,8 +237,9 @@ def test_env_step_matches_jax(config, fused, cases, jax_steps):
 def test_interop_carries_jax_states(name, cases):
     """A JAX package's state, as numpy arrays, into the port
     (``interop.state_from_numpy``): every field and the scratch dict
-    carried bitwise, but discovery's PRNG key (``rng``: the port draws its
-    respawn from the env's generator), and the port steps on from it."""
+    carried bitwise, but the JAX package's PRNG keys (discovery's ``rng``
+    and the step's ``__obs_key``: the port draws from the env's
+    generator), and the port steps on from it."""
     from vmas_tpu_torch.interop import state_to_numpy
 
     js = cases[name][1].state
@@ -251,7 +252,7 @@ def test_interop_carries_jax_states(name, cases):
     back = state_to_numpy(st)
     for f in ("pos", "vel", "rot", "force", "rendering"):
         assert np.array_equal(back[f], arrays[f]), f
-    assert set(back["scenario"]) == set(arrays["scenario"]) - {"rng"}
+    assert set(back["scenario"]) == set(arrays["scenario"]) - {"rng", "__obs_key"}
     assert ("rng" in arrays["scenario"]) == (name == "discovery")
     for k, v in back["scenario"].items():
         assert np.array_equal(v, arrays["scenario"][k]), k

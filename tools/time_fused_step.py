@@ -42,6 +42,9 @@ reports the kernel's device time per launch (torch.profiler, 200 launches;
 * navigation and flocking (both forms; flocking's target on the action
   rows) and discovery (the fused step) at their defaults, 4096 envs, from
   ``testing.sensor_state``;
+* football's two fused configs (the red AI's: the fused step; both teams
+  as policies: both forms, the ball's script in the rows step) at 4096
+  envs, from ``testing.football_state``;
 * the all-pairs world, 4096 envs: the fused step from its packed state.
 
 In a tree whose kernel runs an env on a group of lanes (``fused.LANES``; 1 is
@@ -128,6 +131,8 @@ WORLDS = {
     "navigation": ("navigation", {}, B, "sensor_state", ("rows", "fused")),
     "flocking": ("flocking", {}, B, "sensor_state", ("rows", "fused")),
     "discovery": ("discovery", {}, B, "sensor_state", ("fused",)),
+    "football": ("football", {}, B, "football_state", ("fused",)),
+    "football,two_teams": ("football", {"ai_red_agents": False}, B, "football_state", ("rows", "fused")),
 }
 
 

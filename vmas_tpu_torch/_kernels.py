@@ -95,6 +95,12 @@ EMIT_JOINT_PASSAGE_SIZE = 24
 EMIT_NAVIGATION = 25
 EMIT_FLOCKING = 26
 EMIT_DISCOVERY = 27
+EMIT_FOOTBALL = 28
+
+# the rows form's in-kernel process_action (ActParams.kind)
+ACT_NONE = 0
+ACT_PID = 1  # core.fused.PidActRows
+ACT_BALL = 2  # core.fused.BallScriptActRows
 
 _i, _f = ctypes.c_int, ctypes.c_float
 
@@ -325,6 +331,20 @@ class DiscoveryParams(ctypes.Structure):
     ]
 
 
+class FootballParams(ctypes.Structure):
+    """The policy agents with their team (1: blue), both teams' entities,
+    the ball, the score's and the shaping's constants, and which dense
+    terms and observation blocks the config has."""
+
+    _fields_ = [
+        ("n_agents", _i), ("n_blue", _i), ("n_red", _i), ("ball", _i),
+        ("agent", _i * MAX_A), ("blue", _i * MAX_A), ("blue_i", _i * MAX_A), ("red_i", _i * MAX_A),
+        ("gx", _f), ("x_over", _f), ("y_goal", _f), ("scoring", _f), ("f_goal", _f), ("f_agent", _f),
+        ("trigger", _f),
+        ("dense_blue", _i), ("dense_red", _i), ("obs_adv", _i), ("obs_team", _i),
+    ]
+
+
 class _EmitUnion(ctypes.Union):
     _fields_ = [
         ("transport", TransportParams),
@@ -354,6 +374,7 @@ class _EmitUnion(ctypes.Union):
         ("navigation", NavigationParams),
         ("flocking", FlockingParams),
         ("discovery", DiscoveryParams),
+        ("football", FootballParams),
     ]
 
 
@@ -365,19 +386,38 @@ class EmitParams(ctypes.Structure):
     _fields_ = [("carry_idx", _i * MAX_K), ("u", _EmitUnion)]
 
 
-class ActParams(ctypes.Structure):
-    """The rows form's in-kernel process_action (``core.fused.PidActRows``):
-    per PID-controlled agent its entity slot, the optional clamp to
-    ``u_rng``, ``min_in`` (0: no zeroing) and the controller's constants;
-    ``n_pid = 0`` runs no hook."""
+class BallScriptParams(ctypes.Structure):
+    """Football's ball script (``core.fused.BallScriptActRows``): the ball's
+    entity and the script's constants."""
 
     _fields_ = [
+        ("slot", _i), ("dist_thres", _f), ("vel_thres", _f), ("impulse", _f), ("pw_half", _f), ("pl_half", _f),
+        ("y_goal", _f),
+    ]
+
+
+class ActParams(ctypes.Structure):
+    """The rows form's in-kernel process_action, of kind ``kind``:
+    ``ACT_NONE`` runs none; ``ACT_PID`` the PID velocity controller
+    (``core.fused.PidActRows``): per PID-controlled agent its entity slot,
+    the optional clamp to ``u_rng``, ``min_in`` (0: no zeroing) and the
+    controller's constants; ``ACT_BALL`` football's ball script (``ball``)."""
+
+    _fields_ = [
+        ("kind", _i),
         ("n_pid", _i), ("slot", _i * MAX_PID), ("clamp", _i * MAX_PID),
         ("u_rng", _f * MAX_PID), ("min_in", _f * MAX_PID), ("dt", _f * MAX_PID),
         ("gain", _f * MAX_PID), ("mass", _f * MAX_PID), ("use_i", _i * MAX_PID),
         ("inv_ti", _f * MAX_PID), ("has_cutoff", _i * MAX_PID), ("cutoff", _f * MAX_PID),
         ("td", _f * MAX_PID),
+        ("ball", BallScriptParams),
     ]
+
+
+def act_ctrl_rows(ap: ActParams) -> int:
+    """The carry rows of an in-kernel process_action (the PID's memory: 4
+    per agent; the ball script has none), as the kernel counts them."""
+    return 4 * int(ap.n_pid) if ap.kind == ACT_PID else 0
 
 
 def _nvcc() -> str:

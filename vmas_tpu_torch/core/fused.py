@@ -303,7 +303,8 @@ def check_fusable(world, outputs=None) -> None:
     ``MAX_E`` entities; with fused ``outputs``, more than ``MAX_K`` scratch
     rows or ``MAX_A`` policy agents (the rows form's action slots), or an
     emit or in-kernel process_action beyond its own caps (``kernel_emit``,
-    ``kernel_params``: ``MAX_A``, ``MAX_P``, ``MAX_RC``, ``MAX_PID``).
+    ``kernel_params`` of its in-kernel process_action: ``MAX_A``, ``MAX_P``,
+    ``MAX_RC``, ``MAX_PID``).
     ``Environment`` calls it when it is built, so that no cap first shows
     at a launch on the card."""
     E = len(world.spec.mass)
@@ -319,8 +320,9 @@ def check_fusable(world, outputs=None) -> None:
         raise NotImplementedError(f"the fused kernel takes at most {K.MAX_A} policy agents (MAX_A), this world has "
                                   f"{A}")
     outputs.kernel_emit()
-    if int(outputs.n_ctrl):
-        outputs.process_act_rows.kernel_params()
+    hook = getattr(outputs, "process_act_rows", None)
+    if hook is not None:
+        hook.kernel_params()
     # the rows form's action slots: the policy agents, then the scripted
     # agents whose actions ride the action rows
     fit_lanes(world, outputs, A + len(getattr(outputs, "script_slots", ())))
@@ -391,7 +393,20 @@ class FusedOutputs:
           policy agent, the (x, y) rows of a step's output block that hold
           its u, so the final state's ``u`` is the hook pipeline's (the
           controller's output, not the decoded action).
-          ``attach_pid(pid)`` sets them all from a ``PidActRows``.
+          ``attach_pid(pid)`` sets them all from a ``PidActRows``. The
+          other kind is ``BallScriptActRows`` (football's ball script: no
+          carry rows, 2 output rows).
+      kernel_script_slots / kernel_script_u: scripted agents whose script
+          ``process_act_rows`` runs in the rows step (football's ball), and
+          per such agent ``(entity index, x row, y row)`` of a step's output
+          block holding its u, which the rows rollouts set as its final u.
+      decode_transform(us) -> us: the scenario's process_action rewrite of
+          the policy agents' decoded actions (football's red team mirrors
+          x), which the rows rollouts apply after the action noise.
+      rows_auto: False keeps ``rollout()`` on ``rollout_fn`` for this
+          config (the rows paths stay available explicitly).
+      pre_step_noop: True where the scenario overrides pre_step but the
+          override does nothing in this config.
     """
 
     n_scratch_in = 0
@@ -1120,11 +1135,14 @@ def rows_step_plain(world, outputs, act_slots, carry, act, k_steps=1):
     ks = _rows_kernel_spec(world)
     k_in, n_ctrl = int(outputs.n_scratch_in), int(outputs.n_ctrl)
     comps, jfr, _, scratch, ctrl = _split_rows(ks, carry, k_in, n_ctrl)
+    # the in-kernel process_action runs where the outputs have one (its
+    # carry rows may be none: the ball script's)
+    hooked = getattr(outputs, "process_act_rows", None) is not None
     A2 = 2 * len(act_slots)
     blocks = []
     for k in range(k_steps):
         extra, hook_rows = _step_rows(ks, comps, jfr, scratch, outputs, act_slots, act[k * A2:(k + 1) * A2],
-                                      ctrl if n_ctrl else None)
+                                      ctrl if hooked else None)
         scratch = [scratch[i] if ei is None else extra[int(ei)] for i, ei in enumerate(outputs.carry_extra_idx)]
         blocks += extra + hook_rows
     return torch.stack([r for comp in comps for r in comp] + jfr + scratch + ctrl), torch.stack(blocks)
@@ -1215,6 +1233,7 @@ class PidActRows:
             if len(self.slots) > K.MAX_PID:
                 raise NotImplementedError(f"the fused kernel's PID takes at most {K.MAX_PID} agents")
             ap = K.ActParams()
+            ap.kind = K.ACT_PID
             ap.n_pid = len(self.slots)
             for i, e in enumerate(self.slots):
                 dt, gain, mass, use_i, inv_ti, cutoff, td = self.params[i]
@@ -1227,6 +1246,58 @@ class PidActRows:
                 ap.use_i[i], ap.inv_ti[i] = use_i, inv_ti
                 ap.has_cutoff[i], ap.cutoff[i] = cutoff is not None, cutoff or 0.0
                 ap.td[i] = td
+            self._kernel_params = ap
+        return self._kernel_params
+
+
+class BallScriptActRows:
+    """``process_act_rows`` of football's rows step: the ball's anti-stall
+    script (the JAX package's FootballOutputs.process_act_rows and
+    ball_action_script, op for op). From the ball's position and vertical
+    speed after the action override: per wall, 1 - min(distance,
+    dist_thres) / dist_thres; the vertical factor 1 - min(|vy|, vel_thres)
+    / vel_thres; the impulse ((left - right) * vv * impulse, (lower - upper)
+    * vv * impulse), its x set to 0 inside the goal mouth. It writes the
+    ball's force rows and returns them as 2 rows; it carries no rows of its
+    own. The ball's action script computes its u with ``impulse`` too, so
+    ``env.step`` and the rows step agree bitwise. ``kernel_params`` gives
+    the kernel's ``ball_act`` the same constants."""
+
+    n_ctrl = 0
+    n_ctrl_out = 2
+
+    def __init__(self, ball, dist_thres, vel_thres, impulse, pw_half, pl_half, y_goal):
+        self.ball = ball
+        self.consts = tuple(float(v) for v in (dist_thres, vel_thres, impulse, pw_half, pl_half, y_goal))
+        self._kernel_params = None
+
+    def impulse(self, pos_x, pos_y, vel_y):
+        """The ball's (ax, ay) from its position and vertical speed rows,
+        the divisions IEEE divisions (``_div``)."""
+        dist_thres, vel_thres, impulse, pw_half, pl_half, y_goal = self.consts
+        wall = lambda d: 1.0 - _div(torch.clamp(d, max=dist_thres), dist_thres)
+        upper, lower = wall(pw_half - pos_y), wall(pw_half + pos_y)
+        right, left = wall(pl_half - pos_x), wall(pl_half + pos_x)
+        vertical_vel = 1.0 - _div(torch.clamp(torch.abs(vel_y), max=vel_thres), vel_thres)
+        ax = (left - right) * vertical_vel * impulse
+        ay = (lower - upper) * vertical_vel * impulse
+        goal_mask = (pos_y < y_goal) & (pos_y > -y_goal)
+        return torch.where(goal_mask, 0.0, ax), ay
+
+    def __call__(self, ctx):
+        e = self.ball.index
+        px, py, vy, fx, fy = ctx["px"], ctx["py"], ctx["vy"], ctx["fx"], ctx["fy"]
+        ax, ay = self.impulse(px[e], py[e], vy[e])
+        fx[e], fy[e] = ax, ay
+        return [ax, ay]
+
+    def kernel_params(self) -> K.ActParams:
+        if self._kernel_params is None:
+            ap = K.ActParams()
+            ap.kind = K.ACT_BALL
+            b = ap.ball
+            b.slot = self.ball.index
+            b.dist_thres, b.vel_thres, b.impulse, b.pw_half, b.pl_half, b.y_goal = self.consts
             self._kernel_params = ap
         return self._kernel_params
 
@@ -1245,7 +1316,7 @@ def _emit_params(outputs):
     return outputs.kernel_emit()
 
 
-_NO_ACT = K.ActParams()  # n_pid = 0: no in-kernel process_action
+_NO_ACT = K.ActParams()  # kind ACT_NONE: no in-kernel process_action
 
 
 def _check_smem(lib, ks, spec_c, rows_mode, n_ctrl, n_tot):
@@ -1273,7 +1344,7 @@ def _launch(ks, spec_c, outputs, x, act, out, extra, rows_mode, k_steps=1, act_p
     B = x.shape[1]
     table = ks.pair_table(x.device)
     with torch.cuda.device(x.device):
-        _check_smem(lib, ks, spec_c, rows_mode, 4 * int(act_params.n_pid), int(n_tot))
+        _check_smem(lib, ks, spec_c, rows_mode, K.act_ctrl_rows(act_params), int(n_tot))
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.vmas_fused_step(
             spec_c, ep, act_params, kind, ks.lanes, table.data_ptr(), x.data_ptr(),
@@ -1360,8 +1431,11 @@ def rows_step_supported(world, outputs, agents) -> bool:
     script computable over the horizon up front (``script_slots`` and
     ``script_us``: flocking's circling target, a function of its step
     counter alone), for holonomic, noise-free scripted agents; their
-    actions then ride the action rows as the policy agents' do. Scripts
-    that run inside the kernel (``kernel_script_slots``) are not taken."""
+    actions then ride the action rows as the policy agents' do; or where
+    they declare the script run inside the kernel (``kernel_script_slots``:
+    football's ball, a function of its own rows), which needs the outputs'
+    in-kernel ``process_act_rows``. Every scripted agent must be one or the
+    other."""
     from vmas_tpu_torch.dynamics.holonomic import Holonomic
 
     if outputs is None or not supports(world):
@@ -1379,11 +1453,13 @@ def rows_step_supported(world, outputs, agents) -> bool:
             return False
     scripted = world.scripted_agents
     if scripted:
-        if getattr(outputs, "kernel_script_slots", ()):
+        pre_slots = set(getattr(outputs, "script_slots", ()))
+        kern_slots = set(getattr(outputs, "kernel_script_slots", ()))
+        if {a.index for a in scripted} != pre_slots | kern_slots:
             return False
-        if {a.index for a in scripted} != set(getattr(outputs, "script_slots", ())):
+        if pre_slots and not callable(getattr(outputs, "script_us", None)):
             return False
-        if not callable(getattr(outputs, "script_us", None)):
+        if kern_slots and getattr(outputs, "process_act_rows", None) is None:
             return False
         for a in scripted:
             if type(a.dynamics) is not Holonomic or np.any(a.u_noise_array > 0):
@@ -1443,7 +1519,8 @@ def make_rows_step(world, outputs, act_slots, k_steps=1):
         raise ValueError(f"k_steps must be at least 1, got {k_steps}")
     ks = _rows_kernel_spec(world)
     spec_c = ks.to_ctypes(int(outputs.n_scratch_in), act_slots)
-    act_params = outputs.process_act_rows.kernel_params() if outputs.n_ctrl else _NO_ACT
+    hook = getattr(outputs, "process_act_rows", None)
+    act_params = hook.kernel_params() if hook is not None else _NO_ACT
 
     def step(carry, act, extra_out=None, carry_out=None):
         global rows_step_launches

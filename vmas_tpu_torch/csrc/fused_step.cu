@@ -105,8 +105,11 @@ enum {
   EMIT_SPEAKER_LISTENER = 13, EMIT_SIMPLE_WORLD_COMM = 14, EMIT_REVERSE_TRANSPORT = 15, EMIT_WHEEL = 16,
   EMIT_PASSAGE = 17, EMIT_DISPERSION = 18, EMIT_DROPOUT = 19, EMIT_HET_MASS = 20, EMIT_BUZZ_WIRE = 21,
   EMIT_BALL_TRAJECTORY = 22, EMIT_BALL_PASSAGE = 23, EMIT_JOINT_PASSAGE_SIZE = 24, EMIT_NAVIGATION = 25,
-  EMIT_FLOCKING = 26, EMIT_DISCOVERY = 27,
+  EMIT_FLOCKING = 26, EMIT_DISCOVERY = 27, EMIT_FOOTBALL = 28,
 };
+
+// the rows form's in-kernel process_action (ActParams.kind)
+enum { ACT_NONE = 0, ACT_PID = 1, ACT_BALL = 2 };
 
 // The per-entity constants, one block of E words per field in the table
 // buffer from FusedSpec.o_ent: field f of entity e at o_ent + f * E + e (the
@@ -380,6 +383,16 @@ struct DiscoveryParams {
   int with_coll;
 };
 
+// football: the policy agents with their team (1: blue), both teams'
+// entities, the ball, the score's and the shaping's constants, and which
+// dense terms (per team) and observation blocks the config has
+struct FootballParams {
+  int n_agents, n_blue, n_red, ball;
+  int agent[MAX_A], blue[MAX_A], blue_i[MAX_A], red_i[MAX_A];
+  float gx, x_over, y_goal, scoring, f_goal, f_agent, trigger;
+  int dense_blue, dense_red, obs_adv, obs_team;
+};
+
 // A launch runs one emit and reads only its parameters: a union, each
 // scenario's kernel_emit() filling its own member.
 struct EmitParams {
@@ -412,14 +425,24 @@ struct EmitParams {
     NavigationParams navigation;
     FlockingParams flocking;
     DiscoveryParams discovery;
+    FootballParams football;
   };
 };
 
-// The rows form's in-kernel process_action (fused.py PidActRows): per
-// PID-controlled agent its entity slot, the optional clamp of u to u_rng,
-// min_in (0: no zeroing) and the VelocityController's constants. n_pid = 0
-// runs no hook (the fused step, and the rows step of the other scenarios).
+// football's ball script (fused.py BallScriptActRows): the ball's entity and
+// the script's constants
+struct BallScriptParams {
+  int slot;
+  float dist_thres, vel_thres, impulse, pw_half, pl_half, y_goal;
+};
+
+// The rows form's in-kernel process_action, of kind `kind`: ACT_NONE runs
+// none (the fused step, and the rows step of most scenarios); ACT_PID the
+// PID velocity controller (fused.py PidActRows): per PID-controlled agent its
+// entity slot, the optional clamp of u to u_rng, min_in (0: no zeroing) and
+// the VelocityController's constants; ACT_BALL football's ball script.
 struct ActParams {
+  int kind;
   int n_pid;
   int slot[MAX_PID], clamp[MAX_PID];
   float u_rng[MAX_PID], min_in[MAX_PID], dt[MAX_PID], gain[MAX_PID], mass[MAX_PID];
@@ -427,7 +450,16 @@ struct ActParams {
   float inv_ti[MAX_PID];
   int has_cutoff[MAX_PID];
   float cutoff[MAX_PID], td[MAX_PID];
+  BallScriptParams ball;
 };
+
+// The carry rows of the in-kernel process_action (the PID's memory: 4 per
+// agent) and its output rows after each step's emit rows (the PID's forces,
+// 2 per agent; the ball's u, 2).
+__host__ __device__ inline int act_ctrl_rows(const ActParams& ap) { return ap.kind == ACT_PID ? 4 * ap.n_pid : 0; }
+__host__ __device__ inline int act_out_rows(const ActParams& ap) {
+  return ap.kind == ACT_PID ? 2 * ap.n_pid : (ap.kind == ACT_BALL ? 2 : 0);
+}
 
 // The kernel's parameters by value: the three structs, five pointers and
 // three ints, within the 4 KB that every CUDA 12 toolkit takes.
@@ -689,6 +721,44 @@ __device__ __forceinline__ void pid_act(const ActParams& ap, float* fx, float* f
     hook[(2 * i) * B + b] = ox;
     hook[(2 * i + 1) * B + b] = oy;
   }
+}
+
+// min(x, m) as torch.clamp(x, max=m) takes it (a NaN x stays NaN)
+__device__ __forceinline__ float clamp_max(float x, float m) { return x > m ? m : x; }
+
+// fused.py BallScriptActRows (football's ball_action_script), op for op: per
+// wall 1 - min(distance, dist_thres) / dist_thres, the vertical factor
+// 1 - min(|vy|, vel_thres) / vel_thres, the impulse ((left - right) * vv *
+// impulse, (lower - upper) * vv * impulse) with its x set to 0 inside the
+// goal mouth, from the ball's rows after the action override. It replaces
+// the ball's force rows and goes to the hook rows (row stride B).
+__device__ __forceinline__ void ball_act(const BallScriptParams& p, const float* px, const float* py,
+                                         const float* vy, float* fx, float* fy, float* hook, int B, int b) {
+  const int e = p.slot;
+  const float pos_x = px[e], pos_y = py[e], vel_y = vy[e];
+  const float dt = p.dist_thres;
+  const float upper = 1.f - clamp_max(p.pw_half - pos_y, dt) / dt;
+  const float lower = 1.f - clamp_max(p.pw_half + pos_y, dt) / dt;
+  const float right = 1.f - clamp_max(p.pl_half - pos_x, dt) / dt;
+  const float left = 1.f - clamp_max(p.pl_half + pos_x, dt) / dt;
+  const float vv = 1.f - clamp_max(fabsf(vel_y), p.vel_thres) / p.vel_thres;
+  float ax = (left - right) * vv * p.impulse;
+  const float ay = (lower - upper) * vv * p.impulse;
+  if ((pos_y < p.y_goal) && (pos_y > -p.y_goal)) ax = 0.f;
+  fx[e] = ax;
+  fy[e] = ay;
+  hook[b] = ax;
+  hook[B + b] = ay;
+}
+
+// The scenario's in-kernel process_action of kind ap.kind (the same for
+// every thread): it reads the rows after the action override, rewrites the
+// force rows and writes its output rows to hook (row stride B).
+__device__ __forceinline__ void run_act(const ActParams& ap, const float* px, const float* py, const float* vx,
+                                        const float* vy, float* fx, float* fy, float* ctrl, float* hook, int B,
+                                        int b) {
+  if (ap.kind == ACT_PID) pid_act(ap, fx, fy, vx, vy, ctrl, hook, B, b);
+  else if (ap.kind == ACT_BALL) ball_act(ap.ball, px, py, vy, fx, fy, hook, B, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -2720,6 +2790,134 @@ struct DiscoveryEmit {
   }
 };
 
+// football's dense term of one team (FootballOutputs.emit's dense): the
+// ball-to-goal shaping against the goal at (gs * gx, 0), the team's agent
+// nearest the ball (a running minimum in team order), and the agent shaping
+// where no agent is within the trigger and the ball is at rest. Writes
+// pos_rew, pos_rew_agent, the two new shapings and the distance to out5;
+// returns pos_rew + pos_rew_agent.
+__device__ __forceinline__ float football_dense(const FootballParams& p, const float* px, const float* py,
+                                                float bpx, float bpy, float bvx, float bvy, const int* team, int n,
+                                                float gs, float prev0, float prev1, float* out5) {
+  const float dist_goal = nrm(bpx - gs * p.gx, bpy);
+  const float pos_shaping = dist_goal * p.f_goal;
+  const float pos_rew = prev0 - pos_shaping;
+  float min_dist = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const float d = nrm(px[team[i]] - bpx, py[team[i]] - bpy);
+    min_dist = i == 0 ? d : fminf(min_dist, d);
+  }
+  const float agent_shaping = min_dist * p.f_agent;
+  const bool ball_moving = nrm(bvx, bvy) > 1e-6f;
+  const bool close = min_dist < p.trigger;
+  const float pos_rew_agent = (close || ball_moving) ? 0.f : prev1 - agent_shaping;
+  out5[0] = pos_rew;
+  out5[1] = pos_rew_agent;
+  out5[2] = pos_shaping;
+  out5[3] = agent_shaping;
+  out5[4] = min_dist;
+  return pos_rew + pos_rew_agent;
+}
+
+// vmas_tpu/scenarios/football.py FootballOutputs.emit, row for row: per
+// policy agent its observation (its force, pos - ball, vel - ball vel, ball
+// - goal, ball vel, ball force, pos - goal, vel, then per adversary and per
+// teammate pos and vel differences, its vel and its force), the red team's
+// x rows negated (an exact negation: -(a - b), and -a - gx); then
+// sparse_blue (the ball over a goal line by ball_size / 2 within the mouth),
+// dense_blue, dense_red and done; then 5 rows per dense team. It reads the
+// force rows too: its signature is its own (run_emit). Scratch in: the
+// previous two shapings per dense team. One lane writes all the rows (350
+// for two teams of 3).
+struct FootballEmit {
+  __device__ __forceinline__ static void emit(const EmitParams& ep, const float* px, const float* py,
+                                              const float* vx, const float* vy, const float* fx, const float* fy,
+                                              const float* scratch, float* o, int B, int b) {
+    const FootballParams& p = ep.football;
+    const int bi = p.ball;
+    const float bpx = px[bi], bpy = py[bi], bvx = vx[bi], bvy = vy[bi];
+    const bool goal_mask = (bpy <= p.y_goal) && (bpy >= -p.y_goal);
+    const bool blue_score = (bpx > p.x_over) && goal_mask;
+    const bool red_score = (bpx < -p.x_over) && goal_mask;
+    const float sparse = p.scoring * (blue_score ? 1.f : 0.f) - p.scoring * (red_score ? 1.f : 0.f);
+    float dense_rows[10];
+    float dense_b = 0.f, dense_r = 0.f;
+    int k = 0, nd = 0;
+    if (p.dense_blue) {
+      dense_b = football_dense(p, px, py, bpx, bpy, bvx, bvy, p.blue_i, p.n_blue, 1.f, scratch[k], scratch[k + 1],
+                               dense_rows + nd);
+      k += 2;
+      nd += 5;
+    }
+    if (p.dense_red) {
+      dense_r = football_dense(p, px, py, bpx, bpy, bvx, bvy, p.red_i, p.n_red, -1.f, scratch[k], scratch[k + 1],
+                               dense_rows + nd);
+      nd += 5;
+    }
+    int r = 0;
+    for (int s = 0; s < p.n_agents; ++s) {
+      const int ai = p.agent[s];
+      const bool blue = p.blue[s] != 0;
+      const auto sx = [blue](float v) { return blue ? v : -v; };
+      o[(r++) * B + b] = sx(fx[ai]);
+      o[(r++) * B + b] = fy[ai];
+      o[(r++) * B + b] = sx(px[ai] - bpx);
+      o[(r++) * B + b] = py[ai] - bpy;
+      o[(r++) * B + b] = sx(vx[ai] - bvx);
+      o[(r++) * B + b] = vy[ai] - bvy;
+      o[(r++) * B + b] = sx(bpx) - p.gx;
+      o[(r++) * B + b] = bpy;
+      o[(r++) * B + b] = sx(bvx);
+      o[(r++) * B + b] = bvy;
+      o[(r++) * B + b] = sx(fx[bi]);
+      o[(r++) * B + b] = fy[bi];
+      o[(r++) * B + b] = sx(px[ai]) - p.gx;
+      o[(r++) * B + b] = py[ai];
+      o[(r++) * B + b] = sx(vx[ai]);
+      o[(r++) * B + b] = vy[ai];
+      // the adversaries, then the teammates but the agent itself
+      const int* other = blue ? p.red_i : p.blue_i;
+      const int* team = blue ? p.blue_i : p.red_i;
+      const int n_other = p.obs_adv ? (blue ? p.n_red : p.n_blue) : 0;
+      const int n_team = p.obs_team ? (blue ? p.n_blue : p.n_red) : 0;
+      for (int q = 0; q < n_other + n_team; ++q) {
+        const int oi = q < n_other ? other[q] : team[q - n_other];
+        if (oi == ai) continue;
+        o[(r++) * B + b] = sx(px[ai] - px[oi]);
+        o[(r++) * B + b] = py[ai] - py[oi];
+        o[(r++) * B + b] = sx(vx[ai] - vx[oi]);
+        o[(r++) * B + b] = vy[ai] - vy[oi];
+        o[(r++) * B + b] = sx(vx[oi]);
+        o[(r++) * B + b] = vy[oi];
+        o[(r++) * B + b] = sx(fx[oi]);
+        o[(r++) * B + b] = fy[oi];
+      }
+    }
+    o[(r++) * B + b] = sparse;
+    o[(r++) * B + b] = dense_b;
+    o[(r++) * B + b] = dense_r;
+    o[(r++) * B + b] = (blue_score || red_score) ? 1.f : 0.f;
+    for (int q = 0; q < nd; ++q) o[(r++) * B + b] = dense_rows[q];
+  }
+};
+
+// An emit's call: the emits read the entities' positions, velocities,
+// rotations and angular velocities; football's reads the force rows too.
+template <class Emit>
+__device__ __forceinline__ void run_emit(const EmitParams& ep, const float* px, const float* py, const float* vx,
+                                         const float* vy, const float* rot, const float* w, const float*,
+                                         const float*, const float* scratch, float* o, int B, int b) {
+  Emit::emit(ep, px, py, vx, vy, rot, w, scratch, o, B, b);
+}
+
+template <>
+__device__ __forceinline__ void run_emit<FootballEmit>(const EmitParams& ep, const float* px, const float* py,
+                                                       const float* vx, const float* vy, const float*,
+                                                       const float*, const float* fx, const float* fy,
+                                                       const float* scratch, float* o, int B, int b) {
+  FootballEmit::emit(ep, px, py, vx, vy, fx, fy, scratch, o, B, b);
+}
+
 // ---------------------------------------------------------------------------
 // the kernel, in both forms
 // ---------------------------------------------------------------------------
@@ -2768,7 +2966,7 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, c
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int E = sp.E;
-  const int n_ctrl = ROWS ? 4 * ap.n_pid : 0;
+  const int n_ctrl = ROWS ? act_ctrl_rows(ap) : 0;
   const Smem m = smem_layout(sp, ROWS, n_ctrl, n_rows_out, L);
   constexpr int G = NT / L;
   const int tid = threadIdx.x, env0 = blockIdx.x * G;
@@ -2834,7 +3032,7 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, c
           s.fx[e] = sh_act[i * G + g];
           s.fy[e] = sh_act[(sp.n_act + i) * G + g];
         }
-        if (ap.n_pid) pid_act(ap, s.fx, s.fy, s.vx, s.vy, ctrl, sh_out + (n_rows_out - 2 * ap.n_pid) * G, G, g);
+        run_act(ap, s.px, s.py, s.vx, s.vy, s.fx, s.fy, ctrl, sh_out + (n_rows_out - act_out_rows(ap)) * G, G, g);
       }
       __syncwarp(ln.mask);
     }
@@ -2843,7 +3041,7 @@ fused_step_kernel(const FusedSpec sp, const EmitParams ep, const ActParams ap, c
 
     // the emit rows, on one lane of each group, into the block's output rows
     if (ln.lane == 0) {
-      Emit::emit(ep, s.px, s.py, s.vx, s.vy, s.rot, s.w, scratch, sh_out, G, g);
+      run_emit<Emit>(ep, s.px, s.py, s.vx, s.vy, s.rot, s.w, s.fx, s.fy, scratch, sh_out, G, g);
       if (ROWS) {
         // the scratch rows carry the emit rows the scenario names
         for (int k = 0; k < sp.K_in; ++k) {
@@ -2908,7 +3106,7 @@ fused_step_kernel_thread(const FusedSpec sp, const EmitParams ep, const ActParam
   const int o_scr = 9 * E + sp.J + (ROWS ? 0 : 2 * E * sp.dyn_g);
   for (int k = 0; k < sp.K_in; ++k) scratch[k] = x[(o_scr + k) * B + b];
   // the controller rows follow the scratch rows in the carry
-  const int n_ctrl = ROWS ? 4 * ap.n_pid : 0;
+  const int n_ctrl = ROWS ? act_ctrl_rows(ap) : 0;
   for (int k = 0; k < n_ctrl; ++k) ctrl[k] = x[(9 * E + sp.J + sp.K_in + k) * B + b];
 
   // the fused form runs one step: a constant bound lets the compiler drop
@@ -2927,8 +3125,8 @@ fused_step_kernel_thread(const FusedSpec sp, const EmitParams ep, const ActParam
         fx[e] = a[i * B + b];
         fy[e] = a[(sp.n_act + i) * B + b];
       }
-      // the scenario's process_action (n_pid is the same for every thread)
-      if (ap.n_pid) pid_act(ap, fx, fy, vx, vy, ctrl, blk + (size_t)(n_tot - 2 * ap.n_pid) * B, B, b);
+      // the scenario's process_action (its kind is the same for every thread)
+      run_act(ap, px, py, vx, vy, fx, fy, ctrl, blk + (size_t)(n_tot - act_out_rows(ap)) * B, B, b);
     }
 
     physics_thread(sp, tab, ent, x + (size_t)9 * E * B, x + (size_t)(9 * E + sp.J) * B, B, b, px, py, vx, vy, rot,
@@ -2937,7 +3135,7 @@ fused_step_kernel_thread(const FusedSpec sp, const EmitParams ep, const ActParam
     // the emit rows follow the state rows (fused step) or open this step's
     // block (rows step)
     float* emit_rows = ROWS ? blk : out + (size_t)9 * E * B;
-    Emit::emit(ep, px, py, vx, vy, rot, w, scratch, emit_rows, B, b);
+    run_emit<Emit>(ep, px, py, vx, vy, rot, w, fx, fy, scratch, emit_rows, B, b);
     if (ROWS) {
       // the scratch rows carry the emit rows the scenario names (this
       // thread wrote them)
@@ -3040,23 +3238,26 @@ int vmas_max_smem() { return max_smem_optin(); }
 // tab: the world's joint and pair tables and lane lists (int32 words,
 // FusedSpec's offsets, spec->n_tab of them). rows_mode = 0: x [9E + J (+ 2E
 // with spec->dyn_g) + K_in, B] -> out [9E + n_tot, B] (n_tot: the emit's
-// rows), k_steps 1, ap->n_pid 0. rows_mode = 1: x = carry [R_in, B], act
-// [k_steps * 2A, B] -> out = carry' [R_in, B], extra [k_steps * n_tot, B]
-// (per step n_out emit rows, then 2 * ap->n_pid hook rows); it needs an emit
-// and takes no dynamic gravity. An unknown emit kind or lane count, a
-// k_steps, n_pid or n_tot out of range, or a block's shared memory beyond
-// the device's limit returns cudaErrorInvalidValue; else cudaGetLastError().
+// rows), k_steps 1, ap->kind ACT_NONE. rows_mode = 1: x = carry [R_in, B],
+// act [k_steps * 2A, B] -> out = carry' [R_in, B], extra [k_steps * n_tot, B]
+// (per step n_out emit rows, then act_out_rows(*ap) hook rows: 2 per PID
+// agent, or the ball's 2); it needs an emit and takes no dynamic gravity. An
+// unknown emit kind, act kind or lane count, a k_steps, n_pid, ball slot or
+// n_tot out of range, or a block's shared memory beyond the device's limit
+// returns cudaErrorInvalidValue; else cudaGetLastError().
 int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams* ap, int emit_kind, int lanes,
                     const int* tab, const float* x, const float* act, float* out, float* extra, int B,
                     int rows_mode, int k_steps, int n_tot, void* stream) {
   if (k_steps < 1 || ap->n_pid < 0 || ap->n_pid > MAX_PID || n_tot < 0) return cudaErrorInvalidValue;
-  if (!rows_mode && (k_steps != 1 || ap->n_pid != 0)) return cudaErrorInvalidValue;
-  if (rows_mode && (n_tot < 2 * ap->n_pid || spec->dyn_g)) return cudaErrorInvalidValue;
+  if (ap->kind != ACT_NONE && ap->kind != ACT_PID && ap->kind != ACT_BALL) return cudaErrorInvalidValue;
+  if (ap->kind == ACT_BALL && (ap->ball.slot < 0 || ap->ball.slot >= spec->E)) return cudaErrorInvalidValue;
+  if (!rows_mode && (k_steps != 1 || ap->kind != ACT_NONE)) return cudaErrorInvalidValue;
+  if (rows_mode && (n_tot < act_out_rows(*ap) || spec->dyn_g)) return cudaErrorInvalidValue;
   if (lanes != 1 && lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) return cudaErrorInvalidValue;
 #ifndef VMAS_FUSED_ALL_LANES
   if (lanes != 1 && lanes != 8) return cudaErrorInvalidValue;
 #endif
-  const size_t smem = (size_t)vmas_fused_smem(spec, lanes, rows_mode, rows_mode ? 4 * ap->n_pid : 0, n_tot);
+  const size_t smem = (size_t)vmas_fused_smem(spec, lanes, rows_mode, rows_mode ? act_ctrl_rows(*ap) : 0, n_tot);
   if (smem > (size_t)max_smem_optin()) return cudaErrorInvalidValue;
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -3088,6 +3289,7 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     if (emit_kind == EMIT_JOINT_PASSAGE_SIZE) return LAUNCH(true, JointPassageSizeEmit);
     if (emit_kind == EMIT_NAVIGATION) return LAUNCH(true, NavigationEmit);
     if (emit_kind == EMIT_FLOCKING) return LAUNCH(true, FlockingEmit);
+    if (emit_kind == EMIT_FOOTBALL) return LAUNCH(true, FootballEmit);
   } else {
     if (emit_kind == EMIT_NONE) return LAUNCH(false, NoEmit);
     if (emit_kind == EMIT_TRANSPORT) return LAUNCH(false, TransportEmit);
@@ -3117,6 +3319,7 @@ int vmas_fused_step(const FusedSpec* spec, const EmitParams* ep, const ActParams
     if (emit_kind == EMIT_NAVIGATION) return LAUNCH(false, NavigationEmit);
     if (emit_kind == EMIT_FLOCKING) return LAUNCH(false, FlockingEmit);
     if (emit_kind == EMIT_DISCOVERY) return LAUNCH(false, DiscoveryEmit);
+    if (emit_kind == EMIT_FOOTBALL) return LAUNCH(false, FootballEmit);
   }
 #undef LAUNCH
   return cudaErrorInvalidValue;

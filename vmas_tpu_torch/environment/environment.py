@@ -385,17 +385,24 @@ class Environment:
             )
         return self._spaces["action"]
 
+    def get_agent_observation_space(self, agent: Agent, obs):
+        """The agent's observation space from one observation of it: a Box
+        of its per-env shape, or a Dict of them where the scenario observes
+        a dict (football's ``dict_obs``)."""
+        from gymnasium import spaces
+
+        if isinstance(obs, dict):
+            return spaces.Dict({k: self.get_agent_observation_space(agent, v) for k, v in obs.items()})
+        return spaces.Box(low=-np.float32("inf"), high=np.float32("inf"), shape=tuple(obs.shape[1:]),
+                          dtype=np.float32)
+
     @property
     def observation_space(self):
         if "observation" not in self._spaces:
             from gymnasium import spaces
 
             obs = self._observations(self.state)
-            per_agent = [
-                spaces.Box(low=-np.float32("inf"), high=np.float32("inf"),
-                           shape=tuple(o.shape[1:]), dtype=np.float32)
-                for o in obs
-            ]
+            per_agent = [self.get_agent_observation_space(a, o) for a, o in zip(self.agents, obs)]
             self._spaces["observation"] = (
                 spaces.Dict({a.name: s for a, s in zip(self.agents, per_agent)})
                 if self.dict_spaces else spaces.Tuple(per_agent)

@@ -7,11 +7,13 @@ the other way. The dict holds the fields ``pos``, ``vel``, ``rot``,
 agent), ``uc``, ``joint_fixed_rot``, ``rendering`` and, in a world with
 dynamic gravity, ``dyn_gravity``, and the ``scenario`` scratch dict, whose
 values are arrays or dicts of them (a velocity controller's memory,
-``{"accum_errs", "prev_err"}``). This is how a state
-made elsewhere (another simulator, a recording, a test) is injected. A
-scratch entry named in ``KEY_SCRATCH`` (the JAX package's PRNG key of
-discovery's respawn, ``rng``) is left behind: the port draws its respawn
-from the environment's generator at each step.
+``{"accum_errs", "prev_err"}``; football's team AI, ``ai_Red`` /
+``ai_Blue``). This is how a state made elsewhere (another simulator, a
+recording, a test) is injected. A scratch entry named in ``KEY_SCRATCH``
+(the JAX package's PRNG keys: discovery's respawn key ``rng``, and the
+step's observation key ``__obs_key``, from which its football AI draws) is
+left behind: the port draws from the environment's generator at each
+step.
 
 ``actor_critic_from_numpy(params)`` builds the PPO actor-critic
 (``parallel.ppo.ActorCritic``) from the JAX package's ``init_actor_critic``
@@ -29,7 +31,7 @@ from vmas_tpu_torch.core.state import WorldState
 
 FIELDS = ("pos", "vel", "rot", "ang_vel", "force", "torque", "c", "uc", "joint_fixed_rot", "rendering")
 # scratch entries that hold another package's random key, not state
-KEY_SCRATCH = ("rng",)
+KEY_SCRATCH = ("rng", "__obs_key")
 
 
 def _tensor(a, device):

@@ -48,7 +48,12 @@ chunk); the policy rollout refuses such envs, as the JAX package's does.
 Scripted agents whose actions are a function of the step alone
 (``script_slots``/``script_us``: flocking's circling target) have them
 computed for the horizon up front and ride the action rows after the
-policy agents'.
+policy agents'. A script that runs inside the kernel
+(``kernel_script_slots``: football's ball) gets its final u from the last
+step's output rows (``kernel_script_u``), and a scenario's rewrite of the
+decoded actions (``decode_transform``: football's red team mirrors x) is
+applied after the action noise on both rows paths, where ``env.step``'s
+``process_action`` applies it.
 """
 
 from __future__ import annotations
@@ -115,6 +120,16 @@ def _stack_tree(xs):
     return torch.stack(xs)
 
 
+def _where_tree(mask, a, b):
+    """``a`` where the [B] ``mask`` holds, else ``b``, leaf by leaf of two
+    pytrees of [B, ...] tensors (an agent's observation may be a dict)."""
+    if isinstance(a, dict):
+        return {k: _where_tree(mask, a[k], b[k]) for k in a}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_where_tree(mask, x, y) for x, y in zip(a, b))
+    return torch.where(mask.view((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+
 def _cat_tree(xs):
     """Pytrees of [T_i, ...] tensors -> one, concatenated over T."""
     x0 = xs[0]
@@ -165,16 +180,14 @@ def rollout_fn(env, policy: Optional[Callable] = None, horizon: int = 100,
             done = terminated | truncated
             if autoreset:
                 state, steps, obs_reset, _, _, _ = env._reset_fn(state, steps, g_step, done)
-                obs = tuple(
-                    torch.where(done.view((-1,) + (1,) * (o.ndim - 1)), o_r, o) for o, o_r in zip(obs, obs_reset)
-                )
+                obs = _where_tree(done, obs_reset, obs)
             rews.append(torch.stack(r, dim=-1))
             dones.append(done)
             obs_t.append(obs)
         traj = {
             "rewards": torch.stack(rews),
             "dones": torch.stack(dones),
-            "obs": tuple(torch.stack([o[i] for o in obs_t]) for i in range(len(env.agents))),
+            "obs": tuple(_stack_tree([o[i] for o in obs_t]) for i in range(len(env.agents))),
         }
         if policy_aux:
             traj["policy_aux"] = _stack_tree(auxs)
@@ -220,9 +233,11 @@ def rows_rollout_supported(env) -> bool:
     override is allowed where its outputs declare it a no-op for this
     config (``process_action_noop``) or realize it in the kernel's rows
     (``process_act_rows``: the PID velocity controller of give_way,
-    multi_give_way and joint_passage with ``use_controller=True``), and a
-    post_rewards override where they declare it ``post_rewards_rollout_safe``
-    (applied once to the final state). Speaking agents are allowed: their
+    multi_give_way and joint_passage with ``use_controller=True``, football's
+    ball script, with its red team's mirror as a ``decode_transform``), a
+    pre_step override where they declare it a no-op for this config
+    (``pre_step_noop``), and a post_rewards override where they declare it
+    ``post_rewards_rollout_safe`` (applied once to the final state). Speaking agents are allowed: their
     comm actions are decoded with the physical ones, and an ``unpack`` that
     reads the comm state (``unpack_reads = ("c",)``, where some policy agent
     speaks) gets the per-step ``c``; one that reads the actions (``"u"``)
@@ -235,7 +250,9 @@ def rows_rollout_supported(env) -> bool:
     (``"state"``: a Lidar) is eligible alone, the random-action path
     rebuilding each step's state from its carry rows; so are scripted
     agents whose outputs declare their actions computable up front
-    (``script_slots``, ``fused.rows_step_supported``). Not eligible, and run
+    (``script_slots``, ``fused.rows_step_supported``), and so are scripted
+    agents whose script runs in the kernel (``kernel_script_slots``). Not
+    eligible, and run
     through ``rollout_fn`` (the fused step, K1, per ``env.step``) instead:
     clamped actions, other scripted or non-holonomic agents, dynamic
     gravity, hooks the kernel does not replace (``finish_obs`` among them),
@@ -262,7 +279,7 @@ def rows_rollout_supported(env) -> bool:
         and reads <= {"c", "u", "obs_key", "state"}
         and ("state" not in reads or reads == {"state"})
         and ("c" not in reads or bool(speaks))
-        and sc.pre_step is BaseScenario.pre_step
+        and (sc.pre_step is BaseScenario.pre_step or getattr(fo, "pre_step_noop", False))
         and sc.post_step is BaseScenario.post_step
         and F.rows_step_supported(env.world, fo, env.agents)
     )
@@ -368,6 +385,17 @@ def _last_us(fo, us_last, extras):
     return [torch.stack([extras[-1, ix], extras[-1, iy]], dim=-1) for ix, iy in idx]
 
 
+def _kernel_script_us(world, fo, extras):
+    """The final u of each scripted agent whose script runs in the kernel
+    (football's ball): ``(agent, u)`` from the last step's output rows that
+    ``kernel_script_u`` names, ``(entity index, x row, y row)``."""
+    out = []
+    for e, ix, iy in getattr(fo, "kernel_script_u", ()):
+        agent = next(a for a in world.agents if a.index == int(e))
+        out.append((agent, torch.stack([extras[-1, int(ix)], extras[-1, int(iy)]], dim=-1)))
+    return out
+
+
 # env-steps per chunk of the rebuilt-state unpack: navigation's Lidar at
 # its defaults holds some 20 live [chunk, 3, 12, 2] f32 intermediates, each
 # 150 MB at this size
@@ -444,7 +472,8 @@ def _finish_rows_rollout(env, state, steps, carry, extras, us_t, horizon, ucs_la
         truncated = steps_t >= env.max_steps
     else:
         truncated = torch.zeros_like(terminated)
-    for a, u in list(zip(env.agents, _last_us(fo, us_last, extras))) + list(script_last):
+    for a, u in list(zip(env.agents, _last_us(fo, us_last, extras))) + list(script_last) + _kernel_script_us(
+            world, fo, extras):
         state_out = a.set_u(state_out, u)
     if any(uc is not None for uc in ucs_last):
         uc, c = state_out.uc.clone(), state_out.c.clone()
@@ -499,8 +528,9 @@ def _chunked_reset_rollout(env, run_chunk, horizon, reset_every):
 _NOT_ELIGIBLE = (
     "not eligible -- needs fused_physics=True, a fused-outputs scenario declaring carry_extra_idx, "
     "holonomic agents (continuous unclamped or discrete), no scripted agents unless declared "
-    "precomputable (script_slots), no post_rewards override unless declared post_rewards_rollout_safe, "
-    "no process_action override unless declared a no-op or realized in the kernel, no finish_obs, no "
+    "precomputable (script_slots) or run in the kernel (kernel_script_slots), no post_rewards override unless "
+    "declared post_rewards_rollout_safe, no process_action or pre_step override unless declared a no-op or "
+    "realized in the kernel, no finish_obs, no "
     "unpack_reads but the comm state, the actions, the observation noise or the state alone; use rollout_fn"
 )
 
@@ -535,6 +565,7 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
     A2 = 2 * len(act_slots)
     reads_c = "c" in getattr(fo, "unpack_reads", ())
     noisy = _noisy(env)
+    transform = getattr(fo, "decode_transform", None)
 
     def run(state, steps, generator):
         g_act, g_step = _fork(generator, 2)
@@ -544,6 +575,8 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
         if noisy:
             seeds, noise = env._step_draws(g_step, horizon)
             us, ucs = zip(*(env._add_noise(a, u, uc, n) for a, u, uc, n in zip(agents, us, ucs, noise)))
+        if transform is not None:
+            us = transform(us)
         script_us = list(fo.script_us(state, horizon)) if script_slots else []
         all_us = list(us) + script_us
         ax = torch.stack([u[..., 0] for u in all_us], dim=1)  # [T, A, B]
@@ -606,6 +639,7 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
     reads_c = "c" in getattr(fo, "unpack_reads", ())
     reads_u = "u" in getattr(fo, "unpack_reads", ())
     noisy = _noisy(env)
+    transform = getattr(fo, "decode_transform", None)
 
     def run(state, steps, generator):
         g_pol, g_step = _fork(generator, 2)
@@ -631,7 +665,9 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
                     us_t, ucs = zip(*(env._add_noise(a, u, uc, (at_t(nu), at_t(nc)))
                                       for a, u, uc, (nu, nc) in zip(agents, us_t, ucs, noise)))
                     env.scenario.obs_seed = seeds[t]
-                u = torch.stack(us_t)  # [A, B, 2]
+                if transform is not None:
+                    us_t = transform(us_t)
+                u = torch.stack(list(us_t))  # [A, B, 2]
                 # the action rows: x of every agent, then y
                 carry, _ = step(carry, u.permute(2, 0, 1).reshape(2 * A, B), extras[t])
                 # the policy at t+1 acts on the observations this step

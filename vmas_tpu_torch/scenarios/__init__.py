@@ -1,6 +1,6 @@
 """Scenario registry. ``balance``, ``ball_passage``, ``ball_trajectory``,
 ``buzz_wire``, ``discovery``, ``dispersion``, ``dropout``, ``flocking``,
-``give_way``, ``joint_passage``, ``joint_passage_size``,
+``football``, ``give_way``, ``joint_passage``, ``joint_passage_size``,
 ``multi_give_way``, ``navigation``, ``passage``, ``reverse_transport``,
 ``road_traffic``, ``transport``, ``wheel``, ``wind_flocking``, the MPE
 family (``simple``, ``simple_adversary``, ``simple_crypto``,
@@ -24,6 +24,7 @@ _PORTED = {
     "dispersion": "vmas_tpu_torch.scenarios.dispersion",
     "dropout": "vmas_tpu_torch.scenarios.dropout",
     "flocking": "vmas_tpu_torch.scenarios.flocking",
+    "football": "vmas_tpu_torch.scenarios.football",
     "give_way": "vmas_tpu_torch.scenarios.give_way",
     "het_mass": "vmas_tpu_torch.scenarios.debug.het_mass",
     "joint_passage": "vmas_tpu_torch.scenarios.joint_passage",

@@ -20,7 +20,9 @@ wheel, passage, dispersion, dropout, het_mass) with its contacts and
 events, and the count of those events in a step's rows; a state of each
 sensor world (navigation, flocking, discovery) with its Lidar hits,
 collisions, goals reached and targets covered, and their count in a
-step's rows.
+step's rows; a football state with goals scored, the ball at rest, near
+the walls and in the goal mouth, and agents against the walls, and the
+count of its events in a step's rows.
 The states are numpy dicts made from a seeded generator, so that both
 packages can load the same one. For road_traffic's path sweeps: lanes on
 centre-line vertices and padded tails, and on left-boundary vertices.
@@ -1321,4 +1323,111 @@ def sensor_events(env, y, extra):
     out = {"covered": int((extra[5 * A:5 * A + T] > 0.5).sum()), "covering": int((extra[4 * A:5 * A] > 0).sum())}
     if fo.coll_pen != 0:
         out["hits"] = int((extra[5 * A + T + 1:6 * A + T + 1] != 0).sum())
+    return out
+
+
+def football_state(env, rng):
+    """A numpy state dict of football in which its events occur, by env
+    class (env index mod 8), with agents in the pitch at random, random
+    velocities and forces, and every other env with an agent 0.5-3 mm clear
+    of a wall (line-sphere contacts) and two agents touching:
+
+    0. the ball just over the right goal line, inside the mouth (blue
+       scores); 1. over the left line, inside the mouth (red scores);
+    2. over the right line outside the mouth (no score);
+    3. the ball at rest with no force, every agent at least 0.5 from it (the
+       agent shaping live);
+    4. the ball within the wall distance of the top or bottom edge, with a
+       low vertical speed (the y impulse);
+    5. the ball within the wall distance of an end, outside the mouth, with
+       a low vertical speed (the x impulse);
+    6. the ball within the wall distance of an end inside the mouth (its x
+       impulse zeroed);
+    7. the ball at random.
+
+    The walls, goal parts and nets keep their reset poses; the previous
+    shapings are random."""
+    sc, st = env.scenario, env.state
+    B, E = st.pos.shape[:2]
+    pos = st.pos.cpu().numpy().astype(np.float64)
+    rot = st.rot.cpu().numpy().astype(np.float64)
+    vel = np.zeros((B, E, 2))
+    force = np.zeros((B, E, 2))
+    agents = [a for a in env.world.agents if a is not sc.ball]
+    ai = [a.index for a in agents]
+    hl, hw = sc.pitch_length / 2, sc.pitch_width / 2
+    xs, ys = hl - sc.agent_size, hw - sc.agent_size
+    pos[:, ai] = np.stack([rng.uniform(-xs, xs, (B, len(ai))), rng.uniform(-ys, ys, (B, len(ai)))], -1)
+    vel[:, ai] = rng.normal(0, 0.1, (B, len(ai), 2))
+    force[:, ai] = rng.normal(0, 0.05, (B, len(ai), 2))
+    bi = sc.ball.index
+    cls = np.arange(B) % 8
+    sign = np.where(rng.uniform(size=B) < 0.5, -1.0, 1.0)
+    yg, dt = sc.goal_size / 2, sc.agent_size * 2
+    bx = rng.uniform(-xs, xs, B)
+    by = rng.uniform(-ys, ys, B)
+    over = hl + sc.ball_size / 2 + rng.uniform(0.005, 0.03, B)
+    bx = np.where(cls == 0, over, bx)
+    bx = np.where(cls == 1, -over, bx)
+    bx = np.where(cls == 2, over, bx)
+    by = np.where((cls == 0) | (cls == 1), rng.uniform(-0.7, 0.7, B) * yg, by)
+    by = np.where(cls == 2, sign * rng.uniform(yg + 0.05, ys, B), by)
+    by = np.where(cls == 4, sign * (hw - rng.uniform(0.025, dt, B)), by)
+    bx = np.where((cls == 5) | (cls == 6), sign * (hl - rng.uniform(0.02, dt - 0.005, B)), bx)
+    by = np.where(cls == 5, np.where(rng.uniform(size=B) < 0.5, -1.0, 1.0) * rng.uniform(yg + 0.05, ys, B), by)
+    by = np.where(cls == 6, rng.uniform(-0.7, 0.7, B) * yg, by)
+    pos[:, bi] = np.stack([bx, by], -1)
+    bvel = rng.normal(0, 0.1, (B, 2))
+    bvel[cls == 3] = 0.0
+    vel[:, bi] = bvel
+    force[:, bi] = np.where((cls == 3)[:, None], 0.0, rng.normal(0, 0.02, (B, 2)))
+    # a resting ball at the centre spot, the agents within 0.5 of it moved
+    # out along x
+    rest = cls == 3
+    pos[rest, bi] = 0.0
+    px_ = pos[:, ai, 0]
+    close = rest[:, None] & (np.abs(px_) < 0.6)
+    pos[:, ai, 0] = np.where(close, np.where(px_ < 0, -1.0, 1.0) * rng.uniform(0.6, xs, px_.shape), px_)
+    # every other env: agent 0 against the right top wall, agents 1 and 2
+    # touching
+    near = np.arange(B) % 2 == 1
+    n = int(near.sum())
+    wall = sc.walls["Right Top Wall"].index
+    r0 = agents[0].shape.radius
+    wy = pos[near, wall, 1]
+    pos[near, ai[0]] = np.stack([hl - r0 - rng.uniform(5e-4, 3e-3, n),
+                                 wy + rng.uniform(-0.2, 0.2, n)], -1)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    d = agents[1].shape.radius + agents[2].shape.radius + rng.uniform(5e-4, 3e-3, n)
+    pos[near, ai[2]] = pos[near, ai[1]] + np.stack([np.cos(ang), np.sin(ang)], -1) * d[:, None]
+    out = _np_state(st, pos, rot, vel, np.zeros((B, E)), force)
+    for key in ("pos_shaping_blue", "pos_shaping_red"):
+        out["scenario"][key] = rng.uniform(5.0, 15.0, B).astype(np.float32)
+    for key in ("pos_shaping_agent_blue", "pos_shaping_agent_red"):
+        out["scenario"][key] = rng.uniform(0.0, 0.2, B).astype(np.float32)
+    return out
+
+
+def football_events(env, x, extra, hook=None):
+    """The events of one football step, from the step's input rows ``x``
+    [9E + ..., B] and its emit rows ``extra`` [n_out, B] (and, in the rows
+    form, its hook rows ``hook`` [2, B], the ball's impulse): goals scored
+    by each team, envs with the agent shaping live, envs done, and line-sphere
+    contacts (the plain version's); with ``hook``, envs with a non-zero
+    impulse and envs whose x impulse the goal mouth zeroed."""
+    fo, sc = env._fused_outputs, env.scenario
+    E = len(env.world.entities)
+    o = fo.base
+    out = {"blue_scores": int((extra[o] > 0).sum()), "red_scores": int((extra[o] < 0).sum()),
+           "done": int((extra[o + 3] > 0.5).sum()),
+           "agent_shaping": int(sum((extra[o + 4 + 5 * k + 1] != 0).sum() for k in range(fo.n_scratch_in // 2))),
+           "ls": F.contact_counts(env.world, x)["ls"]}
+    if hook is not None:
+        bi = sc.ball.index
+        px, py, vy = x[bi], x[E + bi], x[3 * E + bi]
+        y_far = torch.full_like(py, sc.goal_size / 2 + 0.3)
+        ax_raw = sc.ball_script.impulse(px, y_far, vy)[0]
+        mouth = (py < sc.goal_size / 2) & (py > -sc.goal_size / 2)
+        out["impulse"] = int(((hook[0] != 0) | (hook[1] != 0)).sum())
+        out["x_zeroed"] = int((mouth & (ax_raw != 0)).sum())
     return out
