@@ -56,7 +56,9 @@
    default, default, one-thread); then its main path with the counts zeroed:
    make_env with every default, reset, 5 env.step calls,
    rollout_fn(horizon=100) once to warm up and 3 timed calls, with one
-   launch of each kernel per step and reset.
+   launch of each kernel per step and reset; its idle share and device
+   operations a step from a traced call of 10 steps (the profiler costs
+   the host ~0.45 ms a device operation, and a step has ~2800).
 9. wind_flocking at 4096 envs: its fused step with the dynamic-gravity rows
    against its plain version, bitwise, on the rows of 10 env.step calls
    from a state with the big agent's wind weakened and the agents touching
@@ -169,8 +171,29 @@
    rows_rollout_fn (horizon 1000, k_steps 1 and 4, with the peak device
    memory) and on rollout_fn (100 steps, the rows path's ratio to it), the
    red AI's default and the shooting config on rollout_fn (50 steps, one
-   timed call), env-steps/s and the device idle share. Each phase prints
-   its seconds, and the script its total.
+   timed call), env-steps/s and the device idle share.
+12e. The dynamics and controller debug worlds at 4096 envs (diff_drive,
+   kinematic_bicycle, drone, goal, vel_control, circle_trajectory and
+   line_trajectory at their defaults; none has fused outputs): each
+   world's fused step with no emit against its plain version, bitwise, at
+   one thread and at 8 lanes per env, over 5 steps from
+   testing.debug_world_state, each step's input rows those the step's
+   hooks make (the dynamics models' and the controllers' forces and
+   torques) and the env stepped on through the kernel, with box-box
+   contacts (kinematic_bicycle), torque rows (diff_drive, drone) and
+   forces beyond an agent's f_range (the controller worlds) counted and
+   required; each world's main path with the count zeroed: make_env,
+   reset, 5 env.step calls, rollout_fn (horizon 100) once to warm up and 3
+   timed calls, one fused step per env.step, env-steps/s, the idle share
+   and device operations a step of a traced call of 20 steps, and the
+   drone's u at its spawn width after the rollout; then the grouped
+   process_action against the per-agent loop: transport's four holonomic
+   agents and football's two teams with the default grouping over 20
+   steps, bitwise, and road_traffic's 20 kinematic bicycles under
+   VMAS_TPU_BATCH_DYNAMICS=1 over 5 steps (bitwise or its largest
+   difference, and the process_action phase's ms a step against the
+   loop's, in turns). Each phase prints its seconds, and the script its
+   total.
 13. The op-cost probe: its kernel against its plain version at [54, 4096]
    with 0, 100 and 1200 operations (the ALU chain bitwise, the
    transcendental chain within atol 1e-6 rtol 1e-5), then its path with
@@ -215,6 +238,9 @@ RT_AGENTS = 20
 RT_CMP_STEPS = 20
 RT_STEPS = 5
 RT_HORIZON = 100
+# the steps of the main path's traced call: the profiler costs the host
+# some 0.45 ms a device operation, and a road_traffic step has ~2800
+RT_TRACE_STEPS = 10
 RT_ATOL = 1e-6
 # operation counts: +, -, *, /, sqrt and a compare count 1; cos and sin 20
 TRIG_OPS = 20
@@ -482,6 +508,8 @@ LANE_WORLDS = {
     "discovery,penalty": ("discovery", {"shared_reward": True, "agent_collision_penalty": -1.0,
                                         "targets_respawn": False}),
     "football": ("football", {"ai_red_agents": False}),
+    **{name: (name, {}) for name in ("diff_drive", "kinematic_bicycle", "drone", "goal", "vel_control",
+                                     "circle_trajectory", "line_trajectory")},
 }
 
 
@@ -1181,17 +1209,25 @@ def timed_rollout(run, state, steps, rgen, calls=TIMED_CALLS):
     return state, steps, traj, call_ms, warm_s
 
 
-def rollout_report(tag, run, state, steps, rgen, call_ms, warm_s, B, card, horizon=HORIZON):
+def rollout_report(tag, run, state, steps, rgen, call_ms, warm_s, B, card, horizon=HORIZON, trace=None):
     """Prints a timed rollout's env-steps/s and the device idle share of one
-    more call (profiler); returns (best env-steps/s, idle share)."""
+    more call (profiler); returns (best env-steps/s, idle share). With
+    ``trace=(run', steps')`` the profiler traces a call of ``run'``, a
+    rollout of ``steps'`` steps, against its own wall time (CUDA events):
+    the profiler costs the host some 0.45 ms a device operation, so a host-
+    bound loop of a few hundred operations a step is traced over fewer
+    steps than it is timed."""
     best = B * horizon / (min(call_ms) / 1e3)
     mean = B * horizon * len(call_ms) / (sum(call_ms) / 1e3)
-    _, busy_ms, by_name, n_ops = device_ms(lambda: run(state, steps, rgen), 1, "")
-    idle = 1 - busy_ms / min(call_ms)
+    t_run, t_steps = trace if trace is not None else (run, horizon)
+    wall_ms = min(call_ms) if trace is None else time_ms(lambda: t_run(state, steps, rgen), 2)
+    _, busy_ms, by_name, n_ops = device_ms(lambda: t_run(state, steps, rgen), 1, "")
+    idle = 1 - busy_ms / wall_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     print(f"{tag}: calls {[round(c, 3) for c in call_ms]} ms (warm-up {warm_s:.3f} s), best {best:.1f} env-steps/s, "
-          f"mean {mean:.1f} env-steps/s on {card}; device {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms "
-          f"(idle share {idle:.3f}, {n_ops / horizon:.1f} device operations a step); top: "
+          f"mean {mean:.1f} env-steps/s on {card}; device {busy_ms:.3f} ms busy of {wall_ms:.3f} ms "
+          + (f"in a traced call of {t_steps} steps " if trace is not None else "")
+          + f"(idle share {idle:.3f}, {n_ops / t_steps:.1f} device operations a step); top: "
           + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in top), flush=True)
     return best, idle
 
@@ -2928,6 +2964,200 @@ def football_phase(card, dev):
     return entries
 
 
+# -- the dynamics and controller debug worlds ------------------------------------
+
+# the seven worlds (vmas_tpu_torch.testing.DEBUG_WORLDS, each at its
+# defaults), the events each K1 comparison must see above zero: box-box
+# contacts, torque rows set, forces beyond an agent's f_range (the
+# controllers asked for more, and the kernel clamps them)
+DW_REQUIRED = {
+    "diff_drive": ("torque",), "kinematic_bicycle": ("bb",), "drone": ("torque",),
+    "goal": ("clamped",), "vel_control": ("clamped",), "circle_trajectory": ("clamped",),
+    "line_trajectory": ("clamped",),
+}
+DW_CMP_STEPS = 5
+DW_HORIZON = 100
+# the steps of the main path's traced call (rollout_report), and the plain
+# version's timed calls (kinematic_bicycle's takes 0.9 s a call)
+DW_TRACE_STEPS = 20
+DW_PLAIN_CALLS = 5
+# steps of the grouped-against-loop rollouts (transport and football's two
+# teams, then road_traffic), and the process_action phase's timed calls
+DW_GROUP_STEPS = 20
+DW_RT_GROUP_STEPS = 5
+DW_ACT_CALLS = 20
+
+
+def _with_batch_dynamics(flag, build):
+    """``build()`` with ``VMAS_TPU_BATCH_DYNAMICS`` set to ``flag`` (unset
+    for None), which an Environment reads when it is built."""
+    import os
+
+    old = os.environ.pop("VMAS_TPU_BATCH_DYNAMICS", None)
+    if flag is not None:
+        os.environ["VMAS_TPU_BATCH_DYNAMICS"] = flag
+    try:
+        return build()
+    finally:
+        os.environ.pop("VMAS_TPU_BATCH_DYNAMICS", None)
+        if old is not None:
+            os.environ["VMAS_TPU_BATCH_DYNAMICS"] = old
+
+
+def debug_worlds_phase(card, dev):
+    """The dynamics and controller debug worlds at 4096 envs (diff_drive,
+    kinematic_bicycle, drone, goal, vel_control, circle_trajectory,
+    line_trajectory): each world's K1 with no emit against its plain
+    version, bitwise, at one thread and at 8 lanes per env, over
+    DW_CMP_STEPS steps from testing.debug_world_state, each step's input
+    rows those of the step's hooks (process_action: the dynamics models, the
+    controllers) and the env re-synced to the kernel's step, with the events
+    counted and required (DW_REQUIRED); each world's main path with the
+    count zeroed (rollout_fn, DW_HORIZON steps, 3 timed calls: env-steps/s,
+    idle share, device operations a step; the drone's u at its spawn
+    width); then the grouped process_action against the per-agent loop on
+    the card: transport's four holonomic agents and football's two teams
+    with the default grouping, bitwise over DW_GROUP_STEPS steps, and
+    road_traffic's 20 kinematic bicycles with VMAS_TPU_BATCH_DYNAMICS=1
+    over DW_RT_GROUP_STEPS steps (whether bitwise, the largest difference,
+    the process_action phase's ms against the loop's); the phase's entries
+    of the kernels line."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rollout_fn
+
+    B = NUM_ENVS
+    t_phase = time.perf_counter()
+    times, work, errs, launches = {}, {}, {}, {}
+    for name in testing.DEBUG_WORLDS:
+        key = f"fused_step[{name}]"
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True)
+        world = env.world
+        assert env._fused_outputs is None and world.fused and F.supports(world)
+        ks = F._kernel_spec(world)
+        E, n = ks.E, env.n_agents
+        s0 = state_from_numpy(world, testing.debug_world_state(env, np.random.default_rng(120)))
+        counts = {}
+        k1 = ErrTracker()
+
+        def run_steps():
+            nonlocal x
+            env.state = s0
+            for t in range(DW_CMP_STEPS):
+                acts = [torch.as_tensor(a, device=dev)
+                        for a in testing.debug_world_actions(env, np.random.default_rng(121 + t))]
+                st = env._act(env.state, acts, [(None, None)] * n)
+                x = torch.cat([F.state_rows(st), st.joint_fixed_rot.T]).contiguous()
+                for k, v in testing.debug_world_events(env, x).items():
+                    counts[k] = counts.get(k, 0) + v
+                k1.close(f"{name} fused_step state rows at {ks.lanes} lane(s)", F.fused_step(world, x),
+                         F.fused_step_plain(world, x))
+                env.step(acts)  # the next step from the kernel's
+
+        x = None
+        for lanes in (1, 8):
+            at_lanes(ks, lanes, run_steps)
+        print(f"{name}@{B}: fused_step (no emit) bitwise its plain version over {DW_CMP_STEPS} re-synced steps at "
+              f"1 and 8 lanes per env (the rule picks {ks.lanes}; E {E}, substeps {ks.substeps}); events over both "
+              f"runs {counts} on {card}", flush=True)
+        missing = [k for k in DW_REQUIRED[name] if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"the {name} comparison saw no {missing}: {counts}")
+        errs[key] = k1.max()
+        times[key] = kernel_times(key, lambda: F.fused_step(world, x), lambda: F.fused_step_plain(world, x),
+                                  "fused_step_kernel", plain_calls=DW_PLAIN_CALLS)
+        work[key] = ((x.shape[0] + 9 * E) * B * 4, kernel_ops(ks, x))
+        other = 8 if ks.lanes == 1 else 1
+        other_ms = at_lanes(ks, other, lambda: launch_ms(lambda: F.fused_step(world, x), 200, "fused_step_kernel",
+                                                         "the other form"))
+        times[key]["other"] = (other, other_ms)
+        print(f"{key} at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the device (the "
+              f"rule's {ks.lanes}: {times[key]['ms'] * 1e3:.3f} us)", flush=True)
+        del env, s0, x
+
+        # the main path: env.step through rollout_fn, K1 with no emit a step
+        F.fused_step_launches = 0
+        env = make_env(name, num_envs=B, fused_physics=True)
+        assert env.device.type == "cuda"
+        obs = env.reset()
+        for _ in range(5):
+            obs, rews, dones, infos = env.step(env.get_random_actions())
+        run = rollout_fn(env, horizon=DW_HORIZON)
+        rgen = torch.Generator(device=dev).manual_seed(0)
+        state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
+        launches[key] = F.fused_step_launches
+        assert launches[key] == 5 + DW_HORIZON * (1 + TIMED_CALLS), (key, launches[key])
+        widths = [o.shape[-1] for o in obs]
+        assert traj["rewards"].shape == (DW_HORIZON, B, n) and bool(torch.isfinite(traj["rewards"]).all())
+        assert all(o.shape == (DW_HORIZON, B, w) and bool(torch.isfinite(o).all())
+                   for o, w in zip(traj["obs"], widths))
+        assert bool(torch.isfinite(state.pos).all())
+        u_shapes = [tuple(u.shape) for u in state.u]
+        assert u_shapes == [(B, a.action_size) for a in env.world.agents], u_shapes
+        print(f"main path: {name} {B} envs x {n} agents x {DW_HORIZON} steps, rollout_fn (env.step: K1 with no "
+              f"emit); launches {{'fused_step': {launches[key]}}}; u after the rollout {u_shapes} "
+              f"({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
+        rollout_report(f"{name}@{B} rollout_fn", run, state, steps, rgen, call_ms, warm_s, B, card,
+                       horizon=DW_HORIZON, trace=(rollout_fn(env, horizon=DW_TRACE_STEPS), DW_TRACE_STEPS))
+        del env, state, traj
+
+    # -- the grouped process_action against the per-agent loop on the card ----------
+    for tag, name, kw in (("transport", "transport", {"n_agents": N_AGENTS}),
+                          ("football,two_teams", "football", {"ai_red_agents": False})):
+        grouped = _with_batch_dynamics(None, lambda: make_env(name, B, device=dev, seed=0, fused_physics=True, **kw))
+        loop = _with_batch_dynamics("0", lambda: make_env(name, B, device=dev, seed=0, fused_physics=True, **kw))
+        groups = [len(g) for g in grouped._pa_groups]
+        assert loop._pa_groups == [] and groups == ([N_AGENTS] if name == "transport" else []), groups
+        sa, _, ta = rollout_fn(grouped, horizon=DW_GROUP_STEPS)(grouped.state, grouped.steps,
+                                                                 torch.Generator(device=dev).manual_seed(9))
+        sb, _, tb = rollout_fn(loop, horizon=DW_GROUP_STEPS)(loop.state, loop.steps,
+                                                              torch.Generator(device=dev).manual_seed(9))
+        rollouts_bitwise(f"{tag}@{B} grouped process_action (groups {groups}) vs the per-agent loop over "
+                         f"{DW_GROUP_STEPS} steps", ta, tb, sa, sb, card)
+        del grouped, loop
+
+    envs = {flag: _with_batch_dynamics(flag, lambda: make_env("road_traffic", B, device=dev, seed=0))
+            for flag in ("0", "1")}
+    assert envs["0"]._pa_groups == [] and [len(g) for g in envs["1"]._pa_groups] == [RT_AGENTS]
+    out = {}
+    for flag, env in envs.items():
+        out[flag] = rollout_fn(env, horizon=DW_RT_GROUP_STEPS)(env.state, env.steps,
+                                                               torch.Generator(device=dev).manual_seed(10))
+    (sa, _, ta), (sb, _, tb) = out["0"], out["1"]
+    pairs = [ta["rewards"], *ta["obs"], sa.pos, sa.vel, sa.rot, sa.ang_vel], [tb["rewards"], *tb["obs"], sb.pos,
+                                                                               sb.vel, sb.rot, sb.ang_vel]
+    same = all(torch.equal(a, b) for a, b in zip(*pairs)) and torch.equal(ta["dones"], tb["dones"])
+    err = max(float((a - b).abs().max()) for a, b in zip(*pairs))
+    if not math.isfinite(err) or err > 1e-2:
+        raise AssertionError(f"road_traffic's grouped kinematic bicycles depart from the loop by {err:.3e}")
+    # the process_action phase's time (decode, process_action, pre_step) of
+    # each plan on one state, in turns: loop, grouped, grouped, loop
+    acts = envs["0"].get_random_actions()
+    act_ms = {"0": [], "1": []}
+    for flag in ("0", "1", "1", "0"):
+        env = envs[flag]
+        act_ms[flag].append(time_ms(lambda: env._act(sa, acts, [(None, None)] * RT_AGENTS), DW_ACT_CALLS))
+    loop_ms, group_ms = min(act_ms["0"]), min(act_ms["1"])
+    print(f"road_traffic@{B} x {RT_AGENTS}, VMAS_TPU_BATCH_DYNAMICS=1 (one group of {RT_AGENTS} kinematic bicycles) "
+          f"vs 0 (the per-agent loop) over {DW_RT_GROUP_STEPS} steps: bitwise equal {same}, max abs err {err:.3e}; "
+          f"the process_action phase {group_ms:.3f} ms a step grouped against {loop_ms:.3f} ms in the loop "
+          f"(best of 2, {DW_ACT_CALLS} calls each; turns {[[round(v, 3) for v in act_ms[f]] for f in ('0', '1')]}) "
+          f"on {card}", flush=True)
+    del envs, out
+
+    entries = []
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    for key in times:
+        e = kernel_entry(key, src, "vmas_tpu/core/fused.py:1425", launches[key], errs[key], times[key], *work[key])
+        e["launches_on"] = f"{key[len('fused_step['):-1]}'s main path at {NUM_ENVS} envs, rollout_fn"
+        e["other_lanes"], e["other_us"] = times[key]["other"][0], times[key]["other"][1] * 1e3
+        entries.append(e)
+    return entries
+
+
 def caps_phase(card, dev):
     """The worlds beyond the old caps (32 entities, 16 agents in an emit):
     simple_spread with 30 agents (60 entities, one thread per env: a block
@@ -3244,6 +3474,7 @@ def road_traffic_phase(card, dev):
     from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
 
     B, A = NUM_ENVS, RT_AGENTS
+    t_phase = time.perf_counter()
     rt_ptxas_report()
     # -- kernels against their one-thread forms and plain, at full width --------
     env = make_env("road_traffic", B, device=dev, seed=0)
@@ -3281,6 +3512,8 @@ def road_traffic_phase(card, dev):
 
     # each form's device time in turns, then the default form's wall time
     # per call and the plain version's
+    print(f"road_traffic: the kernels against their one-thread forms and plain, {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     pid, pos, rot = lanes(s_steps)
     xs = sc.obs_inputs(s_steps)
     sweep_fn = lambda L: rtk.sweep_all(T, pid, pos, rot, **sc.sweep_kw, lanes=L)
@@ -3303,6 +3536,7 @@ def road_traffic_phase(card, dev):
     del env, s_reset, s_steps, xs
 
     # -- the main path ----------------------------------------------------------
+    print(f"road_traffic: the forms' times, {time.perf_counter() - t_phase:.1f} s", flush=True)
     rtk.sweep_launches = 0
     rtk.obs_launches = 0
     env = make_env("road_traffic", num_envs=B)  # every default: 20 vehicles, map 1, noise, both kernels
@@ -3335,13 +3569,17 @@ def road_traffic_phase(card, dev):
           f"mean {B * RT_HORIZON * TIMED_CALLS / (sum(call_ms) / 1e3):.1f} env-steps/s on {card}; "
           f"launches {launches} ({n_steps} steps, 2 resets)", flush=True)
 
-    # where one main-path call's device time goes (after the counts)
-    _, busy_ms, by_name, n_ops = device_ms(lambda: run(state, steps, rgen), 1, "")
+    # where a main-path call's device time goes (after the counts), on a
+    # call of RT_TRACE_STEPS steps against its own wall time
+    print(f"road_traffic: the main path, {time.perf_counter() - t_phase:.1f} s", flush=True)
+    trace = rollout_fn(env, horizon=RT_TRACE_STEPS)
+    wall_ms = time_ms(lambda: trace(state, steps, rgen), 2)
+    _, busy_ms, by_name, n_ops = device_ms(lambda: trace(state, steps, rgen), 1, "")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     rt_ms = sum(v for k, v in by_name.items() if "rt_sweep" in k or "rt_obs" in k)
-    print(f"device time of one road_traffic rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms wall "
-          f"(idle share {1 - busy_ms / min(call_ms):.3f}); rt_sweep + rt_obs {rt_ms:.3f} ms; "
-          f"{n_ops / RT_HORIZON:.1f} device operations per step; top: "
+    print(f"device time of one road_traffic rollout_fn call of {RT_TRACE_STEPS} steps: {busy_ms:.3f} ms busy of "
+          f"{wall_ms:.3f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}); rt_sweep + rt_obs {rt_ms:.3f} ms; "
+          f"{n_ops / RT_TRACE_STEPS:.1f} device operations per step; top: "
           + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
 
     src = "vmas_tpu_torch/csrc/road_traffic.cu"
@@ -3760,6 +3998,9 @@ def main():
     # -- 12d. football ---------------------------------------------------------------
     fb_kernels = run_phase("football", football_phase, card, dev)
 
+    # -- 12e. the dynamics and controller debug worlds ------------------------------------
+    dw_kernels = run_phase("dynamics and controller worlds", debug_worlds_phase, card, dev)
+
     # -- 13. the op-cost probe -------------------------------------------------
     opcost_kernels = run_phase("op-cost", opcost_phase, card, dev)
 
@@ -3784,7 +4025,7 @@ def main():
         kernel_entry("fused_step[transport,ppo]", src, "vmas_tpu/core/fused.py:1425", ppo_launches["fused_step"],
                      ppo_k1.max(), ppo_times["fused_step"], fused_bytes, ppo_flops),
     ] + (balance_kernels + joint_kernels + give_way_kernels + rt_kernels + wfl_kernels + mpe_kernels + mpef_kernels
-         + hol_kernels + jw_kernels + sw_kernels + fb_kernels + opcost_kernels)
+         + hol_kernels + jw_kernels + sw_kernels + fb_kernels + dw_kernels + opcost_kernels)
     entry_lanes(kernels, picked)
     kernels += caps_kernels  # each with its own lanes
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start, the build included", flush=True)

@@ -98,3 +98,21 @@ def test_sensor_worlds_import_without_jax():
             "m.split('.')[0] in " + repr(BANNED) + "))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
     assert out.stdout.strip() == "3 []", out.stdout
+
+
+def test_dynamics_models_and_debug_worlds_import_without_jax():
+    """The five dynamics models ported with the debug worlds (static,
+    rotation, forward, diff_drive, drone) and the seven dynamics and
+    controller debug worlds are among the files held to importing no JAX,
+    and load in a fresh interpreter without it."""
+    models = ["static", "rotation", "forward", "diff_drive", "drone"]
+    worlds = ["diff_drive", "kinematic_bicycle", "drone", "goal", "vel_control", "circle_trajectory",
+              "line_trajectory"]
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"vmas_tpu_torch/dynamics/{m}.py" for m in models} <= names
+    assert {f"vmas_tpu_torch/scenarios/debug/{w}.py" for w in worlds} <= names
+    mods = [f"vmas_tpu_torch.dynamics.{m}" for m in models] + [f"vmas_tpu_torch.scenarios.debug.{w}" for w in worlds]
+    code = ("import importlib, sys; [importlib.import_module(m) for m in " + repr(mods) + "]; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in " + repr(BANNED) + "))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
+    assert out.stdout.strip() == "[]", out.stdout

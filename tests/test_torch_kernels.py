@@ -32,7 +32,10 @@ K1 with no emit, and joint_passage_size's rows rollouts, noisy or not,
 bitwise rollout_fn; the emits of navigation, flocking and discovery in
 both forms bitwise, and navigation's and flocking's rows rollouts bitwise
 rollout_fn; football's emit in both forms and its ball script in K2
-bitwise, and its rows rollouts bitwise rollout_fn; the op-cost probe's ALU chain
+bitwise, and its rows rollouts bitwise rollout_fn; K1 with no emit in the
+seven dynamics and controller debug worlds (diff_drive, kinematic_bicycle,
+drone, goal, vel_control, circle_trajectory, line_trajectory) in both
+forms bitwise; the op-cost probe's ALU chain
 bitwise, its transcendental chain atol 1e-6 rtol 1e-5. The balance,
 all-pairs, joint_passage, waterfall, give_way, multi_give_way,
 wind_flocking and MPE states come from vmas_tpu_torch/testing.py, as
@@ -1167,3 +1170,38 @@ def test_ppo_bf16_rows_update_on_the_card():
     assert bool(torch.isfinite(metrics["loss"])) and bool((steps == 16).all())
     assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
     assert all(not torch.equal(p, q) for p, q in zip(model.parameters(), p0))
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("name", ["diff_drive", "kinematic_bicycle", "drone", "goal", "vel_control",
+                                  "circle_trajectory", "line_trajectory"])
+def test_debug_worlds_kernel_bitwise_plain(name, lanes):
+    """K1 with no emit bitwise its plain version at 4099 envs, one thread
+    per env and 8 lanes per env, over 3 steps from testing.debug_world_state
+    (the first agents in contact, the drone tilted, the controllers'
+    memory set), each step's input rows those of its hooks (the dynamics
+    models' and the controllers' forces and torques), the env stepped on
+    through the kernel; the drone's u at its spawn width after the steps."""
+    import numpy as np
+
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.testing import debug_world_actions, debug_world_state
+
+    _cuda()
+    width = 4096 + 3
+    e = make_env(name, width, device="cuda", seed=0, fused_physics=True)
+    assert e._fused_outputs is None and e.world.fused
+    ks = F._kernel_spec(e.world)
+    e.state = state_from_numpy(e.world, debug_world_state(e, np.random.default_rng(35)))
+    rule, ks.lanes = ks.lanes, lanes
+    try:
+        for t in range(3):
+            acts = [torch.as_tensor(a, device="cuda") for a in debug_world_actions(e, np.random.default_rng(36 + t))]
+            st = e._act(e.state, acts, [(None, None)] * e.n_agents)
+            x = torch.cat([F.state_rows(st), st.joint_fixed_rot.T]).contiguous()
+            assert torch.equal(F.fused_step(e.world, x), F.fused_step_plain(e.world, x)), t
+            e.step(acts)
+        torch.cuda.synchronize()
+    finally:
+        ks.lanes = rule
+    assert all(u.shape == (width, a.action_size) for u, a in zip(e.state.u, e.world.agents))

@@ -3,9 +3,8 @@
 A second package beside the JAX one, which stays the reference: the same
 module names, plain PyTorch around hand-written CUDA kernels for Hopper
 (``csrc/``). Environments run on the GPU unless ``device="cpu"`` is passed.
-Ported so far: transport, balance and joint_passage end to end, with the
-fused physics step and the rows-carried rollout; road_traffic (map 1) with
-its two kernels; the debug world waterfall.
+Ported so far: 40 of the JAX package's 43 scenario names (``scenarios``),
+every dynamics model, the rollouts and PPO.
 """
 
 __version__ = "1.5.0"

@@ -351,6 +351,11 @@ class Agent(Entity):
     def dyn_state(self, state: WorldState):
         return state.dyn[self.slot]
 
+    def set_dyn_state(self, state: WorldState, value) -> WorldState:
+        dyn = list(state.dyn)
+        dyn[self.slot] = value
+        return state.replace(dyn=tuple(dyn))
+
 
 class World:
     """World builder and physics. The constructor parameters mirror VMAS's

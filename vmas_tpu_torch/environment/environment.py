@@ -1,12 +1,14 @@
 """The vectorized RL environment.
 
 Counterpart of vmas_tpu/environment/environment.py, run eagerly: one step
-is action decode, per-agent process_action, pre_step, the physics step (the
-fused kernel with ``fused_physics=True``), post_step, then the
-observations, rewards and dones. Randomness comes from one
-``torch.Generator`` on the env's device, seeded from ``seed``; each step and
-each reset also draws from it a fresh seed for the observation noise
-(``BaseScenario.obs_generator``).
+is action decode, process_action (per agent, or per group of agents whose
+dynamics run as one ``[B, A]`` computation: ``_plan_process_action``),
+pre_step, the physics step (the fused kernel with ``fused_physics=True``),
+post_step, then the observations, rewards and dones; the state that leaves
+the step has each agent's ``u`` at its spawn width (``_canonical_u``).
+Randomness comes from one ``torch.Generator`` on the env's device, seeded
+from ``seed``; each step and each reset also draws from it a fresh seed for
+the observation noise (``BaseScenario.obs_generator``).
 
 The env runs on the GPU unless the caller passes ``device="cpu"``; with no
 GPU present it raises instead of falling back. gymnasium is imported only
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -100,6 +103,8 @@ class Environment:
         self.terminated_truncated = terminated_truncated
         self.multidiscrete_actions = multidiscrete_actions
 
+        self._pa_singles, self._pa_groups = self._plan_process_action()
+
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed if seed is not None else 0)
         self.state: Optional[WorldState] = None
@@ -110,6 +115,66 @@ class Environment:
     # ------------------------------------------------------------------
     # the step pipeline
     # ------------------------------------------------------------------
+    def _plan_process_action(self):
+        """The agents of ``world.agents`` for the process_action phase, as
+        ``(singles, groups)``, fixed when the env is built (JAX
+        environment.py:118-168).
+
+        An agent whose ``env_process_action`` is its dynamics alone (no
+        ``action_script``, the scenario does not override
+        ``process_action``) and whose dynamics advertise a ``batch_spec``
+        joins the group of its ``(batch_spec, action_size)``; a group runs
+        one ``[B, A]`` ``process_action_batch``. Every other agent, and a
+        group of one, runs per agent in agent order. By default only
+        ``batch_exact`` models group (the holonomic family, static,
+        rotation: bitwise the loop); ``VMAS_TPU_BATCH_DYNAMICS=1`` (or
+        ``true``/``on``) groups every model with a ``batch_spec``
+        (kinematic_bicycle, diff_drive and forward compute sin/cos/tan on
+        the stacked shape, which may round an ulp apart from the loop), and
+        ``0`` (``false``/``off``) turns grouping off."""
+        agents = list(self.world.agents)
+        flag = os.environ.get("VMAS_TPU_BATCH_DYNAMICS", "exact").strip().lower()
+        if flag in ("0", "false", "off"):
+            return agents, []
+        all_models = flag in ("1", "true", "on")
+        if type(self.scenario).process_action is not BaseScenario.process_action:
+            return agents, []
+        groups: Dict = {}
+        singles = []
+        for a in agents:
+            spec = None
+            if a.action_script is None and a.action_size >= a.dynamics.needed_action_size:
+                if all_models or a.dynamics.batch_exact():
+                    spec = a.dynamics.batch_spec()
+            if spec is None:
+                singles.append(a)
+            else:
+                groups.setdefault((spec, a.action_size), []).append(a)
+        out = []
+        for grp in groups.values():
+            if len(grp) >= 2:
+                out.append(tuple(grp))
+            else:
+                singles.extend(grp)
+        singles.sort(key=lambda a: a.index)
+        return singles, out
+
+    def _canonical_u(self, state: WorldState) -> WorldState:
+        """``state`` with each agent's ``u`` cut or zero-padded back to its
+        ``action_size``. A scenario's process_action may write a wider u
+        (debug/drone prepends the thrust), which the step's hooks see; the
+        state that leaves the step keeps the spawn-time shape, and the next
+        step overwrites every u when it decodes the actions."""
+        new_u, changed = [], False
+        for a, u in zip(self.world.agents, state.u):
+            w = a.action_size
+            if u.shape[1] > w:
+                u, changed = u[:, :w], True
+            elif u.shape[1] < w:
+                u, changed = torch.nn.functional.pad(u, (0, w - u.shape[1])), True
+            new_u.append(u)
+        return state.replace(u=tuple(new_u)) if changed else state
+
     def _outputs(self, state: WorldState, steps, obs_seed: int, with_rewards: bool = True, fused_extra=None):
         scenario = self.scenario
         # the observation-noise seed of this call (BaseScenario.obs_generator)
@@ -158,16 +223,24 @@ class Environment:
         state, obs, _, terminated, truncated, infos = self._outputs(state, steps, obs_seed, with_rewards=False)
         return state, steps, obs, terminated, truncated, infos
 
+    def _act(self, state: WorldState, actions, noise) -> WorldState:
+        """The part of a step before the physics: decode each policy agent's
+        action (with its drawn ``noise``, ``_step_draws``), process_action
+        (per agent and per group, ``_plan_process_action``), pre_step."""
+        for i, agent in enumerate(self.agents):
+            state = self._decode_action(state, agent, actions[i], noise[i])
+        for agent in self._pa_singles:
+            state = self.scenario.env_process_action(agent, state)
+        for group in self._pa_groups:
+            state = group[0].dynamics.process_action_batch(self.world, state, group)
+        return self.scenario.pre_step(state)
+
     def _step_fn_raw(self, state: WorldState, steps, actions, generator):
         """One env step on explicit state: (state, steps, actions,
         generator) -> (state, obs, rews, terminated, truncated, infos,
         steps)."""
         obs_seed, noise = self._step_draws(generator)
-        for i, agent in enumerate(self.agents):
-            state = self._decode_action(state, agent, actions[i], noise[i])
-        for agent in self.world.agents:
-            state = self.scenario.env_process_action(agent, state)
-        state = self.scenario.pre_step(state)
+        state = self._act(state, actions, noise)
         if self._fused_outputs is not None:
             state, fused_extra = self.world.step_with_outputs(state, self._fused_outputs)
         else:
@@ -176,7 +249,7 @@ class Environment:
         state = self.scenario.post_step(state)
         steps = steps + 1
         out = self._outputs(state, steps, obs_seed, fused_extra=fused_extra)
-        return out + (steps,)
+        return (self._canonical_u(out[0]),) + out[1:] + (steps,)
 
     # ------------------------------------------------------------------
     # action decoding
@@ -335,6 +408,51 @@ class Environment:
             return terminated, torch.zeros_like(terminated) if truncated is None else truncated
         return terminated if truncated is None else terminated | truncated
 
+    def get_from_scenario(self, get_observations: bool, get_rewards: bool, get_infos: bool, get_dones: bool,
+                          dict_agent_names: Optional[bool] = None):
+        """The observations, rewards, dones and infos of the current state,
+        in that order, each where asked for (JAX environment.py:447-488).
+        The reward hooks run only where rewards are asked for, and then
+        their scratch updates stay in ``self.state``; the observations see
+        the state after them, with a fresh observation-noise seed drawn from
+        the env's generator."""
+        if not any([get_observations, get_rewards, get_infos, get_dones]):
+            return
+        if dict_agent_names is None:
+            dict_agent_names = self.dict_spaces
+        self.scenario.obs_seed = _obs_seed(self.generator)
+        state = self.state
+        rews = None
+        if get_rewards:
+            state = self.scenario.pre_rewards(state)
+            rews = tuple(self.scenario.reward(a, state) for a in self.agents)
+            state = self.scenario.post_rewards(state)
+            self.state = state
+        obs = self._observations(state) if get_observations else None
+        infos = tuple(self.scenario.info(a, state) for a in self.agents) if get_infos else None
+
+        result = [self._maybe_dict(vals, dict_agent_names) for vals in (obs, rews) if vals is not None]
+        if get_dones:
+            d = self.done()
+            if self.terminated_truncated:
+                result.extend(d)
+            else:
+                result.append(d)
+        if infos is not None:
+            result.append(self._maybe_dict(infos, dict_agent_names))
+        return result
+
+    def to(self, device):
+        """``self`` where ``device`` is the env's own device (the JAX
+        package's ``to`` leaves placement as it is); a built env does not
+        move, so any other device raises."""
+        want = torch.device(device)
+        index = lambda d: d.index if d.index is not None else (torch.cuda.current_device() if d.type == "cuda" else 0)
+        if want.type != self.device.type or index(want) != index(self.device):
+            raise ValueError(f"this environment lives on {self.device} and cannot move to {want}; "
+                             f"build it there with make_env(..., device={str(want)!r})")
+        return self
+
     # ------------------------------------------------------------------
     # spaces (gymnasium, imported on first access)
     # ------------------------------------------------------------------
@@ -457,8 +575,8 @@ class Environment:
             out.append(a)
         return out
 
-    def _maybe_dict(self, vals):
-        if self.dict_spaces:
+    def _maybe_dict(self, vals, dict_agent_names=None):
+        if self.dict_spaces if dict_agent_names is None else dict_agent_names:
             return {a.name: v for a, v in zip(self.agents, vals)}
         return list(vals)
 

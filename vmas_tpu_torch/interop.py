@@ -5,7 +5,10 @@
 the other way. The dict holds the fields ``pos``, ``vel``, ``rot``,
 ``ang_vel``, ``force``, ``torque``, ``c``, ``u`` (a sequence, one array per
 agent), ``uc``, ``joint_fixed_rot``, ``rendering`` and, in a world with
-dynamic gravity, ``dyn_gravity``, and the ``scenario`` scratch dict, whose
+dynamic gravity, ``dyn_gravity``; in a world whose dynamics keep a hidden
+state (the drone's ``[B, 12]``), ``dyn``, a sequence of one array per agent
+or ``()`` where its model keeps none (a world without hidden state has no
+``dyn`` entry); and the ``scenario`` scratch dict, whose
 values are arrays or dicts of them (a velocity controller's memory,
 ``{"accum_errs", "prev_err"}``; football's team AI, ``ai_Red`` /
 ``ai_Blue``). This is how a state made elsewhere (another simulator, a
@@ -52,7 +55,13 @@ def state_from_numpy(world, arrays: dict) -> WorldState:
     kw["scenario"] = _scratch_in({k: v for k, v in arrays.get("scenario", {}).items() if k not in KEY_SCRATCH}, dev)
     if base.dyn_gravity is not None and "dyn_gravity" in arrays:
         kw["dyn_gravity"] = _tensor(arrays["dyn_gravity"], dev)
+    if "dyn" in arrays:
+        kw["dyn"] = tuple(() if _empty(x) else _tensor(x, dev) for x in arrays["dyn"])
     return base.replace(**kw)
+
+
+def _empty(x):
+    return isinstance(x, (tuple, list)) and not x
 
 
 def _scratch_in(d, device):
@@ -75,6 +84,8 @@ def state_to_numpy(state: WorldState) -> dict:
     out["scenario"] = _scratch_out(state.scenario)
     if state.dyn_gravity is not None:
         out["dyn_gravity"] = state.dyn_gravity.detach().cpu().numpy()
+    if any(isinstance(d, torch.Tensor) for d in state.dyn):
+        out["dyn"] = [d.detach().cpu().numpy() if isinstance(d, torch.Tensor) else () for d in state.dyn]
     return out
 
 

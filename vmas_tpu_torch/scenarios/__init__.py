@@ -6,9 +6,11 @@
 family (``simple``, ``simple_adversary``, ``simple_crypto``,
 ``simple_push``, ``simple_reference``, ``simple_speaker_listener``,
 ``simple_spread``, ``simple_tag``, ``simple_world_comm``) and the debug
-scenarios ``asym_joint``, ``het_mass``, ``pollock`` and ``waterfall`` are
-ported so far; every other scenario of the JAX package raises
-``ValueError`` when loaded."""
+scenarios ``asym_joint``, ``circle_trajectory``, ``diff_drive``, ``drone``,
+``goal``, ``het_mass``, ``kinematic_bicycle``, ``line_trajectory``,
+``pollock``, ``vel_control`` and ``waterfall`` are ported so far (40 of
+the JAX package's 43 names); every other scenario of the JAX package
+raises ``ValueError`` when loaded."""
 
 from __future__ import annotations
 
@@ -20,15 +22,21 @@ _PORTED = {
     "ball_passage": "vmas_tpu_torch.scenarios.ball_passage",
     "ball_trajectory": "vmas_tpu_torch.scenarios.ball_trajectory",
     "buzz_wire": "vmas_tpu_torch.scenarios.buzz_wire",
+    "circle_trajectory": "vmas_tpu_torch.scenarios.debug.circle_trajectory",
+    "diff_drive": "vmas_tpu_torch.scenarios.debug.diff_drive",
     "discovery": "vmas_tpu_torch.scenarios.discovery",
     "dispersion": "vmas_tpu_torch.scenarios.dispersion",
+    "drone": "vmas_tpu_torch.scenarios.debug.drone",
     "dropout": "vmas_tpu_torch.scenarios.dropout",
     "flocking": "vmas_tpu_torch.scenarios.flocking",
     "football": "vmas_tpu_torch.scenarios.football",
     "give_way": "vmas_tpu_torch.scenarios.give_way",
+    "goal": "vmas_tpu_torch.scenarios.debug.goal",
     "het_mass": "vmas_tpu_torch.scenarios.debug.het_mass",
     "joint_passage": "vmas_tpu_torch.scenarios.joint_passage",
     "joint_passage_size": "vmas_tpu_torch.scenarios.joint_passage_size",
+    "kinematic_bicycle": "vmas_tpu_torch.scenarios.debug.kinematic_bicycle",
+    "line_trajectory": "vmas_tpu_torch.scenarios.debug.line_trajectory",
     "multi_give_way": "vmas_tpu_torch.scenarios.multi_give_way",
     "navigation": "vmas_tpu_torch.scenarios.navigation",
     "passage": "vmas_tpu_torch.scenarios.passage",
@@ -45,6 +53,7 @@ _PORTED = {
     "simple_tag": "vmas_tpu_torch.scenarios.mpe.simple_tag",
     "simple_world_comm": "vmas_tpu_torch.scenarios.mpe.simple_world_comm",
     "transport": "vmas_tpu_torch.scenarios.transport",
+    "vel_control": "vmas_tpu_torch.scenarios.debug.vel_control",
     "waterfall": "vmas_tpu_torch.scenarios.debug.waterfall",
     "wheel": "vmas_tpu_torch.scenarios.wheel",
     "wind_flocking": "vmas_tpu_torch.scenarios.wind_flocking",

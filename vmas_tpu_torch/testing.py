@@ -22,7 +22,11 @@ sensor world (navigation, flocking, discovery) with its Lidar hits,
 collisions, goals reached and targets covered, and their count in a
 step's rows; a football state with goals scored, the ball at rest, near
 the walls and in the goal mouth, and agents against the walls, and the
-count of its events in a step's rows.
+count of its events in a step's rows; a state of each dynamics and
+controller debug world (diff_drive, kinematic_bicycle, drone, goal,
+vel_control, circle_trajectory, line_trajectory) with its first agents in
+contact, the drone's hidden state tilted, the controllers' memory set,
+actions beyond the controllers' clamp, and the events of a step's rows.
 The states are numpy dicts made from a seeded generator, so that both
 packages can load the same one. For road_traffic's path sweeps: lanes on
 centre-line vertices and padded tails, and on left-boundary vertices.
@@ -1430,4 +1434,92 @@ def football_events(env, x, extra, hook=None):
         mouth = (py < sc.goal_size / 2) & (py > -sc.goal_size / 2)
         out["impulse"] = int(((hook[0] != 0) | (hook[1] != 0)).sum())
         out["x_zeroed"] = int((mouth & (ax_raw != 0)).sum())
+    return out
+
+
+DEBUG_WORLDS = ("diff_drive", "kinematic_bicycle", "drone", "goal", "vel_control", "circle_trajectory",
+                "line_trajectory")
+
+
+def debug_world_state(env, rng):
+    """A numpy state dict of a dynamics or controller debug world
+    (``DEBUG_WORLDS``) from a seeded generator: the first two agents in
+    contact in every env (box-box for kinematic_bicycle, sphere-sphere for
+    diff_drive and drone), random poses, velocities and spins; the drone's
+    hidden state with its roll or pitch beyond 30 degrees in every other
+    env; the controllers' memory, and the scenario's scratch, random."""
+    sc, st = env.scenario, env.state
+    name = type(sc).__module__.rsplit(".", 1)[-1]
+    B, E = st.pos.shape[:2]
+    agents = [a.index for a in env.world.agents]
+    pos = np.zeros((B, E, 2))
+    pos[:, agents] = rng.uniform(-1.0, 1.0, (B, len(agents), 2))
+    for e in env.world.landmarks:
+        pos[:, e.index] = rng.uniform(-1.0, 1.0, (B, 2))
+    rot = np.zeros((B, E))
+    rot[:, agents] = rng.uniform(-np.pi, np.pi, (B, len(agents)))
+    if len(agents) > 1 and name in ("diff_drive", "kinematic_bicycle", "drone"):
+        # the second agent within reach of the first: 0.08-0.095 between two
+        # spheres of radius 0.05, 0.1-0.16 between two 0.2 x 0.1 boxes
+        th = rng.uniform(-np.pi, np.pi, B)
+        d = rng.uniform(0.1, 0.16, B) if name == "kinematic_bicycle" else rng.uniform(0.08, 0.095, B)
+        pos[:, agents[1]] = pos[:, agents[0]] + np.stack([np.cos(th), np.sin(th)], -1) * d[:, None]
+    vel = np.zeros((B, E, 2))
+    vel[:, agents] = rng.normal(0, 0.4, (B, len(agents), 2))
+    ang_vel = np.zeros((B, E))
+    ang_vel[:, agents] = rng.normal(0, 0.5, (B, len(agents)))
+    out = _np_state(st, pos, rot, vel, ang_vel, np.zeros((B, E, 2)))
+    f32 = lambda a: np.asarray(a, np.float32)
+    scratch = out["scenario"]
+    if name == "drone":
+        dyn = []
+        for _ in env.world.agents:
+            ds = np.concatenate([rng.uniform(-0.4, 0.4, (B, 3)), rng.normal(0, 0.5, (B, 3)),
+                                 rng.normal(0, 0.3, (B, 3)), rng.normal(0, 0.5, (B, 3))], -1)
+            tilt = np.arange(B) % 2 == 1  # roll or pitch 34-46 degrees
+            n = int(tilt.sum())
+            ds[tilt, rng.integers(0, 2)] = rng.choice([-1.0, 1.0], n) * rng.uniform(0.6, 0.8, n)
+            dyn.append(f32(ds))
+        out["dyn"] = dyn
+    controllers = list(getattr(sc, "controllers", {}).values()) + ([sc.controller] if hasattr(sc, "controller") else [])
+    for vc in controllers:
+        scratch[vc.key] = {"accum_errs": f32(rng.normal(0, 0.1, (B, 2))), "prev_err": f32(rng.normal(0, 0.3, (B, 2)))}
+    if name == "goal":
+        scratch["pos_shaping"] = f32(rng.uniform(0, 3, B))
+        pos[::4, sc.goal.index] = pos[::4, agents[0]] + 0.03  # on the goal: the reward's reached branch
+        out["pos"] = f32(pos)
+    if name == "line_trajectory":
+        scratch["vel_action"] = f32(rng.normal(0, 1.0, (B, 2)))
+    return out
+
+
+def debug_world_actions(env, rng):
+    """Per policy agent, actions ``[B, action_size]`` of up to twice its
+    range (the controllers' commands beyond their clamp; the drone's
+    torques at 1e-3 rather than its 1e-5 range, so that they turn it)."""
+    B = env.num_envs
+    out = []
+    for a in env.agents:
+        scale = 1e-3 if type(env.scenario).__module__.endswith("drone") else 2.0 * a.u_range_array
+        out.append(np.asarray(rng.uniform(-1.0, 1.0, (B, a.action_size)) * scale, np.float32))
+    return out
+
+
+def debug_world_events(env, x):
+    """The events of a debug world's fused step on its input state rows
+    ``x`` [9E + J, B]: its contacts per pair type, the (env, agent) lanes
+    with a non-zero torque row, and those whose force exceeds the agent's
+    ``f_range`` in a component (the physics clamps it there: a controller
+    asked for more)."""
+    world = env.world
+    E = len(world.entities)
+    out = dict(F.contact_counts(world, x))
+    idx = [a.index for a in world.agents]
+    out["torque"] = int((x[8 * E:9 * E][idx] != 0).sum())
+    clamped = 0
+    for a in world.agents:
+        if a.f_range is not None:
+            over = (x[6 * E + a.index].abs() > a.f_range) | (x[7 * E + a.index].abs() > a.f_range)
+            clamped += int(over.sum())
+    out["clamped"] = clamped
     return out
