@@ -47,7 +47,7 @@
    at k_steps 1 and at k_steps 4, each once to warm up and 3 timed calls,
    env-steps/s and the device idle share; and transport's rows rollout at
    k_steps 1 and 4 side by side.
-8. road_traffic at 4096 envs x 20 vehicles: each road_traffic kernel's
+8. road_traffic at 4096 envs x 20 vehicles (map 1): each road_traffic kernel's
    registers, stack and spills; the path-sweep kernel's group form and the
    all-ego observation kernel's tile form, as the scenario runs them,
    bitwise against their one-thread forms and against their plain versions
@@ -58,7 +58,16 @@
    rollout_fn(horizon=100) once to warm up and 3 timed calls, with one
    launch of each kernel per step and reset; its idle share and device
    operations a step from a traced call of 10 steps (the profiler costs
-   the host ~0.45 ms a device operation, and a step has ~2800).
+   the host ~0.45 ms a device operation, and a step has ~2800). Then map 2
+   (4096 x 20), testing mode (4096 x 20), map 3 (4096 x 10, its default
+   sub-map probabilities) and map 3 with [0.4, 0.3, 0.3] (4096 x 4): both
+   kernels against their one-thread forms and plain versions after a reset
+   and after 10 random steps from testing.rt_events_state (collisions, and
+   agents at their exits and entries or across their lanes); the ISB
+   records, in-step resets and dones counted over those steps and one timed
+   rollout_fn call of 100 steps, and required where the configuration has
+   them; the launches of that call, two sweeps a step in map 3 and testing
+   mode; each kernel's device time and its plain version's.
 9. wind_flocking at 4096 envs: its fused step with the dynamic-gravity rows
    against its plain version, bitwise, on the rows of 10 env.step calls
    from a state with the big agent's wind weakened and the agents touching
@@ -150,7 +159,7 @@
    its Lidar at k_steps 1 and 4, flocking's rows rollout and navigation's
    HeuristicPolicy on the rows policy rollout, each bitwise its env.step
    rollout; pollock at its defaults (45 entities, the plain physics)
-   through rollout_fn, 100 steps, its vectorized Lidar against its per-ray
+   through rollout_fn, 20 steps, its vectorized Lidar against its per-ray
    loop; then the main paths with the counts zeroed: navigation and
    flocking on rows_rollout_fn (horizon 1000, k_steps 1, with the Lidar
    rebuild's share of a call), discovery's two configs on rollout_fn (100
@@ -192,8 +201,26 @@
    steps, bitwise, and road_traffic's 20 kinematic bicycles under
    VMAS_TPU_BATCH_DYNAMICS=1 over 5 steps (bitwise or its largest
    difference, and the process_action phase's ms a step against the
-   loop's, in turns). Each phase prints its seconds, and the script its
-   total.
+   loop's, in turns).
+12f. painting (nav and task_type "full"), construction and sampling at
+   4096 envs (none has fused outputs): each world's fused step with no
+   emit against its plain version, bitwise, at one thread and at 8 lanes
+   per env, over 5 steps from testing.dots_world_state (agents pressed into
+   the walls, or sampling's bound, and into each other; the sphere-sphere
+   and box-sphere contacts, or the lanes beyond the bound, counted and
+   required), the env stepped on through the kernel; sampling's
+   observations, rewards and visited cells over those steps bitwise a twin
+   env's stepped through the plain version, and its samples and visited
+   cells on the card bitwise the CPU's; each world's main path with the
+   count zeroed: make_env, reset, 5 env.step calls, rollout_fn (horizon
+   100) once to warm up and 3 timed calls, env-steps/s, the idle share and
+   device operations a step of a traced call of 10 steps (painting's step
+   has ~2,700 device operations, at ~0.45 ms of host time each under the
+   profiler).
+12g. The gymnasium vectorized wrapper (make_env(..., wrapper="gymnasium_vec"))
+   over transport@4096 with the fused step: reset and 5 steps, numpy
+   outputs of the expected shapes, finite. Each phase prints its seconds,
+   and the script its total.
 13. The op-cost probe: its kernel against its plain version at [54, 4096]
    with 0, 100 and 1200 operations (the ALU chain bitwise, the
    transcendental chain within atol 1e-6 rtol 1e-5), then its path with
@@ -290,7 +317,7 @@ JW_CMP_STEPS = 5
 JW_ROLLOUT_STEPS = 20
 JW_SHORT_HORIZON = 100
 # timed calls of a noisy config at HORIZON on the rows path and on rollout_fn
-NOISY_CALLS = 2
+NOISY_CALLS = 1
 # the noisy configs held bitwise on both rows paths: (make_env name, kwargs,
 # the agents' noise: "u" action noise, "uc" action and comm noise)
 NOISY = {
@@ -510,6 +537,7 @@ LANE_WORLDS = {
     "football": ("football", {"ai_red_agents": False}),
     **{name: (name, {}) for name in ("diff_drive", "kinematic_bicycle", "drone", "goal", "vel_control",
                                      "circle_trajectory", "line_trajectory")},
+    **{name: (name, {}) for name in ("painting", "construction", "sampling")},
 }
 
 
@@ -2430,8 +2458,10 @@ SW_REQUIRED = {
 }
 SW_CMP_STEPS = 5
 SW_ROLLOUT_STEPS = 20
-# the rollout_fn paths (discovery, pollock) and their horizon
+# the rollout_fn paths' horizon (discovery), and pollock's (its 45
+# entities on the plain physics: ~0.2 s a step at 4096 envs)
 SW_SHORT_HORIZON = 100
+POLLOCK_HORIZON = 20
 
 
 def sensor_ops(fo):
@@ -2617,8 +2647,8 @@ def sensor_worlds_phase(card, dev):
     assert env._fused_outputs is None and not F.supports(env.world)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    state, steps, traj = rollout_fn(env, horizon=SW_SHORT_HORIZON)(env.state, env.steps,
-                                                                   torch.Generator(device=dev).manual_seed(0))
+    state, steps, traj = rollout_fn(env, horizon=POLLOCK_HORIZON)(env.state, env.steps,
+                                                                  torch.Generator(device=dev).manual_seed(0))
     end.record()
     end.synchronize()
     call_ms = [start.elapsed_time(end)]
@@ -2631,7 +2661,7 @@ def sensor_worlds_phase(card, dev):
         worst = max(worst, float((v - loop).abs().max()))
         hits += int((v < a.sensors[0].max_range).sum())
     print(f"pollock@{B} ({len(env.world.entities)} entities, the plain physics: supports() refuses it) through "
-          f"rollout_fn, {SW_SHORT_HORIZON} steps: {call_ms[0]:.3f} ms a call; its vectorized Lidar vs its per-ray "
+          f"rollout_fn, {POLLOCK_HORIZON} steps: {call_ms[0]:.3f} ms a call; its vectorized Lidar vs its per-ray "
           f"loop: max abs err {worst:.3e} over {hits} ray hits (atol 1e-5); launches {n} on {card}", flush=True)
     if worst > 1e-5 or not hits:
         raise AssertionError(f"pollock's vectorized Lidar differs from its loop by {worst} ({hits} hits)")
@@ -3158,6 +3188,175 @@ def debug_worlds_phase(card, dev):
     return entries
 
 
+# -- the DOTS and sampling worlds ----------------------------------------------------
+
+# the worlds (vmas_tpu_torch.testing.DOTS_WORLDS, each at its defaults) and
+# the events each K1 comparison must see above zero: sphere-sphere and
+# box-sphere contacts (sampling's arena has no walls: its agents beyond the
+# bound instead)
+DOTS_REQUIRED = {"painting": ("ss", "bs"), "painting_full": ("ss", "bs"), "construction": ("ss", "bs"),
+                 "sampling": ("ss", "beyond_bound")}
+DOTS_CMP_STEPS = 5
+DOTS_HORIZON = 100
+DOTS_TRACE_STEPS = 10
+DOTS_PLAIN_CALLS = 5
+
+
+def dots_entry_name(key):
+    return "fused_step[painting,full]" if key == "painting_full" else f"fused_step[{key}]"
+
+
+def dots_worlds_phase(card, dev):
+    """painting (nav and task_type "full"), construction and sampling at
+    4096 envs (none has fused outputs): each world's K1 with no emit
+    against its plain version, bitwise, at one thread and at 8 lanes per
+    env, over DOTS_CMP_STEPS steps from testing.dots_world_state, each
+    step's input rows those of the step's hooks (painting's knowledge
+    mixing among them) and the env stepped on through the kernel, with the
+    contacts counted and required (DOTS_REQUIRED); sampling's visited cells,
+    samples and observations over those steps bitwise those of a twin env
+    stepped through K1's plain version, and its visited cells and samples
+    from the card's positions bitwise the CPU's; each world's main path
+    with the count zeroed (rollout_fn, DOTS_HORIZON steps, 3 timed calls:
+    env-steps/s, idle share, device operations a step of a traced call of
+    DOTS_TRACE_STEPS steps); the phase's entries of the kernels line."""
+    import numpy as np
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.parallel.rollout import rollout_fn
+
+    B = NUM_ENVS
+    t_phase = time.perf_counter()
+    times, work, errs, launches = {}, {}, {}, {}
+    for key, (name, kw) in testing.DOTS_WORLDS.items():
+        entry = dots_entry_name(key)
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True, **kw)
+        world = env.world
+        assert env._fused_outputs is None and world.fused and F.supports(world)
+        ks = F._kernel_spec(world)
+        E, n = ks.E, env.n_agents
+        s0 = state_from_numpy(world, testing.dots_world_state(env, np.random.default_rng(140)))
+        counts = {}
+        k1 = ErrTracker()
+        step_acts = [[torch.as_tensor(a, device=dev) for a in testing.dots_world_actions(
+            env, np.random.default_rng(141 + t))] for t in range(DOTS_CMP_STEPS)]
+
+        def run_steps():
+            nonlocal x
+            env.state = s0
+            for acts in step_acts:
+                st = env._act(env.state, acts, [(None, None)] * n)
+                x = torch.cat([F.state_rows(st), st.joint_fixed_rot.T]).contiguous()
+                for k, v in testing.dots_world_events(env, x).items():
+                    counts[k] = counts.get(k, 0) + v
+                k1.close(f"{key} fused_step state rows at {ks.lanes} lane(s)", F.fused_step(world, x),
+                         F.fused_step_plain(world, x))
+                env.step(acts)  # the next step from the kernel's
+
+        x = None
+        for lanes in (1, 8):
+            at_lanes(ks, lanes, run_steps)
+        print(f"{key}@{B}: fused_step (no emit) bitwise its plain version over {DOTS_CMP_STEPS} re-synced steps at "
+              f"1 and 8 lanes per env (the rule picks {ks.lanes}; E {E}, substeps {ks.substeps}); events over both "
+              f"runs {counts} on {card}", flush=True)
+        missing = [k for k in DOTS_REQUIRED[key] if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"the {key} comparison saw no {missing}: {counts}")
+        if key == "sampling":
+            sampling_bitwise(env, s0, step_acts, card)
+        errs[entry] = k1.max()
+        times[entry] = kernel_times(entry, lambda: F.fused_step(world, x), lambda: F.fused_step_plain(world, x),
+                                    "fused_step_kernel", plain_calls=DOTS_PLAIN_CALLS)
+        work[entry] = ((x.shape[0] + 9 * E) * B * 4, kernel_ops(ks, x))
+        other = 8 if ks.lanes == 1 else 1
+        other_ms = at_lanes(ks, other, lambda: launch_ms(lambda: F.fused_step(world, x), 200, "fused_step_kernel",
+                                                         "the other form"))
+        times[entry]["other"] = (other, other_ms)
+        print(f"{entry} at {other} lane{'s' if other > 1 else ''} per env: {other_ms * 1e3:.3f} us on the device "
+              f"(the rule's {ks.lanes}: {times[entry]['ms'] * 1e3:.3f} us)", flush=True)
+        del env, s0, x
+
+        # the main path: env.step through rollout_fn, K1 with no emit a step
+        F.fused_step_launches = 0
+        env = make_env(name, num_envs=B, fused_physics=True, **kw)
+        assert env.device.type == "cuda"
+        obs = env.reset()
+        for _ in range(5):
+            obs, rews, dones, infos = env.step(env.get_random_actions())
+        run = rollout_fn(env, horizon=DOTS_HORIZON)
+        rgen = torch.Generator(device=dev).manual_seed(0)
+        state, steps, traj, call_ms, warm_s = timed_rollout(run, env.state, env.steps, rgen)
+        launches[entry] = F.fused_step_launches
+        assert launches[entry] == 5 + DOTS_HORIZON * (1 + TIMED_CALLS), (entry, launches[entry])
+        widths = [o.shape[-1] for o in obs]
+        assert traj["rewards"].shape == (DOTS_HORIZON, B, n) and bool(torch.isfinite(traj["rewards"]).all())
+        assert all(o.shape == (DOTS_HORIZON, B, w) and bool(torch.isfinite(o).all())
+                   for o, w in zip(traj["obs"], widths))
+        assert bool(torch.isfinite(state.pos).all())
+        print(f"main path: {key} {B} envs x {n} agents x {DOTS_HORIZON} steps, rollout_fn (env.step: K1 with no "
+              f"emit); launches {{'fused_step': {launches[entry]}}} ({time.perf_counter() - t_phase:.1f} s into "
+              f"the phase)", flush=True)
+        rollout_report(f"{key}@{B} rollout_fn", run, state, steps, rgen, call_ms, warm_s, B, card,
+                       horizon=DOTS_HORIZON, trace=(rollout_fn(env, horizon=DOTS_TRACE_STEPS), DOTS_TRACE_STEPS))
+        del env, state, traj
+
+    entries = []
+    src = "vmas_tpu_torch/csrc/fused_step.cu"
+    for key in testing.DOTS_WORLDS:
+        entry = dots_entry_name(key)
+        e = kernel_entry(entry, src, "vmas_tpu/core/fused.py:1425", launches[entry], errs[entry], times[entry],
+                         *work[entry])
+        e["launches_on"] = f"{key}'s main path at {NUM_ENVS} envs, rollout_fn"
+        e["other_lanes"], e["other_us"] = times[entry]["other"][0], times[entry]["other"][1] * 1e3
+        entries.append(e)
+    return entries
+
+
+def sampling_bitwise(env, s0, step_acts, card):
+    """sampling's visited cells, samples and observations over the steps
+    from ``s0`` bitwise those of a twin env stepped through K1's plain
+    version; then the visited cells and samples from the card's positions
+    bitwise those of the same scenario code on the CPU (the cell index
+    divides by the grid spacing as a tensor)."""
+    import torch
+    from vmas_tpu_torch import make_env
+    from vmas_tpu_torch.core import fused as F
+
+    twin = make_env("sampling", env.num_envs, device=env.device, seed=0, fused_physics=True)
+    kernel = F.fused_step
+    runs = []
+    for e, step_fn in ((env, kernel), (twin, lambda world, x, outputs=None: F.fused_step_plain(world, x, outputs))):
+        F.fused_step = step_fn
+        try:
+            e.state = s0
+            outs = [e.step(acts) for acts in step_acts]
+        finally:
+            F.fused_step = kernel
+        runs.append((e.state, outs))
+    (sa, oa), (sb, ob) = runs
+    for t, (a, b) in enumerate(zip(oa, ob)):
+        for ga, gb in zip([*a[0], *a[1]], [*b[0], *b[1]]):
+            if not torch.equal(ga, gb):
+                raise AssertionError(f"sampling's observations or rewards through K1 differ from the plain "
+                                     f"version's at step {t}")
+    if not torch.equal(sa.scenario["sampled"], sb.scenario["sampled"]):
+        raise AssertionError("sampling's visited cells through K1 differ from the plain version's")
+    cpu = make_env("sampling", env.num_envs, device="cpu", seed=0)
+    scr = {k: v.cpu() for k, v in sa.scenario.items()}
+    scr_dev = sa.scenario
+    for a, ac in zip(env.world.agents, cpu.world.agents):
+        v, scr_dev = env.scenario._sample(scr_dev, a.pos(sa), update_sampled_flag=True)
+        vc, scr = cpu.scenario._sample(scr, a.pos(sa).cpu(), update_sampled_flag=True)
+        if not (torch.equal(v.cpu(), vc) and torch.equal(scr_dev["sampled"].cpu(), scr["sampled"])):
+            raise AssertionError("sampling's samples or visited cells on the card differ from the CPU's")
+    n_cells = int(scr["sampled"].sum())
+    print(f"sampling@{env.num_envs}: observations, rewards and visited cells over {len(step_acts)} steps through K1 "
+          f"bitwise those through its plain version; samples and visited cells ({n_cells} cells) from the card's "
+          f"positions bitwise the CPU's on {card}", flush=True)
+
+
 def caps_phase(card, dev):
     """The worlds beyond the old caps (32 entities, 16 agents in an emit):
     simple_spread with 30 agents (60 entities, one thread per env: a block
@@ -3589,7 +3788,155 @@ def road_traffic_phase(card, dev):
     obs = kernel_entry("rt_obs", src, "vmas_tpu/scenarios/road_traffic_kernel.py:360", launches["rt_obs"],
                        obs_err, times["rt_obs"], *obs_work)
     obs.update(tile=obs_tile, thread_us=obs_us[0] * 1e3)
+    del env, state, traj, trace
+
+    # -- maps 2 and 3 and testing mode ------------------------------------------------
+    entries = [sweep, obs]
+    for tag, (kw, twice, required) in RT_CONFIGS.items():
+        entries += rt_config_path(card, dev, tag, kw, twice, required)
+    return entries
+
+
+# road_traffic's other configurations: (make_env kwargs, whether the sweep
+# runs twice a step: the per-agent resets of map 3 and testing mode refresh
+# the distances), the steps compared, and the events each must show over
+# its compared steps and its timed call
+RT_CONFIGS = {
+    "map2": (dict(map_type="2"), False, ("isb_records", "dones")),
+    "testing": (dict(is_testing_mode=True), True, ("resets",)),
+    "map3": (dict(map_type="3", n_agents=10), True, ("resets", "dones")),
+    "map3,mixed": (dict(map_type="3", n_agents=4, scenario_probabilities=[0.4, 0.3, 0.3]), True,
+                   ("resets", "dones")),
+}
+RT_MAP_CMP_STEPS = 10
+
+
+def rt_config_path(card, dev, tag, kw, twice, required):
+    """One road_traffic configuration at 4096 envs: both kernels against
+    their one-thread forms and their plain versions after a reset and after
+    RT_MAP_CMP_STEPS random steps from testing.rt_events_state; the ISB records, in-step resets and dones
+    counted over those steps and a timed rollout_fn call of RT_HORIZON steps
+    with the launch counts zeroed (one sweep a step, two in map 3 and
+    testing mode; one observation launch a step); the kernels' device times
+    and plain versions'. Returns the two entries of the kernels line."""
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.parallel.rollout import rollout_fn
+    from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
+
+    B = NUM_ENVS
+    t0 = time.perf_counter()
+    env = make_env("road_traffic", B, device=dev, seed=0, **kw)
+    sc, T = env.scenario, env.scenario._sweep_tables
+    A, S, K = sc.n_agents, sc.sweep_kw["S"], sc.obs_kw["K"]
+    events = {"isb_records": 0, "resets": 0, "dones": 0}
+    place = sc._reset_agents_states
+
+    def counted(state, generator, agent_mask=None):
+        if agent_mask is not None:
+            events["resets"] += int(agent_mask.sum())
+        return place(state, generator, agent_mask)
+
+    sc._reset_agents_states = counted
+    lanes = lambda st: (st.scenario["path_id"].contiguous(),) + tuple(
+        t.contiguous() for t in sc._agent_arrays(st)[:2])
+    s_reset = env.state
+    # the events placed (testing.rt_events_state: collisions in the even
+    # envs, agents at their exits or entries, or across their lanes, in the
+    # odd ones), then random steps
+    env.state = testing.rt_events_state(env)
+    for _ in range(RT_MAP_CMP_STEPS):
+        events["dones"] += int(env.step(env.get_random_actions())[2].sum())
+    s_steps = env.state
+    sweep_err = max(rt_compare_sweep(sc, *lanes(s_reset), f"{tag}, after reset"),
+                    rt_compare_sweep(sc, *lanes(s_steps), f"{tag}, after {RT_MAP_CMP_STEPS} random steps"))
+    obs_err = max(rt_compare_obs(sc, s_reset, f"{tag}, after reset"),
+                  rt_compare_obs(sc, s_steps, f"{tag}, after {RT_MAP_CMP_STEPS} random steps"))
+
+    # one timed call of the main path, the counts zeroed
+    rtk.sweep_launches = 0
+    rtk.obs_launches = 0
+    run = rollout_fn(env, horizon=RT_HORIZON)
+    rgen = torch.Generator(device=dev).manual_seed(0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, steps, traj = run(env.state, env.steps, rgen)
+    end.record()
+    end.synchronize()
+    call_ms = start.elapsed_time(end)
+    launches = {"rt_sweep": rtk.sweep_launches, "rt_obs": rtk.obs_launches}
+    assert launches == {"rt_sweep": (2 if twice else 1) * RT_HORIZON, "rt_obs": RT_HORIZON}, (tag, launches)
+    events["dones"] += int(traj["dones"].sum())
+    if "isb_size" in state.scenario:
+        events["isb_records"] = int(state.scenario["isb_size"])
+    W = 1 + 2 * S + 3 + 11 * K
+    assert traj["rewards"].shape == (RT_HORIZON, B, A) and bool(torch.isfinite(traj["rewards"]).all())
+    assert all(o.shape == (RT_HORIZON, B, W) and bool(torch.isfinite(o).all()) for o in traj["obs"])
+    assert bool(torch.isfinite(state.pos).all()) and int(steps[0]) == RT_MAP_CMP_STEPS + RT_HORIZON
+    missing = [k for k in required if not events[k]]
+    if missing:
+        raise AssertionError(f"road_traffic {tag} saw no {missing}: {events}")
+    print(f"main path: rollout_fn road_traffic {tag} {B} envs x {A} vehicles x {RT_HORIZON} steps: one call "
+          f"{call_ms:.3f} ms, {B * RT_HORIZON / (call_ms / 1e3):.1f} env-steps/s on {card}; launches {launches} "
+          f"({'two sweeps' if twice else 'one sweep'} a step); over {RT_MAP_CMP_STEPS} + {RT_HORIZON} steps "
+          f"{events['isb_records']} ISB records, {events['resets']} agents reset in a step, {events['dones']} "
+          f"env dones ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    pid, pos, rot = lanes(s_steps)
+    xs = sc.obs_inputs(s_steps)
+    tile = rtk.obs_tile(A, S, K, dev)
+    sweep_fn = lambda L: rtk.sweep_all(T, pid, pos, rot, **sc.sweep_kw, lanes=L)
+    obs_fn = lambda t: rtk.obs_all(*xs, **sc.obs_kw, tile=t)
+    sweep_us = {L: launch_ms(lambda: sweep_fn(L), 200, "rt_sweep_kernel" if L == 1 else "rt_sweep_group_kernel",
+                             f"rt_sweep[{tag}] lanes {L}") for L in (1, rtk.SWEEP_LANES)}
+    obs_us = {t: launch_ms(lambda: obs_fn(t), 200, "rt_obs_kernel" if t == 0 else "rt_obs_tile_kernel",
+                           f"rt_obs[{tag}] tile {t}") for t in sorted({0, tile})}
+    times = {
+        "rt_sweep": {"ms": sweep_us[rtk.SWEEP_LANES], "wall_ms": time_ms(lambda: sweep_fn(None), 200),
+                     "plain_ms": time_ms(lambda: rtk.sweep_all_plain(T, pid, pos, rot, **sc.sweep_kw), 5)},
+        "rt_obs": {"ms": obs_us[tile], "wall_ms": time_ms(lambda: obs_fn(None), 200),
+                   "plain_ms": time_ms(lambda: rtk.obs_all_plain(*xs, **sc.obs_kw), 5)},
+    }
+    print(f"rt_sweep[{tag}]: {sweep_us[rtk.SWEEP_LANES] * 1e3:.3f} us on the device at {rtk.SWEEP_LANES} lanes "
+          f"({sweep_us[1] * 1e3:.3f} us one-thread), plain {times['rt_sweep']['plain_ms'] * 1e3:.1f} us; "
+          f"rt_obs[{tag}]: {obs_us[tile] * 1e3:.3f} us at tile {tile} ({obs_us[0] * 1e3:.3f} us one-thread), "
+          f"plain {times['rt_obs']['plain_ms'] * 1e3:.1f} us; {T.center.shape[0]} paths of at most "
+          f"{T.center.shape[1]} centre points", flush=True)
+    src = "vmas_tpu_torch/csrc/road_traffic.cu"
+    on = f"road_traffic {tag}'s rollout_fn call of {RT_HORIZON} steps at {B} envs x {A} vehicles"
+    sweep = kernel_entry(f"rt_sweep[{tag}]", src, "vmas_tpu/scenarios/road_traffic_kernel.py:403",
+                         launches["rt_sweep"], sweep_err, times["rt_sweep"], *rt_sweep_work(T, pid, S))
+    sweep.update(lanes=rtk.SWEEP_LANES, thread_us=sweep_us[1] * 1e3, launches_on=on)
+    obs = kernel_entry(f"rt_obs[{tag}]", src, "vmas_tpu/scenarios/road_traffic_kernel.py:360", launches["rt_obs"],
+                       obs_err, times["rt_obs"], *rt_obs_work(B, A, S, K))
+    obs.update(tile=tile, thread_us=obs_us[0] * 1e3, launches_on=on)
     return [sweep, obs]
+
+
+def wrapper_phase(card, dev):
+    """The gymnasium vectorized wrapper over transport@4096 with the fused
+    step: reset and 5 steps with random actions on the card, the outputs as
+    numpy arrays of the expected shapes, finite."""
+    import numpy as np
+    from vmas_tpu_torch import make_env
+    from vmas_tpu_torch.environment.gym_wrappers import GymnasiumVectorizedWrapper
+
+    B = NUM_ENVS
+    env = make_env("transport", B, n_agents=N_AGENTS, seed=0, fused_physics=True, terminated_truncated=True,
+                   wrapper="gymnasium_vec")
+    assert isinstance(env, GymnasiumVectorizedWrapper) and env.unwrapped.device.type == "cuda"
+    obs, info = env.reset(seed=0)
+    assert len(obs) == N_AGENTS and all(o.shape == (B, 11) for o in obs)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        obs, rews, terminated, truncated, info = env.step(env.unwrapped.get_random_actions())
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    assert all(isinstance(o, np.ndarray) and o.shape == (B, 11) and np.isfinite(o).all() for o in obs)
+    assert all(isinstance(r, np.ndarray) and r.shape == (B,) and np.isfinite(r).all() for r in rews)
+    assert terminated.shape == (B,) and truncated.shape == (B,) and set(info) == {a.name for a in env.env.agents}
+    print(f"wrapper: GymnasiumVectorizedWrapper over transport@{B} (fused step), reset and 5 steps on {card}: "
+          f"numpy outputs of the expected shapes, finite; {ms:.3f} ms a step on the host's clock, the copies "
+          f"off the card included", flush=True)
 
 
 # -- 12. PPO at transport@4096 ---------------------------------------------------
@@ -4001,6 +4348,12 @@ def main():
     # -- 12e. the dynamics and controller debug worlds ------------------------------------
     dw_kernels = run_phase("dynamics and controller worlds", debug_worlds_phase, card, dev)
 
+    # -- 12f. the DOTS and sampling worlds ----------------------------------------------
+    dots_kernels = run_phase("DOTS and sampling worlds", dots_worlds_phase, card, dev)
+
+    # -- 12g. a wrapper on the card ----------------------------------------------------
+    run_phase("wrapper", wrapper_phase, card, dev)
+
     # -- 13. the op-cost probe -------------------------------------------------
     opcost_kernels = run_phase("op-cost", opcost_phase, card, dev)
 
@@ -4025,7 +4378,7 @@ def main():
         kernel_entry("fused_step[transport,ppo]", src, "vmas_tpu/core/fused.py:1425", ppo_launches["fused_step"],
                      ppo_k1.max(), ppo_times["fused_step"], fused_bytes, ppo_flops),
     ] + (balance_kernels + joint_kernels + give_way_kernels + rt_kernels + wfl_kernels + mpe_kernels + mpef_kernels
-         + hol_kernels + jw_kernels + sw_kernels + fb_kernels + dw_kernels + opcost_kernels)
+         + hol_kernels + jw_kernels + sw_kernels + fb_kernels + dw_kernels + dots_kernels + opcost_kernels)
     entry_lanes(kernels, picked)
     kernels += caps_kernels  # each with its own lanes
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start, the build included", flush=True)

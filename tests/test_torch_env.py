@@ -165,5 +165,8 @@ def test_default_device_needs_a_gpu(monkeypatch):
 
 
 def test_only_transport_is_registered():
+    """A name outside the registry raises (every name of the JAX package's
+    registry is ported, sampling the last of them)."""
     with pytest.raises(ValueError, match="not ported"):
-        torch_make_env("sampling", 4, device="cpu")
+        torch_make_env("no_such_scenario", 4, device="cpu")
+    assert torch_make_env("sampling", 4, device="cpu").n_agents == 3

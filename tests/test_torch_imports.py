@@ -55,7 +55,7 @@ def test_scenarios_import_without_jax():
             + repr(BANNED) + "))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
     n, banned = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 33 and banned == "[]", out.stdout
+    assert int(n) == 43 and banned == "[]", out.stdout
 
 
 def test_football_modules_listed():
@@ -116,3 +116,21 @@ def test_dynamics_models_and_debug_worlds_import_without_jax():
             "print(sorted(m for m in sys.modules if m.split('.')[0] in " + repr(BANNED) + "))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_dots_worlds_and_wrappers_import_without_jax():
+    """dots_core, painting, construction and sampling, the Wrapper enum and
+    the gym, gymnasium and rllib wrappers are among the files held to
+    importing no JAX, and load in a fresh interpreter without it."""
+    files = ["dots_core.py", "scenarios/painting.py", "scenarios/construction.py", "scenarios/sampling.py",
+             "environment/__init__.py", "environment/gym_wrappers.py", "environment/rllib.py"]
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"vmas_tpu_torch/{f}" for f in files} <= names
+    mods = ["vmas_tpu_torch.dots_core", "vmas_tpu_torch.environment.gym_wrappers",
+            "vmas_tpu_torch.environment.rllib"] + [
+        f"vmas_tpu_torch.scenarios.{w}" for w in ("painting", "construction", "sampling")]
+    code = ("import importlib, sys; [importlib.import_module(m) for m in " + repr(mods) + "]; "
+            "from vmas_tpu_torch.environment import Wrapper; "
+            "print(len(Wrapper), sorted(m for m in sys.modules if m.split('.')[0] in " + repr(BANNED) + "))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
+    assert out.stdout.strip() == "4 []", out.stdout

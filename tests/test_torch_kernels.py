@@ -34,8 +34,12 @@ both forms bitwise, and navigation's and flocking's rows rollouts bitwise
 rollout_fn; football's emit in both forms and its ball script in K2
 bitwise, and its rows rollouts bitwise rollout_fn; K1 with no emit in the
 seven dynamics and controller debug worlds (diff_drive, kinematic_bicycle,
-drone, goal, vel_control, circle_trajectory, line_trajectory) in both
-forms bitwise; the op-cost probe's ALU chain
+drone, goal, vel_control, circle_trajectory, line_trajectory) and in
+painting (nav and full), construction and sampling in both forms bitwise,
+sampling's visited cells on the card bitwise the CPU's; road_traffic's
+kernels on map 3's tables, map 2 and testing mode against their one-thread
+forms and plain versions, with two sweeps a step in map 3 and testing
+mode; the op-cost probe's ALU chain
 bitwise, its transcendental chain atol 1e-6 rtol 1e-5. The balance,
 all-pairs, joint_passage, waterfall, give_way, multi_give_way,
 wind_flocking and MPE states come from vmas_tpu_torch/testing.py, as
@@ -1205,3 +1209,84 @@ def test_debug_worlds_kernel_bitwise_plain(name, lanes):
     finally:
         ks.lanes = rule
     assert all(u.shape == (width, a.action_size) for u, a in zip(e.state.u, e.world.agents))
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("key", ["painting", "painting_full", "construction", "sampling"])
+def test_dots_worlds_kernel_bitwise_plain(key, lanes):
+    """K1 with no emit bitwise its plain version at 4099 envs, one thread
+    per env and 8 lanes per env, over 3 steps from testing.dots_world_state
+    (agents pressed into the walls or the bound and into each other), the
+    env stepped on through the kernel; sampling's visited cells and
+    observations after the steps bitwise those of the same steps on the
+    CPU."""
+    import numpy as np
+
+    from vmas_tpu_torch.interop import state_from_numpy
+    from vmas_tpu_torch.testing import DOTS_WORLDS, dots_world_actions, dots_world_state
+
+    _cuda()
+    width = 4096 + 3
+    name, kw = DOTS_WORLDS[key]
+    envs = {dev: make_env(name, width, device=dev, seed=0, fused_physics=True, **kw) for dev in ("cuda", "cpu")}
+    e = envs["cuda"]
+    assert e._fused_outputs is None and e.world.fused
+    ks = F._kernel_spec(e.world)
+    e.state = state_from_numpy(e.world, dots_world_state(envs["cpu"], np.random.default_rng(45)))
+    rule, ks.lanes = ks.lanes, lanes
+    try:
+        for t in range(3):
+            acts = dots_world_actions(e, np.random.default_rng(46 + t))
+            st = e._act(e.state, [torch.as_tensor(a, device="cuda") for a in acts], [(None, None)] * e.n_agents)
+            x = torch.cat([F.state_rows(st), st.joint_fixed_rot.T]).contiguous()
+            assert torch.equal(F.fused_step(e.world, x), F.fused_step_plain(e.world, x)), t
+            e.step([torch.as_tensor(a, device="cuda") for a in acts])
+        torch.cuda.synchronize()
+    finally:
+        ks.lanes = rule
+    if key == "sampling":
+        # the visited cells from the card's positions, on the card and on the CPU
+        sc, scc = e.scenario, envs["cpu"].scenario
+        scr = {k: v.cpu() for k, v in e.state.scenario.items()}
+        for a, ac in zip(e.world.agents, envs["cpu"].world.agents):
+            v, s_gpu = sc._sample(e.state.scenario, a.pos(e.state), update_sampled_flag=True)
+            vc, s_cpu = scc._sample(scr, ac.pos(e.state).cpu(), update_sampled_flag=True)
+            assert torch.equal(s_gpu["sampled"].cpu(), s_cpu["sampled"]) and torch.equal(v.cpu(), vc)
+
+
+@pytest.mark.parametrize("kw", [dict(map_type="3", n_agents=10),
+                                dict(map_type="3", n_agents=4, scenario_probabilities=[0.4, 0.3, 0.3]),
+                                dict(map_type="2"), dict(is_testing_mode=True)],
+                         ids=["map3", "map3_mixed", "map2", "testing"])
+def test_rt_kernels_on_other_maps_match_plain(kw):
+    """road_traffic's path sweeps and observations on map 3's tables (32
+    paths) and in maps 2 and testing mode at 4099 envs, after 4 random
+    steps: the group form bitwise the one-thread form, indices, flags,
+    short-term points and chosen neighbours equal to the plain version's,
+    values atol 1e-6; two sweeps a step in map 3 and testing mode."""
+    _cuda()
+    e = make_env("road_traffic", 4096 + 3, device="cuda", seed=0, is_add_noise=False, **kw)
+    n = rtk.sweep_launches
+    for _ in range(4):
+        e.step(e.get_random_actions())
+    torch.cuda.synchronize()
+    per_step = 2 if kw.get("map_type") == "3" or kw.get("is_testing_mode") else 1
+    assert rtk.sweep_launches - n == 4 * per_step
+    sc = e.scenario
+    lanes = _rt_lanes(e)
+    one = rtk.sweep_rows(sc._sweep_tables, *lanes, lanes=1, **sc.sweep_kw)
+    assert torch.equal(rtk.sweep_rows(sc._sweep_tables, *lanes, **sc.sweep_kw).view(torch.int32),
+                       one.view(torch.int32))
+    got = rtk.sweep_all(sc._sweep_tables, *lanes, **sc.sweep_kw)
+    want = rtk.sweep_all_plain(sc._sweep_tables, *lanes, **sc.sweep_kw)
+    for k in ("idx_ref", "idx_l", "idx_r", "coll_l", "coll_r", "short_term"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("d_ref", "dl5", "dr5"):
+        _close(got[k], want[k], 1e-6, 0.0)
+    xs = sc.obs_inputs(e.state)
+    got = rtk.obs_all(*xs, **sc.obs_kw)
+    assert torch.equal(got.view(torch.int32), rtk.obs_all(*xs, **sc.obs_kw, tile=0).view(torch.int32))
+    want = rtk.obs_all_plain(*xs, **sc.obs_kw)
+    far = [10 + 11 * k + 10 for k in range(sc.obs_kw["K"])]
+    assert torch.equal(got[..., far] == 1.0, want[..., far] == 1.0)
+    _close(got, want, 1e-6, 0.0)

@@ -409,13 +409,20 @@ def test_grad_enabled_turns_the_kernels_off_and_gradients_flow():
     assert bool(torch.isfinite(grads).all()) and bool((grads != 0).any())
 
 
-# -- what is not ported --------------------------------------------------------
+# -- the configurations once refused ---------------------------------------------
 
 @pytest.mark.parametrize("kw", [dict(map_type="2"), dict(map_type="3", n_agents=4), dict(is_testing_mode=True)],
                          ids=["map2", "map3", "testing_mode"])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        torch_make_env("road_traffic", 2, device="cpu", **kw)
+    """Maps 2 and 3 and testing mode, which raised NotImplementedError
+    before they were ported, now build and step (they are held to the JAX
+    package in tests/test_torch_road_traffic_maps.py)."""
+    env = torch_make_env("road_traffic", 2, device="cpu", **kw)
+    obs, rews, dones, _ = env.step(env.get_random_actions())
+    assert len(obs) == env.n_agents and dones.shape == (2,)
+    assert all(bool(torch.isfinite(o).all()) for o in obs) and all(bool(torch.isfinite(r).all()) for r in rews)
+    sc = env.scenario
+    assert sc.map_type == kw.get("map_type", "1") and sc.is_testing_mode == kw.get("is_testing_mode", False)
 
 
 @pytest.mark.parametrize("probs", [None, [0.5, 0.5, 0.0]], ids=["default", "mixed_scenarios"])

@@ -3,7 +3,7 @@
 A second package beside the JAX one, which stays the reference: the same
 module names, plain PyTorch around hand-written CUDA kernels for Hopper
 (``csrc/``). Environments run on the GPU unless ``device="cpu"`` is passed.
-Ported so far: 40 of the JAX package's 43 scenario names (``scenarios``),
+Ported: all 43 of the JAX package's scenario names (``scenarios``),
 every dynamics model, the rollouts and PPO.
 """
 

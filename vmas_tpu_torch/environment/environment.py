@@ -13,6 +13,7 @@ the observation noise (``BaseScenario.obs_generator``).
 The env runs on the GPU unless the caller passes ``device="cpu"``; with no
 GPU present it raises instead of falling back. gymnasium is imported only
 when a space is asked for (``action_space``, ``observation_space``,
+``get_action_space``, ``get_observation_space``,
 ``get_agent_action_space``); random actions need none.
 """
 
@@ -44,6 +45,8 @@ def _obs_seed(generator: torch.Generator) -> int:
 
 
 class Environment:
+    metadata = {"render.modes": ["human", "rgb_array"], "runtime.vectorized": True}
+
     def __init__(
         self,
         scenario: BaseScenario,
@@ -491,16 +494,19 @@ class Environment:
             return spaces.MultiDiscrete(self.discrete_action_nvec(agent))
         return spaces.Discrete(math.prod(self.discrete_action_nvec(agent)))
 
+    def get_action_space(self):
+        """The action space of all policy agents: a Tuple of theirs in agent
+        order, or a Dict keyed by agent name under ``dict_spaces``."""
+        from gymnasium import spaces
+
+        if not self.dict_spaces:
+            return spaces.Tuple([self.get_agent_action_space(a) for a in self.agents])
+        return spaces.Dict({a.name: self.get_agent_action_space(a) for a in self.agents})
+
     @property
     def action_space(self):
         if "action" not in self._spaces:
-            from gymnasium import spaces
-
-            per_agent = [self.get_agent_action_space(a) for a in self.agents]
-            self._spaces["action"] = (
-                spaces.Dict({a.name: s for a, s in zip(self.agents, per_agent)})
-                if self.dict_spaces else spaces.Tuple(per_agent)
-            )
+            self._spaces["action"] = self.get_action_space()
         return self._spaces["action"]
 
     def get_agent_observation_space(self, agent: Agent, obs):
@@ -514,17 +520,24 @@ class Environment:
         return spaces.Box(low=-np.float32("inf"), high=np.float32("inf"), shape=tuple(obs.shape[1:]),
                           dtype=np.float32)
 
+    def get_observation_space(self, observations):
+        """The observation space of all policy agents from one set of their
+        observations (a list in agent order, or a dict keyed by agent name
+        under ``dict_spaces``, as ``step`` returns them)."""
+        from gymnasium import spaces
+
+        if not self.dict_spaces:
+            return spaces.Tuple(
+                [self.get_agent_observation_space(a, observations[i]) for i, a in enumerate(self.agents)]
+            )
+        return spaces.Dict(
+            {a.name: self.get_agent_observation_space(a, observations[a.name]) for a in self.agents}
+        )
+
     @property
     def observation_space(self):
         if "observation" not in self._spaces:
-            from gymnasium import spaces
-
-            obs = self._observations(self.state)
-            per_agent = [self.get_agent_observation_space(a, o) for a, o in zip(self.agents, obs)]
-            self._spaces["observation"] = (
-                spaces.Dict({a.name: s for a, s in zip(self.agents, per_agent)})
-                if self.dict_spaces else spaces.Tuple(per_agent)
-            )
+            self._spaces["observation"] = self.get_observation_space(self._maybe_dict(self._observations(self.state)))
         return self._spaces["observation"]
 
     # ------------------------------------------------------------------

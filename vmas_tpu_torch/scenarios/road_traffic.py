@@ -12,10 +12,19 @@ observations. The flag names are the JAX package's; here they mean "use the
 CUDA kernel" (on CPU tensors the kernels' plain versions run). With both
 off, the plain helpers below run instead, and stay differentiable.
 
-Ported: ``map_type="1"``. Not ported yet, and raising
-``NotImplementedError``: ``map_type`` "2" (history ring and challenging
-initial-state buffer) and "3" (per-agent resets), ``is_testing_mode``, and
-rendering (``extra_render``).
+Every configuration is ported: ``map_type`` "1" (the whole map), "2" (the
+whole map, with a per-env state-history ring and the challenging
+initial-state buffer, ISB, which records the lead-up to agent collisions
+and replays it at resets) and "3" (one of three sub-maps per env, drawn by
+``scenario_probabilities``, with per-agent resets at entries, exits and,
+outside testing mode, no resets in envs that collided), and
+``is_testing_mode`` (per-agent resets after any collision). The per-agent
+resets of map 3 and testing mode run in ``post_rewards`` and refresh the
+distances again, so ``_update_distances`` (the sweep kernel) runs twice a
+step there. The per-step draws (those resets, the ISB's record gate) come
+from a ``torch.Generator`` seeded from the seed the environment draws for
+each step (``obs_generator(STEP_STREAM)``), so a rollout reproduces
+``env.step``. Rendering (``extra_render``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +41,10 @@ from vmas_tpu_torch.scenario import BaseScenario
 from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
 from vmas_tpu_torch.scenarios import road_traffic_map as rtm
 from vmas_tpu_torch.utils import ScenarioUtils
+
+# the stream of the per-step draws (BaseScenario.obs_generator): above any
+# agent's slot, whose stream draws its observation noise
+STEP_STREAM = 1000
 
 
 def exponential_decreasing_fcn(x, x0, x1):
@@ -187,9 +200,27 @@ class Scenario(BaseScenario):
         self.is_observe_distance_to_boundaries = kwargs.pop("is_observe_distance_to_boundaries", True)
         self.is_observe_distance_to_center_line = kwargs.pop("is_observe_distance_to_center_line", True)
         self.scenario_probabilities = kwargs.pop("scenario_probabilities", [1.0, 0.0, 0.0])
+        if self.map_type == "3":
+            # the sub-maps cannot host more vehicles
+            if self.scenario_probabilities[1] != 0 or self.scenario_probabilities[2] != 0:
+                if self.n_agents > 5:
+                    raise ValueError(
+                        "For map_type '3', if the second or third value of scenario_probabilities is not "
+                        "zero, a maximum of 5 agents are allowed."
+                    )
+            elif self.n_agents > 10:
+                raise ValueError(
+                    "For map_type '3', if only the first value of scenario_probabilities is not zero, a "
+                    "maximum of 10 agents are allowed."
+                )
         self.is_add_noise = kwargs.pop("is_add_noise", True)
         self.is_observe_ref_path_other_agents = kwargs.pop("is_observe_ref_path_other_agents", False)
+        self.n_steps_stored = kwargs.pop("n_steps_stored", 10)
+        self.isb_capacity = kwargs.pop("buffer_size", 100)
+        self.probability_record = kwargs.pop("probability_record", 1.0)
+        self.n_steps_before_recording = kwargs.pop("n_steps_before_recording", 10)
         self.n_points_nearing_boundary = kwargs.pop("n_points_nearing_boundary", 5)
+        self.probability_use_recording = kwargs.pop("probability_use_recording", 0.2)
         map_file_path = kwargs.pop("map_file_path", None)
         # the path-sweep kernel and the all-ego observation kernel
         # (road_traffic_kernel.py): forward-only, so Environment turns both
@@ -197,40 +228,33 @@ class Scenario(BaseScenario):
         self.pallas_sweeps = bool(kwargs.pop("pallas_sweeps", True))
         self.pallas_obs = bool(kwargs.pop("pallas_obs", True))
         # accepted as the JAX package accepts them; read there only by what
-        # is not ported (rendering, map 2's recording buffer, map 3) or not
-        # at all
+        # is not ported (rendering) or not at all
         for k in (
             "threshold_deviate_from_ref_path", "threshold_reach_goal",
             "threshold_no_reward_if_too_close_to_boundaries",
             "threshold_no_reward_if_too_close_to_other_agents", "resolution_factor",
             "max_ref_path_points", "n_stored_steps", "n_observed_steps", "render_origin",
             "viewer_size", "viewer_zoom", "is_visualize_short_term_path", "is_real_time_rendering",
-            "is_visualize_extra_info", "render_title", "n_steps_stored",
-            "buffer_size", "probability_record", "n_steps_before_recording",
-            "probability_use_recording", "parameters",
+            "is_visualize_extra_info", "render_title", "parameters",
         ):
             kwargs.pop(k, None)
         ScenarioUtils.check_kwargs_consumed(kwargs)
 
-        if self.map_type != "1":
-            raise NotImplementedError(
-                f"road_traffic map_type {self.map_type!r} is not ported to vmas_tpu_torch yet: "
-                "map 2's state-history ring and challenging initial-state buffer and map 3's "
-                "per-agent resets are missing; only map_type='1' runs"
-            )
-        if self.is_testing_mode:
-            raise NotImplementedError(
-                "road_traffic is_testing_mode is not ported to vmas_tpu_torch yet: its "
-                "per-agent resets after collisions are missing"
-            )
         if self.n_nearing_agents >= self.n_agents:
             raise ValueError("n_nearing_agents_observed must be less than n_agents")
 
-        # map + packed reference paths
+        # map + packed reference paths: the whole map's, or map 3's three
+        # sub-maps' one after the other (intersection, merge-in, merge-out)
         self.map_data = rtm.parse_map(map_file_path)
-        paths_all, _, _, _ = rtm.build_reference_paths(self.map_data)
+        paths_all, paths_inter, paths_mi, paths_mo = rtm.build_reference_paths(self.map_data)
         n_extend = self.n_points_short_term * self.sample_interval
-        self.paths = rtm.pad_paths(paths_all, n_extend)
+        if self.map_type in ("1", "2"):
+            self.paths = rtm.pad_paths(paths_all, n_extend)
+            self.section_offsets = [0, len(paths_all)]
+        else:
+            combined = paths_inter + paths_mi + paths_mo
+            self.paths = rtm.pad_paths(combined, n_extend)
+            self.section_offsets = [0, len(paths_inter), len(paths_inter) + len(paths_mi), len(combined)]
         p = self.paths
         f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
         i64 = lambda a: torch.tensor(np.asarray(a, np.int64), device=device)
@@ -241,6 +265,11 @@ class Scenario(BaseScenario):
             is_loop=torch.tensor(p.is_loop, device=device),
         )
         self._sweep_tables = rtk.build_tables(p, device)
+        self._offsets = i64(self.section_offsets)
+        # map 3's sub-map draw: u in [0, 1) picks sub-map k + 1 past the
+        # first k of these cumulative probabilities
+        probs = np.asarray(self.scenario_probabilities, np.float64)
+        self._scenario_cdf = torch.tensor((np.cumsum(probs) / probs.sum())[:-1], dtype=torch.float32, device=device)
 
         # normalizers
         self.norm_pos = self.agent_length * 10
@@ -284,12 +313,29 @@ class Scenario(BaseScenario):
         a_idx = [a.index for a in self.world.agents]
         return state.pos[:, a_idx], state.rot[:, a_idx], state.vel[:, a_idx]
 
-    def _sample_path_and_point(self, generator, B, device):
-        """Draw (path_id, point_id) [B] for one agent on map 1."""
-        n_paths = self.P["center"].shape[0]
-        path_id = torch.randint(0, n_paths, (B,), generator=generator, device=device)
+    def _draw_scenario_id(self, generator, B, device):
+        """[B] int64: each env's sub-map, 1, 2 or 3 by
+        ``scenario_probabilities`` on map 3 (one uniform draw per env
+        against the cumulative probabilities); 0 on maps 1 and 2, with no
+        draw."""
+        if self.map_type != "3":
+            return torch.zeros((B,), dtype=torch.int64, device=device)
+        u = torch.rand((B,), generator=generator, device=device)
+        return (u[:, None] >= self._scenario_cdf[None]).sum(-1) + 1
+
+    def _sample_path_and_point(self, generator, sid):
+        """Draw (path_id, point_id) [B] for one agent: its path among all
+        paths on maps 1 and 2, among its sub-map's (``sid`` [B]) on map 3,
+        and a point on it."""
+        B, dev = sid.shape[0], sid.device
+        if self.map_type in ("1", "2"):
+            path_id = torch.randint(0, self.P["center"].shape[0], (B,), generator=generator, device=dev)
+        else:
+            lo, hi = self._offsets[sid - 1], self._offsets[sid]
+            u = torch.rand((B,), generator=generator, device=dev)
+            path_id = lo + torch.floor(u * (hi - lo)).long()
         n_pts = self.P["n_points"][path_id]
-        u2 = torch.rand((B,), generator=generator, device=device)
+        u2 = torch.rand((B,), generator=generator, device=dev)
         if self.scenario_probabilities[1] == 0 and self.scenario_probabilities[2] == 0:
             lo_p, hi_p = 6, torch.div(n_pts, 2, rounding_mode="trunc")
         else:
@@ -297,42 +343,99 @@ class Scenario(BaseScenario):
         point_id = lo_p + torch.floor(u2 * (hi_p - lo_p)).long()
         return path_id, point_id
 
-    def _reset_agents_states(self, state, generator):
-        """Place agents on their paths one by one; agent i redraws (at most
-        100 times) in the envs where it lands too close to agents < i."""
-        B, A, dev = state.batch_dim, self.n_agents, state.device
-        center, yaw = self.P["center"], self.P["yaw"]
-        pid = torch.zeros((B, A), dtype=torch.int64, device=dev)
-        ptid = torch.zeros_like(pid)
-        pos_all = torch.zeros((B, A, 2), device=dev)
-        rot_all = torch.zeros((B, A), device=dev)
-        vel_all = torch.zeros((B, A, 2), device=dev)
-        min_d2 = self.reset_agent_min_distance**2
-        for i in range(A):
-            p_i, pt_i = self._sample_path_and_point(generator, B, dev)
+    def _place(self, generator, sid, p_i, pt_i, bad_envs):
+        """Redraw (path, point) within ``sid`` in the envs where
+        ``bad_envs(pos)`` holds, at most 100 times; returns (path_id,
+        point_id, pos)."""
+        center = self.P["center"]
+        pos_i = center[p_i, pt_i]
+        bad, tries = bad_envs(pos_i), 0
+        while bool(bad.any()) and tries < 100:
+            p2, pt2 = self._sample_path_and_point(generator, sid)
+            p_i = torch.where(bad, p2, p_i)
+            pt_i = torch.where(bad, pt2, pt_i)
             pos_i = center[p_i, pt_i]
-            if i > 0:
-                def bad_envs(pos_c):
-                    d2 = torch.sum((pos_all[:, :i] - pos_c[:, None]) ** 2, -1)
-                    return torch.min(d2, -1).values < min_d2
+            bad, tries = bad_envs(pos_i), tries + 1
+        return p_i, pt_i, pos_i
 
-                bad, tries = bad_envs(pos_i), 0
-                while bool(bad.any()) and tries < 100:
-                    p2, pt2 = self._sample_path_and_point(generator, B, dev)
-                    p_i = torch.where(bad, p2, p_i)
-                    pt_i = torch.where(bad, pt2, pt_i)
-                    pos_i = center[p_i, pt_i]
-                    bad, tries = bad_envs(pos_i), tries + 1
+    def _reset_agents_states(self, state, generator, agent_mask=None):
+        """Place agents on their paths with a speed along them.
+
+        Without ``agent_mask``, every agent of every env, one by one: agent
+        i redraws (at most 100 times) in the envs where it lands too close
+        to agents < i; on map 3 each env first draws its sub-map; on map 2,
+        with probability ``probability_use_recording``, an env then takes a
+        recorded state from the ISB instead. With ``agent_mask`` [B, A],
+        only the masked agents, each within its own sub-map and kept clear
+        of every other agent."""
+        B, A, dev = state.batch_dim, self.n_agents, state.device
+        yaw = self.P["yaw"]
+        min_d2 = self.reset_agent_min_distance**2
+        a_idx = [a.index for a in self.world.agents]
+        scratch = dict(state.scenario)
+        if agent_mask is None:
+            sid_env = self._draw_scenario_id(generator, B, dev)
+            sid = sid_env[:, None].expand(B, A).clone()
+            pid = torch.zeros((B, A), dtype=torch.int64, device=dev)
+            ptid = torch.zeros_like(pid)
+            pos_all = torch.zeros((B, A, 2), device=dev)
+            rot_all = torch.zeros((B, A), device=dev)
+            vel_all = torch.zeros((B, A, 2), device=dev)
+            agents = range(A)
+        else:
+            sid = scratch["scenario_id"]
+            pid, ptid = scratch["path_id"].clone(), scratch["point_id"].clone()
+            pos_all, rot_all, vel_all = (t.clone() for t in self._agent_arrays(state))
+            # the agents reset in some env (one read of the mask)
+            agents = [i for i, any_env in enumerate(agent_mask.any(0).tolist()) if any_env]
+        for i in agents:
+            p_i, pt_i = self._sample_path_and_point(generator, sid[:, i])
+            if agent_mask is None:
+                if i > 0:
+                    def bad_envs(pos_c):
+                        d2 = torch.sum((pos_all[:, :i] - pos_c[:, None]) ** 2, -1)
+                        return torch.min(d2, -1).values < min_d2
+
+                    p_i, pt_i, pos_i = self._place(generator, sid[:, i], p_i, pt_i, bad_envs)
+                else:
+                    pos_i = self.P["center"][p_i, pt_i]
+                m = torch.ones((B,), dtype=torch.bool, device=dev)
+            else:
+                m = agent_mask[:, i]
+
+                def bad_envs(pos_c):
+                    d2 = torch.sum((pos_all - pos_c[:, None]) ** 2, -1)
+                    d2[:, i] = torch.inf
+                    return (torch.min(d2, -1).values < min_d2) & m
+
+                p_i, pt_i, pos_i = self._place(generator, sid[:, i], p_i, pt_i, bad_envs)
             rot_i = yaw[p_i, pt_i]
             vmag = torch.rand((B,), generator=generator, device=dev) * self.max_speed
-            pos_all[:, i], rot_all[:, i], pid[:, i], ptid[:, i] = pos_i, rot_i, p_i, pt_i
-            vel_all[:, i] = torch.stack([vmag * torch.cos(rot_i), vmag * torch.sin(rot_i)], -1)
+            vel_i = torch.stack([vmag * torch.cos(rot_i), vmag * torch.sin(rot_i)], -1)
+            pos_all[:, i] = torch.where(m[:, None], pos_i, pos_all[:, i])
+            rot_all[:, i] = torch.where(m, rot_i, rot_all[:, i])
+            vel_all[:, i] = torch.where(m[:, None], vel_i, vel_all[:, i])
+            pid[:, i] = torch.where(m, p_i, pid[:, i])
+            ptid[:, i] = torch.where(m, pt_i, ptid[:, i])
 
-        a_idx = [a.index for a in self.world.agents]
+        if self.map_type == "2" and agent_mask is None and "isb_size" in scratch:
+            # replay a recorded near-collision lead-up in some envs
+            size = torch.clamp(scratch["isb_size"], max=self.isb_capacity)
+            use = (torch.rand((B,), generator=generator, device=dev) < self.probability_use_recording) & (size > 0)
+            n_rec = torch.clamp(size, min=1)
+            pick = torch.floor(torch.rand((B,), generator=generator, device=dev) * n_rec).long()
+            rec = scratch["isb_buffer"][torch.minimum(pick, n_rec - 1)]  # [B, A, 8]
+            u = use[:, None]
+            pos_all = torch.where(u[..., None], rec[..., 0:2], pos_all)
+            rot_all = torch.where(u, rec[..., 2], rot_all)
+            vel_all = torch.where(u[..., None], rec[..., 3:5], vel_all)
+            sid = torch.where(u, rec[..., 5].long(), sid)
+            pid = torch.where(u, rec[..., 6].long(), pid)
+            ptid = torch.where(u, rec[..., 7].long(), ptid)
+
         pos, rot, vel = state.pos.clone(), state.rot.clone(), state.vel.clone()
         pos[:, a_idx], rot[:, a_idx], vel[:, a_idx] = pos_all, rot_all, vel_all
-        scratch = dict(state.scenario)
-        scratch["scenario_id"] = torch.zeros((B, A), dtype=torch.int64, device=dev)
+        scratch["scenario_id"] = sid
         scratch["path_id"] = pid
         scratch["point_id"] = ptid
         return state.replace(pos=pos, rot=rot, vel=vel, scenario=scratch)
@@ -439,6 +542,25 @@ class Scenario(BaseScenario):
         scratch["steering_cur"] = scratch.get("steering_cur", zeros_a)
         scratch["steering_prev"] = scratch.get("steering_prev", zeros_a)
         scratch["rew_all"] = zeros_a
+        if self.is_testing_mode or self.map_type == "3":
+            scratch["done_flags"] = torch.zeros((B,), dtype=torch.bool, device=state.device)
+        if self.map_type == "2":
+            # the ISB, with a trash row at index buffer_size for the envs a
+            # step does not record; it has no env axis, so it carries over
+            # partial resets (core/state.py blend: the fresh value, here the
+            # old one, wins)
+            scratch["isb_buffer"] = scratch.get(
+                "isb_buffer", torch.zeros((self.isb_capacity + 1, A, 8), device=state.device))
+            scratch["isb_size"] = scratch.get("isb_size", torch.zeros((), dtype=torch.int64, device=state.device))
+            # the per-env state-history ring, seeded with the post-reset
+            # state; 1 % H: on a one-slot ring the next write lands back on
+            # slot 0
+            H = self.n_steps_before_recording
+            hist = torch.zeros((B, H, A, 8), device=state.device)
+            hist[:, 0] = self._hist_entry(state, scratch)
+            scratch["hist"] = hist
+            scratch["hist_ptr"] = torch.full((B,), 1 % H, dtype=torch.int64, device=state.device)
+            scratch["hist_valid"] = torch.ones((B,), dtype=torch.int64, device=state.device)
         return state.replace(scenario=scratch)
 
     # ------------------------------------------------------------------
@@ -488,7 +610,9 @@ class Scenario(BaseScenario):
 
     def post_rewards(self, state):
         """Refresh the short-term paths, keep this step's positions and
-        steering actions for the next step's reward."""
+        steering actions for the next step's reward; on map 2, push the
+        state into the history ring and record colliding envs' lead-up in
+        the ISB; on map 3 and in testing mode, the per-agent resets."""
         scratch = dict(state.scenario)
         scratch = self._refresh_short_term(scratch)
         pos, rot, vel = self._agent_arrays(state)
@@ -496,6 +620,109 @@ class Scenario(BaseScenario):
         u = torch.stack([a.u(state) for a in self.world.agents], dim=1)  # [B, A, 2]
         scratch["steering_prev"] = scratch["steering_cur"]
         scratch["steering_cur"] = u[..., 1] / self.norm_action_steering
+        state = state.replace(scenario=scratch)
+        if self.map_type != "2" and not (self.is_testing_mode or self.map_type == "3"):
+            return state
+
+        generator = self.obs_generator(STEP_STREAM)
+        if self.map_type == "2":
+            # the reward phase appends to the history, then the ISB records
+            # the lead-up of the envs whose agents collided
+            state = self._hist_push(state)
+            state = self._isb_record(state, generator)
+            scratch = dict(state.scenario)
+
+        if self.is_testing_mode or self.map_type == "3":
+            B = state.batch_dim
+            # done sees the reward phase's collision flags, not those after
+            # the resets below
+            is_done = (
+                torch.zeros((B,), dtype=torch.bool, device=state.device)
+                if self.is_testing_mode
+                else scratch["coll_agents"].reshape(B, -1).any(-1) | scratch["coll_lanelets"].any(-1)
+            )
+            scratch["done_flags"] = is_done
+            agents_reset = scratch["coll_entry"] | scratch["coll_exit"]
+            if self.is_testing_mode:
+                agents_reset = scratch["coll_agents"].any(-1) | scratch["coll_lanelets"] | agents_reset
+            else:
+                # map 3 resets no agent in an env that is done
+                agents_reset = agents_reset & ~is_done[:, None]
+            state = state.replace(scenario=scratch)
+            state = self._reset_agents_states(state, generator, agent_mask=agents_reset)
+            scratch = self._update_distances(state, dict(state.scenario))
+            scratch = self._refresh_short_term(scratch)
+            if not self.is_observe_distance_to_boundaries:
+                # the agents just reset take the reset's +1 nearing shift
+                reset_near = self._refresh_short_term(dict(scratch), at_reset=True)
+                m = agents_reset[..., None, None]
+                scratch["near_left_b"] = torch.where(m, reset_near["near_left_b"], scratch["near_left_b"])
+                scratch["near_right_b"] = torch.where(m, reset_near["near_right_b"], scratch["near_right_b"])
+            # a reset agent's next movement reward measures from where it
+            # was placed
+            pos_new, _, _ = self._agent_arrays(state)
+            scratch["prev_pos"] = torch.where(agents_reset[..., None], pos_new, scratch["prev_pos"])
+            if self.map_type == "2":
+                scratch = self._hist_reseed(scratch, state, agents_reset.any(-1))
+            state = state.replace(scenario=scratch)
+        return state
+
+    def _hist_entry(self, state, scratch):
+        """One history record [B, A, 8]: pos, rot, vel and the scenario,
+        path and point ids."""
+        pos, rot, vel = self._agent_arrays(state)
+        ids = [scratch[k][..., None].to(torch.float32) for k in ("scenario_id", "path_id", "point_id")]
+        return torch.cat([pos, rot[..., None], vel, *ids], dim=-1)
+
+    def _hist_push(self, state):
+        """Write the current state into each env's history ring."""
+        scratch = dict(state.scenario)
+        B, H = state.batch_dim, self.n_steps_before_recording
+        ptr = scratch["hist_ptr"]
+        hist = scratch["hist"].clone()
+        hist[torch.arange(B, device=state.device), ptr] = self._hist_entry(state, scratch)
+        scratch["hist"] = hist
+        scratch["hist_ptr"] = (ptr + 1) % H
+        scratch["hist_valid"] = torch.clamp(scratch["hist_valid"] + 1, max=H)
+        return state.replace(scenario=scratch)
+
+    def _hist_reseed(self, scratch, state, env_reset):
+        """Wipe the history rings of the envs in ``env_reset`` [B] and seed
+        them with the current (post-reset) state. The reference's single
+        buffer is wiped for every env on any reset; per-env rings keep the
+        other envs' lead-up."""
+        fresh = torch.zeros_like(scratch["hist"])
+        fresh[:, 0] = self._hist_entry(state, scratch)
+        scratch["hist"] = torch.where(env_reset[:, None, None, None], fresh, scratch["hist"])
+        H = self.n_steps_before_recording
+        scratch["hist_ptr"] = torch.where(env_reset, 1 % H, scratch["hist_ptr"])
+        scratch["hist_valid"] = torch.where(env_reset, 1, scratch["hist_valid"])
+        return scratch
+
+    def _isb_record(self, state, generator):
+        """Record in the ISB, for each env whose agents collided, its state
+        ``n_steps_stored`` steps ago from its history ring (slot 0, the
+        post-reset seed, while fewer steps have passed), gated for the whole
+        batch by one draw against ``probability_record``. Lanelet scrapes
+        are not recorded. Where more envs record than the buffer holds, the
+        last ``buffer_size`` of them in env order survive; the others write
+        the trash row, which keeps the kept writes' indices distinct."""
+        scratch = dict(state.scenario)
+        B, dev = state.batch_dim, state.device
+        is_coll = scratch["coll_agents"].reshape(B, -1).any(-1)
+        gate = torch.rand((), generator=generator, device=dev) < self.probability_record
+        rec = is_coll & gate  # [B]
+        n, H, cap = self.n_steps_stored, self.n_steps_before_recording, self.isb_capacity
+        idx = torch.where(n > scratch["hist_valid"], 0, (scratch["hist_ptr"] - n) % H)  # [B]
+        entries = scratch["hist"][torch.arange(B, device=dev), idx]  # [B, A, 8]
+        pos = torch.cumsum(rec.to(torch.int64), 0)  # 1-based rank among the recording envs
+        total = pos[-1]
+        keep = rec & (total - pos < cap)
+        slots = torch.where(keep, (scratch["isb_size"] + pos - 1) % cap, cap)
+        buf = scratch["isb_buffer"].clone()
+        buf[slots] = entries
+        scratch["isb_buffer"] = buf
+        scratch["isb_size"] = scratch["isb_size"] + total
         return state.replace(scenario=scratch)
 
     # ------------------------------------------------------------------
@@ -642,6 +869,11 @@ class Scenario(BaseScenario):
 
     def done(self, state):
         s = state.scenario
+        if self.is_testing_mode:
+            return torch.zeros((state.batch_dim,), dtype=torch.bool, device=state.device)
+        if self.map_type == "3":
+            # the reward phase's flags, cached before the resets
+            return s["done_flags"]
         is_coll_agents = s["coll_agents"].reshape(state.batch_dim, -1).any(-1)
         is_coll_lanelets = s["coll_lanelets"].any(-1)
         return is_coll_agents | is_coll_lanelets

@@ -26,7 +26,10 @@ count of its events in a step's rows; a state of each dynamics and
 controller debug world (diff_drive, kinematic_bicycle, drone, goal,
 vel_control, circle_trajectory, line_trajectory) with its first agents in
 contact, the drone's hidden state tilted, the controllers' memory set,
-actions beyond the controllers' clamp, and the events of a step's rows.
+actions beyond the controllers' clamp, and the events of a step's rows; a
+state of the DOTS worlds (painting, construction) and of sampling with
+agents pressed into the walls (the bound) and into each other, painting's
+knowledge matched and on goal, and sampling's field and visited cells.
 The states are numpy dicts made from a seeded generator, so that both
 packages can load the same one. For road_traffic's path sweeps: lanes on
 centre-line vertices and padded tails, and on left-boundary vertices.
@@ -1523,3 +1526,141 @@ def debug_world_events(env, x):
             clamped += int(over.sum())
     out["clamped"] = clamped
     return out
+
+
+# the DOTS and sampling worlds held to the JAX package and on the card: a
+# name for each, its make_env name and kwargs (the defaults; painting also
+# with task_type "full", its comm and knowledge mixing)
+DOTS_WORLDS = {
+    "painting": ("painting", {}),
+    "painting_full": ("painting", {"task_type": "full"}),
+    "construction": ("construction", {}),
+    "sampling": ("sampling", {}),
+}
+
+
+def dots_world_state(env, rng):
+    """A numpy state dict of a DOTS world (painting, construction) or of
+    sampling from a seeded generator: in every env the first agent pressed
+    0.5-4 mm into a wall (into the arena's bound in sampling, where the
+    agents are 0.025 from it) and the second and third 0.5-4 mm into each
+    other, the other agents and the landmarks at random, random
+    velocities. Painting's scratch: random knowledge (each agent's mixed
+    colour equal to its goal's expected one in every other env, where the
+    agent then sits on that goal in every fourth), some seeking flags set,
+    and a random comm state; sampling's: random Gaussian centres, a
+    quarter of the grid's cells already sampled, and their ``max_pdf``."""
+    sc, st = env.scenario, env.state
+    name = type(sc).__module__.rsplit(".", 1)[-1]
+    B, E = st.pos.shape[:2]
+    agents = [a.index for a in env.world.agents if a.movable]
+    f32 = lambda a: np.asarray(a, np.float32)
+    pos = st.pos.detach().cpu().numpy().astype(np.float64)  # the walls where the reset put them
+    if name == "sampling":
+        lim, r = sc.x_semidim, sc.agent_radius
+    else:
+        lim, r = sc.arena_size / 2 - 0.05, sc.agent_radius
+        for e in env.world.landmarks:
+            if e not in env.world.walls:
+                pos[:, e.index] = rng.uniform(-2.0, 2.0, (B, 2))
+    pos[:, agents] = rng.uniform(-0.8 * lim, 0.8 * lim, (B, len(agents), 2))
+    # agent 0 into a wall (sampling: onto the bound), on a side chosen per env
+    side = rng.integers(0, 4, B)
+    depth = rng.uniform(0.0005, 0.004, B)
+    edge = (lim if name == "sampling" else lim - r) + depth
+    axis, sign = side % 2, np.where(side < 2, -1.0, 1.0)
+    pos[np.arange(B), agents[0], axis] = sign * edge
+    # agents 1 and 2 into each other
+    th = rng.uniform(-np.pi, np.pi, B)
+    d = 2 * r - rng.uniform(0.0005, 0.004, B)
+    pos[:, agents[2]] = pos[:, agents[1]] + np.stack([np.cos(th), np.sin(th)], -1) * d[:, None]
+    rot = st.rot.detach().cpu().numpy()
+    vel = np.zeros((B, E, 2))
+    vel[:, agents] = rng.normal(0, 0.3, (B, len(agents), 2))
+    out = _np_state(st, pos, rot, vel, np.zeros((B, E)), np.zeros((B, E, 2)))
+    scratch = out["scenario"]
+    if name == "painting":
+        G = len(sc.goals)
+        for g in sc.goals:
+            scratch[g._ekey()] = f32(rng.uniform(0.01, 1.0, (B, 3)))
+        for i, a in enumerate(sc.agent_list):
+            k = rng.uniform(0.0, 1.0, (B,) + tuple(a.knowledge_shape))
+            goal = sc.goals[i % G]
+            match = np.arange(B) % 2 == 0
+            k[match, 1] = scratch[goal._ekey()][match]
+            scratch[a._kkey()] = f32(k)
+            scratch[a._skey()] = rng.uniform(0, 1, B) < 0.25
+            on = np.arange(B) % 4 == 0
+            pos[on, goal.index] = pos[on, a.index] + rng.uniform(-0.05, 0.05, (int(on.sum()), 2))
+        out["pos"] = f32(pos)
+        if env.world.dim_c > 0:
+            out["c"] = f32(rng.uniform(0.0, 1.0, out["c"].shape))
+    if name == "sampling":
+        locs = rng.uniform(-1.0, 1.0, (B, sc.n_gaussians, 2))
+        scratch["locs"] = f32(locs)
+        scratch["sampled"] = rng.uniform(0, 1, scratch["sampled"].shape) < 0.25
+        scratch["max_pdf"] = sc._max_pdf(torch.as_tensor(f32(locs), device=st.device)).cpu().numpy()
+    return out
+
+
+def dots_world_actions(env, rng):
+    """Per policy agent, actions ``[B, action width]``: u uniform in its
+    range, then its comm action (where it speaks) uniform in [0, 1], so
+    that about half the agents ask to mix colours."""
+    B = env.num_envs
+    out = []
+    for a in env.agents:
+        u = rng.uniform(-1.0, 1.0, (B, a.action_size)) * a.u_range_array
+        width = env.get_agent_action_size(a)
+        c = rng.uniform(0.0, 1.0, (B, width - a.action_size))
+        out.append(np.asarray(np.concatenate([u, c], -1), np.float32))
+    return out
+
+
+def dots_world_events(env, x):
+    """The contacts per pair type of a step's input state rows ``x``, and
+    the (env, agent) lanes beyond the world's bounds (which the physics
+    clamps: sampling's arena has no walls)."""
+    world = env.world
+    E = len(world.entities)
+    out = dict(F.contact_counts(world, x))
+    idx = [a.index for a in world.agents]
+    beyond = torch.zeros((), dtype=torch.int64, device=x.device)
+    if world.x_semidim is not None:
+        beyond = beyond + (x[:E][idx].abs() > world.x_semidim).sum()
+    if world.y_semidim is not None:
+        beyond = beyond + (x[E:2 * E][idx].abs() > world.y_semidim).sum()
+    out["beyond_bound"] = int(beyond)
+    return out
+
+
+def rt_events_state(env):
+    """road_traffic's state with the events of maps 2 and 3 and testing
+    mode placed, the distances recomputed there: agents 0 and 1 on each
+    other (turned 0.3 rad apart) in the even envs; on map 3, agent 2 on its
+    path's exit line in the envs 1 mod 4 and agent 3 on its entry line in
+    the envs 3 mod 4, each along its path; on the whole map (whose paths
+    are loops, with no entry or exit), agent 2 turned across its lane, over
+    a boundary, in the envs 1 mod 4."""
+    sc, st = env.scenario, env.state
+    P = sc.P
+    B, dev = st.batch_dim, st.device
+    pos, rot, _ = (t.clone() for t in sc._agent_arrays(st))
+    env_id = torch.arange(B, device=dev)
+    even, one, three = env_id % 2 == 0, env_id % 4 == 1, env_id % 4 == 3
+    pos[even, 1] = pos[even, 0] + 0.01
+    rot[even, 1] = rot[even, 0] + 0.3
+    pid = st.scenario["path_id"]
+    if sc.map_type == "3":
+        for m, i, line, at_end in ((one, 2, "exit", True), (three, 3, "entry", False)):
+            p = pid[:, i]
+            k = P["n_points"][p] - 2 if at_end else torch.ones_like(p)
+            pos[m, i] = P[line][p].mean(1)[m]
+            rot[m, i] = P["yaw"][p, k][m]
+    else:
+        rot[one, 2] = rot[one, 2] + torch.pi / 2
+    idx = [a.index for a in env.world.agents]
+    p_all, r_all = st.pos.clone(), st.rot.clone()
+    p_all[:, idx], r_all[:, idx] = pos, rot
+    state = st.replace(pos=p_all, rot=r_all)
+    return state.replace(scenario=sc._update_distances(state, dict(state.scenario)))
