@@ -57,7 +57,7 @@
    make_env with every default, reset, 5 env.step calls,
    rollout_fn(horizon=100) once to warm up and 3 timed calls, with one
    launch of each kernel per step and reset; its idle share and device
-   operations a step from a traced call of 10 steps (the profiler costs
+   operations a step from a traced call of 5 steps (the profiler costs
    the host ~0.45 ms a device operation, and a step has ~2800). Then map 2
    (4096 x 20), testing mode (4096 x 20), map 3 (4096 x 10, its default
    sub-map probabilities) and map 3 with [0.4, 0.3, 0.3] (4096 x 4): both
@@ -180,7 +180,8 @@
    rows_rollout_fn (horizon 1000, k_steps 1 and 4, with the peak device
    memory) and on rollout_fn (100 steps, the rows path's ratio to it), the
    red AI's default and the shooting config on rollout_fn (50 steps, one
-   timed call), env-steps/s and the device idle share.
+   timed call; their idle shares from a traced call of 10 steps),
+   env-steps/s and the device idle share.
 12e. The dynamics and controller debug worlds at 4096 envs (diff_drive,
    kinematic_bicycle, drone, goal, vel_control, circle_trajectory and
    line_trajectory at their defaults; none has fused outputs): each
@@ -194,7 +195,7 @@
    required; each world's main path with the count zeroed: make_env,
    reset, 5 env.step calls, rollout_fn (horizon 100) once to warm up and 3
    timed calls, one fused step per env.step, env-steps/s, the idle share
-   and device operations a step of a traced call of 20 steps, and the
+   and device operations a step of a traced call of 10 steps, and the
    drone's u at its spawn width after the rollout; then the grouped
    process_action against the per-agent loop: transport's four holonomic
    agents and football's two teams with the default grouping over 20
@@ -214,13 +215,38 @@
    cells on the card bitwise the CPU's; each world's main path with the
    count zeroed: make_env, reset, 5 env.step calls, rollout_fn (horizon
    100) once to warm up and 3 timed calls, env-steps/s, the idle share and
-   device operations a step of a traced call of 10 steps (painting's step
+   device operations a step of a traced call of 5 steps (painting's step
    has ~2,700 device operations, at ~0.45 ms of host time each under the
    profiler).
 12g. The gymnasium vectorized wrapper (make_env(..., wrapper="gymnasium_vec"))
    over transport@4096 with the fused step: reset and 5 steps, numpy
-   outputs of the expected shapes, finite. Each phase prints its seconds,
-   and the script its total.
+   outputs of the expected shapes, finite.
+12h. Rendering at 4096 envs, run after 4 (the profiler's records of a
+   frame's one small copy are whole early in the process and lost later):
+   transport after 10 steps of rows_rollout_fn (K2), at env 0 and 4095;
+   each world with render hooks (testing.RENDER_HOOK_WORLDS, road_traffic
+   at its defaults: K3/K4) after 2 env.step calls, fused where the world
+   takes it (K1), at env 0; flocking with its Lidar fans, force arrows and
+   a position function (its Lidar measured on the card against the frame's
+   host copy, atol 2e-5) and simple_reference's comm text; the launches of
+   each path with its counts zeroed. Each frame's host copy
+   (render/viewer.py host_state) bitwise interop's copy of the same row,
+   timed, and timed against the same row taken one .cpu() a leaf; the
+   frame (its host copy where nothing is drawn) must make exactly one
+   synchronizing CUDA operation (torch's sync debug mode counts them: its
+   one device-to-host copy), and the profiler's memcpy records must show
+   no more copies than that (a session that lost them is taken again, and
+   said so). Each hook world's hooks run on the card's env with
+   matplotlib's calls recorded (testing.hook_calls): no synchronizing
+   operation, the calls bitwise those of a CPU twin env on the same host
+   copy, the artists they add, their host ms. Where matplotlib is
+   installed, each frame bitwise the frame of the same state copied to a
+   CPU env, its draw ms, the hooks' drawn artists equal to the recorded
+   ones, the gymnasium vectorized wrapper's render and rllib's
+   try_render_at against their env's frames, and 10 frames through
+   save_video; where it is not (find_spec decides), one line says so, and
+   env.render and both wrappers' must raise an ImportError naming
+   matplotlib. Each phase prints its seconds, and the script its total.
 13. The op-cost probe: its kernel against its plain version at [54, 4096]
    with 0, 100 and 1200 operations (the ALU chain bitwise, the
    transcendental chain within atol 1e-6 rtol 1e-5), then its path with
@@ -267,7 +293,7 @@ RT_STEPS = 5
 RT_HORIZON = 100
 # the steps of the main path's traced call: the profiler costs the host
 # some 0.45 ms a device operation, and a road_traffic step has ~2800
-RT_TRACE_STEPS = 10
+RT_TRACE_STEPS = 5
 RT_ATOL = 1e-6
 # operation counts: +, -, *, /, sqrt and a compare count 1; cos and sin 20
 TRIG_OPS = 20
@@ -387,14 +413,15 @@ def time_ms(fn, n):
 PROFILE_TRIES = 4
 
 
-def device_ms(fn, n, kernel):
+def device_ms(fn, n, kernel, per_call=0):
     """Device time per call over ``n`` calls of ``fn``, from torch.profiler:
     ``(ms of kernels whose name holds `kernel`, ms of all device work,
-    {kernel name: ms}, number of device operations)``; ``kernel`` "" takes
-    all device work (a busy-time trace). CUPTI now and then
-    hands a session back with no device record, so a session that saw no
-    device work, or none of ``kernel``, is taken again, up to
-    ``PROFILE_TRIES`` sessions in all."""
+    {kernel name: ms}, number of device operations, number of records whose
+    name holds `kernel`)``, each per call; ``kernel`` "" takes all device
+    work (a busy-time trace). CUPTI now and then hands a session back with
+    no device record, or with some lost, so a session that saw no device
+    work, none of ``kernel``, or fewer than ``per_call`` records of it a
+    call, is taken again, up to ``PROFILE_TRIES`` sessions in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -406,17 +433,18 @@ def device_ms(fn, n, kernel):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        by_name, count = {}, 0
+        by_name, count, records = {}, 0, 0
         for ev in prof.events():
             if ev.device_type == DeviceType.CUDA:
                 by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
                 count += 1
+                records += kernel in ev.name
         mine = sum(v for k, v in by_name.items() if kernel in k)
-        if count and mine > 0:
+        if count and mine > 0 and records >= per_call * n:
             break
-        print(f"profiler session {attempt} of {PROFILE_TRIES} saw {count} device records, none of {kernel}"
+        print(f"profiler session {attempt} of {PROFILE_TRIES} saw {count} device records, {records} of {kernel}"
               if count else f"profiler session {attempt} of {PROFILE_TRIES} saw no device record", flush=True)
-    return mine, sum(by_name.values()), by_name, count / n
+    return mine, sum(by_name.values()), by_name, count / n, records / n
 
 
 def launch_ms(fn, n, kernel, name):
@@ -985,7 +1013,7 @@ def balance_phase(card, dev):
           f"mean {B * HORIZON * TIMED_CALLS / (sum(call_ms) / 1e3):.1f} env-steps/s on {card}; "
           f"launches {launches}; episodes ended in the last call "
           f"{int(traj['dones'].sum())} of {HORIZON * B} env-steps", flush=True)
-    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "")
+    _, busy_ms, by_name, _, _ = device_ms(lambda: run(state, steps, rgen), 1, "")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"device time of one balance rows_rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms wall "
           f"(idle share {1 - busy_ms / min(call_ms):.3f}); top: "
@@ -1174,7 +1202,7 @@ def joints_phase(card, dev):
           f"mean {B * HORIZON * TIMED_CALLS / (sum(call_ms) / 1e3):.1f} env-steps/s on {card}; "
           f"launches {launches}; episodes ended in the last call {int(traj['dones'].sum())} of {HORIZON * B} "
           f"env-steps", flush=True)
-    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "")
+    _, busy_ms, by_name, _, _ = device_ms(lambda: run(state, steps, rgen), 1, "")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"device time of one joint_passage rows_rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms "
           f"wall (idle share {1 - busy_ms / min(call_ms):.3f}); top: "
@@ -1249,7 +1277,7 @@ def rollout_report(tag, run, state, steps, rgen, call_ms, warm_s, B, card, horiz
     mean = B * horizon * len(call_ms) / (sum(call_ms) / 1e3)
     t_run, t_steps = trace if trace is not None else (run, horizon)
     wall_ms = min(call_ms) if trace is None else time_ms(lambda: t_run(state, steps, rgen), 2)
-    _, busy_ms, by_name, n_ops = device_ms(lambda: t_run(state, steps, rgen), 1, "")
+    _, busy_ms, by_name, n_ops, _ = device_ms(lambda: t_run(state, steps, rgen), 1, "")
     idle = 1 - busy_ms / wall_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     print(f"{tag}: calls {[round(c, 3) for c in call_ms]} ms (warm-up {warm_s:.3f} s), best {best:.1f} env-steps/s, "
@@ -2758,6 +2786,9 @@ FB_ROLLOUT_STEPS = 20
 # 50 with one timed call
 FB_SHORT_HORIZON = 100
 FB_HOOK_HORIZON = 50
+# the steps of the hook configs' traced call (rollout_report): the profiler
+# costs the host ~0.45 ms a device operation
+FB_TRACE_STEPS = 10
 # the ball's script per env, read off ball_act: 4 walls of a subtraction,
 # a minimum, a division and a subtraction, the vertical factor 4, the two
 # impulses 3 each, the goal-mouth test 3 and its select
@@ -2967,8 +2998,9 @@ def football_phase(card, dev):
                "rollout_fn (env.step: K1" + (", the red AI in torch)" if key == "football" else ")"))
         print(f"main path: {key} {B} envs x {env.n_agents} agents x {horizon} steps, {tag}; launches {n}; peak "
               f"device memory {peak_gb:.2f} GB ({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
+        trace = (rollout_fn(env, horizon=FB_TRACE_STEPS), FB_TRACE_STEPS) if hooks else None
         rates[(key, path, k)] = rollout_report(f"{key}@{B} {tag}", run, state, steps, rgen, call_ms, warm_s, B, card,
-                                               horizon=horizon)[0]
+                                               horizon=horizon, trace=trace)[0]
         if path == "rows" and k == 1:
             launches[(key, "rows_step")] = n["rows_step"]
         if path == "step":
@@ -3009,7 +3041,7 @@ DW_CMP_STEPS = 5
 DW_HORIZON = 100
 # the steps of the main path's traced call (rollout_report), and the plain
 # version's timed calls (kinematic_bicycle's takes 0.9 s a call)
-DW_TRACE_STEPS = 20
+DW_TRACE_STEPS = 10
 DW_PLAIN_CALLS = 5
 # steps of the grouped-against-loop rollouts (transport and football's two
 # teams, then road_traffic), and the process_action phase's timed calls
@@ -3198,7 +3230,7 @@ DOTS_REQUIRED = {"painting": ("ss", "bs"), "painting_full": ("ss", "bs"), "const
                  "sampling": ("ss", "beyond_bound")}
 DOTS_CMP_STEPS = 5
 DOTS_HORIZON = 100
-DOTS_TRACE_STEPS = 10
+DOTS_TRACE_STEPS = 5
 DOTS_PLAIN_CALLS = 5
 
 
@@ -3773,7 +3805,7 @@ def road_traffic_phase(card, dev):
     print(f"road_traffic: the main path, {time.perf_counter() - t_phase:.1f} s", flush=True)
     trace = rollout_fn(env, horizon=RT_TRACE_STEPS)
     wall_ms = time_ms(lambda: trace(state, steps, rgen), 2)
-    _, busy_ms, by_name, n_ops = device_ms(lambda: trace(state, steps, rgen), 1, "")
+    _, busy_ms, by_name, n_ops, _ = device_ms(lambda: trace(state, steps, rgen), 1, "")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     rt_ms = sum(v for k, v in by_name.items() if "rt_sweep" in k or "rt_obs" in k)
     print(f"device time of one road_traffic rollout_fn call of {RT_TRACE_STEPS} steps: {busy_ms:.3f} ms busy of "
@@ -3939,6 +3971,337 @@ def wrapper_phase(card, dev):
           f"off the card included", flush=True)
 
 
+# -- 12h. rendering ------------------------------------------------------------
+
+# transport's rows steps and a hook world's env.step calls before its frame,
+# frames saved to a video, and the Lidar's rays measured on the card against
+# the frame's host copy (the sensor worlds phase's card-vs-CPU tolerance)
+RENDER_ROWS_STEPS = 10
+RENDER_STEPS = 2
+RENDER_VIDEO_FRAMES = 10
+RENDER_LIDAR_ATOL = 2e-5
+# the calls of a frame's host copy (or of the frame) in one profiler
+# session, for its device-to-host copies
+RENDER_PROFILE_CALLS = 10
+
+
+def sync_warnings(fn):
+    """``(fn(), the warnings of torch's sync debug mode while it ran)``."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def syncs(fn):
+    """``(fn(), the synchronizing CUDA operations it made)``, counted by
+    torch's sync debug mode in units of what one ``.cpu()`` of a device
+    tensor raises (two warnings in some torch versions): each blocking
+    device-to-host copy, each ``.item()`` of a device tensor, is one,
+    whether or not the profiler keeps its record."""
+    import torch
+
+    unit = sync_warnings(lambda: torch.ones(1, device="cuda").cpu())[1]
+    if not unit:
+        raise AssertionError("torch's sync debug mode saw no synchronizing operation in a .cpu()")
+    out, n = sync_warnings(fn)
+    return out, n / unit
+
+
+def host_ms(fn):
+    """The median host ms of 3 calls of ``fn``, after one warm-up call, the
+    device idle before each."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[1]
+
+
+def per_leaf_copy(state, k):
+    """host_state's row taken with one .cpu() per leaf, the form its packed
+    single copy is timed against."""
+    import dataclasses
+
+    from vmas_tpu_torch.core.state import WorldState
+    from vmas_tpu_torch.render.viewer import _fill, _leaves
+
+    B, tensors = state.batch_dim, []
+    tree = _leaves({f.name: getattr(state, f.name) for f in dataclasses.fields(state)}, tensors)
+    return WorldState(**_fill(tree, [(t[k:k + 1] if t.ndim and t.shape[0] == B else t).cpu() for t in tensors]))
+
+
+def host_copy_differs(state, row, k):
+    """The leaves of the frame's host copy ``row`` (viewer.host_state) that
+    differ from env ``k``'s row of interop's copy of ``state``, in value or
+    dtype: [] where the copy is bitwise."""
+    from vmas_tpu_torch.interop import state_to_numpy
+
+    B, bad = state.batch_dim, []
+
+    def walk(a, b, path):
+        if isinstance(b, dict):
+            if set(a) != set(b):
+                bad.append(path)
+            for key in b:
+                walk(a.get(key), b[key], f"{path}.{key}")
+        elif isinstance(b, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}[{i}]")
+        else:
+            want = b[k:k + 1] if b.ndim and b.shape[0] == B else b
+            if a is None or a.dtype != want.dtype or not (a == want).all():
+                bad.append(path)
+
+    got, ref = state_to_numpy(row), state_to_numpy(state)
+    for f in ref:
+        walk(got.get(f), ref[f], f)
+    return bad
+
+
+def render_frame(env, k, tag, draw, card, name, cpu_kw, **render_kw):
+    """One frame of env ``k``: its host copy held bitwise to interop's and
+    timed, against the same row taken one .cpu() a leaf; where ``draw``, the
+    frame itself, timed, held bitwise to the frame of the same state copied
+    to a CPU env (``make_env(name, **cpu_kw)``) and returned. The frame (its
+    host copy where nothing is drawn) must make one synchronizing operation,
+    its one device-to-host copy (``syncs``), and the profiler must see no
+    more device-to-host copies than that. Returns (frame or None, host-copy
+    ms, per-leaf ms, draw ms or None, bytes copied, the profiler's copies a
+    frame)."""
+    from vmas_tpu_torch import make_env
+    from vmas_tpu_torch.interop import state_from_numpy, state_to_numpy
+    from vmas_tpu_torch.render.viewer import _leaves, host_state
+
+    if draw:
+        import matplotlib.pyplot as plt
+    copy_ms = host_ms(lambda: host_state(env.state, k))
+    leaf_ms = host_ms(lambda: per_leaf_copy(env.state, k))
+    (row, _), n_syncs = syncs(lambda: host_state(env.state, k))
+    bad = host_copy_differs(env.state, row, k)
+    if bad:
+        raise AssertionError(f"rendering {tag}: env {k}'s host copy differs from interop's in {bad}")
+    leaves = []
+    _leaves(row.__dict__, leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    frame, draw_ms = None, None
+    if draw:
+        t0 = time.perf_counter()
+        frame, n_syncs = syncs(lambda: env.render(mode="rgb_array", env_index=k, **render_kw))
+        draw_ms = (time.perf_counter() - t0) * 1e3 - copy_ms
+        cpu = make_env(name, env.num_envs, device="cpu", seed=0, **cpu_kw)
+        cpu.state = state_from_numpy(cpu.world, state_to_numpy(env.state))
+        want = cpu.render(mode="rgb_array", env_index=k, **render_kw)
+        if frame.shape != want.shape or not (frame == want).all():
+            raise AssertionError(f"rendering {tag}: env {k}'s frame differs from the CPU copy's")
+        plt.close("all")  # each env's cached figure
+        copies = device_ms(lambda: env.render(mode="rgb_array", env_index=k, **render_kw), RENDER_PROFILE_CALLS,
+                           "DtoH", per_call=1)[4]
+    else:
+        copies = device_ms(lambda: host_state(env.state, k), RENDER_PROFILE_CALLS, "DtoH", per_call=1)[4]
+    if n_syncs != 1 or copies > n_syncs:
+        raise AssertionError(f"rendering {tag}: {n_syncs:g} synchronizing operations a frame and {copies:g} "
+                             f"device-to-host copies in the profiler's records, want 1 and at most 1")
+    counted = "the profiler's records agree" if copies == 1 else \
+        f"the profiler lost records: {copies:g} a frame seen in {PROFILE_TRIES} sessions"
+    print(f"rendering {tag} env {k}: host copy {copy_ms:.3f} ms ({nbytes} B in 1 device-to-host copy, the one "
+          f"synchronizing operation; {counted}), {leaf_ms:.3f} ms one .cpu() a leaf ({len(leaves)} leaves), "
+          f"{len(env.world.entities)} entities, bitwise interop's; "
+          + (f"draw {draw_ms:.3f} ms, the frame {frame.shape} bitwise the CPU copy's" if draw else "not drawn")
+          + f" on {card}", flush=True)
+    return frame, copy_ms, leaf_ms, draw_ms, nbytes, copies
+
+
+def render_raises(fn):
+    """True where ``fn`` raises an ImportError that names matplotlib."""
+    try:
+        fn()
+    except ImportError as e:
+        return "matplotlib" in str(e)
+    return False
+
+
+def drawn_artists(env, k):
+    """The artists each render hook of ``env`` adds to a fresh Axes at env
+    ``k``, reading the frame's host copy."""
+    import matplotlib.pyplot as plt
+    from vmas_tpu_torch.render.viewer import FrameEnv, host_state
+
+    out = {}
+    for hook in ("extra_render", "top_layer_render"):
+        fig, ax = plt.subplots()
+        getattr(env.scenario, hook)(FrameEnv(env, host_state(env.state, k)[1]), ax, k)
+        out[hook] = len(ax.patches) + len(ax.lines) + len(ax.texts) + len(ax.images)
+        plt.close(fig)
+    return out
+
+
+def render_phase(card, dev, B=NUM_ENVS):
+    """Phase 12h: rendering on the card (see the docstring's 12h)."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import torch
+    from vmas_tpu_torch import make_env, testing
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.parallel import rows_rollout_fn
+    from vmas_tpu_torch.render.video import save_video
+    from vmas_tpu_torch.render.viewer import host_state
+    from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
+
+    draw = importlib.util.find_spec("matplotlib") is not None
+    if draw:
+        import matplotlib
+
+        matplotlib.use("Agg")
+    else:
+        print("rendering: matplotlib is not installed here, so no frame is drawn: each frame's host copy is taken, "
+              "timed and held bitwise to interop's copy, its device-to-host copies counted, and env.render and "
+              "the wrappers' render must raise an ImportError that names matplotlib", flush=True)
+
+    print(f"rendering: one .cpu() of a device tensor raises {sync_warnings(lambda: torch.ones(1, device=dev).cpu())[1]} "
+          f"warnings of torch's sync debug mode, the unit a frame's synchronizing operations are counted in",
+          flush=True)
+
+    def zero():
+        F.fused_step_launches = F.rows_step_launches = 0
+        rtk.sweep_launches = rtk.obs_launches = 0
+
+    def counts():
+        return {"fused_step": F.fused_step_launches, "rows_step": F.rows_step_launches,
+                "rt_sweep": rtk.sweep_launches, "rt_obs": rtk.obs_launches}
+
+    copies_ms, leaves_ms, draws_ms, sizes, seen, hooks_ms = [], [], [], [], [], []
+
+    def frame(env, k, tag, name, cpu_kw, **render_kw):
+        _, copy_ms, leaf_ms, draw_ms, nbytes, copies = render_frame(env, k, f"{tag}@{B}", draw, card, name, cpu_kw,
+                                                                    **render_kw)
+        copies_ms.append(copy_ms)
+        leaves_ms.append(leaf_ms)
+        sizes.append(nbytes)
+        seen.append(copies)
+        if draw:
+            draws_ms.append(draw_ms)
+
+    # (a) transport@B: its rows rollout (K2), then the first and last env
+    env = make_env("transport", B, device=dev, n_agents=N_AGENTS, seed=0, fused_physics=True)
+    zero()
+    env.state, env.steps, _ = rows_rollout_fn(env, horizon=RENDER_ROWS_STEPS)(
+        env.state, env.steps, torch.Generator(device=dev).manual_seed(0))
+    launches = counts()
+    if launches["rows_step"] != RENDER_ROWS_STEPS:
+        raise AssertionError(f"rendering transport: launches {launches}")
+    for k in (0, B - 1):
+        frame(env, k, "transport", "transport", {"n_agents": N_AGENTS, "fused_physics": True})
+    if not draw and not render_raises(lambda: env.render(mode="rgb_array")):
+        raise AssertionError("rendering: env.render did not raise an ImportError naming matplotlib")
+    print(f"rendering transport@{B}: after rows_rollout_fn of {RENDER_ROWS_STEPS} steps, launches {launches}",
+          flush=True)
+
+    # (b) the hook worlds@B (road_traffic at its defaults: K3/K4), each after
+    # RENDER_STEPS env.step calls, fused where the world takes it
+    for name, (kw, hooks) in testing.RENDER_HOOK_WORLDS.items():
+        kw = {} if name == "road_traffic" else dict(kw)
+        t0 = time.perf_counter()
+        env = make_env(name, B, device=dev, seed=0, fused_physics=True, **kw)
+        zero()
+        for _ in range(RENDER_STEPS):
+            env.step(env.get_random_actions())
+        launches = counts()
+        fused = env.world.fused and F.supports(env.world)
+        if launches["fused_step"] != (RENDER_STEPS if fused else 0) or (
+                name == "road_traffic" and min(launches["rt_sweep"], launches["rt_obs"]) < RENDER_STEPS):
+            raise AssertionError(f"rendering {name}: launches {launches}")
+        frame(env, 0, name, name, dict(kw, fused_physics=True))
+        # the hooks on the card's env, matplotlib recorded (testing.hook_calls),
+        # against a CPU twin's on the same host copy
+        view = host_state(env.state, 0)[1]
+        t1 = time.perf_counter()
+        calls, n_syncs = syncs(lambda: testing.hook_calls(env, view, 0))
+        hooks_ms.append((time.perf_counter() - t1) * 1e3)
+        twin = make_env(name, 1, device="cpu", seed=0, **kw)
+        artists = {h: testing.hook_artists(c) for h, c in calls.items()}
+        if n_syncs or calls != testing.hook_calls(twin, view, 0) or not all(artists[h] > 0 for h in hooks):
+            raise AssertionError(f"rendering {name}: the hooks on the card made {n_syncs:g} synchronizing operations, "
+                                 f"added {artists} artists, or asked matplotlib otherwise than on a CPU twin")
+        if draw and drawn_artists(env, 0) != artists:
+            raise AssertionError(f"rendering {name}: hooks drew {drawn_artists(env, 0)}, recorded {artists}")
+        print(f"rendering {name}@{B}: {RENDER_STEPS} env.step, launches {launches}; its hooks on the card's env: "
+              f"{sum(map(len, calls.values()))} matplotlib calls, bitwise a CPU twin's, artists {artists}, "
+              f"0 synchronizing operations, {hooks_ms[-1]:.3f} ms on the host (recorded, not drawn) "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # (c) flocking's Lidar fans and a position function, a comm world's text;
+    # the Lidar on the card against the same rays on the frame's host copy
+    env = make_env("flocking", B, device=dev, seed=0, fused_physics=True)
+    env.step(env.get_random_actions())
+    row, _ = host_state(env.state, 0)
+    err = max(float((s.measure(env.state)[0].cpu() - s.measure(row)[0]).abs().max())
+              for a in env.world.agents for s in a.sensors)
+    if err > RENDER_LIDAR_ATOL:
+        raise AssertionError(f"rendering flocking: the Lidar on the card and on the host copy differ by {err}")
+    overlays = dict(plot_position_function=lambda p: (p ** 2).sum(-1), plot_position_function_range=1.5,
+                    plot_position_function_precision=0.1)
+    frame(env, 0, "flocking (fans, arrows, position function)", "flocking", {"fused_physics": True}, **overlays)
+    print(f"rendering flocking@{B}: its Lidars on the card vs on the frame's host copy: max abs err {err:.3e} "
+          f"(atol {RENDER_LIDAR_ATOL})", flush=True)
+    env = make_env("simple_reference", B, device=dev, seed=0, fused_physics=True)
+    env.step(env.get_random_actions())
+    frame(env, B - 1, "simple_reference (comm text)", "simple_reference", {"fused_physics": True})
+
+    # (d) the wrappers over transport@B, and a video
+    wrapped = make_env("transport", B, device=dev, n_agents=N_AGENTS, seed=0, fused_physics=True,
+                       terminated_truncated=True, wrapper="gymnasium_vec", wrapper_kwargs={"render_mode": "rgb_array"})
+    rllib = make_env("transport", B, device=dev, n_agents=N_AGENTS, seed=0, fused_physics=True, wrapper="rllib")
+    if draw:
+        for got, want in ((wrapped.render(), wrapped.env.render(mode="rgb_array")),
+                          (rllib.try_render_at(B - 1, mode="rgb_array"),
+                           rllib.env.render(mode="rgb_array", env_index=B - 1))):
+            if not (got == want).all():
+                raise AssertionError("rendering: a wrapper's frame differs from its env's")
+        with tempfile.TemporaryDirectory() as tmp:
+            video = []
+            for _ in range(RENDER_VIDEO_FRAMES):
+                wrapped.env.step(wrapped.env.get_random_actions())
+                video.append(wrapped.render())
+            path = save_video(os.path.join(tmp, "transport"), video, fps=10)
+            print(f"rendering: {RENDER_VIDEO_FRAMES} frames saved to {os.path.basename(path)} "
+                  f"({os.path.getsize(path)} B)", flush=True)
+    elif not (render_raises(wrapped.render) and render_raises(lambda: rllib.try_render_at(B - 1, mode="rgb_array"))):
+        raise AssertionError("rendering: a wrapper's render did not raise an ImportError naming matplotlib")
+    for k in (0, B - 1):
+        bad = host_copy_differs(wrapped.env.state, host_state(wrapped.env.state, k)[0], k)
+        if bad:
+            raise AssertionError(f"rendering the wrapped env: env {k}'s host copy differs in {bad}")
+    print(f"rendering: the wrappers over transport@{B}: "
+          + ("gymnasium_vec's render and rllib's try_render_at equal their env's frames; "
+             f"{RENDER_VIDEO_FRAMES} frames saved" if draw else
+             "render and try_render_at raise ImportError naming matplotlib, no video saved (no frames)")
+          + f"; host copies of env 0 and {B - 1} bitwise interop's", flush=True)
+    def span(xs):
+        return f"{min(xs):.3f}-{max(xs):.3f} ms (median {sorted(xs)[len(xs) // 2]:.3f})"
+
+    print(f"rendering on {card}: {len(copies_ms)} frames' host copies {span(copies_ms)}, one device-to-host copy "
+          f"and one synchronizing operation a frame, {min(sizes)}-{max(sizes)} B (the profiler saw one copy in "
+          f"{sum(c == 1 for c in seen)} of them, fewer in the rest); one .cpu() a leaf {span(leaves_ms)}; "
+          f"the hook worlds' hooks {span(hooks_ms)} on the host, recorded; "
+          + (f"draw {span(draws_ms)}" if draw else "draw not measured (no matplotlib)"), flush=True)
+
+
 # -- 12. PPO at transport@4096 ---------------------------------------------------
 
 def ppo_bitwise(env, policy, dev, card):
@@ -4066,7 +4429,7 @@ def ppo_train(env, card, dev, dtype, seed):
     rate = env.num_envs * TRAIN_HORIZON * TRAIN_UPDATES / (min(block_ms) / 1e3)
     mean = env.num_envs * TRAIN_HORIZON * TRAIN_UPDATES * TRAIN_BLOCKS / (sum(block_ms) / 1e3)
     one = lambda: update(model, opt, carry[0], carry[1], gen)
-    _, busy_ms, by_name, n_ops = device_ms(one, 1, "")
+    _, busy_ms, by_name, n_ops, _ = device_ms(one, 1, "")
     upd_ms = min(block_ms) / TRAIN_UPDATES
     idle = 1 - busy_ms / upd_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
@@ -4101,7 +4464,7 @@ def ppo_split(env, model, opt, dtype, carry, gen, card, tag):
     out = []
     for name, fn in parts.items():
         wall = time_ms(fn, 2)
-        _, busy, _, n_ops = device_ms(fn, 1, "")
+        _, busy, _, n_ops, _ = device_ms(fn, 1, "")
         out.append(f"{name} {wall:.3f} ms ({busy:.3f} busy, {n_ops:.0f} device operations)")
     print(f"{tag}, one update's parts on {card}: " + "; ".join(out), flush=True)
 
@@ -4305,11 +4668,16 @@ def main():
 
     # where one main-path call's device time goes (read after the counts:
     # these launches are not the main path's)
-    _, busy_ms, by_name, _ = device_ms(lambda: run(state, steps, rgen), 1, "")
+    _, busy_ms, by_name, _, _ = device_ms(lambda: run(state, steps, rgen), 1, "")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"device time of one rows_rollout_fn call: {busy_ms:.3f} ms busy of {min(call_ms):.3f} ms wall "
           f"(idle share {1 - busy_ms / min(call_ms):.3f}); top: "
           + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
+
+    # -- 12h. rendering, run here: the profiler's records of its one small copy
+    # a frame are whole early in the process, and lost later (device_ms takes
+    # such a session again; the frame's sync count is the witness)
+    run_phase("rendering", render_phase, card, dev)
 
     # -- 5. balance and the all-pairs world ------------------------------------
     balance_kernels = run_phase("balance", balance_phase, card, dev)

@@ -134,3 +134,44 @@ def test_dots_worlds_and_wrappers_import_without_jax():
             "print(len(Wrapper), sorted(m for m in sys.modules if m.split('.')[0] in " + repr(BANNED) + "))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
     assert out.stdout.strip() == "4 []", out.stdout
+
+
+def test_rendering_imports_without_jax():
+    """The viewer, the drawing helpers, the video writer, interactive play
+    and its module alias are among the files held to importing no JAX, and
+    load in a fresh interpreter without it."""
+    files = ["render/__init__.py", "render/draw.py", "render/viewer.py", "render/video.py",
+             "render/interactive.py", "interactive_rendering.py"]
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"vmas_tpu_torch/{f}" for f in files} <= names
+    mods = ["vmas_tpu_torch.render", "vmas_tpu_torch.render.draw", "vmas_tpu_torch.render.viewer",
+            "vmas_tpu_torch.render.video", "vmas_tpu_torch.render.interactive",
+            "vmas_tpu_torch.interactive_rendering"]
+    code = ("import importlib, sys; [importlib.import_module(m) for m in " + repr(mods) + "]; "
+            "from vmas_tpu_torch import render_interactively; "
+            "print(callable(render_interactively), sorted(m for m in sys.modules if m.split('.')[0] in "
+            + repr(BANNED) + "))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
+    assert out.stdout.strip() == "True []", out.stdout
+
+
+def test_package_needs_no_matplotlib():
+    """With matplotlib unimportable (``sys.modules["matplotlib"] = None``),
+    the package and the rendering modules import, transport builds on the
+    CPU and steps, and ``env.render`` raises an ImportError that names
+    matplotlib (as where it is not installed)."""
+    code = (
+        "import sys; sys.modules['matplotlib'] = None\n"
+        "import vmas_tpu_torch, vmas_tpu_torch.render.viewer, vmas_tpu_torch.render.interactive\n"
+        "import vmas_tpu_torch.interactive_rendering\n"
+        "env = vmas_tpu_torch.make_env('transport', num_envs=2, device='cpu', seed=0)\n"
+        "obs, rews, dones, infos = env.step(env.get_random_actions())\n"
+        "try:\n"
+        "    env.render(mode='rgb_array')\n"
+        "except ImportError as e:\n"
+        "    print('ImportError', 'matplotlib' in str(e), len(obs), tuple(rews[0].shape))\n"
+        "else:\n"
+        "    print('rendered')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
+    assert out.stdout.strip() == "ImportError True 4 (2,)", out.stdout + out.stderr

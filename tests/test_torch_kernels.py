@@ -39,7 +39,8 @@ painting (nav and full), construction and sampling in both forms bitwise,
 sampling's visited cells on the card bitwise the CPU's; road_traffic's
 kernels on map 3's tables, map 2 and testing mode against their one-thread
 forms and plain versions, with two sweeps a step in map 3 and testing
-mode; the op-cost probe's ALU chain
+mode; a frame drawn from a CUDA env bitwise the frame of its state on the
+CPU (skipped without matplotlib); the op-cost probe's ALU chain
 bitwise, its transcendental chain atol 1e-6 rtol 1e-5. The balance,
 all-pairs, joint_passage, waterfall, give_way, multi_give_way,
 wind_flocking and MPE states come from vmas_tpu_torch/testing.py, as
@@ -1290,3 +1291,31 @@ def test_rt_kernels_on_other_maps_match_plain(kw):
     far = [10 + 11 * k + 10 for k in range(sc.obs_kw["K"])]
     assert torch.equal(got[..., far] == 1.0, want[..., far] == 1.0)
     _close(got, want, 1e-6, 0.0)
+
+
+def test_render_frame_on_the_card_equals_the_cpu_frame():
+    """A CUDA env's frame (its row crosses to the host in one copy, and the
+    Lidar is measured there) equals, bitwise, the frame of its state copied
+    to a CPU env of the same width through interop: transport with its
+    fused step, flocking's fans and force arrows, football's hooks and
+    simple_reference's comm text, each at its first and last env. Needs
+    matplotlib, which a machine with a card may not have."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the frame's host copy is taken off the card")
+    pytest.importorskip("matplotlib")
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import numpy as np
+
+    from vmas_tpu_torch.interop import state_from_numpy, state_to_numpy
+
+    for name, kw in (("transport", {"fused_physics": True}), ("flocking", {}),
+                     ("football", {"ai_red_agents": True, "n_traj_points": 4}), ("simple_reference", {})):
+        genv = make_env(name, 8, device="cuda", seed=0, **kw)
+        genv.step(genv.get_random_actions())
+        cenv = make_env(name, 8, device="cpu", seed=0, **kw)
+        cenv.state = state_from_numpy(cenv.world, state_to_numpy(genv.state))
+        for k in (0, 7):
+            got, want = genv.render(mode="rgb_array", env_index=k), cenv.render(mode="rgb_array", env_index=k)
+            assert got.shape == want.shape and np.array_equal(got, want), (name, k)

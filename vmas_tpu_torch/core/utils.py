@@ -13,6 +13,8 @@ import torch
 
 X = 0
 Y = 1
+ALPHABET = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+VIEWER_DEFAULT_ZOOM = 1.2
 # Same force-model constants as the JAX package (and the original VMAS).
 LINE_MIN_DIST = 4 / 6e2
 COLLISION_FORCE = 100.0

@@ -14,7 +14,8 @@ The env runs on the GPU unless the caller passes ``device="cpu"``; with no
 GPU present it raises instead of falling back. gymnasium is imported only
 when a space is asked for (``action_space``, ``observation_space``,
 ``get_action_space``, ``get_observation_space``,
-``get_agent_action_space``); random actions need none.
+``get_agent_action_space``); random actions need none. ``render`` draws
+one env with matplotlib, which is imported only there.
 """
 
 from __future__ import annotations
@@ -455,6 +456,16 @@ class Environment:
             raise ValueError(f"this environment lives on {self.device} and cannot move to {want}; "
                              f"build it there with make_env(..., device={str(want)!r})")
         return self
+
+    def render(self, *args, **kwargs):
+        """Draw one env with matplotlib (``render/viewer.py``'s
+        ``render_env``): ``mode="rgb_array"`` returns the frame as an
+        ``[H, W, 3]`` uint8 array. The state crosses to the host once a
+        frame; matplotlib must be installed (it is imported here, not with
+        the package)."""
+        from vmas_tpu_torch.render.viewer import render_env
+
+        return render_env(self, *args, **kwargs)
 
     # ------------------------------------------------------------------
     # spaces (gymnasium, imported on first access)

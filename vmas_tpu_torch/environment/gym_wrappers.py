@@ -6,7 +6,9 @@ non-vectorized wrappers take env 0, and the infos are keyed by agent name.
 ``GymWrapper`` keeps the classic 4-tuple step without the old ``gym``
 package. The gymnasium wrappers subclass ``gymnasium.Env`` where gymnasium
 is installed, and a plain class where it is not; their spaces are built on
-first access, and only those need gymnasium. Rendering is not ported yet.
+first access, and only those need gymnasium. ``render`` draws env 0
+through ``Environment.render`` (the vectorized wrapper's takes
+``env_index``).
 """
 
 from __future__ import annotations
@@ -149,6 +151,11 @@ class GymWrapper(BaseGymWrapper):
         obs = self._env.reset_at(index=0)
         return self._convert_env_data(obs=obs).obs
 
+    def render(self, mode="human", agent_index_focus: Optional[int] = None, visualize_when_rgb: bool = False,
+               **kwargs):
+        return self._env.render(mode=mode, env_index=0, agent_index_focus=agent_index_focus,
+                                visualize_when_rgb=visualize_when_rgb, **kwargs)
+
 
 class GymnasiumWrapper(_GymnasiumEnv, BaseGymWrapper):
     """The gymnasium single-env API (``terminated_truncated=True``)."""
@@ -188,6 +195,10 @@ class GymnasiumWrapper(_GymnasiumEnv, BaseGymWrapper):
         obs, info = self._env.reset_at(index=0, return_info=True)
         d = self._convert_env_data(obs=obs, info=info)
         return d.obs, d.info
+
+    def render(self, agent_index_focus: Optional[int] = None, visualize_when_rgb: bool = False, **kwargs):
+        return self._env.render(mode=self.render_mode, env_index=0, agent_index_focus=agent_index_focus,
+                                visualize_when_rgb=visualize_when_rgb, **kwargs)
 
 
 class GymnasiumVectorizedWrapper(_GymnasiumEnv, BaseGymWrapper):
@@ -240,3 +251,7 @@ class GymnasiumVectorizedWrapper(_GymnasiumEnv, BaseGymWrapper):
         obs, info = self._env.reset(return_info=True)
         d = self._convert_env_data(obs=obs, info=info)
         return d.obs, d.info
+
+    def render(self, agent_index_focus: Optional[int] = None, visualize_when_rgb: bool = False, **kwargs):
+        return self._env.render(mode=self.render_mode, agent_index_focus=agent_index_focus,
+                                visualize_when_rgb=visualize_when_rgb, **kwargs)

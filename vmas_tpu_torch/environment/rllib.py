@@ -4,9 +4,10 @@ Counterpart of vmas_tpu/environment/rllib.py: per-env observation lists,
 the reward averaged over the agents with each agent's reward in the infos.
 It subclasses ``ray.rllib.VectorEnv`` where ray is installed, and is a plain
 class with the same methods (``vector_reset``, ``reset_at``,
-``vector_step``, ``seed``, ``get_sub_environments``) where it is not.
-Tensors become numpy arrays at the boundary, copied off the GPU where the
-env lives there. Rendering (``try_render_at``) is not ported yet.
+``vector_step``, ``seed``, ``try_render_at``, ``get_sub_environments``)
+where it is not; that class builds its spaces on first access, so that it
+needs gymnasium only for them. Tensors become numpy arrays at the boundary,
+copied off the GPU where the env lives there.
 """
 
 from __future__ import annotations
@@ -41,9 +42,19 @@ class VectorEnvWrapper(_Base):
                 observation_space=env.observation_space, action_space=env.action_space, num_envs=env.num_envs
             )
         else:
-            self.observation_space = env.observation_space
-            self.action_space = env.action_space
             self.num_envs = env.num_envs
+
+    if not _HAS_RAY:
+        # built on first access, as the gymnasium wrappers' are: only the
+        # spaces need gymnasium
+
+        @property
+        def observation_space(self):
+            return self._env.observation_space
+
+        @property
+        def action_space(self):
+            return self._env.action_space
 
     @property
     def env(self):
@@ -66,6 +77,13 @@ class VectorEnvWrapper(_Base):
 
     def seed(self, seed=None):
         return self._env.seed(seed)
+
+    def try_render_at(self, index: Optional[int] = None, mode="human", agent_index_focus: Optional[int] = None,
+                      visualize_when_rgb: bool = False, **kwargs):
+        if index is None:
+            index = 0
+        return self._env.render(mode=mode, env_index=index, agent_index_focus=agent_index_focus,
+                                visualize_when_rgb=visualize_when_rgb, **kwargs)
 
     def get_sub_environments(self) -> List[Environment]:
         return [self._env]

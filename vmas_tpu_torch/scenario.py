@@ -1,7 +1,7 @@
 """Scenario author API.
 
-Counterpart of vmas_tpu/scenario.py (rendering hooks not ported). The hooks
-are functions over a :class:`WorldState`:
+Counterpart of vmas_tpu/scenario.py. The hooks are functions over a
+:class:`WorldState`:
 
 * ``make_world(batch_dim, device, **kwargs)`` builds the world;
 * ``reset_world_at(state, generator) -> state`` resets ALL envs; the
@@ -11,7 +11,10 @@ are functions over a :class:`WorldState`:
   reward bookkeeping, kept in ``state.scenario`` scratch;
 * ``process_action(agent, state)``, ``pre_step``, ``post_step`` as in VMAS;
 * ``make_fused_outputs(world)`` (optional) returns a ``fused.FusedOutputs``;
-* ``obs_generator(i)`` gives agent ``i``'s observation-noise stream.
+* ``obs_generator(i)`` gives agent ``i``'s observation-noise stream;
+* ``extra_render(env, ax, env_index)`` / ``top_layer_render`` draw onto
+  the frame's matplotlib ``Axes``, below and above the entities, from the
+  frame's host copy of the state (``env.state`` there lies on the CPU).
 """
 
 from __future__ import annotations
@@ -110,6 +113,16 @@ class BaseScenario(ABC):
         ``obs_key(state, i)``."""
         seed = (self.obs_seed + (i + 1) * _GOLDEN64) % 2**64
         return torch.Generator(device=self.world.device).manual_seed(seed)
+
+    def extra_render(self, env, ax, env_index: int = 0) -> None:
+        """Draw scenario-specific geoms BELOW the entity layer. ``env`` is
+        the viewer's view of the environment: its ``state`` is the frame's
+        host copy (``render/viewer.py``), so a hook reads no device tensor;
+        ``ax`` is the frame's matplotlib Axes; paint with the
+        :mod:`vmas_tpu_torch.render.draw` helpers."""
+
+    def top_layer_render(self, env, ax, env_index: int = 0) -> None:
+        """Like :meth:`extra_render`, drawn ABOVE the entity layer."""
 
 
 # odd 64-bit constant that spreads consecutive agent indices over the seed space

@@ -29,6 +29,8 @@ class Scenario(BaseScenario):
         self.package_mass = kwargs.pop("package_mass", 5)
         self.random_package_pos_on_line = kwargs.pop("random_package_pos_on_line", True)
         ScenarioUtils.check_kwargs_consumed(kwargs)
+        # the viewer's settings (render/viewer.py)
+        self.visualize_semidims = False
         assert self.n_agents > 1
 
         self.line_length = 0.8

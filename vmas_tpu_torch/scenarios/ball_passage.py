@@ -1,12 +1,12 @@
 """Ball passage: two agents push a ball through an opening in a wall of
 boxes to a goal.
 
-Counterpart of vmas_tpu/scenarios/ball_passage.py (rendering hooks not
-ported). Its world drives the sphere-sphere contacts of the agents and the
-ball and the box-sphere contacts of the three on the 19 walls; its outputs
-come out of the fused step as rows (``BallPassageOutputs``), the 57
-box-sphere overlap tests of the collision penalty among them. The boxes'
-x-slots are permuted per env at each reset.
+Counterpart of vmas_tpu/scenarios/ball_passage.py. Its world drives the
+sphere-sphere contacts of the agents and the ball and the box-sphere
+contacts of the three on the 19 walls; its outputs come out of the fused
+step as rows (``BallPassageOutputs``), the 57 box-sphere overlap tests of
+the collision penalty among them. The boxes' x-slots are permuted per env at
+each reset.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ class Scenario(BaseScenario):
         self.fixed_passage = kwargs.pop("fixed_passage", False)
         self.random_start_angle = kwargs.pop("random_start_angle", True)
         ScenarioUtils.check_kwargs_consumed(kwargs)
+        # the viewer's settings (render/viewer.py)
+        self.visualize_semidims = False
         assert 1 <= self.n_passages <= 20
 
         self.pos_shaping_factor = 1
@@ -188,6 +190,12 @@ class Scenario(BaseScenario):
 
     def make_fused_outputs(self, world):
         return BallPassageOutputs(self, world)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The arena's perimeter."""
+        from vmas_tpu_torch.render import draw
+
+        draw.draw_perimeter(ax, float(self.world.x_semidim), pad=self.agent_radius)
 
 
 class BallPassageOutputs(F.FusedOutputs):

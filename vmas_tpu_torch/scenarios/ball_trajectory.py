@@ -1,13 +1,12 @@
 """Ball trajectory: two agents joined to a ball drive it around a circle of
 radius 0.5 at a desired speed.
 
-Counterpart of vmas_tpu/scenarios/ball_trajectory.py (rendering hooks not
-ported). Its world drives two joints (each agent to the ball), the
-sphere-sphere contacts of the three bodies and 15 substeps; its outputs
-come out of the fused step as rows (``BallTrajectoryOutputs``). As in the
-JAX package (and the original, whose reward updates the shaping baselines
-on every per-agent call), the first agent receives the shaping delta and
-the others zeros.
+Counterpart of vmas_tpu/scenarios/ball_trajectory.py. Its world drives two
+joints (each agent to the ball), the sphere-sphere contacts of the three
+bodies and 15 substeps; its outputs come out of the fused step as rows
+(``BallTrajectoryOutputs``). As in the JAX package (and the original, whose
+reward updates the shaping baselines on every per-agent call), the first
+agent receives the shaping delta and the others zeros.
 """
 
 from __future__ import annotations
@@ -125,6 +124,12 @@ class Scenario(BaseScenario):
 
     def make_fused_outputs(self, world):
         return BallTrajectoryOutputs(self, world)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The trajectory's goal circle."""
+        from vmas_tpu_torch.render import draw
+
+        draw.draw_circle(ax, (0.0, 0.0), self.desired_radius, (0, 0, 0))
 
 
 class BallTrajectoryOutputs(F.FusedOutputs):

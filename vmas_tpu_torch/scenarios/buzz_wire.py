@@ -1,12 +1,12 @@
 """Buzz wire: two agents joined to a ball guide it down a wire maze to a
 goal without touching the wire.
 
-Counterpart of vmas_tpu/scenarios/buzz_wire.py (rendering hooks not
-ported). Its world drives two joints (each agent to the ball, a bar of
-half the agent spacing between them), the line-sphere contacts of the
-agents and the ball on the two walls and two floors, and 15 substeps; its
-outputs come out of the fused step as rows (``BuzzWireOutputs``), the 12
-line-sphere overlap tests of the collision penalty among them.
+Counterpart of vmas_tpu/scenarios/buzz_wire.py. Its world drives two joints
+(each agent to the ball, a bar of half the agent spacing between them), the
+line-sphere contacts of the agents and the ball on the two walls and two
+floors, and 15 substeps; its outputs come out of the fused step as rows
+(``BuzzWireOutputs``), the 12 line-sphere overlap tests of the collision
+penalty among them.
 """
 
 from __future__ import annotations

@@ -1,13 +1,12 @@
 """Asymmetric joint (debug): two agents joined by a bar, with a heavy mass
 fixed off-centre on it, turn the bar to a goal angle of 90 degrees.
 
-Counterpart of vmas_tpu/scenarios/debug/asym_joint.py (rendering hooks not
-ported). Its world drives three joints (the agents to the ends of the bar,
-the mass to the bar) and 10 substeps (7 without ``asym_package``). It has
-no fused outputs, as in the JAX package: with ``fused_physics=True`` the
-fused step runs its physics with no emit, and the hooks (the observation
-noise and the energy term among them) run around it; it has no rows
-rollout.
+Counterpart of vmas_tpu/scenarios/debug/asym_joint.py. Its world drives
+three joints (the agents to the ends of the bar, the mass to the bar) and 10
+substeps (7 without ``asym_package``). It has no fused outputs, as in the
+JAX package: with ``fused_physics=True`` the fused step runs its physics
+with no emit, and the hooks (the observation noise and the energy term among
+them) run around it; it has no rows rollout.
 """
 
 from __future__ import annotations
@@ -149,3 +148,9 @@ class Scenario(BaseScenario):
 
     def info(self, agent, state):
         return {"rot_rew": state.scenario["rot_rew"], "energy_rew": state.scenario["energy_rew"]}
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """A green marker at the origin."""
+        from vmas_tpu_torch.render import draw
+
+        draw.draw_circle(ax, (0.0, 0.0), 0.01, Color.GREEN, filled=True)

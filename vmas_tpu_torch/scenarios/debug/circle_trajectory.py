@@ -3,11 +3,11 @@ rewarded for keeping to a circle of radius 1.5 and for its speed along the
 circle's tangent; its velocity commands are clamped to ``u_range``, zeroed
 below ``min_input_norm`` and optionally delayed by ``dt_delay`` steps.
 
-Counterpart of vmas_tpu/scenarios/debug/circle_trajectory.py (rendering
-hooks not ported). The commands are clamped on ``sqrt(x*x + y*y)``
-(``fused.clamp_with_row_norm``), as the velocity-controlled worlds of the
-port clamp. It has no fused outputs: with ``fused_physics=True`` the fused
-step runs its physics with no emit, and the hooks run around it.
+Counterpart of vmas_tpu/scenarios/debug/circle_trajectory.py. The commands
+are clamped on ``sqrt(x*x + y*y)`` (``fused.clamp_with_row_norm``), as the
+velocity-controlled worlds of the port clamp. It has no fused outputs: with
+``fused_physics=True`` the fused step runs its physics with no emit, and the
+hooks run around it.
 """
 
 from __future__ import annotations
@@ -91,3 +91,13 @@ class Scenario(BaseScenario):
 
     def observation(self, agent, state):
         return torch.cat([agent.pos(state), agent.vel(state), agent.pos(state)], dim=-1)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The trajectory's goal circle and the tangent-velocity line."""
+        from vmas_tpu_torch.render import draw
+
+        draw.draw_circle(ax, (0.0, 0.0), self.desired_radius, (0, 0, 0))
+        agent = self.world.agents[0]
+        closest = self._closest_point_circle(env.state, agent)
+        tangent = self._tangent_to_circle(env.state, agent, closest)[env_index].numpy()
+        draw.draw_line(ax, (0, 0), tangent, (0, 0, 0))

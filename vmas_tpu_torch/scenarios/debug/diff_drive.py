@@ -2,10 +2,9 @@
 the others on HolonomicWithRotation, spawned at random; zero reward,
 position and velocity observed.
 
-Counterpart of vmas_tpu/scenarios/debug/diff_drive.py (rendering hooks not
-ported). It has no fused outputs: with ``fused_physics=True`` the fused
-step runs its physics with no emit (the torque rows of both models), and
-the hooks run around it.
+Counterpart of vmas_tpu/scenarios/debug/diff_drive.py. It has no fused
+outputs: with ``fused_physics=True`` the fused step runs its physics with no
+emit (the torque rows of both models), and the hooks run around it.
 """
 
 from __future__ import annotations
@@ -46,3 +45,10 @@ class Scenario(BaseScenario):
 
     def observation(self, agent, state):
         return torch.cat([agent.pos(state), agent.vel(state)], dim=-1)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """Heading ticks."""
+        from vmas_tpu_torch.render import draw
+
+        for agent in self.world.agents:
+            draw.plot_entity_rotation(ax, agent, env.state, env_index, length=0.1)

@@ -4,9 +4,9 @@ hooks see a ``[B, 4]`` u, and the state that leaves the step carries the
 spawn-time ``[B, 3]`` (``Environment._canonical_u``). An env is done once
 any drone rolls or pitches beyond 30 degrees (``Drone.needs_reset``).
 
-Counterpart of vmas_tpu/scenarios/debug/drone.py (rendering hooks not
-ported). It has no fused outputs: with ``fused_physics=True`` the fused
-step runs its physics with no emit, and the hooks run around it.
+Counterpart of vmas_tpu/scenarios/debug/drone.py. It has no fused outputs:
+with ``fused_physics=True`` the fused step runs its physics with no emit,
+and the hooks run around it.
 """
 
 from __future__ import annotations
@@ -53,3 +53,10 @@ class Scenario(BaseScenario):
 
     def done(self, state):
         return torch.any(torch.stack([a.dynamics.needs_reset(state) for a in self.world.agents], dim=-1), dim=-1)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """Heading ticks."""
+        from vmas_tpu_torch.render import draw
+
+        for agent in self.world.agents:
+            draw.plot_entity_rotation(ax, agent, env.state, env_index, length=0.1)

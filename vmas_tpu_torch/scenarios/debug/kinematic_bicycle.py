@@ -3,9 +3,9 @@
 stiff box-box contact (collision force 500, 10 substeps); zero reward,
 position and velocity observed.
 
-Counterpart of vmas_tpu/scenarios/debug/kinematic_bicycle.py (rendering
-hooks not ported). It has no fused outputs: with ``fused_physics=True``
-the fused step runs its physics with no emit, and the hooks run around it.
+Counterpart of vmas_tpu/scenarios/debug/kinematic_bicycle.py. It has no
+fused outputs: with ``fused_physics=True`` the fused step runs its physics
+with no emit, and the hooks run around it.
 """
 
 from __future__ import annotations
@@ -58,3 +58,10 @@ class Scenario(BaseScenario):
 
     def observation(self, agent, state):
         return torch.cat([agent.pos(state), agent.vel(state)], dim=-1)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """Heading ticks."""
+        from vmas_tpu_torch.render import draw
+
+        for agent in self.world.agents:
+            draw.plot_entity_rotation(ax, agent, env.state, env_index, length=0.1)

@@ -2,10 +2,10 @@
 rewarded for keeping to the line x = 0, for its speed along it and for
 moving the way it is told; done once past y = 2.
 
-Counterpart of vmas_tpu/scenarios/debug/line_trajectory.py (rendering
-hooks not ported). Its commands go to the controller unclamped, as in the
-JAX package. It has no fused outputs: with ``fused_physics=True`` the
-fused step runs its physics with no emit, and the hooks run around it.
+Counterpart of vmas_tpu/scenarios/debug/line_trajectory.py. Its commands go
+to the controller unclamped, as in the JAX package. It has no fused outputs:
+with ``fused_physics=True`` the fused step runs its physics with no emit,
+and the hooks run around it.
 """
 
 from __future__ import annotations
@@ -65,3 +65,9 @@ class Scenario(BaseScenario):
 
     def done(self, state):
         return self.world.agents[0].pos(state)[:, Y] > self.line_length - 1
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The trajectory's goal line."""
+        from vmas_tpu_torch.render import draw
+
+        draw.draw_line(ax, (0, -1), (0, -1 + self.line_length), (0, 0, 0))

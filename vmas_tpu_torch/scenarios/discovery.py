@@ -2,15 +2,15 @@
 the covering range at once; a covered target respawns (or, with
 ``targets_respawn=False``, leaves the arena).
 
-Counterpart of vmas_tpu/scenarios/discovery.py (``extra_render`` not
-ported). The respawn runs in ``post_rewards``, drawing from the step's own
-stream (``obs_generator``, seeded from the environment's generator at each
-step) where the JAX package keeps a key in scratch. Its outputs come out of
-the fused step as rows (``DiscoveryOutputs``): the agent-target coverage
-matrix, the covering rewards and the collision penalties in the kernel.
-The Lidar must see the targets where the respawn put them, so it is
-measured in ``finish_obs``, after post_rewards, as the hook pipeline
-orders it; the rows rollouts therefore refuse discovery.
+Counterpart of vmas_tpu/scenarios/discovery.py. The respawn runs in
+``post_rewards``, drawing from the step's own stream (``obs_generator``,
+seeded from the environment's generator at each step) where the JAX package
+keeps a key in scratch. Its outputs come out of the fused step as rows
+(``DiscoveryOutputs``): the agent-target coverage matrix, the covering
+rewards and the collision penalties in the kernel. The Lidar must see the
+targets where the respawn put them, so it is measured in ``finish_obs``,
+after post_rewards, as the hook pipeline orders it; the rows rollouts
+therefore refuse discovery.
 """
 
 from __future__ import annotations
@@ -176,6 +176,16 @@ class Scenario(BaseScenario):
     # ------------------------------------------------------------------
     def make_fused_outputs(self, world):
         return DiscoveryOutputs(self, world)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The targets' covering-range circles and the agents' communication
+        lines."""
+        from vmas_tpu_torch.render import draw
+
+        pos = env.state.pos[env_index].numpy()
+        for target in self._targets:
+            draw.draw_circle(ax, pos[target.index], self._covering_range, Color.GREEN)
+        draw.draw_comm_lines(ax, env, env.state, env_index, self._comms_range)
 
 
 class DiscoveryOutputs(F.FusedOutputs):

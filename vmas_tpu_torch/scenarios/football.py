@@ -1,14 +1,14 @@
 """Football: a blue team against a red team, a ball, two goals and a
 scripted team AI.
 
-Counterpart of vmas_tpu/scenarios/football.py (rendering hooks not
-ported). The ball is a scripted agent (``ball_action_script``: its
-anti-stall impulses near the walls); the team AI (``AgentPolicy``) keeps
-each team's objectives and possession in scratch as ``ai_Red`` /
-``ai_Blue`` dicts of ``[B, A, ...]`` tensors, and evaluates its Hermite
-trajectories through constant coefficient rows (``hermite_coeffs``). The
-AI's random draws come from the step's seeded streams
-(``BaseScenario.obs_generator``), each team and purpose on its own salt.
+Counterpart of vmas_tpu/scenarios/football.py. The ball is a scripted agent
+(``ball_action_script``: its anti-stall impulses near the walls); the team
+AI (``AgentPolicy``) keeps each team's objectives and possession in scratch
+as ``ai_Red`` / ``ai_Blue`` dicts of ``[B, A, ...]`` tensors, and evaluates
+its Hermite trajectories through constant coefficient rows
+(``hermite_coeffs``). The AI's random draws come from the step's seeded
+streams (``BaseScenario.obs_generator``), each team and purpose on its own
+salt.
 
 Its outputs come out of the fused step as rows (``FootballOutputs``) for
 the flat-observation configs without shooting: the score, the dense
@@ -901,6 +901,64 @@ class Scenario(BaseScenario):
         if self.dict_obs or self.enable_shooting or not world.policy_agents:
             return None
         return FootballOutputs(self, world)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The field, the blue agents' indices and the shooting sectors."""
+        from vmas_tpu_torch.render import draw
+
+        state = env.state
+        half_l = self.pitch_length / 2
+        half_w = self.pitch_width / 2
+        if getattr(self, "_render_field", True):
+            draw.draw_rect(ax, (0, 0), self.pitch_length, self.pitch_width, 0.0, Color.GREEN, zorder=0)
+            draw.draw_circle(ax, (0, 0), self.goal_size / 2, Color.WHITE, filled=True, zorder=0)
+            draw.draw_circle(ax, (0, 0), self.goal_size / 2 - 0.02, Color.GREEN, filled=True, zorder=0)
+        # white pitch lines (centre, left and right verticals; top and bottom)
+        vlen = half_w - self.agent_size
+        for x in (0.0, half_l - self.agent_size, -half_l + self.agent_size):
+            draw.draw_line(ax, (x, -vlen), (x, vlen), Color.WHITE, zorder=1)
+        hlen = half_l - self.agent_size
+        for y in (half_w - self.agent_size, -half_w + self.agent_size):
+            draw.draw_line(ax, (-hlen, y), (hlen, y), Color.WHITE, zorder=1)
+
+        draw.draw_agent_indices(ax, env, state, env_index, start_from=1, exclude=self.red_agents + [self.ball])
+
+        if self.enable_shooting:
+            pos = state.pos[env_index].numpy()
+            rot = state.rot[env_index].numpy().reshape(-1)
+            ball_p = pos[self.ball.index]
+            for agent in self.blue_agents:
+                p, r = pos[agent.index], rot[agent.index]
+                rel = ball_p - p
+                within_range = np.linalg.norm(rel) <= self.shooting_radius
+                rel_angle = (r - np.arctan2(rel[1], rel[0]) + np.pi) % (2 * np.pi) - np.pi
+                within_angle = abs(rel_angle) <= self.shooting_angle / 2
+                color = Color.PINK if (within_range and within_angle) else agent.color
+                draw.draw_wedge(ax, p, self.shooting_radius, r - self.shooting_angle / 2,
+                                r + self.shooting_angle / 2, color, alpha=0.3, zorder=2)
+
+    def top_layer_render(self, env, ax, env_index: int = 0):
+        """The scripted teams' trajectory points: the hermite-spline knots of
+        each AI agent's current objective, ``n_traj_points`` per agent, from
+        the AI's scratch."""
+        if self.n_traj_points <= 0:
+            return
+        from vmas_tpu_torch.render import draw
+
+        scratch = env.state.scenario
+        for controller, team in ((self.red_controller, self.red_agents), (self.blue_controller, self.blue_agents)):
+            if controller is None or controller.key not in scratch:
+                continue
+            ai = scratch[controller.key]
+            for i in range(len(team)):
+                p0 = ai["start_pos"][env_index, i].numpy()
+                p1 = ai["target_pos"][env_index, i].numpy()
+                v0 = ai["start_vel"][env_index, i].numpy()
+                v1 = ai["target_vel"][env_index, i].numpy()
+                ctrl = np.stack([p0, p1, v0, v1])  # [4, 2]
+                for u in np.linspace(0.0, 1.0, self.n_traj_points):
+                    pt = hermite_coeffs(float(u), 0) @ ctrl
+                    draw.draw_circle(ax, pt, 0.01, (0.5, 0.5, 0.5), filled=True, zorder=6)
 
 
 class FootballOutputs(F.FusedOutputs):

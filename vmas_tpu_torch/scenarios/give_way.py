@@ -2,7 +2,7 @@
 the side passage. The agents take velocity commands, which a PID velocity
 controller per agent turns into forces.
 
-Counterpart of vmas_tpu/scenarios/give_way.py (rendering hooks not ported).
+Counterpart of vmas_tpu/scenarios/give_way.py.
 The ``dt_delay`` action queue is a ``[D, B, 2]`` scratch tensor per agent;
 the controllers' memory lives in scratch too (``VelocityController``). Its
 outputs come out of the fused step as rows (``GiveWayOutputs``), and in the
@@ -44,6 +44,8 @@ class Scenario(BaseScenario):
         self.min_input_norm = kwargs.pop("min_input_norm", 0.08)
         self.dt_delay = kwargs.pop("dt_delay", 0)
         ScenarioUtils.check_kwargs_consumed(kwargs)
+        # the viewer's settings (render/viewer.py)
+        self.viewer_size = (1600, 700)
 
         controller_params = [2, 6, 0.002]
         self.f_range = self.a_range + self.linear_friction

@@ -1,11 +1,11 @@
 """Joint passage: two agents joined by a rigid bar, with an asymmetric mass
 on it, carry the bar through a gap in a wall of boxes to a goal pose.
 
-Counterpart of vmas_tpu/scenarios/joint_passage.py (rendering hooks not
-ported). Its world drives the joint constraints (three rigid constraints:
-the agents to the ends of the bar, the mass to the bar), the sphere-sphere,
-line-sphere, box-sphere and box-line contacts, and 10 substeps; its
-outputs come out of the fused step as rows (``JointPassageOutputs``).
+Counterpart of vmas_tpu/scenarios/joint_passage.py. Its world drives the
+joint constraints (three rigid constraints: the agents to the ends of the
+bar, the mass to the bar), the sphere-sphere, line-sphere, box-sphere and
+box-line contacts, and 10 substeps; its outputs come out of the fused step
+as rows (``JointPassageOutputs``).
 
 The bar's collision filter is static: with ``fixed_passage`` the open
 slots are known when the world is built, so the bar collides only with the
@@ -64,6 +64,9 @@ class Scenario(BaseScenario):
         self.obs_noise = kwargs.pop("obs_noise", 0.0)
         self.use_controller = kwargs.pop("use_controller", False)
         ScenarioUtils.check_kwargs_consumed(kwargs)
+        # the viewer's settings (render/viewer.py)
+        self.plot_grid = True
+        self.visualize_semidims = False
 
         world = World(
             batch_dim, device, x_semidim=1, y_semidim=1,
@@ -395,6 +398,18 @@ class Scenario(BaseScenario):
         if self.collision_reward != 0 or self.energy_reward_coeff != 0:
             return None
         return JointPassageOutputs(self, world)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """Goal discs at the two ends of the goal bar."""
+        import numpy as np
+
+        from vmas_tpu_torch.render import draw
+
+        p = self.goal.pos(env.state)[env_index].numpy()
+        r = float(self.goal.rot(env.state)[env_index].reshape(-1)[0])
+        d = self.joint_length / 2 * np.array([np.cos(r), np.sin(r)])
+        for end in (p - d, p + d):
+            draw.draw_circle(ax, end, self.agent_radius, self.goal.color, filled=True)
 
 
 class JointPassageOutputs(F.FusedOutputs):

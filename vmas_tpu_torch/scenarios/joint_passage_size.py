@@ -2,14 +2,14 @@
 bar carry it through a big-and-small opening in a wall of boxes to a goal
 pose.
 
-Counterpart of vmas_tpu/scenarios/joint_passage_size.py (rendering hooks
-not ported). Its world drives the joint between the agents (and with
-``asym_package`` a mass fixed on the bar), the sphere-sphere, line-sphere
-and box-sphere contacts and 5 substeps (10 with ``asym_package``); its
-outputs come out of the fused step as rows (``JointPassageSizeOutputs``).
-Each reset places the big opening (two slots) and the small one (one slot,
-left or right of it) per env, and keeps their positions, the pass centre
-and the middle angle in scratch, which the rows carry as scratch rows.
+Counterpart of vmas_tpu/scenarios/joint_passage_size.py. Its world drives
+the joint between the agents (and with ``asym_package`` a mass fixed on the
+bar), the sphere-sphere, line-sphere and box-sphere contacts and 5 substeps
+(10 with ``asym_package``); its outputs come out of the fused step as rows
+(``JointPassageSizeOutputs``). Each reset places the big opening (two slots)
+and the small one (one slot, left or right of it) per env, and keeps their
+positions, the pass centre and the middle angle in scratch, which the rows
+carry as scratch rows.
 """
 
 from __future__ import annotations
@@ -62,6 +62,9 @@ class Scenario(BaseScenario):
         self.middle_angle_180 = kwargs.pop("middle_angle_180", False)
         self.use_vel_controller = kwargs.pop("use_vel_controller", False)
         ScenarioUtils.check_kwargs_consumed(kwargs)
+        # the viewer's settings (render/viewer.py)
+        self.plot_grid = False
+        self.visualize_semidims = False
         assert self.n_passages in (3, 4)
 
         world = World(
@@ -379,6 +382,18 @@ class Scenario(BaseScenario):
         if self.collision_reward != 0 or self.energy_reward_coeff != 0:
             return None
         return JointPassageSizeOutputs(self, world)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """Goal discs at the two ends of the goal bar."""
+        import numpy as np
+
+        from vmas_tpu_torch.render import draw
+
+        p = self.goal.pos(env.state)[env_index].numpy()
+        r = float(self.goal.rot(env.state)[env_index].reshape(-1)[0])
+        d = self.joint_length / 2 * np.array([np.cos(r), np.sin(r)])
+        for end in (p - d, p + d):
+            draw.draw_circle(ax, end, self.agent_radius, self.goal.color, filled=True)
 
 
 class JointPassageSizeOutputs(F.FusedOutputs):

@@ -1,7 +1,7 @@
 """MPE simple: one agent, one landmark; the reward is minus the squared
 distance to it.
 
-Counterpart of vmas_tpu/scenarios/mpe/simple.py (rendering not ported). Its
+Counterpart of vmas_tpu/scenarios/mpe/simple.py. Its
 outputs come out of the fused step as rows (``SimpleOutputs``); its world
 has no contact pair and no joint.
 """

@@ -1,10 +1,10 @@
 """MPE simple_adversary: the good agents know which landmark is the goal and
 cover it; the adversaries do not know it and try to reach it.
 
-Counterpart of vmas_tpu/scenarios/mpe/simple_adversary.py (rendering not
-ported). The goal landmark's index is per-env scratch (``goal_idx``), drawn
-at reset. Its outputs come out of the fused step as rows
-(``SimpleAdversaryOutputs``), which mirror ``reward`` and ``observation``.
+Counterpart of vmas_tpu/scenarios/mpe/simple_adversary.py. The goal
+landmark's index is per-env scratch (``goal_idx``), drawn at reset. Its
+outputs come out of the fused step as rows (``SimpleAdversaryOutputs``),
+which mirror ``reward`` and ``observation``.
 """
 
 from __future__ import annotations

@@ -1,11 +1,10 @@
 """MPE simple_crypto: Alice speaks a secret encrypted with a key that she
 shares with Bob; Eve, without the key, tries to read it too.
 
-Counterpart of vmas_tpu/scenarios/mpe/simple_crypto.py (rendering not
-ported). The per-env binary key and secret live in scenario scratch, drawn
-at reset. Every agent is immovable and speaks; the JAX package has no fused
-outputs for this scenario, so it steps through the hooks (``env.step``,
-``rollout_fn``).
+Counterpart of vmas_tpu/scenarios/mpe/simple_crypto.py. The per-env binary
+key and secret live in scenario scratch, drawn at reset. Every agent is
+immovable and speaks; the JAX package has no fused outputs for this
+scenario, so it steps through the hooks (``env.step``, ``rollout_fn``).
 """
 
 from __future__ import annotations

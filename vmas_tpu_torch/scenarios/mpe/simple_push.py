@@ -1,11 +1,11 @@
 """MPE simple_push: a good agent goes to its goal landmark; an adversary,
 which does not know the goal, pushes it away.
 
-Counterpart of vmas_tpu/scenarios/mpe/simple_push.py (rendering not
-ported). The goal landmark's index is per-env scratch (``goal_idx``), drawn
-at reset; the colors a good agent observes are computed from it. Its outputs
-come out of the fused step as rows (``SimplePushOutputs``), which mirror
-``reward`` and ``observation``.
+Counterpart of vmas_tpu/scenarios/mpe/simple_push.py. The goal landmark's
+index is per-env scratch (``goal_idx``), drawn at reset; the colors a good
+agent observes are computed from it. Its outputs come out of the fused step
+as rows (``SimplePushOutputs``), which mirror ``reward`` and
+``observation``.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """MPE simple_reference: two agents, each of which knows the landmark the
 other should reach and tells it over a 10-dimensional channel.
 
-Counterpart of vmas_tpu/scenarios/mpe/simple_reference.py (rendering not
-ported). The goal landmarks' indices are per-env scratch (``goal_b_0``,
-``goal_b_1``), drawn at reset; the goal color an agent observes is its
-landmark's fixed color. Its outputs come out of the fused step as rows
-(``SimpleReferenceOutputs``), which mirror ``reward`` and ``observation``;
-unpack reads the other agent's comm state (``unpack_reads = ("c",)``).
+Counterpart of vmas_tpu/scenarios/mpe/simple_reference.py. The goal
+landmarks' indices are per-env scratch (``goal_b_0``, ``goal_b_1``), drawn
+at reset; the goal color an agent observes is its landmark's fixed color.
+Its outputs come out of the fused step as rows (``SimpleReferenceOutputs``),
+which mirror ``reward`` and ``observation``; unpack reads the other agent's
+comm state (``unpack_reads = ("c",)``).
 """
 
 from __future__ import annotations

@@ -2,12 +2,12 @@
 landmark's color and tells a silent listener where to go over a
 3-dimensional channel.
 
-Counterpart of vmas_tpu/scenarios/mpe/simple_speaker_listener.py
-(rendering not ported). The goal landmark's index is per-env scratch
-(``goal_idx``), drawn at reset; the goal color the speaker observes is its
-landmark's fixed color. Its outputs come out of the fused step as rows
-(``SpeakerListenerOutputs``), which mirror ``reward`` and ``observation``;
-unpack reads the speaker's comm state (``unpack_reads = ("c",)``).
+Counterpart of vmas_tpu/scenarios/mpe/simple_speaker_listener.py. The goal
+landmark's index is per-env scratch (``goal_idx``), drawn at reset; the goal
+color the speaker observes is its landmark's fixed color. Its outputs come
+out of the fused step as rows (``SpeakerListenerOutputs``), which mirror
+``reward`` and ``observation``; unpack reads the speaker's comm state
+(``unpack_reads = ("c",)``).
 """
 
 from __future__ import annotations

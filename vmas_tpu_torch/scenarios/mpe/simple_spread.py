@@ -2,9 +2,9 @@
 colliding; one shared reward. It is the original VMAS paper's speed protocol
 (3 agents, discrete actions).
 
-Counterpart of vmas_tpu/scenarios/mpe/simple_spread.py (rendering not
-ported). Its outputs come out of the fused step as rows
-(``SimpleSpreadOutputs``), which mirror ``pre_rewards`` and ``observation``.
+Counterpart of vmas_tpu/scenarios/mpe/simple_spread.py. Its outputs come out
+of the fused step as rows (``SimpleSpreadOutputs``), which mirror
+``pre_rewards`` and ``observation``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """MPE simple_tag (predator-prey): slower adversaries chase faster good
 agents among colliding landmarks.
 
-Counterpart of vmas_tpu/scenarios/mpe/simple_tag.py (rendering not ported).
+Counterpart of vmas_tpu/scenarios/mpe/simple_tag.py.
 The per-agent rewards are computed in ``pre_rewards``; with
 ``respawn_at_catch`` a caught good agent is moved to a random position there,
 drawing from the step's seeded stream (``obs_generator``). Its outputs come
@@ -39,6 +39,8 @@ class Scenario(BaseScenario):
         self.bound = kwargs.pop("bound", 1.0)
         self.respawn_at_catch = kwargs.pop("respawn_at_catch", False)
         ScenarioUtils.check_kwargs_consumed(kwargs)
+        # the viewer's settings (render/viewer.py)
+        self.visualize_semidims = False
 
         world = World(batch_dim=batch_dim, device=device, x_semidim=self.bound, y_semidim=self.bound,
                       substeps=10, collision_force=500)
@@ -153,6 +155,12 @@ class Scenario(BaseScenario):
         if self.respawn_at_catch:
             return None
         return SimpleTagOutputs(world, self)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The arena's perimeter."""
+        from vmas_tpu_torch.render import draw
+
+        draw.draw_perimeter(ax, self.bound, pad=self.adversary_radius)
 
 
 class SimpleTagOutputs(F.FusedOutputs):

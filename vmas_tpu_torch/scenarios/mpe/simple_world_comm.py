@@ -1,15 +1,15 @@
 """MPE simple_world_comm: adversaries led by a speaking leader chase good
 agents that collect food and hide in forests.
 
-Counterpart of vmas_tpu/scenarios/mpe/simple_world_comm.py (rendering not
-ported), with its fidelity notes: the reference's in-forest writes and its
-first prey-forest block change copies and never the state, and its
-adversary shaping term measures an agent's distance to itself, so this port
-reproduces what they leave: ``in_forest`` stays -1, a non-leader sees zeros
-for the other agents, and the adversaries' shaping term is zero. Its
-outputs come out of the fused step as rows (``SimpleWorldCommOutputs``),
-which mirror ``reward`` and ``observation``; unpack reads the leader's comm
-state (``unpack_reads = ("c",)``).
+Counterpart of vmas_tpu/scenarios/mpe/simple_world_comm.py, with its
+fidelity notes: the reference's in-forest writes and its first prey-forest
+block change copies and never the state, and its adversary shaping term
+measures an agent's distance to itself, so this port reproduces what they
+leave: ``in_forest`` stays -1, a non-leader sees zeros for the other agents,
+and the adversaries' shaping term is zero. Its outputs come out of the fused
+step as rows (``SimpleWorldCommOutputs``), which mirror ``reward`` and
+``observation``; unpack reads the leader's comm state (``unpack_reads =
+("c",)``).
 """
 
 from __future__ import annotations

@@ -2,11 +2,10 @@
 each to the start of the next; they take velocity commands, which a PID
 velocity controller per agent turns into forces.
 
-Counterpart of vmas_tpu/scenarios/multi_give_way.py (``extra_render`` not
-ported). Its outputs come out of the fused step as rows
-(``MultiGiveWayOutputs``, sphere agents only), with the pairwise collision
-penalties in the kernel; in the rows form the controller runs inside the
-kernel too (``fused.PidActRows``).
+Counterpart of vmas_tpu/scenarios/multi_give_way.py. Its outputs come out of
+the fused step as rows (``MultiGiveWayOutputs``, sphere agents only), with
+the pairwise collision penalties in the kernel; in the rows form the
+controller runs inside the kernel too (``fused.PidActRows``).
 """
 
 from __future__ import annotations
@@ -39,6 +38,8 @@ class Scenario(BaseScenario):
         self.final_reward = kwargs.pop("final_reward", 0.01)
         self.agent_collision_penalty = kwargs.pop("agent_collision_penalty", -0.1)
         ScenarioUtils.check_kwargs_consumed(kwargs)
+        # the viewer's settings (render/viewer.py)
+        self.viewer_zoom = 1.7
 
         controller_params = [2, 6, 0.002]
         self.n_agents = 4
@@ -205,6 +206,12 @@ class Scenario(BaseScenario):
         if self.box_agents:
             return None
         return MultiGiveWayOutputs(self, world)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The agents' communication lines."""
+        from vmas_tpu_torch.render import draw
+
+        draw.draw_comm_lines(ax, env, env.state, env_index, self.comms_range)
 
 
 class MultiGiveWayOutputs(F.FusedOutputs):

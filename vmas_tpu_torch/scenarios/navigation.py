@@ -1,13 +1,12 @@
 """Navigation: each agent reaches its own goal, seeing the other agents with
 a Lidar.
 
-Counterpart of vmas_tpu/scenarios/navigation.py (``extra_render`` not
-ported). The per-agent shaping baselines and collision rewards are ``[B,
-A]`` scratch tensors. Its outputs come out of the fused step as rows
-(``NavigationOutputs``), the goal terms and the pairwise collision
-penalties in the kernel; the Lidar runs on the plain ray cast in
-``unpack`` (``unpack_reads = ("state",)`` with collisions on, so the rows
-rollout rebuilds each step's state for it).
+Counterpart of vmas_tpu/scenarios/navigation.py. The per-agent shaping
+baselines and collision rewards are ``[B, A]`` scratch tensors. Its outputs
+come out of the fused step as rows (``NavigationOutputs``), the goal terms
+and the pairwise collision penalties in the kernel; the Lidar runs on the
+plain ray cast in ``unpack`` (``unpack_reads = ("state",)`` with collisions
+on, so the rows rollout rebuilds each step's state for it).
 """
 
 from __future__ import annotations
@@ -182,6 +181,12 @@ class Scenario(BaseScenario):
     # ------------------------------------------------------------------
     def make_fused_outputs(self, world):
         return NavigationOutputs(self, world)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The agents' communication lines."""
+        from vmas_tpu_torch.render import draw
+
+        draw.draw_comm_lines(ax, env, env.state, env_index, self.comms_range)
 
 
 class NavigationOutputs(F.FusedOutputs):

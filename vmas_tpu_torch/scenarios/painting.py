@@ -1,14 +1,13 @@
 """Painting: agents carry a colour (their knowledge), mix it with the
 colours the others broadcast, and reach the goal that expects their colour.
 
-Counterpart of vmas_tpu/scenarios/painting.py (``top_layer_render`` not
-ported). Each agent's knowledge ``[B, 2, K]``, each goal's expected
-knowledge ``[B, K]`` and the seeking flags live in scratch through the DOTS
-handles (dots_core.py); the shaping baselines and reward terms are ``[B,
-A]`` and ``[B, A, G]`` scratch tensors. The seaborn "Set2" palette is
-inlined. No fused outputs, as in the JAX package: with
-``fused_physics=True`` the fused step runs with no emit and the hooks run
-around it.
+Counterpart of vmas_tpu/scenarios/painting.py. Each agent's knowledge ``[B,
+2, K]``, each goal's expected knowledge ``[B, K]`` and the seeking flags
+live in scratch through the DOTS handles (dots_core.py); the shaping
+baselines and reward terms are ``[B, A]`` and ``[B, A, G]`` scratch tensors.
+The seaborn "Set2" palette is inlined. No fused outputs, as in the JAX
+package: with ``fused_physics=True`` the fused step runs with no emit and
+the hooks run around it.
 
 The quirks are the JAX package's and are kept: ``mix_knowledge`` reads the
 other agents' comm *state* (the previous step's broadcast), the goal test
@@ -386,3 +385,25 @@ class Scenario(BaseScenario):
             "mix_reward": s["agent_mixing_reward"][:, i],
             "final_rew": s["final_rew"],
         }
+
+    def top_layer_render(self, env, ax, env_index: int = 0):
+        """The knowledge above the entities: each goal's expected-knowledge
+        colour as a patch, each agent's primary and mixed knowledge as two
+        half-discs, and a yellow disc under an agent seeking its goal."""
+        from vmas_tpu_torch.render import draw
+
+        state = env.state
+        pos = state.pos[env_index].numpy()
+        for goal in self.goals:
+            col = np.clip(goal.expected_knowledge(state)[env_index].numpy(), 0, 1)
+            p = pos[goal.index]
+            draw.draw_rect(ax, (p[0] - goal.shape.width / 8, p[1]), goal.shape.width / 4, goal.shape.length / 2, 0.0,
+                           col, zorder=4)
+        for agent in self.agent_list:
+            p = pos[agent.index]
+            if bool(agent.seeking_goal(state)[env_index]):
+                draw.draw_circle(ax, p, self.agent_radius, (1, 1, 0), filled=True, zorder=4)
+            know = np.clip(agent.knowledge(state)[env_index].numpy(), 0, 1)
+            # primary on the upper half-disc, mixed on the lower
+            draw.draw_wedge(ax, p, self.agent_radius / 2, 0, np.pi, know[0], zorder=5)
+            draw.draw_wedge(ax, p, self.agent_radius / 2, np.pi, 2 * np.pi, know[1], zorder=5)

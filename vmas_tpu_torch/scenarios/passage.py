@@ -28,6 +28,8 @@ class Scenario(BaseScenario):
         self.n_passages = kwargs.pop("n_passages", 1)
         self.shared_reward = kwargs.pop("shared_reward", False)
         ScenarioUtils.check_kwargs_consumed(kwargs)
+        # the viewer's settings (render/viewer.py)
+        self.visualize_semidims = False
         assert 1 <= self.n_passages <= 20
 
         self.shaping_factor = 100
@@ -146,6 +148,12 @@ class Scenario(BaseScenario):
     # ------------------------------------------------------------------
     def make_fused_outputs(self, world):
         return PassageOutputs(self, world)
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The arena's perimeter."""
+        from vmas_tpu_torch.render import draw
+
+        draw.draw_perimeter(ax, 1.0, pad=self.agent_radius)
 
 
 class PassageOutputs(F.FusedOutputs):

@@ -24,7 +24,7 @@ distances again, so ``_update_distances`` (the sweep kernel) runs twice a
 step there. The per-step draws (those resets, the ISB's record gate) come
 from a ``torch.Generator`` seeded from the seed the environment draws for
 each step (``obs_generator(STEP_STREAM)``), so a rollout reproduces
-``env.step``. Rendering (``extra_render``) is not ported yet.
+``env.step``.
 """
 
 from __future__ import annotations
@@ -227,14 +227,23 @@ class Scenario(BaseScenario):
         # off under grad_enabled
         self.pallas_sweeps = bool(kwargs.pop("pallas_sweeps", True))
         self.pallas_obs = bool(kwargs.pop("pallas_obs", True))
-        # accepted as the JAX package accepts them; read there only by what
-        # is not ported (rendering) or not at all
+        # the viewer's settings (render/viewer.py): the map's centre, and a
+        # frame of resolution_factor pixels a metre
+        self.visualize_semidims = False
+        self.resolution_factor = kwargs.pop("resolution_factor", 200)
+        self.render_origin = kwargs.pop("render_origin", [self.world_x_dim / 2, self.world_y_dim / 2])
+        self.viewer_size = kwargs.pop(
+            "viewer_size",
+            (int(self.world_x_dim * self.resolution_factor), int(self.world_y_dim * self.resolution_factor)),
+        )
+        self.viewer_zoom = kwargs.pop("viewer_zoom", 1.44)
+        # accepted as the JAX package accepts them; this port reads none of them
         for k in (
             "threshold_deviate_from_ref_path", "threshold_reach_goal",
             "threshold_no_reward_if_too_close_to_boundaries",
-            "threshold_no_reward_if_too_close_to_other_agents", "resolution_factor",
-            "max_ref_path_points", "n_stored_steps", "n_observed_steps", "render_origin",
-            "viewer_size", "viewer_zoom", "is_visualize_short_term_path", "is_real_time_rendering",
+            "threshold_no_reward_if_too_close_to_other_agents",
+            "max_ref_path_points", "n_stored_steps", "n_observed_steps",
+            "is_visualize_short_term_path", "is_real_time_rendering",
             "is_visualize_extra_info", "render_title", "parameters",
         ):
             kwargs.pop(k, None)
@@ -896,3 +905,12 @@ class Scenario(BaseScenario):
             "is_collision_with_agents": s["coll_agents"][:, i].any(-1),
             "is_collision_with_lanelets": s["coll_lanelets"].any(-1),
         }
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """Every lanelet's left and right boundary polylines (host arrays of
+        the parsed map)."""
+        from vmas_tpu_torch.render import draw
+
+        for lanelet in self.map_data["lanelets"].values():
+            draw.draw_polyline(ax, lanelet["left"], (0, 0, 0), width=0.5)
+            draw.draw_polyline(ax, lanelet["right"], (0, 0, 0), width=0.5)

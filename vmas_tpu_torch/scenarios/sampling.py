@@ -1,13 +1,12 @@
 """Sampling: agents cover a field that is a mixture of Gaussians, scoring
 the density of each grid cell they reach first.
 
-Counterpart of vmas_tpu/scenarios/sampling.py (``extra_render`` not
-ported). The Gaussians' centres ``locs`` [B, G, 2], the visited-cell grid
-``sampled`` [B, 2 xdim / grid_spacing, 2 ydim / grid_spacing] and the
-density's maximum over the grid ``max_pdf`` [B] live in scratch. Each agent
-sees the other agents with a Lidar (sensors.py). No fused outputs: with
-``fused_physics=True`` the fused step runs with no emit and the hooks run
-around it.
+Counterpart of vmas_tpu/scenarios/sampling.py. The Gaussians' centres
+``locs`` [B, G, 2], the visited-cell grid ``sampled`` [B, 2 xdim /
+grid_spacing, 2 ydim / grid_spacing] and the density's maximum over the grid
+``max_pdf`` [B] live in scratch. Each agent sees the other agents with a
+Lidar (sensors.py). No fused outputs: with ``fused_physics=True`` the fused
+step runs with no emit and the hooks run around it.
 
 Two choices keep the CPU and the GPU in step: the grid of ``_max_pdf`` is
 built with numpy (``torch.arange`` rounds its float32 steps otherwise), and
@@ -98,11 +97,12 @@ class Scenario(BaseScenario):
         return world
 
     # ------------------------------------------------------------------
-    def _pdf(self, locs, pos):
+    def _pdf(self, locs, pos, covs=None):
         """The sum of the isotropic Gaussians' densities; pos [..., 2],
-        locs [B, G, 2]."""
+        locs [B, G, 2]; ``covs`` [G] where they lie off the world's device
+        (the render hook's host copy)."""
         d = pos[..., None, :] - locs  # [..., G, 2]
-        covs = self._covs
+        covs = self._covs if covs is None else covs
         sq = torch.sum(d * d, dim=-1)  # [..., G]
         return (torch.exp(-0.5 * sq / covs) / (2 * math.pi * covs)).sum(-1)
 
@@ -183,3 +183,19 @@ class Scenario(BaseScenario):
 
     def info(self, agent, state):
         return {"agent_sample": state.scenario["agent_samples"][:, agent.slot]}
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The Gaussians' density as a heat map (evaluated on the host, from the
+        frame's copy of ``locs``), the communication lines and the perimeter."""
+        from vmas_tpu_torch.render import draw
+        from vmas_tpu_torch.render.viewer import render_function_util
+
+        locs = env.state.scenario["locs"][env_index : env_index + 1]  # [1, G, 2]
+        covs = torch.tensor(np.asarray(self.covs, np.float32))
+
+        def density(pts):
+            return self._pdf(locs, torch.as_tensor(pts)[:, None, :], covs)[:, 0]
+
+        render_function_util(density, (self.xdim, self.ydim), ax, cmap_alpha=0.5, precision=0.05)
+        draw.draw_comm_lines(ax, env, env.state, env_index, self.comms_range)
+        draw.draw_perimeter(ax, self.xdim, self.ydim)

@@ -3,11 +3,11 @@ should shelter the big one, whose wind weakens the better the pair covers
 the wind's direction. Both take velocity commands, which a PID velocity
 controller per agent turns into forces.
 
-Counterpart of vmas_tpu/scenarios/wind_flocking.py (``extra_render`` not
-ported). Each agent's wind is its per-env dynamic gravity
-(``WorldState.dyn_gravity``, ``Entity.set_gravity``), so with
-``fused_physics=True`` every ``env.step`` runs the fused step (K1) with its
-dynamic-gravity rows and no emit; the scenario has no fused outputs.
+Counterpart of vmas_tpu/scenarios/wind_flocking.py. Each agent's wind is its
+per-env dynamic gravity (``WorldState.dyn_gravity``,
+``Entity.set_gravity``), so with ``fused_physics=True`` every ``env.step``
+runs the fused step (K1) with its dynamic-gravity rows and no emit; the
+scenario has no fused outputs.
 """
 
 from __future__ import annotations
@@ -64,6 +64,9 @@ class Scenario(BaseScenario):
         self.cover_angle_tolerance = kwargs.pop("cover_angle_tolerance", 1)
         self.horizon = kwargs.pop("horizon", 200)
         ScenarioUtils.check_kwargs_consumed(kwargs)
+        # the viewer's settings (render/viewer.py)
+        self.plot_grid = True
+        self.viewer_zoom = 2
 
         controller_params = [1.5, 0.6, 0.002]
         self.u_range = self.v_range if self.use_controller else self.f_range
@@ -217,3 +220,20 @@ class Scenario(BaseScenario):
             "agent_energy_rew": s["agent_energy_rew"][:, i],
             "delta_vel_to_goal": safe_norm(agent.vel(state) - self.desired_vel),
         }
+
+    def extra_render(self, env, ax, env_index: int = 0):
+        """The pair's axis line, centred between the agents, and the goal's Y
+        line."""
+        import numpy as np
+
+        from vmas_tpu_torch.render import draw
+
+        state = env.state
+        pb = self.big_agent.pos(state)[env_index].numpy()
+        ps = self.small_agent.pos(state)[env_index].numpy()
+        mid = (pb + ps) / 2
+        ang = np.arctan2(*(pb - ps)[::-1])
+        d = self.desired_distance / 2 * np.array([np.cos(ang), np.sin(ang)])
+        draw.draw_line(ax, mid - d, mid + d, (0, 0, 0))
+        half = self.desired_distance / 2
+        draw.draw_line(ax, (-half, self.max_pos), (half, self.max_pos), (1, 0, 0))

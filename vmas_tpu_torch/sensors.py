@@ -1,9 +1,9 @@
 """Sensors.
 
-Counterpart of vmas_tpu/sensors.py (rendering not ported). ``measure`` is
-functional: it takes the state and casts every ray of the sensor in one
-batched ``World.cast_rays`` (``[B, entities, rays]``), or one ray at a time
-(``vectorized=False``), the form the batched one is held to.
+Counterpart of vmas_tpu/sensors.py. ``measure`` is functional: it takes the
+state and casts every ray of the sensor in one batched ``World.cast_rays``
+(``[B, entities, rays]``), or one ray at a time (``vectorized=False``), the
+form the batched one is held to.
 """
 
 from __future__ import annotations
@@ -35,13 +35,17 @@ class Sensor(ABC):
     @abstractmethod
     def measure(self, state: WorldState): ...
 
+    def render(self, env_index: int = 0):
+        return []
+
 
 class Lidar(Sensor):
     """``n_rays`` rays from ``angle_start`` to ``angle_end`` in the agent's
     frame (over a full circle the end ray is left out, as it would repeat
     the first), each returning the distance to the nearest collidable that
-    ``entity_filter`` admits, or ``max_range``. The rendering arguments are
-    taken for the scenarios' sake and kept; nothing draws them yet."""
+    ``entity_filter`` admits, or ``max_range``. The viewer draws its ray fan
+    in ``render_color`` while ``set_render`` leaves it on
+    (``render/viewer.py``)."""
 
     def __init__(
         self,
@@ -60,10 +64,21 @@ class Lidar(Sensor):
             angles = np.linspace(angle_start, angle_end, n_rays + 1, dtype=np.float32)[:n_rays]
         else:
             angles = np.linspace(angle_start, angle_end, n_rays, dtype=np.float32)
-        self._angles = angles  # [R] f32, put on the state's device at each measure
+        self._angles = angles  # [R] f32 on the host, put on the state's device at each measure
         self.max_range = max_range
+        self._render = render
         self.entity_filter = entity_filter
-        self.render, self.render_color, self.alpha = render, render_color, alpha
+        self._render_color = render_color
+        self.alpha = alpha
+
+    @property
+    def render_color(self):
+        if isinstance(self._render_color, Color):
+            return self._render_color.value
+        return self._render_color
+
+    def set_render(self, render: bool):
+        self._render = render
 
     def measure(self, state: WorldState, vectorized: bool = True):
         """[B, n_rays] hit distances; the rays turn with the agent's

@@ -29,8 +29,9 @@ contact, the drone's hidden state tilted, the controllers' memory set,
 actions beyond the controllers' clamp, and the events of a step's rows; a
 state of the DOTS worlds (painting, construction) and of sampling with
 agents pressed into the walls (the bound) and into each other, painting's
-knowledge matched and on goal, and sampling's field and visited cells.
-The states are numpy dicts made from a seeded generator, so that both
+knowledge matched and on goal, and sampling's field and visited cells;
+the worlds with render hooks and the configs their frames are drawn at
+(``RENDER_HOOK_WORLDS``). The states are numpy dicts made from a seeded generator, so that both
 packages can load the same one. For road_traffic's path sweeps: lanes on
 centre-line vertices and padded tails, and on left-boundary vertices.
 """
@@ -1664,3 +1665,121 @@ def rt_events_state(env):
     p_all[:, idx], r_all[:, idx] = pos, rot
     state = st.replace(pos=p_all, rot=r_all)
     return state.replace(scenario=sc._update_distances(state, dict(state.scenario)))
+
+
+# the worlds with render hooks: name -> (make_env kwargs, the hooks that
+# draw), the configs of tests/test_render.py's EXTRA_RENDER_SCENARIOS
+# (navigation with a comm range, so that its lines draw)
+RENDER_HOOK_WORLDS = {
+    "passage": ({}, ("extra_render",)),
+    "ball_passage": ({}, ("extra_render",)),
+    "ball_trajectory": ({}, ("extra_render",)),
+    "joint_passage": ({}, ("extra_render",)),
+    "joint_passage_size": ({}, ("extra_render",)),
+    "wind_flocking": ({}, ("extra_render",)),
+    "multi_give_way": ({}, ("extra_render",)),
+    "navigation": ({"n_agents": 2, "comms_range": 5.0}, ("extra_render",)),
+    "discovery": ({"n_agents": 2, "n_targets": 3}, ("extra_render",)),
+    "sampling": ({"n_agents": 2}, ("extra_render",)),
+    "simple_tag": ({}, ("extra_render",)),
+    "line_trajectory": ({}, ("extra_render",)),
+    "circle_trajectory": ({}, ("extra_render",)),
+    "asym_joint": ({}, ("extra_render",)),
+    "drone": ({}, ("extra_render",)),
+    "diff_drive": ({}, ("extra_render",)),
+    "kinematic_bicycle": ({}, ("extra_render",)),
+    "painting": ({"n_agents": 2, "n_goals": 2}, ("top_layer_render",)),
+    "road_traffic": ({"n_agents": 3}, ("extra_render",)),
+    "football": ({"n_blue_agents": 2, "n_red_agents": 2, "ai_red_agents": True, "n_traj_points": 4},
+                 ("extra_render", "top_layer_render")),
+}
+
+
+# the Axes methods of which each call adds one artist (tests/test_render.py's
+# _artist_count: patches, lines, texts, images)
+ARTIST_CALLS = ("ax.add_patch", "ax.plot", "ax.text", "ax.imshow")
+
+
+class _Drawn:
+    """A stand-in for matplotlib's modules, for an Axes and for whatever they
+    return: each call and item store on it is appended to the shared log
+    with its arguments as host values (``_host``)."""
+
+    def __init__(self, name, log):
+        self._name, self._log = name, log
+
+    def __getattr__(self, attr):
+        if attr.startswith("__"):
+            raise AttributeError(attr)
+        return _Drawn(f"{self._name}.{attr}", self._log)
+
+    def __call__(self, *args, **kwargs):
+        self._log.append((self._name, _host(args), _host(kwargs)))
+        return _Drawn(f"{self._name}()", self._log)
+
+    def __getitem__(self, key):
+        return _Drawn(f"{self._name}[{key!r}]", self._log)
+
+    def __setitem__(self, key, value):
+        self._log.append((f"{self._name}[]=", _host(key), _host(value)))
+
+    def __add__(self, other):
+        return _Drawn(f"({self._name} + {_host(other)})", self._log)
+
+
+def _host(x):
+    """``x`` as a value that compares bitwise: arrays and CPU tensors as
+    their dtype, shape and bytes, floats as their hex. A tensor on another
+    device raises, as matplotlib would fail on it."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            raise AssertionError(f"a render hook handed matplotlib a tensor on {x.device}")
+        x = x.detach().numpy()
+    if isinstance(x, (np.ndarray, np.generic)):
+        return ("array", x.dtype.str, x.shape, np.ascontiguousarray(x).tobytes())
+    if isinstance(x, float):
+        return ("float", x.hex())
+    if isinstance(x, dict):
+        return tuple((k, _host(v)) for k, v in x.items())
+    if isinstance(x, (tuple, list)):
+        return tuple(_host(v) for v in x)
+    if isinstance(x, _Drawn):
+        return x._name
+    if x is None or isinstance(x, (bool, int, str)) or x is Ellipsis:
+        return x
+    return repr(x)
+
+
+def hook_calls(env, view, env_index):
+    """``{hook: [(callee, args, kwargs), ...]}``: what each render hook of
+    ``env``'s scenario asks of matplotlib at ``env_index``, called as the
+    viewer calls it, on ``FrameEnv(env, view)`` (``view`` the frame's host
+    copy, ``viewer.host_state``'s second), with matplotlib's modules and the
+    Axes replaced by recorders, so that no matplotlib is needed. Every
+    argument is a host value (``_host``)."""
+    import sys
+
+    from vmas_tpu_torch.render.viewer import FrameEnv, _call_render_hook
+
+    log = []
+    names = ("matplotlib", "matplotlib.patches", "matplotlib.transforms")
+    saved = {n: sys.modules[n] for n in names if n in sys.modules}
+    out, frame_env, ax = {}, FrameEnv(env, view), _Drawn("ax", log)
+    try:
+        sys.modules.update({n: _Drawn(n, log) for n in names})
+        for hook in ("extra_render", "top_layer_render"):
+            start = len(log)
+            _call_render_hook(getattr(env.scenario, hook), frame_env, ax, env_index)
+            out[hook] = log[start:]
+    finally:
+        for n in names:
+            if n in saved:
+                sys.modules[n] = saved[n]
+            else:
+                sys.modules.pop(n, None)
+    return out
+
+
+def hook_artists(calls):
+    """The artists that the recorded calls of one hook add to an Axes."""
+    return sum(name in ARTIST_CALLS for name, _, _ in calls)

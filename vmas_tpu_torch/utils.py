@@ -1,6 +1,7 @@
 """Scenario utilities.
 
-Counterpart of vmas_tpu/utils.py (ScenarioUtils). The rejection-sampling
+Counterpart of vmas_tpu/utils.py (ScenarioUtils, and the rendering helpers
+``extract_nested_with_index`` and ``x_to_rgb_colormap``). The rejection-sampling
 spawn loop resamples only the envs that still overlap, and gives up after
 ``MAX_SPAWN_TRIES`` rounds, as the JAX package does. Its draws come from the
 caller's ``torch.Generator``. ``find_random_pos_for_entity_vectorized``
@@ -138,3 +139,46 @@ class ScenarioUtils:
                 warnings.warn(message + " This will turn into an error in future versions.")
             else:
                 raise ValueError(message)
+
+
+def extract_nested_with_index(data, index: int):
+    """Index a tensor or a (nested) dict of them at ``index`` along the
+    leading (env) axis."""
+    if isinstance(data, dict):
+        return {key: extract_nested_with_index(value, index) for key, value in data.items()}
+    return data[index]
+
+
+def x_to_rgb_colormap(
+    x,
+    low: float = None,
+    high: float = None,
+    alpha: float = 1.0,
+    cmap_name: str = "viridis",
+    cmap_res: int = 10,
+):
+    """Map scalar field values (a host array) to RGBA rows through a
+    ``cmap_res``-entry colormap with linear interpolation between adjacent
+    entries. Host-side numpy, a rendering helper; matplotlib is imported
+    here, not with the module.
+
+    Returns ``[N, 4]`` float rows in [0, 1]."""
+    import numpy as np
+    from matplotlib import colormaps
+
+    colormap = colormaps[cmap_name].resampled(cmap_res)(range(cmap_res))[:, :-1]
+    x = np.asarray(x, dtype=np.float64)
+    if low is None:
+        low = np.min(x)
+    if high is None:
+        high = np.max(x)
+    x = np.clip(x, low, high)
+    if high - low > 1e-5:
+        x = (x - low) / (high - low) * (cmap_res - 1)
+    x_c0_idx = np.floor(x).astype(int)
+    x_c1_idx = np.ceil(x).astype(int)
+    x_c0 = colormap[x_c0_idx, :]
+    x_c1 = colormap[x_c1_idx, :]
+    t = x - x_c0_idx
+    rgb = t[:, None] * x_c1 + (1 - t)[:, None] * x_c0
+    return np.concatenate([rgb, alpha * np.ones((rgb.shape[0], 1))], axis=-1)
