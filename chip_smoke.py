@@ -265,7 +265,31 @@
    update), env-steps/s, the idle share of one update, the loss and the
    parameters finite and moved; 2 updates with collect="step" (128 K1
    launches an update).
-15. Prints one JSON line describing each kernel, then the result line.
+15. Utilities and sharding at transport@4096 (4 agents, fused): 10 rows
+   steps (K2), save_env, 10 more; a fresh env load_env's the checkpoint and
+   takes the same 10, bitwise, with npz and with dcp, the save and load ms
+   and the bytes; checked_step on K1 bitwise a twin's env.step over 5 steps
+   (ms a step against env.step's), and the NaN and Inf position states
+   raise; trace() around 5 K2 launches writes a Chrome trace naming K2's
+   kernel; two gloo ranks spawned on this card (parallel.mesh.spawn_ranks,
+   vmas_tpu_torch.testing's worker), 2048 envs each: 20 steps of the rows
+   policy rollout under a policy that draws nothing, each rank's rows
+   bitwise the single-process run's, with no collective, then one learner
+   step on the plain path with the parameters equal across ranks, a
+   sharded fit and a sharded checkpoint (npz and dcp) that replays; a
+   one-rank NCCL mesh: an all-reduce through it and one PPO update on the
+   distributed env; the speed_sweep example at 4096 and 30000 envs and
+   train_ppo for 2 iterations. Each K1/K2 path of the phase has its kernel
+   held bitwise to the plain version and timed (entries
+   rows_step[transport,checkpoint], fused_step[transport,checked_step],
+   rows_step[transport,rank]).
+16. Prints one JSON line describing each kernel, then the result line.
+
+Each kernel's plain version is timed over up to 20 calls, fewer where they
+would pass PLAIN_BUDGET_MS (at least PLAIN_MIN_CALLS); the host-bound
+rollout_fn paths of discovery's two configs, asym_joint, het_mass and
+simple_crypto are timed over their full horizons and traced over
+HOOK_TRACE_STEPS steps.
 
 Any failure raises and exits non-zero. It imports nothing of JAX.
 """
@@ -395,12 +419,13 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, n):
+def time_ms(fn, n, warm=True):
     """Mean ms per call of ``fn`` over ``n`` back-to-back calls (CUDA events,
-    after one warm-up call)."""
+    after one warm-up call unless ``warm`` is False)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(n):
@@ -667,11 +692,22 @@ def other_form_bitwise(ks, pairs, tag):
           f"{ks.lanes} lane{'s' if ks.lanes > 1 else ''} per env)", flush=True)
 
 
+# the plain version's timed calls: up to plain_calls, as many as fit in this
+# budget after the first (at least PLAIN_MIN_CALLS): plain versions of the
+# stiff worlds take 0.2-1 s a call at 4096 envs
+PLAIN_BUDGET_MS = 1000.0
+PLAIN_MIN_CALLS = 3
+
+
 def kernel_times(name, kern, plain, kernel_name, plain_calls=20):
     """Device ms per launch (profiler), wall ms per back-to-back call (CUDA
-    events) and the plain version's ms per call."""
+    events) and the plain version's ms per call (the mean of up to
+    ``plain_calls`` calls, fewer where they would pass PLAIN_BUDGET_MS)."""
     dev_ms = launch_ms(kern, 200, kernel_name, name)
-    t = {"ms": dev_ms, "wall_ms": time_ms(kern, 500), "plain_ms": time_ms(plain, plain_calls)}
+    first = time_ms(plain, 1)
+    n = min(plain_calls, max(PLAIN_MIN_CALLS, int(PLAIN_BUDGET_MS / first)))
+    plain_ms = (first + (n - 1) * time_ms(plain, n - 1, warm=False)) / n if n > 1 else first
+    t = {"ms": dev_ms, "wall_ms": time_ms(kern, 500), "plain_ms": plain_ms}
     print(f"{name}: kernel {dev_ms * 1e3:.3f} us on the device, {t['wall_ms'] * 1e3:.3f} us per "
           f"back-to-back call, plain version {t['plain_ms'] * 1e3:.1f} us per call", flush=True)
     return t
@@ -1983,7 +2019,7 @@ def mpe_family_phase(card, dev):
     print(f"main path: simple_crypto {B} envs x 3 agents x {MPEF_SHORT_HORIZON} steps through rollout_fn (the hook "
           f"pipeline, no fused step); launches {n}", flush=True)
     rollout_report(f"simple_crypto@{B} rollout_fn", run, state, steps, rgen, call_ms, warm_s, B, card,
-                   horizon=MPEF_SHORT_HORIZON)
+                   horizon=MPEF_SHORT_HORIZON, trace=(rollout_fn(env, horizon=HOOK_TRACE_STEPS), HOOK_TRACE_STEPS))
     del env, state, traj
 
     entries = []
@@ -2161,7 +2197,9 @@ def holonomic_phase(card, dev):
             path = f"rows_rollout_fn k_steps {k}" if name != "het_mass" else "rollout_fn (env.step: K1)"
             print(f"main path: {name} {B} envs x {env.n_agents} agents x {horizon} steps, {path}; launches {n}",
                   flush=True)
-            rollout_report(f"{name}@{B} {path}", run, state, steps, rgen, call_ms, warm_s, B, card, horizon=horizon)
+            rollout_report(f"{name}@{B} {path}", run, state, steps, rgen, call_ms, warm_s, B, card, horizon=horizon,
+                           trace=(rollout_fn(env, horizon=HOOK_TRACE_STEPS), HOOK_TRACE_STEPS)
+                           if name == "het_mass" else None)
             launches[(name, k)] = n
             del env, state, traj
 
@@ -2426,7 +2464,8 @@ def joint_worlds_phase(card, dev):
         path = f"rows_rollout_fn k_steps {k}" if rows else "rollout_fn (env.step: K1 with no emit)"
         print(f"main path: {key} {B} envs x {env.n_agents} agents x {horizon} steps, {path}; launches {n}",
               flush=True)
-        rollout_report(f"{key}@{B} {path}", run, state, steps, rgen, call_ms, warm_s, B, card, horizon=horizon)
+        rollout_report(f"{key}@{B} {path}", run, state, steps, rgen, call_ms, warm_s, B, card, horizon=horizon,
+                       trace=None if rows else (rollout_fn(env, horizon=HOOK_TRACE_STEPS), HOOK_TRACE_STEPS))
         launches[(key, k)] = n
         del env, state, traj
 
@@ -2489,6 +2528,10 @@ SW_ROLLOUT_STEPS = 20
 # the rollout_fn paths' horizon (discovery), and pollock's (its 45
 # entities on the plain physics: ~0.2 s a step at 4096 envs)
 SW_SHORT_HORIZON = 100
+# the steps of the traced call of a host-bound rollout_fn path (discovery's two
+# configs here, asym_joint, het_mass, simple_crypto): the profiler costs the
+# host some 0.45 ms a device operation, and discovery takes ~480 a step
+HOOK_TRACE_STEPS = 10
 POLLOCK_HORIZON = 20
 
 
@@ -2722,7 +2765,8 @@ def sensor_worlds_phase(card, dev):
         assert bool(torch.isfinite(state.pos).all())
         tag = "rows_rollout_fn k_steps 1" if path == "rows" else "rollout_fn (env.step: K1)"
         print(f"main path: {key} {B} envs x {env.n_agents} agents x {horizon} steps, {tag}; launches {n}", flush=True)
-        rollout_report(f"{key}@{B} {tag}", run, state, steps, rgen, call_ms, warm_s, B, card, horizon=horizon)
+        rollout_report(f"{key}@{B} {tag}", run, state, steps, rgen, call_ms, warm_s, B, card, horizon=horizon,
+                       trace=None if path == "rows" else (rollout_fn(env, horizon=HOOK_TRACE_STEPS), HOOK_TRACE_STEPS))
         if path == "rows":
             # the Lidar rebuild's share of one more call: the unpack over the
             # rebuilt states, timed with CUDA events around it
@@ -4548,6 +4592,308 @@ def ppo_phase(card, dev):
     return k2, k1, times, carry, {"rows_step": rows_launches, "fused_step": step_launches["fused_step"]}
 
 
+# -- 15. utilities and sharding -------------------------------------------------------
+
+UT_STEPS = 10
+UT_CHECK_STEPS = 5
+UT_TRACE_STEPS = 5
+UT_RANKS = 2
+UT_RANK_HORIZON = 20
+UT_PPO_HORIZON = 32
+UT_SWEEP = (4096, 30000)
+
+
+def _rows_entry(name, env, tr, launches, dev, rows_form, steps=UT_CHECK_STEPS):
+    """The K2 (``rows_form``) or K1 entry of the kernels line on ``env``'s
+    state: the kernel against its plain version for ``steps`` re-synced
+    steps at seeded random actions (bitwise, into ``tr``), then its
+    times."""
+    import torch
+    from vmas_tpu_torch.core import fused as F
+
+    world, fo = env.world, env._fused_outputs
+    slots = [a.index for a in env.agents]
+    E, A, B = len(world.spec.mass), len(slots), env.num_envs
+    R_in = F.rows_layout(world, fo)
+    step = F.make_rows_step(world, fo, slots)
+    idx = torch.as_tensor(slots, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    actions = lambda: ((torch.rand((2 * A, B), generator=gen, device=dev) * 2 - 1) * 0.6).contiguous()
+
+    def with_actions(carry, act):
+        x = carry.clone()
+        x[6 * E + idx], x[7 * E + idx] = act[:A], act[A:]
+        return x
+
+    carry = F.pack_carry(world, env.state, fo)
+    for _ in range(steps):
+        act = actions()
+        if rows_form:
+            c_k, e_k = step(carry, act)
+            c_p, e_p = F.rows_step_plain(world, fo, slots, carry, act)
+            compare_rows(tr, c_k, c_p, e_k, e_p, name)
+            carry = c_k
+        else:
+            x = with_actions(carry, act)
+            y_k, y_p = F.fused_step(world, x, fo), F.fused_step_plain(world, x, fo)
+            compare_rows(tr, y_k[:9 * E], y_p[:9 * E], y_k[9 * E:], y_p[9 * E:], name)
+            carry = y_k[:R_in].contiguous()
+    torch.cuda.synchronize()
+    act = actions()
+    if rows_form:
+        extra = torch.empty((fo.n_out, B), device=dev)
+        t = kernel_times(name, lambda: step(carry, act, extra), lambda: F.rows_step_plain(world, fo, slots, carry, act),
+                         "fused_step_kernel")
+        nbytes = (R_in + 2 * A + R_in + fo.n_out) * B * 4
+    else:
+        x = with_actions(carry, act)
+        t = kernel_times(name, lambda: F.fused_step(world, x, fo), lambda: F.fused_step_plain(world, x, fo),
+                         "fused_step_kernel")
+        nbytes = (R_in + 9 * E + fo.n_out) * B * 4
+    replaces = "vmas_tpu/core/fused.py:1603" if rows_form else "vmas_tpu/core/fused.py:1425"
+    return kernel_entry(name, "vmas_tpu_torch/csrc/fused_step.cu", replaces, launches, tr.max(), t, nbytes,
+                        kernel_ops(F._kernel_spec(world), carry, fo))
+
+
+def utilities_phase(card, dev):
+    """Phase 15: the checkpoint (transport@4096 fused: 10 K2 steps, save, 10
+    more; a fresh env loads and takes the same 10 bitwise, npz and dcp,
+    with the save and load ms and bytes), checked_step on K1 (bitwise a
+    twin's env.step; the NaN and Inf states raise), trace() around K2, two
+    gloo ranks on this card (2048 envs each: the rows policy rollout's rows
+    bitwise the single-process run's, no collective, then one learner
+    step with the parameters equal across ranks, a sharded fit and a
+    sharded checkpoint), a one-rank NCCL mesh's PPO update, speed_sweep at
+    4096 and 30000 and train_ppo for 2 iterations. Returns the phase's
+    entries of the kernels line."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from vmas_tpu_torch import make_env
+    from vmas_tpu_torch import testing as T
+    from vmas_tpu_torch.checkpoint import load_env, save_env
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.debug import checked_step
+    from vmas_tpu_torch.examples import speed_sweep, train_ppo
+    from vmas_tpu_torch.interop import state_to_numpy
+    from vmas_tpu_torch.parallel import distribute, env_mesh, make_ppo_update, rows_policy_rollout_fn, rows_rollout_fn
+    from vmas_tpu_torch.parallel import mesh as M
+    from vmas_tpu_torch.parallel.ppo import init_actor_critic, obs_dim_of
+    from vmas_tpu_torch.profiling import trace
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ut_")
+    entries = []
+    kw = dict(n_agents=N_AGENTS, fused_physics=True, device=dev)
+    try:
+        # -- (a) a checkpointed rows rollout resumed through K2 -------------------------
+        env = make_env("transport", NUM_ENVS, seed=0, **kw)
+        run = rows_rollout_fn(env, horizon=UT_STEPS)
+        env.state, env.steps, _ = run(env.state, env.steps, env.generator)
+        sizes, save_ms, load_ms = {}, {}, {}
+        for backend in ("npz", "dcp"):
+            path = os.path.join(tmp, f"ckpt_{backend}")
+            save_ms[backend] = []
+            for _ in range(2):  # the first call of a backend in the process, then the next
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                save_env(env, path, backend=backend)
+                save_ms[backend].append((time.perf_counter() - t0) * 1e3)
+            sizes[backend] = (os.path.getsize(path + ".npz") if backend == "npz" else
+                              sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)))
+        state_a, steps_a, traj_a = run(env.state, env.steps, env.generator)
+        for backend in ("npz", "dcp"):
+            other = make_env("transport", NUM_ENVS, seed=5, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            load_env(other, os.path.join(tmp, f"ckpt_{backend}"), backend=backend)
+            torch.cuda.synchronize()
+            load_ms[backend] = (time.perf_counter() - t0) * 1e3
+            F.rows_step_launches = 0
+            state_b, steps_b, traj_b = rows_rollout_fn(other, horizon=UT_STEPS)(other.state, other.steps,
+                                                                                 other.generator)
+            resumed_launches = F.rows_step_launches
+            same = (torch.equal(traj_a["rewards"], traj_b["rewards"]) and torch.equal(steps_a, steps_b)
+                    and all(torch.equal(a, b) for a, b in zip(traj_a["obs"], traj_b["obs"]))
+                    and T.trees_equal(state_to_numpy(state_a), state_to_numpy(state_b)))
+            if not same or resumed_launches != UT_STEPS:
+                raise AssertionError(f"checkpoint ({backend}): the resumed rows rollout bitwise {same}, "
+                                     f"K2 launches {resumed_launches}")
+        ms = lambda v: "/".join(f"{x:.3f}" for x in v)
+        print(f"checkpoint transport@{NUM_ENVS} on {card}: save npz {ms(save_ms['npz'])} ms (first/second call), "
+              f"{sizes['npz']} B; dcp {ms(save_ms['dcp'])} ms, {sizes['dcp']} B; load npz {load_ms['npz']:.3f} ms, "
+              f"dcp {load_ms['dcp']:.3f} ms (host clock after a synchronise); the resumed "
+              f"{UT_STEPS}-step rows rollouts bitwise the uninterrupted one for both ({resumed_launches} K2 "
+              f"launches each)", flush=True)
+        k2c = ErrTracker()
+        entries.append(_rows_entry("rows_step[transport,checkpoint]", other, k2c, resumed_launches, dev,
+                                   rows_form=True))
+        print(f"utilities: the checkpoint, {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+        # -- (b) checked_step on K1 ------------------------------------------------------
+        env = make_env("transport", NUM_ENVS, seed=1, **kw)
+        twin = make_env("transport", NUM_ENVS, seed=1, **kw)
+        step = checked_step(env)
+        checked_ms, step_ms, checked_launches = [], [], 0
+        for _ in range(UT_CHECK_STEPS):
+            acts = env.get_random_actions()
+            twin.get_random_actions()
+            torch.cuda.synchronize()
+            F.fused_step_launches = 0
+            t0 = time.perf_counter()
+            a = step(acts)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            checked_launches += F.fused_step_launches
+            b = twin.step(acts)
+            torch.cuda.synchronize()
+            checked_ms.append((t1 - t0) * 1e3)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            if not all(torch.equal(x, y) for x, y in zip(a[0] + a[1] + [a[2]], b[0] + b[1] + [b[2]])):
+                raise AssertionError("checked_step's outputs differ from env.step's")
+        if not T.trees_equal(state_to_numpy(env.state), state_to_numpy(twin.state)) or \
+                checked_launches != UT_CHECK_STEPS:
+            raise AssertionError(f"checked_step: state bitwise env.step's "
+                                 f"{T.trees_equal(state_to_numpy(env.state), state_to_numpy(twin.state))}, "
+                                 f"K1 launches {checked_launches} in {UT_CHECK_STEPS} checked steps")
+        raised = []
+        for value in (float("nan"), float("inf")):
+            bad = make_env("transport", NUM_ENVS, seed=2, **kw)
+            pos = bad.state.pos.clone()
+            pos[0, 0, 0] = value
+            bad.state = bad.state.replace(pos=pos)
+            try:
+                checked_step(bad)(bad.get_random_actions())
+            except FloatingPointError as e:
+                raised.append(str(e))
+            else:
+                raise AssertionError(f"checked_step did not raise on a {value} position")
+        print(f"checked_step transport@{NUM_ENVS} on K1 on {card}: {UT_CHECK_STEPS} steps bitwise env.step's; "
+              f"{np.median(checked_ms):.3f} ms a step (median) against env.step's {np.median(step_ms):.3f} ms "
+              f"(host clock after a synchronise); the nan and inf states raise: {raised}", flush=True)
+        k1c = ErrTracker()
+        entries.append(_rows_entry("fused_step[transport,checked_step]", env, k1c, checked_launches, dev,
+                                   rows_form=False))
+        print(f"utilities: checked_step, {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+        # -- (c) trace() around K2 -----------------------------------------------------------
+        run = rows_rollout_fn(env, horizon=UT_TRACE_STEPS)
+        found = 0
+        for attempt in range(PROFILE_TRIES):
+            log_dir = os.path.join(tmp, f"trace{attempt}")
+            with trace(log_dir):
+                run(env.state, env.steps, env.generator)
+            with open(os.path.join(log_dir, "trace.json")) as f:
+                events = _json.load(f)["traceEvents"]
+            found = sum(e.get("cat") == "kernel" and "fused_step_kernel" in str(e.get("name")) for e in events)
+            if found:
+                break
+        if found < UT_TRACE_STEPS:
+            raise AssertionError(f"trace(): {found} records of K2 in the trace of {UT_TRACE_STEPS} launches")
+        print(f"trace(): {found} kernel records named fused_step_kernel among {len(events)} events in "
+              f"trace.json ({os.path.getsize(os.path.join(log_dir, 'trace.json'))} B; session {attempt + 1})",
+              flush=True)
+
+        # -- (d) two gloo ranks on this card ------------------------------------------------
+        out = os.path.join(tmp, "ranks")
+        t0 = time.perf_counter()
+        M.spawn_ranks(UT_RANKS, "vmas_tpu_torch.testing",
+                      ["--out", out, "--device", dev.type, "--num_envs", NUM_ENVS, "--horizon", UT_RANK_HORIZON],
+                      out, timeout=300, backend="gloo", device=dev)
+        ranks_s = time.perf_counter() - t0
+        res = [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(UT_RANKS)]
+        whole = T.mh_env(NUM_ENVS, dev, fused_physics=True)
+        run = rows_policy_rollout_fn(whole, T.deterministic_policy, UT_RANK_HORIZON)
+        for _ in range(2):  # a warm-up call, then the timed one, as in each rank
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _, traj = run(whole.state, whole.steps, torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        obs = torch.stack(traj["obs"]).cpu().numpy()
+        per = NUM_ENVS // UT_RANKS
+        for r, x in enumerate(res):
+            sl = slice(r * per, (r + 1) * per)
+            same = (np.array_equal(x["rewards"], traj["rewards"][:, sl].cpu().numpy())
+                    and np.array_equal(x["obs"], obs[:, :, sl]) and np.array_equal(x["pos"], state.pos[sl].cpu().numpy())
+                    and np.array_equal(x["dones"], traj["dones"][:, sl].cpu().numpy()))
+            if not same or int(x["collectives_rollout"]) or int(x["rows_launches"]) != UT_RANK_HORIZON:
+                raise AssertionError(f"rank {r}: rows bitwise {same}, collectives {int(x['collectives_rollout'])}, "
+                                     f"K2 launches {int(x['rows_launches'])}")
+            if not (bool(x["resumed_npz"]) and bool(x["resumed_dcp"])):
+                raise AssertionError(f"rank {r}: the sharded checkpoint did not replay")
+        if not (np.array_equal(res[0]["learner"], res[1]["learner"]) and np.array_equal(res[0]["fit"], res[1]["fit"])
+                and all(int(x["collectives_learner"]) == 1 for x in res)):
+            raise AssertionError("the ranks' learner or fit parameters differ")
+        genv = T.mh_env(NUM_ENVS, dev, grad_enabled=True)
+        from vmas_tpu_torch.parallel.learner import make_train_step
+
+        params, _, _, loss = make_train_step(genv, horizon=T.MH_LEARNER_HORIZON, lr=T.MH_LR)(
+            T.mh_learner(genv), genv.state, genv.steps, torch.Generator(device=dev).manual_seed(0))
+        flat = T._flat([t for layer in params for t in (layer["w"], layer["b"])])
+        rank_launches = sum(int(x["rows_launches"]) for x in res)
+        two_rank_rate = NUM_ENVS * UT_RANK_HORIZON / max(float(x["rollout_s"]) for x in res)
+        print(f"two gloo ranks on {card} ({per} envs each, {dev.type} tensors): {ranks_s:.1f} s for both processes "
+              f"(start, build load, rollout, learner, fit, checkpoints); each rank's {UT_RANK_HORIZON}-step rows "
+              f"policy rollout bitwise the single-process one's rows, no collective, {UT_RANK_HORIZON} K2 launches "
+              f"a rank; the two ranks' {UT_RANK_HORIZON}-step calls (started together, host clock after a "
+              f"synchronise) {[round(float(x['rollout_s']) * 1e3, 3) for x in res]} ms, {two_rank_rate:.1f} "
+              f"env-steps/s for the two together on one card, against {NUM_ENVS * UT_RANK_HORIZON / whole_s:.1f} "
+              f"for the single-process {NUM_ENVS}-env call (a check of the mechanism, not a scaling "
+              f"number); "
+              f"learner parameters equal across ranks after 1 all-reduce, against the single-process step max abs "
+              f"diff {float(np.abs(res[0]['learner'] - flat).max()):.3e}, loss {float(res[0]['loss']):.6f} against "
+              f"{float(loss):.6f}; sharded fit equal across ranks; sharded npz and dcp checkpoints replay",
+              flush=True)
+        k2r = ErrTracker()
+        entries.append(_rows_entry("rows_step[transport,rank]", T.mh_env(per, dev, fused_physics=True), k2r,
+                                   rank_launches, dev, rows_form=True))
+        print(f"utilities: the two ranks, {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+        # -- (e) a one-rank NCCL mesh: one sharded PPO update through K2 ---------------------
+        if dist.is_initialized():
+            raise AssertionError("a process group is running before the NCCL mesh is made")
+        mesh = env_mesh(backend="nccl")
+        try:
+            if dist.get_backend() != "nccl" or mesh.size() != 1:
+                raise AssertionError(f"env_mesh made {dist.get_backend()} over {mesh.size()} ranks")
+            ones = M.all_reduce(torch.ones(3, device=dev), mesh)
+            env = distribute(make_env("transport", NUM_ENVS, seed=3, **kw), mesh)
+            model = init_actor_critic(obs_dim_of(env), 2, generator=torch.Generator(device=dev).manual_seed(1),
+                                      device=dev)
+            update, make_opt = make_ppo_update(env, horizon=UT_PPO_HORIZON, collect="rows", epochs=2)
+            F.rows_step_launches = 0
+            _, _, metrics = update(model, make_opt(model), env.state, env.steps, torch.Generator(device=dev))
+            if F.rows_step_launches != UT_PPO_HORIZON or not all(math.isfinite(float(v)) for v in metrics.values()) \
+                    or not torch.equal(ones, torch.ones(3, device=dev)):
+                raise AssertionError(f"the NCCL mesh's PPO update: K2 launches {F.rows_step_launches}, metrics "
+                                     f"{ {k: float(v) for k, v in metrics.items()} }, all-reduce {ones.tolist()}")
+            print(f"one-rank NCCL mesh on {card}: an all-reduce through it, then one PPO update (horizon "
+                  f"{UT_PPO_HORIZON}, 2 epochs) on the distributed env, {F.rows_step_launches} K2 launches, loss "
+                  f"{float(metrics['loss']):.6f}", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+        # -- (f) the examples ------------------------------------------------------------------
+        rows = speed_sweep.main(n_envs=UT_SWEEP, device=dev)
+        if not all(r["rows_s"] is not None and r["rows_s"] > 0 for r in rows):
+            raise AssertionError(f"speed_sweep: {rows}")
+        model = train_ppo.main(num_envs=NUM_ENVS, iters=2, horizon=UT_PPO_HORIZON, fused_physics=True, device=dev)
+        if not all(bool(torch.isfinite(p).all()) for p in model.parameters()) or dist.is_initialized():
+            raise AssertionError("train_ppo: parameters not finite, or its process group left running")
+        print(f"utilities: the examples, {time.perf_counter() - t_phase:.1f} s", flush=True)
+        for tr in (k2c, k1c, k2r):
+            tr.report()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return entries
+
+
 def main():
     import torch
 
@@ -4728,7 +5074,10 @@ def main():
     # -- 14. PPO at transport@4096 ----------------------------------------------
     ppo_k2, ppo_k1, ppo_times, ppo_carry, ppo_launches = run_phase("PPO", ppo_phase, card, dev)
 
-    # -- 15. the kernels line ------------------------------------------------
+    # -- 15. utilities and sharding ----------------------------------------------
+    ut_kernels = run_phase("utilities and sharding", utilities_phase, card, dev)
+
+    # -- 16. the kernels line ------------------------------------------------
     flops = kernel_ops(ks, carry, fo)
     ppo_flops = kernel_ops(ks, ppo_carry, fo)
     rows_bytes = (R_in + 2 * A + R_in + fo.n_out) * B * 4
@@ -4746,7 +5095,8 @@ def main():
         kernel_entry("fused_step[transport,ppo]", src, "vmas_tpu/core/fused.py:1425", ppo_launches["fused_step"],
                      ppo_k1.max(), ppo_times["fused_step"], fused_bytes, ppo_flops),
     ] + (balance_kernels + joint_kernels + give_way_kernels + rt_kernels + wfl_kernels + mpe_kernels + mpef_kernels
-         + hol_kernels + jw_kernels + sw_kernels + fb_kernels + dw_kernels + dots_kernels + opcost_kernels)
+         + hol_kernels + jw_kernels + sw_kernels + fb_kernels + dw_kernels + dots_kernels + opcost_kernels
+         + ut_kernels)
     entry_lanes(kernels, picked)
     kernels += caps_kernels  # each with its own lanes
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start, the build included", flush=True)

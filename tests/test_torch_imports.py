@@ -175,3 +175,25 @@ def test_package_needs_no_matplotlib():
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
     assert out.stdout.strip() == "ImportError True 4 (2,)", out.stdout + out.stderr
+
+
+def test_utilities_sharding_and_examples_import_without_jax():
+    """checkpoint, debug, profiling, the mesh and the learner, the testing
+    helpers' rank worker and every example are among the files held to
+    importing no JAX, and load in a fresh interpreter without it."""
+    files = ["checkpoint.py", "debug.py", "profiling.py", "parallel/mesh.py", "parallel/learner.py",
+             "examples/__init__.py"] + [f"examples/{n}.py" for n in EXAMPLES]
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"vmas_tpu_torch/{f}" for f in files} <= names
+    mods = ["vmas_tpu_torch.checkpoint", "vmas_tpu_torch.debug", "vmas_tpu_torch.profiling",
+            "vmas_tpu_torch.parallel.mesh", "vmas_tpu_torch.parallel.learner", "vmas_tpu_torch.testing"] + [
+        f"vmas_tpu_torch.examples.{n}" for n in EXAMPLES]
+    code = ("import importlib, sys; [importlib.import_module(m) for m in " + repr(mods) + "]; "
+            "import vmas_tpu_torch as v; from vmas_tpu_torch.parallel import distribute, env_mesh, shard_state; "
+            "print(len(v.scenarios), len(v.debug_scenarios), len(v.mpe_scenarios), v.Wrapper.RLLIB.value, "
+            "sorted(m for m in sys.modules if m.split('.')[0] in " + repr(BANNED) + "))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=str(ROOT))
+    assert out.stdout.strip() == "23 11 9 3 []", out.stdout
+
+
+EXAMPLES = ("use_vmas_tpu_env", "run_heuristic", "speed_sweep", "train_ppo", "train_sharded")

@@ -2,13 +2,17 @@
 
 Counterpart of vmas_tpu/core/utils.py. Every helper is plain torch on
 tensors that live on any device; divisions are guarded so gradients stay
-finite on masked-out lanes, as in the JAX package.
+finite on masked-out lanes, as in the JAX package. ``tree_leaves`` and
+``tree_map`` walk a tree of dicts, lists, tuples and dataclasses (a
+``WorldState``) as JAX's pytree functions do.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from enum import Enum
 
+import numpy as np
 import torch
 
 X = 0
@@ -101,3 +105,33 @@ def safe_norm(vec: torch.Tensor, dim: int = -1):
     return torch.where(
         is_zero, torch.zeros_like(sq), torch.sqrt(torch.where(is_zero, torch.ones_like(sq), sq))
     )
+
+
+def tree_leaves(tree):
+    """The tensors and numpy arrays and scalars of a tree of dicts, lists,
+    tuples and dataclasses (a ``WorldState``), in the JAX package's flatten
+    order (dict keys sorted, dataclass fields in order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from tree_leaves(getattr(tree, f.name))
+    elif isinstance(tree, (torch.Tensor, np.ndarray, np.generic)):
+        yield tree
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor and numpy array or scalar of a tree of dicts,
+    lists, tuples and dataclasses (a ``WorldState``); other leaves kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: tree_map(fn, getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree)})
+    return fn(tree) if isinstance(tree, (torch.Tensor, np.ndarray, np.generic)) else tree

@@ -77,6 +77,12 @@ class Environment:
         self.scenario = scenario
         self.num_envs = num_envs
         self.batch_dim = num_envs
+        # what builds this env again at another width (parallel.distribute)
+        self._init_kwargs = dict(
+            max_steps=max_steps, continuous_actions=continuous_actions, seed=seed, dict_spaces=dict_spaces,
+            multidiscrete_actions=multidiscrete_actions, clamp_actions=clamp_actions, grad_enabled=grad_enabled,
+            terminated_truncated=terminated_truncated, fused_physics=fused_physics, **kwargs,
+        )
         self.device = resolve_device(device)
         self.world = scenario.env_make_world(num_envs, self.device, **kwargs)
         if grad_enabled:
@@ -365,6 +371,7 @@ class Environment:
     def seed(self, seed=None):
         seed = 0 if seed is None else seed
         self.generator.manual_seed(seed)
+        self._init_kwargs["seed"] = seed
         return [seed]
 
     def _do_reset(self, seed=None, return_observations=True, return_info=False, return_dones=False):

@@ -1,3 +1,4 @@
+from vmas_tpu_torch.parallel.mesh import distribute, env_mesh, shard_state
 from vmas_tpu_torch.parallel.ppo import (
     ActorCritic,
     gaussian_logp,
@@ -17,6 +18,9 @@ from vmas_tpu_torch.parallel.rollout import (
 )
 
 __all__ = [
+    "env_mesh",
+    "shard_state",
+    "distribute",
     "ActorCritic",
     "gaussian_logp",
     "init_actor_critic",

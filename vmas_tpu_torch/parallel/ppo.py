@@ -20,7 +20,11 @@ batched pass over T+1 steps:
 
 ``collect="auto"`` picks rows where eligible. ``compute_dtype=torch.bfloat16``
 runs the MLPs' hidden activations in bf16 with the JAX package's casts;
-parameters, sampling and the loss stay f32.
+parameters, sampling and the loss stay f32. On an env sharded over more
+than one rank (``parallel.distribute``, ``env.mesh``) each rank collects
+on its shard, and the update is the global batch's: the advantages are
+normalized with the global mean and std, the gradients are averaged over
+the ranks before each optimizer step, and the metrics are global means.
 
 How the API maps onto the JAX one: ``init_actor_critic(key, obs_dim,
 act_dim)``'s pytree is an :class:`ActorCritic` module here
@@ -43,6 +47,7 @@ from torch import nn
 from torch.nn import functional as Fn
 
 from vmas_tpu_torch.core.utils import resolve_device
+from vmas_tpu_torch.parallel.mesh import all_reduce, mean_over_ranks, mesh_size
 from vmas_tpu_torch.parallel.rollout import (
     rollout_fn,
     rows_policy_rollout_fn,
@@ -156,15 +161,30 @@ def make_gaussian_policy(env, dtype=None):
     return policy
 
 
-def ppo_loss(model, batch, clip=0.2, vf_coeff=0.5, ent_coeff=0.0, dtype=None):
+def _global_moments(x, mesh):
+    """The mean and population std of ``x`` over every rank's shard: its
+    sum, sum of squares and count, in float64, summed in one all-reduce."""
+    x64 = x.detach().double()
+    stats = all_reduce(torch.stack([x64.sum(), (x64 * x64).sum(), x64.new_tensor(x.numel())]), mesh)
+    mean = stats[0] / stats[2]
+    var = torch.clamp(stats[1] / stats[2] - mean * mean, min=0.0)
+    return mean.to(x.dtype), var.sqrt().to(x.dtype)
+
+
+def ppo_loss(model, batch, clip=0.2, vf_coeff=0.5, ent_coeff=0.0, dtype=None, mesh=None):
     """The clipped-surrogate loss on ``batch = {obs, act, logp, adv, ret}``:
     ``(loss, (pg, vf))``. The advantages are normalized with the population
-    std, as ``jnp.std``."""
+    std, as ``jnp.std``; on a ``mesh`` of more than one rank, with the mean
+    and std of the global batch (every rank's shard of it)."""
     mean, std = policy_dist(model, batch["obs"], dtype)
     logp = gaussian_logp(mean, std, batch["act"])
     ratio = torch.exp(logp - batch["logp"])
     adv = batch["adv"]
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    if mesh_size(mesh) > 1:
+        adv_mean, adv_std = _global_moments(adv, mesh)
+        adv = (adv - adv_mean) / (adv_std + 1e-8)
+    else:
+        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
     pg = -torch.minimum(ratio * adv, torch.clamp(ratio, 1 - clip, 1 + clip) * adv).mean()
     value = _mlp(model.v, batch["obs"], dtype)[..., 0]
     vf = ((value - batch["ret"]) ** 2).mean()
@@ -186,13 +206,22 @@ def gae(rews, dones, values, gamma=0.99, lam=0.95):
     return advs, advs + values[:-1]
 
 
-def fit(model, optimizer, batch, epochs, **loss_kw):
+def fit(model, optimizer, batch, epochs, mesh=None, **loss_kw):
     """``epochs`` full-batch optimizer steps on ``ppo_loss`` (no minibatch
-    shuffle: the whole batch fits on the device); returns the last loss."""
+    shuffle: the whole batch fits on the device); returns the last loss. On
+    a ``mesh`` of more than one rank, each batch is this rank's shard of the
+    global batch: the gradients and the loss are averaged over the ranks in
+    one flattened all-reduce before ``optimizer.step()``, so every rank
+    takes the global batch's step."""
+    params = [p for p in model.parameters() if p.requires_grad]
     for _ in range(epochs):
-        loss, _ = ppo_loss(model, batch, **loss_kw)
+        loss, _ = ppo_loss(model, batch, mesh=mesh, **loss_kw)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh_size(mesh) > 1:
+            *grads, loss = mean_over_ranks([p.grad for p in params] + [loss.detach()], mesh)
+            for p, g in zip(params, grads):
+                p.grad.copy_(g)
         optimizer.step()
     return loss.detach()
 
@@ -251,12 +280,13 @@ def make_ppo_update(env, horizon=32, lr=3e-4, gamma=0.99, lam=0.95, clip=0.2, ep
         with torch.no_grad():
             state, steps, traj = run(state, steps, generator)
         batch = rows_batch(model, traj, gamma, lam, dtype)
-        loss = fit(model, optimizer, batch, epochs, **loss_kw)
-        return state, steps, {
-            "loss": loss,
-            "mean_reward": traj["rewards"].mean(),
-            "episode_done_frac": traj["dones"].to(torch.float32).mean(),
-        }
+        mesh = getattr(env, "mesh", None)
+        loss = fit(model, optimizer, batch, epochs, mesh=mesh, **loss_kw)
+        means = [traj["rewards"].mean(), traj["dones"].to(torch.float32).mean()]
+        if mesh_size(mesh) > 1:
+            # the global batch's means: the shards are equal, so the ranks' mean
+            means = mean_over_ranks(means, mesh)
+        return state, steps, {"loss": loss, "mean_reward": means[0], "episode_done_frac": means[1]}
 
     return update, make_optimizer
 

@@ -59,12 +59,17 @@ class Scenario(BaseScenario):
         return [a for a in self.world.agents if a.adversary]
 
     def reward(self, agent, state):
+        return self.adversary_reward(agent, state) if agent.adversary else self.agent_reward(agent, state)
+
+    def agent_reward(self, agent, state):
         goal = self._goal_pos(state)
-        if agent.adversary:
-            return -safe_norm(agent.pos(state) - goal)
         adv_rew = sum(safe_norm(a.pos(state) - goal) for a in self.adversaries())
         goods = torch.stack([safe_norm(a.pos(state) - goal) for a in self.good_agents()], dim=1)
-        return -torch.min(goods, dim=-1).values + adv_rew
+        pos_rew = -torch.min(goods, dim=-1).values
+        return pos_rew + adv_rew
+
+    def adversary_reward(self, agent, state):
+        return -safe_norm(agent.pos(state) - self._goal_pos(state))
 
     def observation(self, agent, state):
         entity_pos = [lm.pos(state) - agent.pos(state) for lm in self.world.landmarks]

@@ -38,6 +38,9 @@ centre-line vertices and padded tails, and on left-boundary vertices.
 
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 import torch
 
@@ -1783,3 +1786,163 @@ def hook_calls(env, view, env_index):
 def hook_artists(calls):
     """The artists that the recorded calls of one hook add to an Axes."""
     return sum(name in ARTIST_CALLS for name, _, _ in calls)
+
+
+# -- the ranks of a sharded run (tests/test_torch_multihost.py, chip_smoke.py) --
+
+MH_SCENARIO = "transport"
+MH_AGENTS = 4
+MH_FIT_EPOCHS = 2
+# the learner's step size: transport's shaping gradients are ~1e-3, so a
+# step of 1 moves the parameters well beyond the 1e-6 the ranks are held to
+MH_LR = 1.0
+# the learner step's horizon, in the ranks and in the single-process step
+# that they are held against
+MH_LEARNER_HORIZON = 2
+
+
+def deterministic_policy(obs, generator=None):
+    """A policy that draws nothing: each agent's action an elementwise
+    function of its own observation, so that a shard of envs acts as the
+    same envs in a whole batch, bit for bit."""
+    return tuple(torch.tanh(o[:, 0:2] * 3.0 - o[:, 2:4]) for o in obs)
+
+
+def mh_env(num_envs, device, **kw):
+    """The sharded run's transport env at ``num_envs`` (global) with the
+    injected contact state (``transport_contact_state``, numpy seed 3)."""
+    from vmas_tpu_torch import make_env
+    from vmas_tpu_torch.interop import state_from_numpy
+
+    env = make_env(MH_SCENARIO, num_envs=num_envs, device=device, n_agents=MH_AGENTS, seed=0, **kw)
+    env.state = state_from_numpy(env.world, transport_contact_state(env, np.random.default_rng(3)))
+    return env
+
+
+def mh_learner(env):
+    """The learner's sizes and its parameters (generator seed 1)."""
+    from vmas_tpu_torch.parallel.learner import init_mlp
+
+    obs_dim = env._observations(env.state)[0].shape[-1]
+    gen = torch.Generator(device=env.device).manual_seed(1)
+    return init_mlp([obs_dim, 32, env.agents[0].action_size], generator=gen, device=env.device)
+
+
+def mh_fit_batch(num_envs, horizon, device):
+    """A global PPO batch (numpy seed 4) of ``[T, B, A, ...]`` leaves, the
+    actor-critic (generator seed 2) and its optimizer (lr 1e-2)."""
+    from vmas_tpu_torch.parallel.ppo import init_actor_critic
+
+    rng = np.random.default_rng(4)
+    T, B, A, O = horizon, num_envs, MH_AGENTS, 11
+    f32 = lambda *s: torch.tensor(rng.normal(size=s), dtype=torch.float32, device=device)
+    batch = {"obs": f32(T, B, A, O), "act": torch.clamp(f32(T, B, A, 2), -1, 1), "logp": f32(T, B, A) - 2.0,
+             "adv": f32(T, B, A), "ret": f32(T, B, A)}
+    model = init_actor_critic(O, 2, hidden=(16, 16), generator=torch.Generator(device=device).manual_seed(2),
+                              device=device)
+    return batch, model, torch.optim.Adam(model.parameters(), lr=1e-2, betas=(0.9, 0.999), eps=1e-8)
+
+
+def trees_equal(a, b):
+    """Whether two trees of arrays (``interop.state_to_numpy``'s dicts,
+    lists and tuples) hold the same keys and bitwise equal leaves, NaN
+    equal to NaN."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(trees_equal(x, y) for x, y in zip(a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    return np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+
+
+def _flat(params):
+    return torch.cat([t.detach().reshape(-1).cpu() for t in params]).numpy()
+
+
+def multihost_worker(out, device, num_envs, horizon):
+    """One rank of a sharded run, in a group already joined: distribute the
+    transport env (``mh_env``), run ``rows_policy_rollout_fn`` under
+    ``deterministic_policy`` for ``horizon`` steps, take one learner step
+    (``MH_LEARNER_HORIZON``) on the plain path, fit the actor-critic for
+    ``MH_FIT_EPOCHS`` epochs on this rank's shard of ``mh_fit_batch``, then
+    save the distributed env (npz and dcp), step it 3
+    times with random actions and restore each checkpoint into a fresh
+    distributed env to step it the same 3 times. Writes ``out/rank<r>.npz``:
+    the rollout's rows, final state, K2 launches, collectives and seconds
+    (a second call, after a warm-up one, the ranks started together), the
+    learner's flat parameters, loss and collectives, the fitted parameters,
+    and the resumed and original observations."""
+    from vmas_tpu_torch.checkpoint import load_env, save_env
+    from vmas_tpu_torch.core import fused as F
+    from vmas_tpu_torch.parallel import distribute, rows_policy_rollout_fn
+    from vmas_tpu_torch.parallel import mesh as M
+    from vmas_tpu_torch.parallel.learner import make_train_step
+    from vmas_tpu_torch.parallel.ppo import fit
+
+    res = {}
+    env = distribute(mh_env(num_envs, device, fused_physics=True))
+    rank, n = env.mesh.get_local_rank(), env.mesh.size()
+    run = rows_policy_rollout_fn(env, deterministic_policy, horizon)
+    start = lambda: (env.state, env.steps, torch.Generator(device=env.device).manual_seed(0))
+    run(*start())  # a warm-up call: the library's load, the allocator
+    sync = torch.cuda.synchronize if env.device.type == "cuda" else (lambda: None)
+    sync()
+    torch.distributed.barrier()  # the ranks' timed calls start together
+    c0, k0, t0 = M.collectives, F.rows_step_launches, time.perf_counter()
+    state, steps, traj = run(*start())
+    sync()
+    res.update(rollout_s=time.perf_counter() - t0,
+               collectives_rollout=M.collectives - c0, rows_launches=F.rows_step_launches - k0,
+               rewards=traj["rewards"].cpu().numpy(), dones=traj["dones"].cpu().numpy(),
+               obs=torch.stack(traj["obs"]).cpu().numpy(), pos=state.pos.cpu().numpy(),
+               vel=state.vel.cpu().numpy(), num_envs=env.num_envs)
+
+    genv = distribute(mh_env(num_envs, device, grad_enabled=True))
+    c0 = M.collectives
+    params, _, _, loss = make_train_step(genv, horizon=MH_LEARNER_HORIZON, lr=MH_LR)(
+        mh_learner(genv), genv.state, genv.steps, torch.Generator(device=genv.device).manual_seed(0))
+    res.update(learner=_flat([t for layer in params for t in (layer["w"], layer["b"])]), loss=float(loss),
+               collectives_learner=M.collectives - c0)
+
+    batch, model, opt = mh_fit_batch(num_envs, 3, device)
+    lo, hi = rank * num_envs // n, (rank + 1) * num_envs // n
+    fit(model, opt, {k: v[:, lo:hi] for k, v in batch.items()}, MH_FIT_EPOCHS, mesh=env.mesh)
+    res["fit"] = _flat(model.parameters())
+
+    for backend in ("npz", "dcp"):
+        path = os.path.join(out, f"ckpt_{backend}")
+        save_env(env, path, backend=backend)
+        want = [env.step(env.get_random_actions())[0] for _ in range(3)]
+        other = distribute(mh_env(num_envs, device, fused_physics=True))
+        load_env(other, path, backend=backend)
+        got = [other.step(other.get_random_actions())[0] for _ in range(3)]
+        res[f"resumed_{backend}"] = all(torch.equal(a, b) for w, g in zip(want, got) for a, b in zip(w, g))
+        res[f"mesh_kept_{backend}"] = other.mesh is not None and other.mesh.size() == n
+        load_env(env, path, backend=backend)  # back to the saved state for the next backend
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+
+
+def _main(argv=None):
+    import argparse
+
+    from vmas_tpu_torch.parallel.mesh import init_rank
+
+    p = argparse.ArgumentParser(description="one rank of a sharded run (multihost_worker)")
+    p.add_argument("--out", required=True)
+    p.add_argument("--device", default="cpu")
+    p.add_argument("--num_envs", type=int, default=8)
+    p.add_argument("--horizon", type=int, default=20)
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--world_size", type=int, required=True)
+    p.add_argument("--init_method", required=True)
+    p.add_argument("--backend", default="gloo")
+    a = p.parse_args(argv)
+    init_rank(a.rank, a.world_size, a.init_method, a.backend)
+    try:
+        multihost_worker(a.out, a.device, a.num_envs, a.horizon)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    _main()
