@@ -5,6 +5,9 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), loaded with ``ctypes``. Libraries are built at first use
 into ``_build/`` beside this file, named by a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
+A library's first load in a process (the hash, the build where needed,
+``dlopen`` and the binding) is the span ``vmas.kernels.load``, which records
+in every process (``profiling.span``).
 
 The ``ctypes`` structures below mirror ``csrc/fused_step.cu``'s structs field for
 field; the kernel takes them by value (the world's constants, the emit's and
@@ -22,6 +25,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from vmas_tpu_torch.profiling import span
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -514,10 +519,11 @@ def library(name: str, path=None) -> ctypes.CDLL:
         return _bind(name, ctypes.CDLL(str(path)))
     lib = _LIBS.get(name)
     if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_all()
-        lib = _LIBS[name] = _bind(name, ctypes.CDLL(str(path)))
+        with span("vmas.kernels.load", always=True):
+            path = _lib_path(name)
+            if not path.exists():
+                build_all()
+            lib = _LIBS[name] = _bind(name, ctypes.CDLL(str(path)))
     return lib
 
 

@@ -21,7 +21,8 @@ Each form has a plain PyTorch version here (``fused_step_plain``,
 order; both forms share one function (``_step_rows``), as both kernel forms
 share one device function. A wrapper runs the plain version for a tensor on
 the CPU and the kernel for a tensor on a GPU, and counts each kernel
-launch in ``fused_step_launches`` / ``rows_step_launches``.
+launch in ``fused_step_launches`` / ``rows_step_launches``; a rows step's
+call (checks, buffers, the launch) is the span ``vmas.rows.launch``.
 
 Covered: joint constraints (attractive and repulsive anchor forces, and the
 rotation torque of ``rotate=False`` constraints against the fixed
@@ -60,6 +61,7 @@ import torch
 
 from vmas_tpu_torch import _kernels as K
 from vmas_tpu_torch.core.utils import LINE_MIN_DIST
+from vmas_tpu_torch.profiling import span
 
 _MIN_DIST = 1e-6
 
@@ -1524,29 +1526,30 @@ def make_rows_step(world, outputs, act_slots, k_steps=1):
 
     def step(carry, act, extra_out=None, carry_out=None):
         global rows_step_launches
-        if carry.device.type == "cpu":
-            new, extra = rows_step_plain(world, outputs, act_slots, carry, act, Ks)
-            if extra_out is not None:
-                extra_out.copy_(extra)
-                extra = extra_out
-            if carry_out is not None:
-                carry_out.copy_(new)
-                new = carry_out
-            return new, extra
-        B = carry.shape[1]
-        _check_rows("carry", carry, (R_in, B))
-        _check_rows("act", act, (Ks * 2 * A, B))
-        if carry_out is None:
-            out = torch.empty((R_in, B), dtype=torch.float32, device=carry.device)
-        else:
-            _check_rows("carry_out", carry_out, (R_in, B))
-            out = carry_out
-        if extra_out is None:
-            extra_out = torch.empty((Ks * n_tot, B), dtype=torch.float32, device=carry.device)
-        _check_rows("extra_out", extra_out, (Ks * n_tot, B))
-        _launch(ks, spec_c, outputs, carry, act, out, extra_out, rows_mode=True, k_steps=Ks,
-                act_params=act_params, n_tot=n_tot)
-        rows_step_launches += 1
-        return out, extra_out
+        with span("vmas.rows.launch"):
+            if carry.device.type == "cpu":
+                new, extra = rows_step_plain(world, outputs, act_slots, carry, act, Ks)
+                if extra_out is not None:
+                    extra_out.copy_(extra)
+                    extra = extra_out
+                if carry_out is not None:
+                    carry_out.copy_(new)
+                    new = carry_out
+                return new, extra
+            B = carry.shape[1]
+            _check_rows("carry", carry, (R_in, B))
+            _check_rows("act", act, (Ks * 2 * A, B))
+            if carry_out is None:
+                out = torch.empty((R_in, B), dtype=torch.float32, device=carry.device)
+            else:
+                _check_rows("carry_out", carry_out, (R_in, B))
+                out = carry_out
+            if extra_out is None:
+                extra_out = torch.empty((Ks * n_tot, B), dtype=torch.float32, device=carry.device)
+            _check_rows("extra_out", extra_out, (Ks * n_tot, B))
+            _launch(ks, spec_c, outputs, carry, act, out, extra_out, rows_mode=True, k_steps=Ks,
+                    act_params=act_params, n_tot=n_tot)
+            rows_step_launches += 1
+            return out, extra_out
 
     return step

@@ -35,6 +35,11 @@ in place of ``(update, optax.adam(lr))``, ``make_optimizer(model)`` being
 state, steps, key) -> (params', opt_state', state', steps', metrics)``
 becomes ``update(model, optimizer, state, steps, generator) -> (state',
 steps', metrics)``, the model and optimizer updated in place.
+
+Spans (``profiling.span``, each on the device's clock): an update is
+``vmas.ppo.update``, tiled by ``vmas.ppo.collect`` (the rollout),
+``vmas.ppo.batch`` (``rows_batch``: values and GAE) and ``vmas.ppo.fit``
+(``fit``).
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from vmas_tpu_torch.parallel.rollout import (
     rows_policy_rollout_fn,
     rows_rollout_supported,
 )
+from vmas_tpu_torch.profiling import span
 
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
 
@@ -214,16 +220,17 @@ def fit(model, optimizer, batch, epochs, mesh=None, **loss_kw):
     one flattened all-reduce before ``optimizer.step()``, so every rank
     takes the global batch's step."""
     params = [p for p in model.parameters() if p.requires_grad]
-    for _ in range(epochs):
-        loss, _ = ppo_loss(model, batch, mesh=mesh, **loss_kw)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh_size(mesh) > 1:
-            *grads, loss = mean_over_ranks([p.grad for p in params] + [loss.detach()], mesh)
-            for p, g in zip(params, grads):
-                p.grad.copy_(g)
-        optimizer.step()
-    return loss.detach()
+    with span("vmas.ppo.fit", device=batch["obs"]):
+        for _ in range(epochs):
+            loss, _ = ppo_loss(model, batch, mesh=mesh, **loss_kw)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if mesh_size(mesh) > 1:
+                *grads, loss = mean_over_ranks([p.grad for p in params] + [loss.detach()], mesh)
+                for p, g in zip(params, grads):
+                    p.grad.copy_(g)
+            optimizer.step()
+        return loss.detach()
 
 
 def rows_batch(model, traj, gamma=0.99, lam=0.95, dtype=None):
@@ -231,16 +238,17 @@ def rows_batch(model, traj, gamma=0.99, lam=0.95, dtype=None):
     either collect mode). The action at step t was sampled from the
     observations recorded at t-1 (``obs0`` at t=0; post-reset where an env
     reset); the last recorded observations only bootstrap the value tail."""
-    obs_emitted = torch.stack(traj["obs"], dim=2)  # [T, B, A, O]
-    obs0 = torch.stack(traj["obs0"], dim=1)  # [B, A, O]
-    obs_act = torch.cat([obs0[None], obs_emitted[:-1]])
-    with torch.no_grad():
-        values = _mlp(model.v, torch.cat([obs_act, obs_emitted[-1:]]), dtype)[..., 0]  # [T+1, B, A]
-    advs, rets = gae(traj["rewards"], traj["dones"], values, gamma, lam)
-    return {
-        "obs": obs_act, "act": traj["policy_aux"]["raw"], "logp": traj["policy_aux"]["logp"],
-        "adv": advs, "ret": rets,
-    }
+    with span("vmas.ppo.batch", device=traj["rewards"]):
+        obs_emitted = torch.stack(traj["obs"], dim=2)  # [T, B, A, O]
+        obs0 = torch.stack(traj["obs0"], dim=1)  # [B, A, O]
+        obs_act = torch.cat([obs0[None], obs_emitted[:-1]])
+        with torch.no_grad():
+            values = _mlp(model.v, torch.cat([obs_act, obs_emitted[-1:]]), dtype)[..., 0]  # [T+1, B, A]
+        advs, rets = gae(traj["rewards"], traj["dones"], values, gamma, lam)
+        return {
+            "obs": obs_act, "act": traj["policy_aux"]["raw"], "logp": traj["policy_aux"]["logp"],
+            "adv": advs, "ret": rets,
+        }
 
 
 def make_ppo_update(env, horizon=32, lr=3e-4, gamma=0.99, lam=0.95, clip=0.2, epochs=4,
@@ -272,20 +280,22 @@ def make_ppo_update(env, horizon=32, lr=3e-4, gamma=0.99, lam=0.95, clip=0.2, ep
         return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
     def update(model, optimizer, state, steps, generator):
-        acting = lambda obs, g: policy(model, obs, g)
-        if collect == "rows":
-            run = rows_policy_rollout_fn(env, acting, horizon, policy_aux=True, reset_every=reset_every)
-        else:
-            run = rollout_fn(env, acting, horizon, autoreset=True, policy_aux=True)
-        with torch.no_grad():
-            state, steps, traj = run(state, steps, generator)
-        batch = rows_batch(model, traj, gamma, lam, dtype)
-        mesh = getattr(env, "mesh", None)
-        loss = fit(model, optimizer, batch, epochs, mesh=mesh, **loss_kw)
-        means = [traj["rewards"].mean(), traj["dones"].to(torch.float32).mean()]
-        if mesh_size(mesh) > 1:
-            # the global batch's means: the shards are equal, so the ranks' mean
-            means = mean_over_ranks(means, mesh)
+        with span("vmas.ppo.update", device=env.device):
+            with span("vmas.ppo.collect", device=env.device):
+                acting = lambda obs, g: policy(model, obs, g)
+                if collect == "rows":
+                    run = rows_policy_rollout_fn(env, acting, horizon, policy_aux=True, reset_every=reset_every)
+                else:
+                    run = rollout_fn(env, acting, horizon, autoreset=True, policy_aux=True)
+                with torch.no_grad():
+                    state, steps, traj = run(state, steps, generator)
+            batch = rows_batch(model, traj, gamma, lam, dtype)
+            mesh = getattr(env, "mesh", None)
+            loss = fit(model, optimizer, batch, epochs, mesh=mesh, **loss_kw)
+            means = [traj["rewards"].mean(), traj["dones"].to(torch.float32).mean()]
+            if mesh_size(mesh) > 1:
+                # the global batch's means: the shards are equal, so the ranks' mean
+                means = mean_over_ranks(means, mesh)
         return state, steps, {"loss": loss, "mean_reward": means[0], "episode_done_frac": means[1]}
 
     return update, make_optimizer

@@ -54,6 +54,12 @@ step's output rows (``kernel_script_u``), and a scenario's rewrite of the
 decoded actions (``decode_transform``: football's red team mirrors x) is
 applied after the action noise on both rows paths, where ``env.step``'s
 ``process_action`` applies it.
+
+Spans (``profiling.span``): a rows rollout's call is ``vmas.rows.call``,
+tiled by ``vmas.rows.actions`` (the random-action rollout's draws, decode
+and action rows), ``vmas.rows.loop`` (the launches; in the policy rollout
+each step is a ``vmas.rows.policy_step``) and ``vmas.rows.finish``
+(``_finish_rows_rollout``).
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from typing import Callable, Optional
 import torch
 
 from vmas_tpu_torch.environment.environment import _obs_seed
+from vmas_tpu_torch.profiling import span
 
 
 def _fork(generator, n):
@@ -450,49 +457,50 @@ def _finish_rows_rollout(env, state, steps, carry, extras, us_t, horizon, ucs_la
     scenario is left with the last step's seed."""
     from vmas_tpu_torch.core import fused as F
 
-    world, fo = env.world, env._fused_outputs
-    reads = getattr(fo, "unpack_reads", ())
-    state_out = F.unpack_carry(world, carry, state)
-    if carries is not None:
-        obs, rews, terminated, updates = _unpack_over_states(env, fo, extras, carries, state)
-    elif seeds is not None and "obs_key" in reads:
-        outs = []
-        for t in range(horizon):
-            env.scenario.obs_seed = seeds[t]
-            u_step = [u[t] for u in us_t] if "u" in reads else None
-            outs.append(fo.unpack(extras[t], _unpack_state(env, state, u_step, None if c_t is None else c_t[t])))
-        obs, rews, terminated, updates = _stack_tree(outs)
-    else:
-        obs, rews, terminated, updates = fo.unpack(extras, _unpack_state(env, state, us_t, c_t))
-    if seeds is not None:
-        env.scenario.obs_seed = seeds[-1]
-    us_last = [u[-1] for u in us_t]
-    if env.max_steps is not None:
-        steps_t = steps[None] + 1 + torch.arange(horizon, device=env.device)[:, None]
-        truncated = steps_t >= env.max_steps
-    else:
-        truncated = torch.zeros_like(terminated)
-    for a, u in list(zip(env.agents, _last_us(fo, us_last, extras))) + list(script_last) + _kernel_script_us(
-            world, fo, extras):
-        state_out = a.set_u(state_out, u)
-    if any(uc is not None for uc in ucs_last):
-        uc, c = state_out.uc.clone(), state_out.c.clone()
-        for a, v in zip(env.agents, ucs_last):
-            if v is not None:
-                uc[:, a.slot] = v
-                c[:, a.slot] = v
-        state_out = state_out.replace(uc=uc, c=c)
-    counters = getattr(fo, "step_count_keys", ())
-    last = {k: v[-1] for k, v in updates.items() if k not in counters}
-    # a pure step counter: each step's unpack added one to the value at the
-    # start; the step pipeline's unit increments are exact f32 integer adds
-    last.update({k: state_out.scenario[k] + float(horizon) for k in counters})
-    state_out = state_out.replace(scenario={**state_out.scenario, **last})
-    state_out = _apply_ctrl_finish(world, fo, state_out, carry, state)
-    # identity, or declared safe to apply once (post_rewards_rollout_safe)
-    state_out = env.scenario.post_rewards(state_out)
-    traj = {"rewards": torch.stack(rews, dim=-1), "dones": terminated | truncated, "obs": obs}
-    return state_out, steps + horizon, traj
+    with span("vmas.rows.finish", device=env.device):
+        world, fo = env.world, env._fused_outputs
+        reads = getattr(fo, "unpack_reads", ())
+        state_out = F.unpack_carry(world, carry, state)
+        if carries is not None:
+            obs, rews, terminated, updates = _unpack_over_states(env, fo, extras, carries, state)
+        elif seeds is not None and "obs_key" in reads:
+            outs = []
+            for t in range(horizon):
+                env.scenario.obs_seed = seeds[t]
+                u_step = [u[t] for u in us_t] if "u" in reads else None
+                outs.append(fo.unpack(extras[t], _unpack_state(env, state, u_step, None if c_t is None else c_t[t])))
+            obs, rews, terminated, updates = _stack_tree(outs)
+        else:
+            obs, rews, terminated, updates = fo.unpack(extras, _unpack_state(env, state, us_t, c_t))
+        if seeds is not None:
+            env.scenario.obs_seed = seeds[-1]
+        us_last = [u[-1] for u in us_t]
+        if env.max_steps is not None:
+            steps_t = steps[None] + 1 + torch.arange(horizon, device=env.device)[:, None]
+            truncated = steps_t >= env.max_steps
+        else:
+            truncated = torch.zeros_like(terminated)
+        for a, u in list(zip(env.agents, _last_us(fo, us_last, extras))) + list(script_last) + _kernel_script_us(
+                world, fo, extras):
+            state_out = a.set_u(state_out, u)
+        if any(uc is not None for uc in ucs_last):
+            uc, c = state_out.uc.clone(), state_out.c.clone()
+            for a, v in zip(env.agents, ucs_last):
+                if v is not None:
+                    uc[:, a.slot] = v
+                    c[:, a.slot] = v
+            state_out = state_out.replace(uc=uc, c=c)
+        counters = getattr(fo, "step_count_keys", ())
+        last = {k: v[-1] for k, v in updates.items() if k not in counters}
+        # a pure step counter: each step's unpack added one to the value at the
+        # start; the step pipeline's unit increments are exact f32 integer adds
+        last.update({k: state_out.scenario[k] + float(horizon) for k in counters})
+        state_out = state_out.replace(scenario={**state_out.scenario, **last})
+        state_out = _apply_ctrl_finish(world, fo, state_out, carry, state)
+        # identity, or declared safe to apply once (post_rewards_rollout_safe)
+        state_out = env.scenario.post_rewards(state_out)
+        traj = {"rewards": torch.stack(rews, dim=-1), "dones": terminated | truncated, "obs": obs}
+        return state_out, steps + horizon, traj
 
 
 def _chunked_reset_rollout(env, run_chunk, horizon, reset_every):
@@ -568,34 +576,37 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
     transform = getattr(fo, "decode_transform", None)
 
     def run(state, steps, generator):
-        g_act, g_step = _fork(generator, 2)
-        acts = _random_actions_for_horizon(env, g_act, horizon)
-        us, ucs = zip(*(_decoder(env, a)(acts[i]) for i, a in enumerate(agents)))
-        seeds = None
-        if noisy:
-            seeds, noise = env._step_draws(g_step, horizon)
-            us, ucs = zip(*(env._add_noise(a, u, uc, n) for a, u, uc, n in zip(agents, us, ucs, noise)))
-        if transform is not None:
-            us = transform(us)
-        script_us = list(fo.script_us(state, horizon)) if script_slots else []
-        all_us = list(us) + script_us
-        ax = torch.stack([u[..., 0] for u in all_us], dim=1)  # [T, A, B]
-        ay = torch.stack([u[..., 1] for u in all_us], dim=1)
-        act_rows = torch.cat([ax, ay], dim=1).contiguous()  # [T, 2A, B]
+        with span("vmas.rows.call", device=env.device):
+            with span("vmas.rows.actions"):
+                g_act, g_step = _fork(generator, 2)
+                acts = _random_actions_for_horizon(env, g_act, horizon)
+                us, ucs = zip(*(_decoder(env, a)(acts[i]) for i, a in enumerate(agents)))
+                seeds = None
+                if noisy:
+                    seeds, noise = env._step_draws(g_step, horizon)
+                    us, ucs = zip(*(env._add_noise(a, u, uc, n) for a, u, uc, n in zip(agents, us, ucs, noise)))
+                if transform is not None:
+                    us = transform(us)
+                script_us = list(fo.script_us(state, horizon)) if script_slots else []
+                all_us = list(us) + script_us
+                ax = torch.stack([u[..., 0] for u in all_us], dim=1)  # [T, A, B]
+                ay = torch.stack([u[..., 1] for u in all_us], dim=1)
+                act_rows = torch.cat([ax, ay], dim=1).contiguous()  # [T, 2A, B]
+                # the per-step comm state, where unpack reads it
+                c_t = _comm_state(state, agents, ucs) if reads_c else None
 
-        carry = F.pack_carry(world, state, fo)
-        extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
-        # each step's carry rows, where unpack rebuilds each step's state
-        carries = torch.empty((horizon,) + tuple(carry.shape), device=env.device) if reads_state else None
-        # K steps' rows are contiguous in both buffers: views, no copies
-        for t in range(0, horizon, K):
-            carry, _ = step(carry, act_rows[t:t + K].view(K * A2, B), extras[t:t + K].view(K * n_tot, B),
-                            None if carries is None else carries[t])
-        # the per-step comm state, where unpack reads it
-        c_t = _comm_state(state, agents, ucs) if reads_c else None
-        return _finish_rows_rollout(env, state, steps, carry, extras, us, horizon,
-                                    [None if uc is None else uc[-1] for uc in ucs], c_t, seeds, carries,
-                                    [(a, u[-1]) for a, u in zip(script_agents, script_us)])
+                carry = F.pack_carry(world, state, fo)
+                extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
+                # each step's carry rows, where unpack rebuilds each step's state
+                carries = torch.empty((horizon,) + tuple(carry.shape), device=env.device) if reads_state else None
+            with span("vmas.rows.loop", device=env.device):
+                # K steps' rows are contiguous in both buffers: views, no copies
+                for t in range(0, horizon, K):
+                    carry, _ = step(carry, act_rows[t:t + K].view(K * A2, B), extras[t:t + K].view(K * n_tot, B),
+                                    None if carries is None else carries[t])
+            return _finish_rows_rollout(env, state, steps, carry, extras, us, horizon,
+                                        [None if uc is None else uc[-1] for uc in ucs], c_t, seeds, carries,
+                                        [(a, u[-1]) for a, u in zip(script_agents, script_us)])
 
     return run
 
@@ -642,50 +653,54 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
     transform = getattr(fo, "decode_transform", None)
 
     def run(state, steps, generator):
-        g_pol, g_step = _fork(generator, 2)
-        seeds = None
-        if noisy:
-            seeds, noise = env._step_draws(g_step, horizon)
-        extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
-        auxs, c_ts, u_ts = [], [], []
-        with torch.no_grad():
-            obs = obs0 = env._observations(state)
-            carry = F.pack_carry(world, state, fo)
-            for t in range(horizon):
-                if policy_aux:
-                    actions, aux = policy(obs, g_pol)
-                    auxs.append(aux)
-                else:
-                    actions = policy(obs, g_pol)
-                dec = [d(a[None]) for d, a in zip(decoders, actions)]
-                us_t = [du[0] for du, _ in dec]
-                ucs = [None if uc is None else uc[0] for _, uc in dec]
-                if noisy:
-                    at_t = lambda x: None if x is None else x[t]
-                    us_t, ucs = zip(*(env._add_noise(a, u, uc, (at_t(nu), at_t(nc)))
-                                      for a, u, uc, (nu, nc) in zip(agents, us_t, ucs, noise)))
-                    env.scenario.obs_seed = seeds[t]
-                if transform is not None:
-                    us_t = transform(us_t)
-                u = torch.stack(list(us_t))  # [A, B, 2]
-                # the action rows: x of every agent, then y
-                carry, _ = step(carry, u.permute(2, 0, 1).reshape(2 * A, B), extras[t])
-                # the policy at t+1 acts on the observations this step
-                # emitted, with this step's comm state and actions where
-                # unpack reads them
-                if reads_u:
-                    u_ts.append(u)
-                if reads_c:
-                    c_ts.append(_comm_state(state, agents, ucs))
-                obs = fo.unpack(extras[t], _unpack_state(env, state, list(u), c_ts[-1] if reads_c else None))[0]
-            # each agent's decoded actions [T, B, 2] where unpack reads
-            # them, else its last step's as a T axis of one
-            u_t = torch.stack(u_ts, dim=1) if reads_u else u[:, None]
-            out = _finish_rows_rollout(env, state, steps, carry, extras, list(u_t), horizon, ucs,
-                                       torch.stack(c_ts) if reads_c else None, seeds)
-        if policy_aux:
-            out[2]["policy_aux"] = _stack_tree(auxs)
-            out[2]["obs0"] = obs0
-        return out
+        with span("vmas.rows.call", device=env.device):
+            g_pol, g_step = _fork(generator, 2)
+            seeds = None
+            if noisy:
+                seeds, noise = env._step_draws(g_step, horizon)
+            extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
+            auxs, c_ts, u_ts = [], [], []
+            with torch.no_grad():
+                obs = obs0 = env._observations(state)
+                carry = F.pack_carry(world, state, fo)
+                with span("vmas.rows.loop", device=env.device):
+                    for t in range(horizon):
+                        with span("vmas.rows.policy_step"):
+                            if policy_aux:
+                                actions, aux = policy(obs, g_pol)
+                                auxs.append(aux)
+                            else:
+                                actions = policy(obs, g_pol)
+                            dec = [d(a[None]) for d, a in zip(decoders, actions)]
+                            us_t = [du[0] for du, _ in dec]
+                            ucs = [None if uc is None else uc[0] for _, uc in dec]
+                            if noisy:
+                                at_t = lambda x: None if x is None else x[t]
+                                us_t, ucs = zip(*(env._add_noise(a, u, uc, (at_t(nu), at_t(nc)))
+                                                  for a, u, uc, (nu, nc) in zip(agents, us_t, ucs, noise)))
+                                env.scenario.obs_seed = seeds[t]
+                            if transform is not None:
+                                us_t = transform(us_t)
+                            u = torch.stack(list(us_t))  # [A, B, 2]
+                            # the action rows: x of every agent, then y
+                            carry, _ = step(carry, u.permute(2, 0, 1).reshape(2 * A, B), extras[t])
+                            # the policy at t+1 acts on the observations this step
+                            # emitted, with this step's comm state and actions where
+                            # unpack reads them
+                            if reads_u:
+                                u_ts.append(u)
+                            if reads_c:
+                                c_ts.append(_comm_state(state, agents, ucs))
+                            obs = fo.unpack(extras[t], _unpack_state(env, state, list(u),
+                                                                     c_ts[-1] if reads_c else None))[0]
+                # each agent's decoded actions [T, B, 2] where unpack reads
+                # them, else its last step's as a T axis of one
+                u_t = torch.stack(u_ts, dim=1) if reads_u else u[:, None]
+                out = _finish_rows_rollout(env, state, steps, carry, extras, list(u_t), horizon, ucs,
+                                           torch.stack(c_ts) if reads_c else None, seeds)
+            if policy_aux:
+                out[2]["policy_aux"] = _stack_tree(auxs)
+                out[2]["obs0"] = obs0
+            return out
 
     return run
