@@ -4427,9 +4427,11 @@ def ppo_train(env, card, dev, dtype, seed):
     """TRAIN_UPDATES PPO updates (collect="rows", TRAIN_HORIZON steps, 4
     epochs) a block: one warm-up block and TRAIN_BLOCKS timed blocks (CUDA
     events), with the launch counts zeroed before the first; then one more
-    update under the profiler. Checks the counts, a finite loss and
-    finite parameters that moved; returns (best env-steps/s, idle share,
-    K2 launches)."""
+    update under the profiler. Checks the counts, the rows kernel's
+    records in the profiled update's trace (one a step, read from the
+    trace, as the update replays its collection's CUDA graph), a finite
+    loss and finite parameters that moved; returns (best env-steps/s, idle
+    share, K2 launches)."""
     import torch
     from vmas_tpu_torch.core import fused as F
     from vmas_tpu_torch.parallel import init_actor_critic, make_ppo_update, obs_dim_of
@@ -4473,7 +4475,10 @@ def ppo_train(env, card, dev, dtype, seed):
     rate = env.num_envs * TRAIN_HORIZON * TRAIN_UPDATES / (min(block_ms) / 1e3)
     mean = env.num_envs * TRAIN_HORIZON * TRAIN_UPDATES * TRAIN_BLOCKS / (sum(block_ms) / 1e3)
     one = lambda: update(model, opt, carry[0], carry[1], gen)
-    _, busy_ms, by_name, n_ops, _ = device_ms(one, 1, "")
+    _, busy_ms, by_name, n_ops, k2_records = device_ms(one, 1, "fused_step_kernel", TRAIN_HORIZON)
+    if k2_records != TRAIN_HORIZON:
+        raise AssertionError(f"{tag}: the profiled update's trace holds {k2_records:.0f} rows kernel records, "
+                             f"want {TRAIN_HORIZON}")
     upd_ms = min(block_ms) / TRAIN_UPDATES
     idle = 1 - busy_ms / upd_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]

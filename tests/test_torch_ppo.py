@@ -55,7 +55,7 @@ import vmas_tpu
 from test_torch_fused import contact_rich, jax_state
 from vmas_tpu.parallel import ppo as JP
 from vmas_tpu.parallel.rollout import rows_policy_rollout_fn as jax_rows_policy_rollout_fn
-from vmas_tpu_torch import make_env
+from vmas_tpu_torch import make_env, profiling, testing
 from vmas_tpu_torch.interop import actor_critic_from_numpy, actor_critic_to_numpy, state_from_numpy
 from vmas_tpu_torch.parallel import ppo as TP
 
@@ -401,6 +401,43 @@ def test_ppo_rows_reset_every():
     assert bool(torch.isfinite(metrics["loss"]))
     assert float(metrics["episode_done_frac"]) >= 0.5
     assert bool((steps == 0).all())
+
+
+@pytest.mark.parametrize("reset_every", [None, 2])
+def test_update_built_once_equals_the_collection_rebuilt_per_call(reset_every):
+    """``make_ppo_update`` builds its rows collection once and hands it the
+    model on each call: 3 updates equal, bitwise, 3 whose collection is
+    rebuilt per call around a closure over the model
+    (``testing.rebuilt_ppo_update``): each trajectory, state, metric and
+    the parameters after each update."""
+    env = _env(num_envs=8)
+    update, make_opt = TP.make_ppo_update(env, horizon=4, collect="rows", epochs=2, reset_every=reset_every)
+    rebuilt = testing.rebuilt_ppo_update(env, 4, 2, reset_every=reset_every)
+    sides = []
+    for fn in (update, rebuilt):
+        model = _model(env)
+        sides.append(testing.ppo_updates(fn, model, make_opt(model), env.state, env.steps, 3, seed=11))
+    for got, want in zip(*sides):
+        assert testing.tensors_equal(got, want)
+    assert not testing.tensors_equal(sides[0][0]["params"], sides[0][2]["params"])
+
+
+def test_cpu_update_runs_the_eager_loop():
+    """On the CPU the collection's steps run eagerly: each update records
+    its policy steps and launches, and no capture or replay."""
+    env = _env(num_envs=8)
+    update, make_opt = TP.make_ppo_update(env, horizon=4, collect="rows", epochs=1)
+    model = _model(env)
+    profiling.reset()
+    profiling.enable()
+    try:
+        testing.ppo_updates(update, model, make_opt(model), env.state, env.steps, 2, seed=3)
+        s = profiling.summary()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert s["vmas.rows.policy_step"]["count"] == 8 and s["vmas.rows.launch"]["count"] == 8
+    assert "vmas.rows.capture" not in s and "vmas.rows.replay" not in s
 
 
 def test_evaluate_runs():

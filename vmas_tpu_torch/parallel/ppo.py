@@ -54,6 +54,8 @@ from torch.nn import functional as Fn
 from vmas_tpu_torch.core.utils import resolve_device
 from vmas_tpu_torch.parallel.mesh import all_reduce, mean_over_ranks, mesh_size
 from vmas_tpu_torch.parallel.rollout import (
+    _noisy,
+    _rows_policy_rollout,
     rollout_fn,
     rows_policy_rollout_fn,
     rows_rollout_supported,
@@ -263,7 +265,15 @@ def make_ppo_update(env, horizon=32, lr=3e-4, gamma=0.99, lam=0.95, clip=0.2, ep
     ``episode_done_frac`` of the collected steps (0-d tensors on the env's
     device). ``make_optimizer(model)`` is ``torch.optim.Adam(lr,
     betas=(0.9, 0.999), eps=1e-8)``, optax.adam's formula.
-    ``reset_every=N`` (rows): every env resets every N collection steps."""
+    ``reset_every=N`` (rows): every env resets every N collection steps.
+
+    The collection is built once, here, and takes the model on each call.
+    With ``collect="rows"`` on a CUDA env whose steps draw no noise, its
+    steps (the policy, the draw, the decode, the kernel's launch and the
+    step's observations, for the whole horizon or each ``reset_every``
+    chunk) are one CUDA graph: captured in the first call, after that
+    call's eager steps, and replayed bitwise in every later call with the
+    same model's parameters in place (``rollout._StepsGraph``)."""
     _check_homogeneous(env)
     if collect == "auto":
         collect = "rows" if rows_rollout_supported(env) else "step"
@@ -274,6 +284,11 @@ def make_ppo_update(env, horizon=32, lr=3e-4, gamma=0.99, lam=0.95, clip=0.2, ep
         )
     dtype = compute_dtype
     policy = make_gaussian_policy(env, dtype=dtype)
+    if collect == "rows":
+        graphed = torch.device(env.device).type == "cuda" and not _noisy(env)
+        run = _rows_policy_rollout(env, policy, horizon, True, reset_every, graphed)
+    else:
+        run = rollout_fn(env, policy, horizon, autoreset=True, policy_aux=True)
     loss_kw = dict(clip=clip, vf_coeff=vf_coeff, ent_coeff=ent_coeff, dtype=dtype)
 
     def make_optimizer(model):
@@ -281,14 +296,8 @@ def make_ppo_update(env, horizon=32, lr=3e-4, gamma=0.99, lam=0.95, clip=0.2, ep
 
     def update(model, optimizer, state, steps, generator):
         with span("vmas.ppo.update", device=env.device):
-            with span("vmas.ppo.collect", device=env.device):
-                acting = lambda obs, g: policy(model, obs, g)
-                if collect == "rows":
-                    run = rows_policy_rollout_fn(env, acting, horizon, policy_aux=True, reset_every=reset_every)
-                else:
-                    run = rollout_fn(env, acting, horizon, autoreset=True, policy_aux=True)
-                with torch.no_grad():
-                    state, steps, traj = run(state, steps, generator)
+            with span("vmas.ppo.collect", device=env.device), torch.no_grad():
+                state, steps, traj = run(state, steps, generator, model)
             batch = rows_batch(model, traj, gamma, lam, dtype)
             mesh = getattr(env, "mesh", None)
             loss = fit(model, optimizer, batch, epochs, mesh=mesh, **loss_kw)

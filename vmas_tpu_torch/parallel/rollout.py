@@ -59,7 +59,12 @@ Spans (``profiling.span``): a rows rollout's call is ``vmas.rows.call``,
 tiled by ``vmas.rows.actions`` (the random-action rollout's draws, decode
 and action rows), ``vmas.rows.loop`` (the launches; in the policy rollout
 each step is a ``vmas.rows.policy_step``) and ``vmas.rows.finish``
-(``_finish_rows_rollout``).
+(``_finish_rows_rollout``). Where the policy rollout's steps are a CUDA
+graph (``make_ppo_update``'s collection on a CUDA env), its loop is a
+``vmas.rows.capture`` (the eager steps, the capture and the graph's
+instantiation; recorded in every run) or a ``vmas.rows.replay``, and a
+replay runs no step's host work, so records no ``vmas.rows.policy_step``
+and no ``vmas.rows.launch``.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from typing import Callable, Optional
 
 import torch
 
+from vmas_tpu_torch.core.utils import tree_leaves, tree_map
 from vmas_tpu_torch.environment.environment import _obs_seed
 from vmas_tpu_torch.profiling import span
 
@@ -157,6 +163,10 @@ def rollout_fn(env, policy: Optional[Callable] = None, horizon: int = 100,
     ``traj`` holds ``rewards [T, B, A]``, ``dones [T, B]`` and ``obs`` (a
     tuple of ``[T, B, obs_dim]`` per agent).
 
+    Arguments of ``run`` after the generator go to the policy before the
+    observations: ``run(state, steps, generator, model)`` calls ``policy(model,
+    obs, generator)``, so that one built rollout serves every model.
+
     ``policy_aux=True``: the policy returns ``(actions, aux)``; the per-step
     ``aux`` (a pytree of tensors) is recorded stacked over T in
     ``traj["policy_aux"]``, and the initial observations in
@@ -168,7 +178,7 @@ def rollout_fn(env, policy: Optional[Callable] = None, horizon: int = 100,
     the post-reset ones; the done flag still marks the boundary."""
     assert not (policy_aux and policy is None), "policy_aux needs an explicit policy returning (actions, aux)"
 
-    def run(state, steps, generator):
+    def run(state, steps, generator, *args):
         g_pol, g_step = _fork(generator, 2)
         if policy is None:
             acts = _random_actions_for_horizon(env, g_pol, horizon)
@@ -179,10 +189,10 @@ def rollout_fn(env, policy: Optional[Callable] = None, horizon: int = 100,
             if policy is None:
                 actions = [a[t] for a in acts]
             elif policy_aux:
-                actions, aux = policy(obs, g_pol)
+                actions, aux = policy(*args, obs, g_pol)
                 auxs.append(aux)
             else:
-                actions = policy(obs, g_pol)
+                actions = policy(*args, obs, g_pol)
             state, obs, r, terminated, truncated, _, steps = env._step_fn_raw(state, steps, actions, g_step)
             done = terminated | truncated
             if autoreset:
@@ -515,10 +525,10 @@ def _chunked_reset_rollout(env, run_chunk, horizon, reset_every):
         f"reset_every ({reset_every}) must divide horizon ({horizon})"
     )
 
-    def run(state, steps, generator):
+    def run(state, steps, generator, *args):
         parts = []
         for _ in range(horizon // reset_every):
-            state, steps, traj = run_chunk(state, steps, generator)
+            state, steps, traj = run_chunk(state, steps, generator, *args)
             state, steps, obs_reset, _, _, _ = env._reset_fn(state, steps, generator, None)
             traj["obs"] = tuple(torch.cat([o[:-1], o_r[None]]) for o, o_r in zip(traj["obs"], obs_reset))
             traj["dones"] = traj["dones"].clone()
@@ -626,11 +636,19 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
     No gradient flows through it (the kernel is forward-only; it runs
     under ``torch.no_grad``): it collects experience, and the policy is
     fitted on the recorded trajectory. ``policy_aux`` and ``reset_every``
-    as in ``rollout_fn`` and ``rows_rollout_fn``."""
+    as in ``rollout_fn`` and ``rows_rollout_fn``; arguments of ``run``
+    after the generator go to the policy, as in ``rollout_fn``."""
+    return _rows_policy_rollout(env, policy, horizon, policy_aux, reset_every, graphed=False)
+
+
+def _rows_policy_rollout(env, policy, horizon, policy_aux, reset_every, graphed):
+    """``rows_policy_rollout_fn``. ``graphed``: the steps of every call (of
+    every chunk, with ``reset_every``) are one CUDA graph, captured once and
+    replayed (``_StepsGraph``); for a CUDA env whose steps draw no noise."""
     from vmas_tpu_torch.core import fused as F
 
     if reset_every is not None:
-        chunk = rows_policy_rollout_fn(env, policy, reset_every, policy_aux)
+        chunk = _rows_policy_rollout(env, policy, reset_every, policy_aux, None, graphed)
         return _chunked_reset_rollout(env, chunk, horizon, reset_every)
     assert rows_rollout_supported(env), "rows_policy_rollout_fn: env " + _NOT_ELIGIBLE
     assert "state" not in getattr(env._fused_outputs, "unpack_reads", ()), (
@@ -650,57 +668,153 @@ def rows_policy_rollout_fn(env, policy: Callable, horizon: int = 100, policy_aux
     reads_c = "c" in getattr(fo, "unpack_reads", ())
     reads_u = "u" in getattr(fo, "unpack_reads", ())
     noisy = _noisy(env)
+    assert not (graphed and noisy), "a noisy env's steps set the scenario's observation seed from the host"
     transform = getattr(fo, "decode_transform", None)
 
-    def run(state, steps, generator):
+    def steps_of(state, obs, carry, g_pol, args, seeds=None, noise=None):
+        """The horizon's steps from the observations ``obs`` and the carry
+        -> (carry', extras [T, n_tot, B], the policy's aux stacked over T or
+        None, each agent's decoded actions [A, T or 1, B, 2], the last
+        step's comm actions, the per-step comm state or None)."""
+        extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
+        auxs, c_ts, u_ts = [], [], []
+        for t in range(horizon):
+            with span("vmas.rows.policy_step"):
+                if policy_aux:
+                    actions, aux = policy(*args, obs, g_pol)
+                    auxs.append(aux)
+                else:
+                    actions = policy(*args, obs, g_pol)
+                dec = [d(a[None]) for d, a in zip(decoders, actions)]
+                us_t = [du[0] for du, _ in dec]
+                ucs = [None if uc is None else uc[0] for _, uc in dec]
+                if noisy:
+                    at_t = lambda x: None if x is None else x[t]
+                    us_t, ucs = zip(*(env._add_noise(a, u, uc, (at_t(nu), at_t(nc)))
+                                      for a, u, uc, (nu, nc) in zip(agents, us_t, ucs, noise)))
+                    env.scenario.obs_seed = seeds[t]
+                if transform is not None:
+                    us_t = transform(us_t)
+                u = torch.stack(list(us_t))  # [A, B, 2]
+                # the action rows: x of every agent, then y (with one agent
+                # the reshape is a strided view, and the kernel reads rows)
+                carry, _ = step(carry, u.permute(2, 0, 1).reshape(2 * A, B).contiguous(), extras[t])
+                # the policy at t+1 acts on the observations this step
+                # emitted, with this step's comm state and actions where
+                # unpack reads them
+                if reads_u:
+                    u_ts.append(u)
+                if reads_c:
+                    c_ts.append(_comm_state(state, agents, ucs))
+                obs = fo.unpack(extras[t], _unpack_state(env, state, list(u),
+                                                         c_ts[-1] if reads_c else None))[0]
+        # each agent's decoded actions [T, B, 2] where unpack reads them,
+        # else its last step's as a T axis of one
+        u_t = torch.stack(u_ts, dim=1) if reads_u else u[:, None]
+        return (carry, extras, _stack_tree(auxs) if policy_aux else None, u_t, ucs,
+                torch.stack(c_ts) if reads_c else None)
+
+    graph = _StepsGraph(steps_of) if graphed else None
+
+    def run(state, steps, generator, *args):
         with span("vmas.rows.call", device=env.device):
             g_pol, g_step = _fork(generator, 2)
-            seeds = None
+            seeds = noise = None
             if noisy:
                 seeds, noise = env._step_draws(g_step, horizon)
-            extras = torch.empty((horizon, n_tot, B), dtype=torch.float32, device=env.device)
-            auxs, c_ts, u_ts = [], [], []
             with torch.no_grad():
-                obs = obs0 = env._observations(state)
+                obs0 = env._observations(state)
                 carry = F.pack_carry(world, state, fo)
                 with span("vmas.rows.loop", device=env.device):
-                    for t in range(horizon):
-                        with span("vmas.rows.policy_step"):
-                            if policy_aux:
-                                actions, aux = policy(obs, g_pol)
-                                auxs.append(aux)
-                            else:
-                                actions = policy(obs, g_pol)
-                            dec = [d(a[None]) for d, a in zip(decoders, actions)]
-                            us_t = [du[0] for du, _ in dec]
-                            ucs = [None if uc is None else uc[0] for _, uc in dec]
-                            if noisy:
-                                at_t = lambda x: None if x is None else x[t]
-                                us_t, ucs = zip(*(env._add_noise(a, u, uc, (at_t(nu), at_t(nc)))
-                                                  for a, u, uc, (nu, nc) in zip(agents, us_t, ucs, noise)))
-                                env.scenario.obs_seed = seeds[t]
-                            if transform is not None:
-                                us_t = transform(us_t)
-                            u = torch.stack(list(us_t))  # [A, B, 2]
-                            # the action rows: x of every agent, then y
-                            carry, _ = step(carry, u.permute(2, 0, 1).reshape(2 * A, B), extras[t])
-                            # the policy at t+1 acts on the observations this step
-                            # emitted, with this step's comm state and actions where
-                            # unpack reads them
-                            if reads_u:
-                                u_ts.append(u)
-                            if reads_c:
-                                c_ts.append(_comm_state(state, agents, ucs))
-                            obs = fo.unpack(extras[t], _unpack_state(env, state, list(u),
-                                                                     c_ts[-1] if reads_c else None))[0]
-                # each agent's decoded actions [T, B, 2] where unpack reads
-                # them, else its last step's as a T axis of one
-                u_t = torch.stack(u_ts, dim=1) if reads_u else u[:, None]
-                out = _finish_rows_rollout(env, state, steps, carry, extras, list(u_t), horizon, ucs,
-                                           torch.stack(c_ts) if reads_c else None, seeds)
+                    if graph is None:
+                        carry, extras, aux, u_t, ucs, c_t = steps_of(state, obs0, carry, g_pol, args, seeds, noise)
+                    else:
+                        carry, extras, aux, u_t, ucs, c_t = graph(state, obs0, carry, g_pol, args)
+                out = _finish_rows_rollout(env, state, steps, carry, extras, list(u_t), horizon, ucs, c_t, seeds)
             if policy_aux:
-                out[2]["policy_aux"] = _stack_tree(auxs)
+                out[2]["policy_aux"] = aux
                 out[2]["obs0"] = obs0
             return out
 
     return run
+
+
+def _tensors(tree):
+    """The tensors of a tree (a ``WorldState``, tuples, dicts), in
+    ``tree_leaves``' order."""
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _graph_key(inputs, model):
+    """What a captured graph of the steps holds beyond its static inputs'
+    values: the model's type and the addresses of its parameters and
+    buffers, and the static inputs' shapes, dtypes and device."""
+    held = list(model.parameters()) + list(model.buffers())
+    return (type(model), tuple((t.data_ptr(), t.shape, t.dtype) for t in held),
+            tuple((t.shape, t.dtype, t.device) for t in _tensors(inputs)))
+
+
+class _StepsGraph:
+    """A rows policy rollout's steps as one CUDA graph: the policy, its
+    Gaussian draw, the decode, the action rows, the kernel's launch and the
+    step's ``unpack``, for every step of the horizon.
+
+    A call whose key (``_graph_key``) differs from the graph's (the first
+    call, another model, parameters moved) runs the steps eagerly for its
+    own result, which also warms every lazy part of them up (the kernel's
+    shared-memory opt-in and check, its pair table), then captures them
+    from static copies of its state, observations and carry into a new
+    graph: span ``vmas.rows.capture``, recorded in every run. A call with
+    the graph's key (span ``vmas.rows.replay``) copies its state,
+    observations and carry into those static inputs, sets the generator
+    registered with the graph to its policy generator's state, so that the
+    replay draws what the eager steps draw (the same Philox seed and
+    offsets), replays, and returns clones of the outputs: nothing a call
+    returns aliases the graph's memory. The graph reads the parameters by
+    address, so an optimizer's in-place steps show in the next replay. The
+    policy takes one argument, ``make_ppo_update``'s model. The capture and
+    each replay run under the carry's device, on a stream of that device,
+    so an env on a card other than the current one is captured there."""
+
+    def __init__(self, steps_of):
+        self.steps_of = steps_of
+        self.key = self.graph = self.inputs = self.outputs = self.generator = None
+        self.launches = 0
+
+    def __call__(self, state, obs, carry, g_pol, args):
+        from vmas_tpu_torch.core import fused as F
+
+        model, = args
+        key = _graph_key((state, obs, carry), model)
+        if key != self.key:
+            with span("vmas.rows.capture", always=True):
+                out = self.steps_of(state, obs, carry, g_pol, args)
+                self._capture((state, obs, carry), args)
+                self.key = key
+            return out
+        with span("vmas.rows.replay"), torch.cuda.device(carry.device):
+            torch._foreach_copy_(self.inputs, _tensors((state, obs, carry)))
+            self.generator.set_state(g_pol.get_state())
+            self.graph.replay()
+            F.rows_step_launches += self.launches
+            return _map_tree(lambda t: t if t is None else t.clone(), self.outputs)
+
+    def _capture(self, inputs, args):
+        from vmas_tpu_torch.core import fused as F
+
+        # the old graph's memory goes before the new one's is taken
+        self.key = self.graph = self.inputs = self.outputs = None
+        static = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, inputs)
+        dev = static[2].device
+        # under the device: registering the generator puts the graph's seed
+        # and offset on the current device
+        with torch.cuda.device(dev):
+            self.generator = torch.Generator(device=dev)
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.generator)
+            launches = F.rows_step_launches
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(device=dev)):
+                self.outputs = self.steps_of(*static, self.generator, args)
+        # the capture ran no launch: each replay counts the graph's
+        self.launches, F.rows_step_launches = F.rows_step_launches - launches, launches
+        self.graph, self.inputs = graph, _tensors(static)

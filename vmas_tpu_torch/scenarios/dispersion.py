@@ -215,11 +215,13 @@ class DispersionOutputs(F.FusedOutputs):
         A, F_, w = self.n_agents, self.n_food, self.agent_w
         obs = []
         for i in range(A):
-            idx = list(range(i * w, (i + 1) * w))
+            # slices, not an index list: a list is copied from the host at
+            # every call, which a CUDA graph's capture refuses
+            parts = [extra[..., i * w:(i + 1) * w, :]]
             for k in range(F_):
                 r = A * w + (i * F_ + k) * 2
-                idx += [r, r + 1, self.o_eaten + k]
-            obs.append(extra[..., idx, :].transpose(-1, -2))
+                parts += [extra[..., r:r + 2, :], extra[..., self.o_eaten + k:self.o_eaten + k + 1, :]]
+            obs.append(torch.cat(parts, dim=-2).transpose(-1, -2))
         just = extra[..., self.o_just:self.o_just + F_, :].transpose(-1, -2) > 0.5
         eaten = extra[..., self.o_eaten:self.o_eaten + F_, :].transpose(-1, -2) > 0.5
         how_many = extra[..., self.o_hm:self.o_hm + F_, :].transpose(-1, -2).to(torch.int32)

@@ -118,13 +118,23 @@ def energy_denoms(world, agents):
     return [math.sqrt(world.dim_p * float((a.u_range_array[0] * a.u_multiplier_array[0]) ** 2)) for a in agents]
 
 
+# each denominator as a 0-d tensor of the actions' device and dtype, made
+# once: ``F._div`` copies its float from the host at every call, which a
+# CUDA graph's capture refuses
+_DENOMS = {}
+
+
 def energy_rew(agents, state, denoms, coeff):
     """``coeff * -sum_a |u_a| / denom_a`` over the agents' actions (any
     leading axes), summed in agent order from the first term; each quotient
-    one IEEE division."""
+    one IEEE division (``F._div``'s, by a denominator kept on the device)."""
     total = None
     for a, d in zip(agents, denoms):
-        t = F._div(safe_norm(a.u(state)), d)
+        n = safe_norm(a.u(state))
+        key = (d, n.device, n.dtype)
+        if key not in _DENOMS:
+            _DENOMS[key] = n.new_tensor(d)
+        t = n / _DENOMS[key]
         total = t if total is None else total + t
     return coeff * -total
 
@@ -187,7 +197,10 @@ class DropoutOutputs(F.FusedOutputs):
         agents' u in ``state`` carry it too (the rows rollouts' per-step
         actions)."""
         A, w, base = self.n_agents, self.agent_w, self.base
-        obs = tuple(extra[..., list(range(i * w, (i + 1) * w)) + [base], :].transpose(-1, -2) for i in range(A))
+        # slices, not an index list: a list is copied from the host at every
+        # call, which a CUDA graph's capture refuses
+        obs = tuple(torch.cat([extra[..., i * w:(i + 1) * w, :], extra[..., base:base + 1, :]], dim=-2)
+                    .transpose(-1, -2) for i in range(A))
         eaten = extra[..., base, :] > 0.5
         any_eaten = extra[..., base + 1, :] > 0.5
         pos_rew = extra[..., base + 2, :]

@@ -33,7 +33,9 @@ knowledge matched and on goal, and sampling's field and visited cells;
 the worlds with render hooks and the configs their frames are drawn at
 (``RENDER_HOOK_WORLDS``). The states are numpy dicts made from a seeded generator, so that both
 packages can load the same one. For road_traffic's path sweeps: lanes on
-centre-line vertices and padded tails, and on left-boundary vertices.
+centre-line vertices and padded tails, and on left-boundary vertices. For
+PPO: ``make_ppo_update``'s update with its collection rebuilt per call, and
+the updates' trajectories, states and parameters to hold them together.
 """
 
 from __future__ import annotations
@@ -1786,6 +1788,69 @@ def hook_calls(env, view, env_index):
 def hook_artists(calls):
     """The artists that the recorded calls of one hook add to an Axes."""
     return sum(name in ARTIST_CALLS for name, _, _ in calls)
+
+
+# -- PPO updates against the collection rebuilt per call (tests/test_torch_ppo.py,
+# tests/test_torch_ppo_graph.py) --
+
+
+def rebuilt_ppo_update(env, horizon, epochs, compute_dtype=None, reset_every=None):
+    """``make_ppo_update(collect="rows")``'s ``update``, one rank, the other
+    settings at their defaults, with its collection rebuilt on every call
+    through the public ``rows_policy_rollout_fn`` around a closure over the
+    call's model: the eager loop that ``make_ppo_update``'s collection,
+    built once (and on a card one CUDA graph), is held to bitwise."""
+    from vmas_tpu_torch.parallel import ppo as P
+
+    policy = P.make_gaussian_policy(env, dtype=compute_dtype)
+
+    def update(model, optimizer, state, steps, generator):
+        run = P.rows_policy_rollout_fn(env, lambda obs, g: policy(model, obs, g), horizon, policy_aux=True,
+                                       reset_every=reset_every)
+        with torch.no_grad():
+            state, steps, traj = run(state, steps, generator)
+        batch = P.rows_batch(model, traj, dtype=compute_dtype)
+        loss = P.fit(model, optimizer, batch, epochs, dtype=compute_dtype)
+        return state, steps, {"loss": loss, "mean_reward": traj["rewards"].mean(),
+                              "episode_done_frac": traj["dones"].to(torch.float32).mean()}
+
+    return update
+
+
+def ppo_updates(update, model, optimizer, state, steps, n, seed):
+    """``n`` updates from ``state`` with a generator seeded ``seed`` -> per
+    update a dict of its trajectory (as ``update`` hands it to
+    ``ppo.rows_batch``), the state, steps and metrics it returned, and the
+    parameters after it (copies)."""
+    from vmas_tpu_torch.parallel import ppo as P
+
+    trajs, rows_batch = [], P.rows_batch
+
+    def recording(model, traj, *args, **kwargs):
+        trajs.append(traj)
+        return rows_batch(model, traj, *args, **kwargs)
+
+    gen = torch.Generator(device=state.device).manual_seed(seed)
+    out = []
+    P.rows_batch = recording
+    try:
+        for _ in range(n):
+            state, steps, metrics = update(model, optimizer, state, steps, gen)
+            out.append({"traj": trajs[-1], "state": state, "steps": steps, "metrics": metrics,
+                        "params": [p.detach().clone() for p in model.parameters()]})
+    finally:
+        P.rows_batch = rows_batch
+    return out
+
+
+def tensors_equal(a, b):
+    """Whether two trees of tensors (``WorldState``s, dicts, tuples, lists)
+    hold as many tensors, each bitwise equal to its counterpart."""
+    from vmas_tpu_torch.core.utils import tree_leaves
+
+    xs = [t for t in tree_leaves(a) if isinstance(t, torch.Tensor)]
+    ys = [t for t in tree_leaves(b) if isinstance(t, torch.Tensor)]
+    return len(xs) == len(ys) and all(torch.equal(x, y) for x, y in zip(xs, ys))
 
 
 # -- the ranks of a sharded run (tests/test_torch_multihost.py, chip_smoke.py) --
