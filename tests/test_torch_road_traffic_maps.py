@@ -40,7 +40,7 @@ import torch
 from vmas_tpu_torch import make_env as torch_make_env
 from vmas_tpu_torch import testing
 from vmas_tpu_torch.interop import FIELDS, state_to_numpy
-from vmas_tpu_torch.parallel.rollout import _fork, _random_actions_for_horizon, rollout_fn
+from vmas_tpu_torch.parallel.rollout import _fork, _random_actions_for_horizon, _u_ranges, rollout_fn
 from vmas_tpu_torch.scenarios import road_traffic as trt
 from vmas_tpu_torch.scenarios import road_traffic_kernel as rtk
 
@@ -304,7 +304,7 @@ def test_rollout_fn_reproduces_env_step(kw):
     T = 4
     state, steps, traj = rollout_fn(env, horizon=T)(s0, st0, torch.Generator().manual_seed(11))
     g_pol, g_step = _fork(torch.Generator().manual_seed(11), 2)
-    acts = _random_actions_for_horizon(env, g_pol, T)
+    acts = _random_actions_for_horizon(env, g_pol, T, _u_ranges(env))
     env.generator = g_step
     rews = []
     for t in range(T):

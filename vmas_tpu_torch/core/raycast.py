@@ -37,7 +37,7 @@ def cast_rays_to_box(box_pos, box_rot, box_length, box_width, ray_origin, ray_di
 
     pos_aabb = TorchUtils.rotate_vector(ro - b_pos, -b_rot)
     ray_dir_aabb = TorchUtils.rotate_vector(_dir(rd), -b_rot)
-    inf = torch.tensor(float("inf"), device=box_pos.device)
+    inf = torch.full((), float("inf"), device=box_pos.device)
 
     def slab(p, d, half):
         zero = d == 0.0
@@ -136,22 +136,26 @@ def cast_rays(world, state, entity, angles, max_range, entity_filter=lambda _: F
         else:
             raise RuntimeError(f"Shape {e.shape} currently not handled by cast_ray")
 
+    # each group's fields and constants gathered on the device: an index
+    # tensor or a constant made from a host list is a copy from the host,
+    # which waits for the device
+    def take(ents, x):
+        return torch.stack([x[:, e.index] for e in ents], dim=1)
+
     def consts(ents, attr):
-        return torch.tensor([getattr(e.shape, attr) for e in ents], dtype=torch.float32, device=dev)[None].expand(
-            B, len(ents))
+        return torch.stack([torch.full((1,), float(getattr(e.shape, attr)), dtype=torch.float32, device=dev)
+                            for e in ents], dim=1).expand(B, len(ents))
 
     if boxes:
-        idx = [e.index for e in boxes]
-        d = cast_rays_to_box(state.pos[:, idx], state.rot[:, idx], consts(boxes, "length"), consts(boxes, "width"),
-                             pos, angles, max_range)
+        d = cast_rays_to_box(take(boxes, state.pos), take(boxes, state.rot), consts(boxes, "length"),
+                             consts(boxes, "width"), pos, angles, max_range)
         dists.append(d.movedim(1, -1))  # [B, R, N]
     if spheres:
-        idx = [e.index for e in spheres]
-        d = cast_rays_to_sphere(state.pos[:, idx], consts(spheres, "radius"), pos, angles, max_range)
+        d = cast_rays_to_sphere(take(spheres, state.pos), consts(spheres, "radius"), pos, angles, max_range)
         dists.append(d.movedim(1, -1))
     if lines:
-        idx = [e.index for e in lines]
-        d = cast_rays_to_line(state.pos[:, idx], state.rot[:, idx], consts(lines, "length"), pos, angles, max_range)
+        d = cast_rays_to_line(take(lines, state.pos), take(lines, state.rot), consts(lines, "length"), pos, angles,
+                              max_range)
         dists.append(d.movedim(1, -1))
 
     return torch.cat(dists, dim=-1).min(dim=-1).values  # [B, R]

@@ -59,7 +59,9 @@ Spans (``profiling.span``): a rows rollout's call is ``vmas.rows.call``,
 tiled by ``vmas.rows.actions`` (the random-action rollout's draws, decode
 and action rows), ``vmas.rows.loop`` (the launches; in the policy rollout
 each step is a ``vmas.rows.policy_step``) and ``vmas.rows.finish``
-(``_finish_rows_rollout``). Where the policy rollout's steps are a CUDA
+(``_finish_rows_rollout``; where ``unpack`` reads each step's state, its
+rebuild and ``unpack`` over it, the sensors included, are the nested
+``vmas.rows.states``). Where the policy rollout's steps are a CUDA
 graph (``make_ppo_update``'s collection on a CUDA env), its loop is a
 ``vmas.rows.capture`` (the eager steps, the capture and the graph's
 instantiation; recorded in every run) or a ``vmas.rows.replay``, and a
@@ -90,15 +92,24 @@ def _fork(generator, n):
     return out
 
 
-def _random_actions_for_horizon(env, generator, horizon):
+def _u_ranges(env):
+    """Each agent's ``u_range`` on the env's device (continuous actions),
+    else None: a copy from the host's pageable memory waits for the device,
+    so a rollout function makes them once."""
+    if not env.continuous_actions:
+        return [None] * len(env.agents)
+    return [torch.as_tensor(a.u_range_array, device=env.device) for a in env.agents]
+
+
+def _random_actions_for_horizon(env, generator, horizon, ranges):
     """Uniform random actions for all steps, per agent, drawn up front in
-    the agents' full action spaces (as ``Environment.get_random_action``)."""
+    the agents' full action spaces (as ``Environment.get_random_action``);
+    ``ranges``: ``_u_ranges(env)``, made once by the caller."""
     dev, B = env.device, env.num_envs
     xs = []
-    for a in env.agents:
+    for a, r in zip(env.agents, ranges):
         if env.continuous_actions:
-            ranges = torch.as_tensor(a.u_range_array, device=dev)
-            u = (torch.rand((horizon, B, a.action_size), generator=generator, device=dev) * 2 - 1) * ranges
+            u = (torch.rand((horizon, B, a.action_size), generator=generator, device=dev) * 2 - 1) * r
             if env.world.dim_c != 0 and not a.silent:
                 comm = torch.rand((horizon, B, env.world.dim_c), generator=generator, device=dev)
                 u = torch.cat([u, comm], dim=-1)
@@ -178,10 +189,12 @@ def rollout_fn(env, policy: Optional[Callable] = None, horizon: int = 100,
     the post-reset ones; the done flag still marks the boundary."""
     assert not (policy_aux and policy is None), "policy_aux needs an explicit policy returning (actions, aux)"
 
+    ranges = _u_ranges(env) if policy is None else None
+
     def run(state, steps, generator, *args):
         g_pol, g_step = _fork(generator, 2)
         if policy is None:
-            acts = _random_actions_for_horizon(env, g_pol, horizon)
+            acts = _random_actions_for_horizon(env, g_pol, horizon, ranges)
         else:
             obs = obs0 = env._observations(state)
         rews, dones, obs_t, auxs = [], [], [], []
@@ -430,13 +443,14 @@ def _unpack_over_states(env, fo, extras, carries, state):
     T, n_out, B = extras.shape
     step_chunk = max(1, _STATE_CHUNK // B)
     parts = []
-    for t0 in range(0, T, step_chunk):
-        e, c = extras[t0:t0 + step_chunk], carries[t0:t0 + step_chunk]
-        n = e.shape[0]
-        flat = lambda x: x.permute(1, 0, 2).reshape(x.shape[1], n * B)
-        out = fo.unpack(flat(e), F.unpack_carry(env.world, flat(c), state))
-        parts.append(_map_tree(lambda x: x.reshape((n, B) + x.shape[1:]), out))
-    return _cat_tree(parts)
+    with span("vmas.rows.states", device=env.device):
+        for t0 in range(0, T, step_chunk):
+            e, c = extras[t0:t0 + step_chunk], carries[t0:t0 + step_chunk]
+            n = e.shape[0]
+            flat = lambda x: x.permute(1, 0, 2).reshape(x.shape[1], n * B)
+            out = fo.unpack(flat(e), F.unpack_carry(env.world, flat(c), state))
+            parts.append(_map_tree(lambda x: x.reshape((n, B) + x.shape[1:]), out))
+        return _cat_tree(parts)
 
 
 def _map_tree(fn, x):
@@ -584,13 +598,16 @@ def rows_rollout_fn(env, horizon: int = 100, k_steps: int = 1, reset_every: Opti
     reads_c = "c" in getattr(fo, "unpack_reads", ())
     noisy = _noisy(env)
     transform = getattr(fo, "decode_transform", None)
+    # the actions' constants on the device, made once: a call then makes no
+    # host-device copy that would wait for the last call's work
+    ranges, decoders = _u_ranges(env), [_decoder(env, a) for a in agents]
 
     def run(state, steps, generator):
         with span("vmas.rows.call", device=env.device):
             with span("vmas.rows.actions"):
                 g_act, g_step = _fork(generator, 2)
-                acts = _random_actions_for_horizon(env, g_act, horizon)
-                us, ucs = zip(*(_decoder(env, a)(acts[i]) for i, a in enumerate(agents)))
+                acts = _random_actions_for_horizon(env, g_act, horizon, ranges)
+                us, ucs = zip(*(decode(acts[i]) for i, decode in enumerate(decoders)))
                 seeds = None
                 if noisy:
                     seeds, noise = env._step_draws(g_step, horizon)

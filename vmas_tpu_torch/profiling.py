@@ -6,6 +6,9 @@
   ``vmas.rows.launch``, ...) on the profiler's clock. It records while
   :func:`enable` is on or a ``torch.profiler`` session runs, and otherwise
   costs one flag check; :func:`summary` reads what the spans recorded.
+* :func:`count`: a named count of work (``vmas.sensors.lidar.rays``, ...)
+  beside the spans, recorded exactly when a span would record;
+  :func:`counters` reads the totals.
 * :func:`trace`: a context manager around ``torch.profiler.profile`` (CPU
   and CUDA activities) that writes a Chrome trace, plain JSON, into a
   directory: open it in ``chrome://tracing`` or Perfetto (no TensorBoard
@@ -30,7 +33,8 @@ from typing import Callable, Dict
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["StepTimer", "span", "enable", "summary", "reset", "trace", "benchmark_fn"]
+__all__ = ["StepTimer", "span", "count", "recording", "enable", "summary", "counters", "reset", "trace",
+           "benchmark_fn"]
 
 # a host range that the profiler records as an operation of the program
 # (not as a user annotation, which the trace would also put on the device's
@@ -134,6 +138,7 @@ class StepTimer:
 # -- the program's spans -------------------------------------------------------
 
 _recorder = StepTimer()
+_counts: Dict[str, int] = defaultdict(int)
 _enabled = False
 
 
@@ -203,6 +208,21 @@ def span(name: str, device=False, always: bool = False):
     return _Span(name, _stream_of(device))
 
 
+def recording() -> bool:
+    """Whether a span or a counter would record now: :func:`enable` is on,
+    or a ``torch.profiler`` session runs (a site whose count takes work to
+    work out asks first)."""
+    return _enabled or _autograd_profiler._is_profiler_enabled
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` (``vmas.*``) where :func:`recording`;
+    otherwise one flag check. ``n`` is a host number, worked out from
+    shapes, never read from the device."""
+    if _enabled or _autograd_profiler._is_profiler_enabled:
+        _counts[name] += int(n)
+
+
 def enable(on: bool = True) -> None:
     """Record every span from now on (``on=False``: only while a profiler
     session runs). Meant for a bounded stretch, read with :func:`summary`
@@ -217,9 +237,15 @@ def summary() -> Dict[str, Dict[str, float]]:
     return _recorder.summary()
 
 
+def counters() -> Dict[str, int]:
+    """The counters' totals since the last :func:`reset`, by name."""
+    return dict(_counts)
+
+
 def reset() -> None:
-    """Forget what the spans recorded."""
+    """Forget what the spans and counters recorded."""
     _recorder.reset()
+    _counts.clear()
 
 
 @contextlib.contextmanager
